@@ -1,0 +1,543 @@
+#!/usr/bin/env python3
+"""Run the PyTorch port's main path on one NVIDIA card and check it.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, in parallel),
+then runs five phases, each of which raises on failure:
+
+1. every kernel against its plain PyTorch version on the card, at the main
+   path's shapes and at a ragged small shape, with its time, the plain
+   version's time and the card's least time for the same work;
+2. the main path at the paper's scale (Sec. 5.3: 256 lanes of 100-500 job
+   classes, capacity factor 0.95, f64): ``CapacityEngine.solve`` under the
+   fused-kernel, sweep-kernel and default configurations, plus the RM's
+   (P5) solve of single instances through ``rm_solve(sweep_fn=...)``, with
+   every kernel's launch count read around it;
+3. the pinned loop (``eps_bar=0``, 48 steps, 64 lanes of 500 classes): the
+   fused kernel path against the plain middle, bit for bit;
+4. solve times and the device's idle share in one fused solve;
+5. the ``kernels`` line.
+
+The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
+without the repository's ``src/`` beside it, the script fails before
+printing any result.
+"""
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+# H100 SXM data sheet: HBM3 bandwidth and the FP64 (non-tensor-core) rate.
+HBM_BYTES_PER_S = 3.35e12
+FP64_OPS_PER_S = 34e12
+F64 = torch.float64
+
+# main path: the paper's scalability sizes (benchmarks/paper_scalability.py)
+MAIN_B, MAIN_N_LO, MAIN_N_MAX = 256, 100, 500
+PIN_B, PIN_N, PIN_STEPS = 64, 500, 48
+SMALL_NS = (37, 5, 29)  # ragged, N not a multiple of any tile, Nc = N + 2
+SEED = 0
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps, warmup=2) -> float:
+    """Mean milliseconds per call over ``reps`` calls, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def wall_s(fn, reps=3) -> float:
+    """Median host seconds of ``fn`` ending in a synchronize."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def bound(nbytes, ops):
+    """(ms, 'bytes' | 'operations'): the least time for the work on the card."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP64_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bitwise(a, b) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        a, b = a.view(torch.int64), b.view(torch.int64)
+    return bool(torch.equal(a, b))
+
+
+def sample_batch(gen, ns, n_max):
+    from repro_torch.core import sample_scenario, stack_scenarios
+    scns = [sample_scenario(gen, int(n), capacity_factor=0.95) for n in ns]
+    return stack_scenarios(scns, n_max=n_max)
+
+
+def trajectory_bids(batch, steps=3):
+    """Bids after a few plain Alg. 4.1 steps: a mixed admission pattern."""
+    from repro_torch.core import cold_start
+    from repro_torch.kernels.gnep_iter import ref
+    scns, mask = batch.scenarios, batch.mask
+    prep = ref.prepare(scns, mask)
+    init = cold_start(batch)
+    r, bids = init.r, init.bids
+    for _ in range(steps):
+        r, _, bids, _ = ref.iter_step(prep, scns, mask, r, bids, 0.05)
+    return prep, bids
+
+
+# --------------------------------------------------------------------------
+# phase 1: kernels against their plain versions
+# --------------------------------------------------------------------------
+
+
+def check_sweep(inc, spare, p, kernel, plain, label):
+    """Kernel vs plain sweep within (2N + 8) ULPs of each row's running-sum
+    scale: the two sum N terms in different orders (sequential in the
+    kernel; torch.cumsum's scan and a tree reduction in the plain version),
+    and the textbook bound for the difference of two summation orders of N
+    terms is about 2N rounding units of the sum of their magnitudes."""
+    got = kernel(inc, spare, p)
+    want = plain(inc, spare, p)
+    n = inc.shape[-1]
+    eps = torch.finfo(inc.dtype).eps
+    scale = inc.abs().sum(-1)
+    pscale = (inc * p.unsqueeze(-2)).abs().sum(-1)
+    tol = (2 * n + 8) * eps
+    errs = [(got[0] - want[0]).abs(), (got[1] - want[1]).abs(),
+            (got[2] - want[2]).abs()]
+    ratio = max(float((errs[0] / (tol * scale[..., None]).clamp_min(1e-300)
+                       ).max()),
+                float((errs[1] / (tol * scale).clamp_min(1e-300)).max()),
+                float((errs[2] / (tol * pscale).clamp_min(1e-300)).max()))
+    max_err = max(float(e.max()) for e in errs)
+    print(f"  {label}: max_abs_err={max_err!r} worst/tolerance={ratio!r}")
+    if not ratio <= 1.0:
+        raise AssertionError(f"{label}: kernel disagrees with the plain "
+                             f"sweep beyond (2N+8) ULPs (ratio {ratio})")
+    return max_err
+
+
+def check_fused(args, kernel, plain, label):
+    got = kernel(*args)
+    want = plain(*args)
+    names = ("fill_best", "obj", "best", "rho")
+    bad = [nm for nm, g, w in zip(names, got, want) if not bitwise(g, w)]
+    max_err = max(float((g.double() - w.double()).abs().max())
+                  for g, w in zip(got, want))
+    print(f"  {label}: bitwise={not bad} max_abs_err={max_err!r}")
+    if bad:
+        raise AssertionError(f"{label}: kernel not bitwise equal to the "
+                             f"plain middle in {bad}")
+    return max_err
+
+
+def fused_args(batch, prep, bids):
+    from repro_torch.kernels.gnep_iter.ref import candidates
+    bids_eff, cand = candidates(batch.scenarios, batch.mask, bids)
+    bids_sorted = torch.gather(bids_eff, 1, prep.order)
+    return (bids_sorted, prep.inc_max_sorted, prep.p_sorted, cand, prep.spare,
+            prep.rho_bar, prep.sum_r_low, prep.p_r_low, prep.const)
+
+
+def phase_kernels(main, small):
+    from repro_torch.core.game import _rm_candidates
+    from repro_torch.kernels.gnep_iter.kernel import fused_iter_sweep
+    from repro_torch.kernels.gnep_iter.ref import fused_middle_reference
+    from repro_torch.kernels.gnep_sweep.kernel import (rm_sweep,
+                                                       rm_sweep_batched)
+    from repro_torch.kernels.gnep_sweep.ref import (reference,
+                                                    reference_batched)
+    rows = {}
+    print("phase 1: kernels against their plain versions on the card")
+    for label, batch in (("main", main), ("ragged", small)):
+        prep, bids = trajectory_bids(batch)
+        scns, mask = batch.scenarios, batch.mask
+        # the batched sweep at the shapes the sweep configuration gives it
+        _, inc, spare, p_sorted, _ = _rm_candidates(scns, bids, mask)
+        err_b = check_sweep(inc, spare.contiguous(), p_sorted,
+                            rm_sweep_batched, reference_batched,
+                            f"rm_sweep_batched {label} {tuple(inc.shape)}")
+        # one instance, as rm_solve(sweep_fn=make_sweep_fn()) gives it
+        lane = batch.instance(0)
+        _, inc1, spare1, p1, _ = _rm_candidates(
+            lane, bids[0][batch.mask[0]],
+            torch.ones(lane.n, dtype=torch.bool, device=bids.device))
+        err_1 = check_sweep(inc1, spare1, p1, rm_sweep, reference,
+                            f"rm_sweep {label} {tuple(inc1.shape)}")
+        args = fused_args(batch, prep, bids)
+        err_f = check_fused(args, fused_iter_sweep, fused_middle_reference,
+                            f"fused_iter_sweep {label} "
+                            f"B={args[0].shape[0]} N={args[0].shape[1]} "
+                            f"Nc={args[3].shape[1]}")
+        if label != "main":
+            for name, err in (("rm_sweep_batched", err_b), ("rm_sweep", err_1),
+                              ("fused_iter_sweep", err_f)):
+                rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+            continue
+
+        # times and bounds at the main path's shapes
+        B, Nc, N = inc.shape
+        t_k = cuda_ms(lambda: rm_sweep_batched(inc, spare, p_sorted), 20)
+        t_p = cuda_ms(lambda: reference_batched(inc, spare, p_sorted), 5)
+        # inc read and fill written once, spare/p read, sums written;
+        # eight operations per (candidate, class) element
+        b_ms, b_by = bound(nbytes(inc, spare, p_sorted) + nbytes(inc)
+                           + 2 * B * Nc * inc.element_size(), 8 * B * Nc * N)
+        rows["rm_sweep_batched"] = dict(
+            name="rm_sweep_batched", route="cuda",
+            source="src/repro_torch/csrc/gnep_sweep.cu",
+            replaces="src/repro/kernels/gnep_sweep/kernel.py:146",
+            max_abs_err=err_b, ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None)
+
+        Nc1, N1 = inc1.shape
+        t_k = cuda_ms(lambda: rm_sweep(inc1, spare1, p1), 50)
+        t_p = cuda_ms(lambda: reference(inc1, spare1, p1), 20)
+        b_ms, b_by = bound(nbytes(inc1, spare1, p1) + nbytes(inc1)
+                           + 2 * Nc1 * inc1.element_size(), 8 * Nc1 * N1)
+        rows["rm_sweep"] = dict(
+            name="rm_sweep", route="cuda",
+            source="src/repro_torch/csrc/gnep_sweep.cu",
+            replaces="src/repro/kernels/gnep_sweep/kernel.py:64",
+            max_abs_err=err_1, ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None)
+
+        t_k = cuda_ms(lambda: fused_iter_sweep(*args), 20)
+        t_p = cuda_ms(lambda: fused_middle_reference(*args), 3, warmup=1)
+        Bf, Nf = args[0].shape
+        Ncf = args[3].shape[1]
+        # operands read once; fill_best, obj, best and rho written once.
+        # Work this data needs: each lane's real candidates (n + 2) x real
+        # classes n, nine operations each (compare, cum add, two subtracts,
+        # max, min, two adds, multiply), six per candidate objective and per
+        # replayed class.
+        n_real = batch.n_classes.double()
+        ops = float((9 * (n_real + 2) * n_real + 6 * (n_real + 2)
+                     + 6 * n_real).sum())
+        out_bytes = (Bf * Nf + Bf * Ncf + 2 * Bf) * 8
+        b_ms, b_by = bound(nbytes(*args) + out_bytes, ops)
+        rows["fused_iter_sweep"] = dict(
+            name="fused_iter_sweep", route="cuda",
+            source="src/repro_torch/csrc/gnep_iter.cu",
+            replaces="src/repro/kernels/gnep_iter/kernel.py:137",
+            max_abs_err=err_f, ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None)
+    for row in rows.values():
+        print(f"  {row['name']}: ms={row['ms']!r} plain_ms={row['plain_ms']!r}"
+              f" bound_ms={row['bound_ms']!r} ({row['bound_by']})")
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phase 2: the main path at paper scale
+# --------------------------------------------------------------------------
+
+
+def phase_main(batch, gen, counters):
+    from repro_torch import core
+    from repro_torch.kernels.gnep_iter.ops import make_fused_iter_fn
+    from repro_torch.kernels.gnep_sweep.ops import (make_batched_sweep_fn,
+                                                    make_sweep_fn)
+    configs = {
+        "fused": core.SolverConfig(iter_fn=make_fused_iter_fn()),
+        "sweep": core.SolverConfig(sweep_fn=make_batched_sweep_fn()),
+        "default": core.SolverConfig(),
+    }
+    rm_lanes = range(4)
+    rm_bids = []
+    for b in rm_lanes:
+        lane = batch.instance(b)
+        u = torch.rand(lane.n, generator=gen, dtype=F64).to(lane.rho_up.device)
+        rm_bids.append(lane.rho_bar + u * (lane.rho_up - lane.rho_bar))
+
+    print(f"phase 2: main path, B={batch.batch_size} lanes, classes "
+          f"{int(batch.n_classes.min())}-{int(batch.n_classes.max())} padded "
+          f"to {batch.n_max}, f64")
+    for fn in counters:
+        fn.launches = 0
+    reports, launches = {}, {}
+    for name, cfg in configs.items():
+        before = {fn.__name__: fn.launches for fn in counters}
+        reports[name] = core.CapacityEngine(cfg).solve(batch)
+        launches[name] = {fn.__name__: fn.launches - before[fn.__name__]
+                          for fn in counters}
+    rm_out = []
+    for b, bids in zip(rm_lanes, rm_bids):
+        lane = batch.instance(b)
+        rm_out.append((core.rm_solve(lane, bids, sweep_fn=make_sweep_fn()),
+                       core.rm_solve(lane, bids)))
+    counts = {fn.__name__: fn.launches for fn in counters}
+    print(f"  launches in the main path: {counts}; per configuration "
+          f"{launches}")
+    if any(v == 0 for v in counts.values()):
+        raise AssertionError(f"a kernel of the path never launched: {counts}")
+    if any(launches["default"].values()):
+        raise AssertionError("the default configuration launched a kernel")
+
+    base = reports["default"]
+    iters = base.iters
+    print(f"  iterations per lane: min={int(iters.min())} "
+          f"max={int(iters.max())}")
+    for name, rep in reports.items():
+        frac = rep.fractional
+        for fld in ("r", "psi", "sM", "sR", "total"):
+            if not torch.isfinite(getattr(frac, fld)).all():
+                raise AssertionError(f"{name}: non-finite {fld}")
+        if frac.r.shape != batch.mask.shape:
+            raise AssertionError(f"{name}: r has shape {tuple(frac.r.shape)}")
+        if not torch.equal(rep.iters, iters):
+            raise AssertionError(f"{name}: iteration counts differ from the "
+                                 "default configuration")
+        if not torch.equal(rep.feasible, base.feasible):
+            raise AssertionError(f"{name}: feasibility differs")
+        # 1e-9 of each lane's largest allocation: the kernels reorder
+        # prefix sums of <= 500 terms (an O(N eps) = 1e-13 relative move);
+        # a different winning price would move r by far more
+        scale = base.fractional.r.abs().amax(1, keepdim=True).clamp_min(1.0)
+        dr = float(((frac.r - base.fractional.r).abs() / scale).max())
+        print(f"  {name}: max |r - r_default| / max|r| = {dr!r}")
+        if not dr <= 1e-9:
+            raise AssertionError(f"{name}: r disagrees with the default "
+                                 f"configuration ({dr})")
+        integ = rep.integer
+        if integ is None:
+            raise AssertionError(f"{name}: rounding did not run")
+        if not torch.equal(integ.r, torch.round(integ.r)):
+            raise AssertionError(f"{name}: rounded r is not integral")
+        if (integ.r.sum(1) > torch.floor(batch.scenarios.R)).any():
+            raise AssertionError(f"{name}: rounded r exceeds capacity")
+
+    central = core.solve_centralized_batch(batch)
+    gap = base.fractional.total - central.total
+    atol = core.CrossCheckPolicy().atol
+    print(f"  gap of the equilibrium over the exact (P3) optimum: "
+          f"min={float(gap.min())!r} max={float(gap.max())!r}")
+    if (gap < -atol).any():
+        raise AssertionError("an equilibrium undercuts the exact optimum")
+
+    for b, ((rho_k, r_k, _), (rho_p, r_p, _)) in zip(rm_lanes, rm_out):
+        scale = float(r_p.abs().max().clamp_min(1.0))
+        if float(rho_k) != float(rho_p) or float(
+                (r_k - r_p).abs().max()) > 1e-9 * scale:
+            raise AssertionError(f"rm_solve lane {b}: the sweep kernel's "
+                                 "price or allocation disagrees")
+    print(f"  rm_solve(sweep_fn=make_sweep_fn()) on lanes "
+          f"{list(rm_lanes)}: price equal, allocation within 1e-9")
+    return configs, counts
+
+
+def phase_reference(gen):
+    """A small batch on the card against the numpy serial baseline and the
+    port on the CPU."""
+    from repro_torch import core
+    from repro_torch.kernels.gnep_iter.ops import make_fused_iter_fn
+    scns = [core.sample_scenario(gen, n, capacity_factor=0.95, device="cpu")
+            for n in (24, 7, 16, 3)]
+    cpu = core.CapacityEngine(device="cpu").solve(scns)
+    card = core.CapacityEngine(
+        core.SolverConfig(iter_fn=make_fused_iter_fn())).solve(scns)
+    for b, scn in enumerate(scns):
+        sol, it, _ = core.solve_distributed_python(scn)
+        r_card = card.fractional.r[b, :scn.n].cpu()
+        scale = float(sol.r.abs().max().clamp_min(1.0))
+        if it != int(card.iters[b]) or it != int(cpu.iters[b]):
+            raise AssertionError(f"reference lane {b}: iterations differ")
+        if float((r_card - sol.r).abs().max()) > 1e-9 * scale:
+            raise AssertionError(f"reference lane {b}: r disagrees with the "
+                                 "numpy serial baseline")
+    print("  small batch (24, 7, 16, 3 classes): card == CPU port == numpy "
+          "serial baseline (iterations exact, r within 1e-9)")
+
+
+# --------------------------------------------------------------------------
+# phase 3: the pinned loop, kernel against plain middle, bit for bit
+# --------------------------------------------------------------------------
+
+
+def phase_pinned(gen):
+    from repro_torch import core
+    from repro_torch.kernels.gnep_iter import ref
+    from repro_torch.kernels.gnep_iter.ops import (FusedIterFn,
+                                                   make_fused_iter_fn)
+    batch = sample_batch(gen, [PIN_N] * PIN_B, PIN_N)
+    print(f"phase 3: pinned loop, eps_bar=0, {PIN_STEPS} steps, "
+          f"B={PIN_B} N={PIN_N}")
+    kernel_fn = make_fused_iter_fn()
+    plain_fn = FusedIterFn("plain middle", None)
+    scns, mask = batch.scenarios, batch.mask
+    prep = ref.prepare(scns, mask)
+    init = core.cold_start(batch)
+    rk, bk, rp, bp = init.r, init.bids, init.r, init.bids
+    changed = 0
+    for step in range(PIN_STEPS):
+        rk, rhok, bk_new, _ = kernel_fn.step(prep, scns, mask, rk, bk, 0.05)
+        rp, rhop, bp, _ = plain_fn.step(prep, scns, mask, rp, bp, 0.05)
+        changed += int(not torch.equal(bk_new, bk))
+        bk = bk_new
+        for nm, a, b in (("r", rk, rp), ("rho", rhok, rhop), ("bids", bk, bp)):
+            if not bitwise(a, b):
+                raise AssertionError(f"pinned step {step}: {nm} differs "
+                                     "between the kernel and the plain middle")
+    print(f"  {PIN_STEPS} steps bitwise equal (r, rho, bids); bids changed "
+          f"on {changed} of {PIN_STEPS} steps")
+
+    times, reports = {}, {}
+    for name, fn in (("fused kernel", kernel_fn), ("plain middle", plain_fn)):
+        eng = core.CapacityEngine(core.SolverConfig(
+            eps_bar=0.0, max_iters=PIN_STEPS, iter_fn=fn))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reports[name] = eng.solve(batch)
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+    a, b = reports["fused kernel"], reports["plain middle"]
+    if not (bitwise(a.fractional.r, b.fractional.r)
+            and bitwise(a.fractional.aux, b.fractional.aux)
+            and torch.equal(a.iters, b.iters)
+            and bool((a.iters == PIN_STEPS).all())):
+        raise AssertionError("pinned solve: the kernel path and the plain "
+                             "middle differ")
+    if not (bitwise(a.fractional.r, rp) and bitwise(a.fractional.aux, rhop)):
+        raise AssertionError("pinned solve differs from the stepped loop")
+    print(f"  engine solves bitwise equal, {PIN_STEPS} iterations per lane; "
+          f"s: {times}")
+    return times
+
+
+# --------------------------------------------------------------------------
+# phase 4: timing and idle share
+# --------------------------------------------------------------------------
+
+
+def phase_timing(batch, configs):
+    from repro_torch import core
+    from torch.profiler import ProfilerActivity, profile
+    print("phase 4: solve times at the main path (median of 3, s)")
+    times = {}
+    for name, cfg in configs.items():
+        eng = core.CapacityEngine(cfg)
+        times[name] = wall_s(lambda: eng.solve(batch))
+        print(f"  {name}: {times[name]!r}")
+    eng = core.CapacityEngine(configs["fused"])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.solve(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, cur = 0.0, None
+    for s, e in spans:
+        if cur is None or s > cur[1]:
+            if cur is not None:
+                busy_us += cur[1] - cur[0]
+            cur = [s, e]
+        else:
+            cur[1] = max(cur[1], e)
+    if cur is not None:
+        busy_us += cur[1] - cur[0]
+    if not spans:
+        print("  idle share: not measured (the profiler saw no device time)")
+        return times, None
+    idle = 1.0 - busy_us * 1e-6 / wall
+    print(f"  one fused solve under the profiler: wall_s={wall!r} "
+          f"device_busy_s={busy_us * 1e-6!r} idle_share={idle!r} "
+          f"device_events={len(spans)}")
+    top = prof.key_averages().table(sort_by="self_device_time_total",
+                                    row_limit=6)
+    print("\n".join("  " + ln for ln in top.splitlines()))
+    return times, idle
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this check runs on an "
+              "NVIDIA card", file=sys.stderr)
+        return 1
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: {src / 'repro_torch'} not found; run from a "
+              "checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(src))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(card)
+    kind = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.gnep_iter.kernel import fused_iter_sweep
+    from repro_torch.kernels.gnep_sweep.kernel import (rm_sweep,
+                                                       rm_sweep_batched)
+    t0 = time.perf_counter()
+    logs = _build.build(["gnep_sweep", "gnep_iter"])
+    print(f"build: {time.perf_counter() - t0:.2f} s")
+    for name, log in logs.items():
+        for ln in log.splitlines():
+            if "registers" in ln or "spill" in ln:
+                print(f"  {name}: {ln.strip()}")
+    counters = (fused_iter_sweep, rm_sweep_batched, rm_sweep)
+
+    gen = torch.Generator().manual_seed(SEED)
+    ns = torch.randint(MAIN_N_LO, MAIN_N_MAX + 1, (MAIN_B,), generator=gen)
+    main_batch = sample_batch(gen, ns.tolist(), MAIN_N_MAX)
+    small = sample_batch(gen, SMALL_NS, max(SMALL_NS))
+
+    rows = phase_kernels(main_batch, small)
+    configs, counts = phase_main(main_batch, gen, counters)
+    phase_reference(gen)
+    phase_pinned(gen)
+    phase_timing(main_batch, configs)
+
+    for row in rows.values():
+        row["launches"] = counts[row["name"]]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(card_line())
+    print(json.dumps({"kernels": [{k: row[k] for k in keys}
+                                  for row in rows.values()]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
