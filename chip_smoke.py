@@ -1,29 +1,40 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's main path on one NVIDIA card and check it.
+"""Run the PyTorch port's main paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, in parallel),
-then runs five phases, each of which raises on failure:
+Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, every source
+at once), then runs these phases, each of which raises on failure:
 
-1. every kernel against its plain PyTorch version on the card, at the main
-   path's shapes and at a ragged small shape, with its time, the plain
-   version's time and the card's least time for the same work;
-2. the main path at the paper's scale (Sec. 5.3: 256 lanes of 100-500 job
-   classes, capacity factor 0.95, f64): ``CapacityEngine.solve`` under the
-   fused-kernel, sweep-kernel and default configurations, plus the RM's
-   (P5) solve of single instances through ``rm_solve(sweep_fn=...)``, with
-   every kernel's launch count read around it;
+1. every kernel against its plain PyTorch version on the card, at its main
+   path's shapes and at ragged shapes, with its time, the plain version's
+   time, the card's least time for the same work and, where one PyTorch
+   call computes the same function, that call's time;
+2. the allocator's main path at the paper's scale (Sec. 5.3: 256 lanes of
+   100-500 job classes, capacity factor 0.95, f64): ``CapacityEngine.solve``
+   under the fused-kernel, sweep-kernel and default configurations, plus
+   the RM's (P5) solve of single instances through
+   ``rm_solve(sweep_fn=...)``, with every kernel's launch count read
+   around it;
 3. the pinned loop (``eps_bar=0``, 48 steps, 64 lanes of 500 classes): the
    fused kernel path against the plain middle, bit for bit;
 4. solve times and the device's idle share in one fused solve;
-5. the ``kernels`` line.
+5. the tenant LM serving path (``repro_torch.serving.generate``, as
+   ``python -m repro_torch.launch.serve`` drives it) for Qwen3-0.6B and
+   RWKV6-7B at full width and depth, random weights from a seed: batch 4,
+   prompt 1024, 16 new tokens, greedy.  Every kernel's launch count is
+   read around each generate; tokens, logits and the last decode step
+   against a forward pass over the prompt and the generated tokens are
+   checked; prefill seconds, decode tokens/s and (Qwen3) the device's idle
+   share are printed;
+6. the ``kernels`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the repository's ``src/`` beside it, the script fails before
 printing any result.
 """
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -32,9 +43,12 @@ from pathlib import Path
 
 import torch
 
-# H100 SXM data sheet: HBM3 bandwidth and the FP64 (non-tensor-core) rate.
+# H100 SXM data sheet: HBM3 bandwidth, the FP64 and FP32 (non-tensor-core)
+# rates and the dense bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
+FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 F64 = torch.float64
 
 # main path: the paper's scalability sizes (benchmarks/paper_scalability.py)
@@ -42,6 +56,26 @@ MAIN_B, MAIN_N_LO, MAIN_N_MAX = 256, 100, 500
 PIN_B, PIN_N, PIN_STEPS = 64, 500, 48
 SMALL_NS = (37, 5, 29)  # ragged, N not a multiple of any tile, Nc = N + 2
 SEED = 0
+ALLOCATOR_KERNELS = ("fused_iter_sweep", "rm_sweep_batched", "rm_sweep")
+
+# the serving path: both configurations at full width and depth
+SERVE_ARCHS = ("qwen3-0.6b", "rwkv6-7b")
+SERVE_B, SERVE_PROMPT, SERVE_NEW = 4, 1024, 16
+# RWKV's decode-vs-forward check runs at a prompt of 1040 (chunk 16): at
+# 1024 the model's chunk rule picks 256, where the reference's chunked form
+# departs from the exact recurrence (ROADMAP Queue 3), so a prefill and a
+# forward over a longer sequence compute different functions there
+RWKV_AGREE_PROMPT = 1040
+# flash attention: the Qwen3-0.6B prefill, then a ragged f32 shape
+FLASH_MAIN = (4, 1024, 16, 8, 128)           # B, S, Hq, Hkv, hd
+FLASH_RAGGED = (2, 200, 6, 3, 64)
+# WKV6: (B, T, H, K, chunk, decay shift, with S0); the RWKV6-7B prefill,
+# a 1040-token forward's chunk 16, and a ragged chunk-4 case whose
+# cumulative decays pass the +-30 clamp
+WKV_CASES = ((4, 1024, 64, 64, 256, -0.6, False),
+             (4, 1040, 64, 64, 16, -0.6, False),
+             (2, 300, 4, 64, 4, 2.0, False),
+             (2, 300, 4, 64, 4, 2.0, True))
 
 
 def card_line() -> str:
@@ -79,10 +113,10 @@ def wall_s(fn, reps=3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, ops_per_s=FP64_OPS_PER_S):
     """(ms, 'bytes' | 'operations'): the least time for the work on the card."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP64_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -301,8 +335,11 @@ def phase_main(batch, gen, counters):
     counts = {fn.__name__: fn.launches for fn in counters}
     print(f"  launches in the main path: {counts}; per configuration "
           f"{launches}")
-    if any(v == 0 for v in counts.values()):
+    if any(counts[n] == 0 for n in ALLOCATOR_KERNELS):
         raise AssertionError(f"a kernel of the path never launched: {counts}")
+    if any(v for n, v in counts.items() if n not in ALLOCATOR_KERNELS):
+        raise AssertionError(f"a model kernel launched in the allocator "
+                             f"path: {counts}")
     if any(launches["default"].values()):
         raise AssertionError("the default configuration launched a kernel")
 
@@ -458,6 +495,13 @@ def phase_timing(batch, configs):
         eng.solve(batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    idle, _ = report_idle(prof, wall, "one fused solve")
+    return times, idle
+
+
+def report_idle(prof, wall, what, rows=6):
+    """Print the device's busy time (the union of its kernel spans) and idle
+    share over ``wall`` seconds; None where the profiler saw no device."""
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
@@ -473,15 +517,315 @@ def phase_timing(batch, configs):
         busy_us += cur[1] - cur[0]
     if not spans:
         print("  idle share: not measured (the profiler saw no device time)")
-        return times, None
+        return None, None
     idle = 1.0 - busy_us * 1e-6 / wall
-    print(f"  one fused solve under the profiler: wall_s={wall!r} "
+    print(f"  {what} under the profiler: wall_s={wall!r} "
           f"device_busy_s={busy_us * 1e-6!r} idle_share={idle!r} "
           f"device_events={len(spans)}")
     top = prof.key_averages().table(sort_by="self_device_time_total",
-                                    row_limit=6)
+                                    row_limit=rows)
     print("\n".join("  " + ln for ln in top.splitlines()))
-    return times, idle
+    return idle, busy_us * 1e-6
+
+
+# --------------------------------------------------------------------------
+# phase 1b: the model kernels against their plain versions
+# --------------------------------------------------------------------------
+
+
+def check_close(got, want, atol, rtol, label):
+    """|got - want| <= atol + rtol |want| everywhere; returns the max error."""
+    got, want = got.double(), want.double()
+    err = (got - want).abs()
+    worst = float((err / (atol + rtol * want.abs())).max())
+    max_err = float(err.max())
+    print(f"  {label}: max_abs_err={max_err!r} worst/tolerance={worst!r}")
+    if not (torch.isfinite(got).all() and worst <= 1.0):
+        raise AssertionError(f"{label}: kernel disagrees with its plain "
+                             f"version (worst/tolerance {worst})")
+    return max_err
+
+
+def flash_inputs(gen, B, S, Hq, Hkv, hd, dtype):
+    q = torch.randn((B, S, Hq, hd), generator=gen, device="cuda")
+    k = torch.randn((B, S, Hkv, hd), generator=gen, device="cuda")
+    v = torch.randn((B, S, Hkv, hd), generator=gen, device="cuda")
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def sdpa(q, k, v, causal):
+    """PyTorch's own attention on the same (B, S, H, hd) inputs: a yardstick
+    that the port never calls."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=causal, enable_gqa=True).transpose(1, 2)
+
+
+def phase_flash(gen):
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import reference
+    print("phase 1b: flash_attention against its plain version")
+    errs, row = [], None
+    # bf16: both sides round the same f32 result to bf16 once, and two
+    # roundings of nearly equal values differ by at most one bf16 spacing
+    # (2^-7 of the value); f32: the same sums in another order, with the
+    # online softmax's rescaling, within 1e-4 relative.
+    cases = [(FLASH_MAIN, torch.bfloat16, True, 1e-5, 2.0 ** -7)] + [
+        (FLASH_RAGGED, torch.float32, c, 1e-5, 1e-4) for c in (True, False)]
+    for shape, dtype, causal, atol, rtol in cases:
+        q, k, v = flash_inputs(gen, *shape, dtype)
+        errs.append(check_close(
+            flash_attention(q, k, v, causal=causal),
+            reference(q, k, v, causal=causal), atol, rtol,
+            f"flash_attention {shape} {str(dtype)[6:]} causal={causal}"))
+        if row is not None:
+            continue
+        B, S, Hq, Hkv, hd = shape
+        t_k = cuda_ms(lambda: flash_attention(q, k, v, causal=causal), 20)
+        t_p = cuda_ms(lambda: reference(q, k, v, causal=causal), 5)
+        t_l = cuda_ms(lambda: sdpa(q, k, v, causal), 20)
+        lib_err = float((sdpa(q, k, v, causal).double()
+                         - reference(q, k, v, causal=causal).double()
+                         ).abs().max())
+        print(f"  (yardstick, not checked) scaled_dot_product_attention: "
+              f"max_abs_err={lib_err!r}")
+        # q, k, v read and o written once; two products of 2 * hd
+        # operations for every (query, key) pair the causal mask keeps
+        pairs = S * (S + 1) // 2 if causal else S * S
+        b_ms, b_by = bound(nbytes(q, k, v, q), 4 * hd * B * Hq * pairs,
+                           BF16_OPS_PER_S)
+        row = dict(name="flash_attention", route="cuda",
+                   source="src/repro_torch/csrc/flash_attention.cu",
+                   replaces="src/repro/kernels/flash_attention/kernel.py:71",
+                   ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=t_l)
+        print(f"  flash_attention: ms={t_k!r} plain_ms={t_p!r} "
+              f"library_ms={t_l!r} bound_ms={b_ms!r} ({b_by}, bf16 tensor-"
+              "core rate)")
+    row["max_abs_err"] = max(errs)
+    return row
+
+
+def wkv_inputs(gen, B, T, H, K, shift, with_state):
+    """Model-like WKV operands: w_log = clip(-exp(N(shift, 0.5)), -8, -1e-5)."""
+    r, k, v = (torch.randn((B, T, H, K), generator=gen, device="cuda")
+               for _ in range(3))
+    w = -torch.exp(torch.randn((B, T, H, K), generator=gen, device="cuda")
+                   * 0.5 + shift)
+    w = w.clamp(-8.0, -1e-5)
+    u = torch.randn((H, K), generator=gen, device="cuda") * 0.3
+    S0 = (torch.randn((B, H, K, K), generator=gen, device="cuda")
+          if with_state else None)
+    return r, k, v, w, u, S0
+
+
+def wkv_ops(B, T, H, K, L):
+    """Operations of the chunked form at chunk L: the strictly lower
+    intra-chunk product and its product with v, the inter-chunk product and
+    the state update (2 per multiply-add), and about 12 per (row, channel)
+    for the decay cumsum, the four exponentials and their products."""
+    pairs = L * (L - 1) // 2
+    per_chunk = 2 * (pairs * K + pairs * K + 2 * L * K * K + K * K) \
+        + 12 * L * K
+    return B * H * (T // L) * per_chunk
+
+
+def phase_wkv(gen):
+    from repro_torch.kernels.rwkv6.kernel import wkv6
+    from repro_torch.kernels.rwkv6.ref import chunked_reference
+    print("phase 1c: wkv6 against its plain version (the chunked form at "
+          "the same chunk)")
+    errs, row = [], None
+    for B, T, H, K, L, shift, with_state in WKV_CASES:
+        r, k, v, w, u, S0 = wkv_inputs(gen, B, T, H, K, shift, with_state)
+        S0_plain = S0 if with_state else torch.zeros(
+            (B, H, K, K), device="cuda")
+        y, S = wkv6(r, k, v, w, u, chunk=L, S0=S0)
+        y_p, S_p = chunked_reference(r, k, v, w, u, S0_plain, chunk=L)
+        # the same f32 formula summed in another order: within 1e-4 of the
+        # largest magnitude of each output
+        label = (f"wkv6 B={B} T={T} H={H} K={K} chunk={L} "
+                 f"{'S0' if with_state else 'zero state'}")
+        errs.append(max(
+            check_close(y, y_p, 1e-4 * float(y_p.abs().max()), 0.0,
+                        label + " y"),
+            check_close(S, S_p, 1e-4 * float(S_p.abs().max()), 0.0,
+                        label + " S")))
+        if row is not None:
+            continue
+        from repro_torch.kernels.rwkv6.ref import reference
+        y_rec, _ = reference(r, k, v, w, u, S0_plain)
+        dep = float((y - y_rec).abs().max() / y_rec.abs().max())
+        print(f"  (not checked) the chunked form at chunk {L} against the "
+              f"exact recurrence: max|diff|/max|y| = {dep!r}; the kernel "
+              "and its plain version alike (ROADMAP Queue 3)")
+        t_k = cuda_ms(lambda: wkv6(r, k, v, w, u, chunk=L), 20)
+        t_p = cuda_ms(lambda: chunked_reference(r, k, v, w, u, S0_plain,
+                                                chunk=L), 5)
+        b_ms, b_by = bound(nbytes(r, k, v, w, u, y, S),
+                           wkv_ops(B, T, H, K, L), FP32_OPS_PER_S)
+        row = dict(name="wkv6", route="cuda",
+                   source="src/repro_torch/csrc/wkv6.cu",
+                   replaces="src/repro/kernels/rwkv6/kernel.py:73",
+                   ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=None)
+        print(f"  wkv6: ms={t_k!r} plain_ms={t_p!r} bound_ms={b_ms!r} "
+              f"({b_by}, f32 rate)")
+    row["max_abs_err"] = max(errs)
+    return row
+
+
+# --------------------------------------------------------------------------
+# phase 5: the tenant LM serving path at full width
+# --------------------------------------------------------------------------
+
+
+def phase_serving(arch, counters):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import generate
+    cfg = get_config(arch)
+    B, S0, N = SERVE_B, SERVE_PROMPT, SERVE_NEW
+    print(f"phase 5: serving {arch} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.dtype}), batch {B}, prompt {S0}, {N} new "
+          "tokens, greedy")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"  init_params: {n_params} parameters in "
+          f"{time.perf_counter() - t0:.2f} s")
+    prompt = torch.randint(0, cfg.vocab, (B, S0), generator=gen,
+                           device="cuda")
+
+    for fn in counters:
+        fn.launches = 0
+    toks, logits = generate(cfg, params, prompt, max_new_tokens=N,
+                            return_logits=True)
+    torch.cuda.synchronize()
+    counts = {fn.__name__: fn.launches for fn in counters}
+    print(f"  launches in one generate: {counts}")
+    want = {"flash_attention": cfg.n_layers if not cfg.rwkv else 0,
+            "wkv6": cfg.n_layers if cfg.rwkv else 0}
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{arch}: {name} launched {n} times in one "
+                                 f"generate, expected {want.get(name, 0)}")
+
+    if toks.shape != (B, N) or logits.shape != (B, N, cfg.vocab):
+        raise AssertionError(f"{arch}: shapes {tuple(toks.shape)}, "
+                             f"{tuple(logits.shape)}")
+    if not ((toks >= 0) & (toks < cfg.vocab)).all():
+        raise AssertionError(f"{arch}: a token is outside the vocabulary")
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{arch}: non-finite logits")
+    if not torch.equal(toks, logits.argmax(-1)):
+        raise AssertionError(f"{arch}: greedy tokens are not the argmax")
+    rel = decode_vs_forward(cfg, params, prompt, toks, logits)
+    if not cfg.rwkv:
+        # bf16 keeps 8 significant bits (u = 2^-8); each layer rounds the
+        # residual stream a few times, and ~6 roundings x 28 layers
+        # accumulating as a random walk give sqrt(168) u = 0.051, so the
+        # logits must agree within 5e-2 of the largest one
+        if not rel <= 5e-2:
+            raise AssertionError(f"{arch}: decode disagrees with the "
+                                 f"forward pass ({rel})")
+    else:
+        print(f"  (not checked: the prefill's chunk "
+              f"{math.gcd(S0, max(256, S0 // 128))} gives the reference's "
+              "clamped form, the longer forward's chunk 1 the exact "
+              "recurrence; ROADMAP Queue 3)")
+        prompt2 = torch.randint(0, cfg.vocab, (B, RWKV_AGREE_PROMPT),
+                                generator=gen, device="cuda")
+        toks2, logits2 = generate(cfg, params, prompt2, max_new_tokens=N,
+                                  return_logits=True)
+        decode_vs_forward(cfg, params, prompt2, toks2, logits2)
+        print("  (not checked in bf16: the random-init RWKV's logits drift "
+              "under bf16 rounding past any bound derived from it; the same "
+              "path in f32, below, is held to the JAX test's 2e-4)")
+
+    stats = {}
+    generate(cfg, params, prompt, max_new_tokens=N, stats=stats)
+    dec_tok_s = B * (N - 1) / stats["decode_s"]
+    print(f"  generate (warm): prefill_s={stats['prefill_s']!r} "
+          f"decode_s={stats['decode_s']!r} decode_tok_s={dec_tok_s!r}")
+    out = dict(prefill_s=stats["prefill_s"], decode_tok_s=dec_tok_s,
+               counts=counts, idle=None, idle_warm=None)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate(cfg, params, prompt, max_new_tokens=N)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out["idle"], busy = report_idle(prof, wall, f"one {arch} generate",
+                                    rows=8)
+    if busy is not None:
+        # the profiler slows the host; against the unprofiled warm run
+        warm = stats["prefill_s"] + stats["decode_s"]
+        out["idle_warm"] = 1.0 - busy / warm
+        print(f"  device busy over the unprofiled warm generate "
+              f"({warm!r} s): idle_share={out['idle_warm']!r}")
+    del params
+    torch.cuda.empty_cache()
+    if cfg.rwkv:
+        out["f32_rel"] = rwkv_f32_agreement(cfg)
+    return out
+
+
+def rwkv_f32_agreement(cfg):
+    """The same serving code path with f32 activations and weights (the bf16
+    weights' unrounded draws), full width and depth, prompt 1040: the last
+    decode step against the forward, within the 2e-4 that the JAX test
+    (``tests/test_models.py::_decode_consistency``) holds f32 models to."""
+    from repro_torch.models import init_params
+    from repro_torch.serving import generate
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_params(cfg32, gen, device="cuda")
+    prompt = torch.randint(0, cfg32.vocab, (SERVE_B, RWKV_AGREE_PROMPT),
+                           generator=gen, device="cuda")
+    toks, logits = generate(cfg32, params, prompt, max_new_tokens=SERVE_NEW,
+                            return_logits=True)
+    rel = decode_vs_forward(cfg32, params, prompt, toks, logits,
+                            what=f"{cfg.name} in f32: ")
+    del params
+    torch.cuda.empty_cache()
+    if not rel <= 2e-4:
+        raise AssertionError(f"{cfg.name} f32: decode disagrees with the "
+                             f"forward pass ({rel})")
+    return rel
+
+
+def decode_vs_forward(cfg, params, prompt, toks, logits, what=""):
+    """Max |difference| of the last decode step's logits and a forward over
+    the prompt and the generated tokens, over the largest logit."""
+    from repro_torch.models import forward
+    full = torch.cat([prompt, toks[:, :-1]], dim=1)
+    with torch.inference_mode():
+        ref_logits, _, _ = forward(cfg, params, {"tokens": full})
+    a, b = ref_logits[:, -1], logits[:, -1]
+    rel = float((a - b).abs().max() / a.abs().max())
+    agree = float((a.argmax(-1) == b.argmax(-1)).double().mean())
+    print(f"  {what}last decode step after a {prompt.shape[1]}-token "
+          f"prompt vs a forward over {full.shape[1]} tokens: "
+          f"max|diff|/max|logit| = "
+          f"{rel!r}, argmax agreement {agree!r}")
+    return rel
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        for v in tree:
+            yield from _leaves(v)
 
 
 def main() -> int:
@@ -503,28 +847,54 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.kernels.gnep_iter.kernel import fused_iter_sweep
     from repro_torch.kernels.gnep_sweep.kernel import (rm_sweep,
                                                        rm_sweep_batched)
-    t0 = time.perf_counter()
-    logs = _build.build(["gnep_sweep", "gnep_iter"])
+    from repro_torch.kernels.rwkv6.kernel import wkv6
+    t_start = t0 = time.perf_counter()
+    logs = _build.build(["gnep_sweep", "gnep_iter", "flash_attention",
+                         "wkv6"])
     print(f"build: {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         for ln in log.splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"  {name}: {ln.strip()}")
-    counters = (fused_iter_sweep, rm_sweep_batched, rm_sweep)
+    counters = (fused_iter_sweep, rm_sweep_batched, rm_sweep,
+                flash_attention, wkv6)
+
+    def timed(label, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        print(f"[{label}: {time.perf_counter() - t0:.2f} s]")
+        return out
 
     gen = torch.Generator().manual_seed(SEED)
     ns = torch.randint(MAIN_N_LO, MAIN_N_MAX + 1, (MAIN_B,), generator=gen)
     main_batch = sample_batch(gen, ns.tolist(), MAIN_N_MAX)
     small = sample_batch(gen, SMALL_NS, max(SMALL_NS))
 
-    rows = phase_kernels(main_batch, small)
-    configs, counts = phase_main(main_batch, gen, counters)
-    phase_reference(gen)
-    phase_pinned(gen)
-    phase_timing(main_batch, configs)
+    rows = timed("phase 1", phase_kernels, main_batch, small)
+    cuda_gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows["flash_attention"] = timed("phase 1b", phase_flash, cuda_gen)
+    rows["wkv6"] = timed("phase 1c", phase_wkv, cuda_gen)
+    configs, counts = timed("phase 2", phase_main, main_batch, gen,
+                            counters)
+    timed("phase 2 reference", phase_reference, gen)
+    timed("phase 3", phase_pinned, gen)
+    timed("phase 4", phase_timing, main_batch, configs)
+    serving = {arch: timed(f"phase 5 {arch}", phase_serving, arch, counters)
+               for arch in SERVE_ARCHS}
+    counts["flash_attention"] = serving["qwen3-0.6b"]["counts"][
+        "flash_attention"]
+    counts["wkv6"] = serving["rwkv6-7b"]["counts"]["wkv6"]
+    for arch, res in serving.items():
+        print(f"  serving {arch}: f32 decode-vs-forward "
+              f"{res.get('f32_rel')!r} prefill_s={res['prefill_s']!r} "
+              f"decode_tok_s={res['decode_tok_s']!r} "
+              f"idle_share={res['idle']!r} (profiled), "
+              f"{res['idle_warm']!r} (against the unprofiled run)")
+    print(f"total: {time.perf_counter() - t_start:.2f} s")
 
     for row in rows.values():
         row["launches"] = counts[row["name"]]

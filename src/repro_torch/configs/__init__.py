@@ -1,0 +1,35 @@
+"""Registry of the 10 assigned architectures (``repro.configs``'s
+counterpart).
+
+The architecture specs are plain ``ModelConfig`` literals, copied from the
+JAX package.  Models of the dense and RWKV families can be built and served
+(``repro_torch.models``); building one of a family not yet ported (MoE,
+Mamba / hybrid, enc-dec, VLM M-RoPE) raises ``NotImplementedError``.  The
+dry-run input specs (``repro.configs.specs``) are not ported yet.
+"""
+from __future__ import annotations
+
+from repro_torch.configs import (deepseek_moe_16b, jamba_v0_1_52b,
+                                 kimi_k2_1t_a32b, minicpm_2b, qwen2_vl_7b,
+                                 qwen3_0_6b, qwen3_32b, qwen3_8b, rwkv6_7b,
+                                 whisper_base)
+from repro_torch.models.config import ALL_SHAPES, SHAPES_BY_NAME, ShapeConfig
+
+_MODULES = (qwen2_vl_7b, deepseek_moe_16b, kimi_k2_1t_a32b, qwen3_32b,
+            qwen3_8b, minicpm_2b, qwen3_0_6b, rwkv6_7b, jamba_v0_1_52b,
+            whisper_base)
+
+ARCHS = {m.ID: m for m in _MODULES}
+ARCH_IDS = tuple(ARCHS)
+
+
+def get_config(arch_id: str):
+    return ARCHS[arch_id].get_config()
+
+
+def reduced_config(arch_id: str):
+    return ARCHS[arch_id].reduced_config()
+
+
+__all__ = ["ALL_SHAPES", "ARCHS", "ARCH_IDS", "SHAPES_BY_NAME", "ShapeConfig",
+           "get_config", "reduced_config"]

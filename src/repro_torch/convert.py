@@ -4,6 +4,7 @@ The scenario data and the warm-start state play the part weights play in a
 model: the tests turn a JAX ``Scenario`` / ``ScenarioBatch`` /
 ``BatchWarmStart`` into numpy arrays and build the port's counterpart from
 them with these functions, so that both packages solve the same instance.
+``lm_params_from_numpy`` does the same for the language models' weights.
 """
 from __future__ import annotations
 
@@ -14,15 +15,20 @@ import torch
 
 from repro_torch.core.game import BatchWarmStart
 from repro_torch.core.types import Scenario, ScenarioBatch
+from repro_torch.models.transformer import check_supported
 from repro_torch.utils import resolve_device
 from repro_torch.utils import to_np as to_numpy  # the other direction
 
 __all__ = ["scenario_from_numpy", "batch_from_numpy", "warm_start_from_numpy",
-           "to_numpy"]
+           "lm_params_from_numpy", "to_numpy"]
 
 
 def _tensor(x, dev, dtype):
-    t = torch.tensor(np.asarray(x), device=dev)
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":      # ml_dtypes' bfloat16: no numpy type
+        t = torch.tensor(x.astype(np.float32), device=dev).to(torch.bfloat16)
+    else:
+        t = torch.tensor(x, device=dev)
     return t.to(dtype) if dtype is not None and t.is_floating_point() else t
 
 
@@ -61,3 +67,33 @@ def warm_start_from_numpy(leaves: dict, *, device="cuda",
         lane_iters=_tensor(np.asarray(leaves["lane_iters"], dtype=np.int32),
                            dev, None),
         active=_tensor(np.asarray(leaves["active"], dtype=bool), dev, None))
+
+
+def lm_params_from_numpy(cfg, tree: dict, *, device="cuda", dtype=None):
+    """The port's model parameters from a JAX ``init_params`` pytree given
+    as nested dicts of numpy arrays.
+
+    The leading ``n_blocks`` axis of ``tree["blocks"]`` is unstacked into
+    ``params["layers"]``, block by block and, inside a block, layer by
+    layer (``l0``, ``l1``, ...).  Floating arrays are cast to ``dtype``
+    when given.
+    """
+    check_supported(cfg)
+    dev = resolve_device(device)
+
+    def conv(sub, index=None):
+        if isinstance(sub, dict):
+            return {k: conv(v, index) for k, v in sub.items()}
+        return _tensor(sub if index is None else np.asarray(sub)[index], dev,
+                       dtype)
+
+    params = {k: conv(tree[k]) for k in ("embed", "pos_embed", "final_norm",
+                                         "unembed_w") if k in tree}
+    blocks = tree["blocks"]
+    n_blocks = len(np.asarray(blocks["l0"]["norm1"]["gamma"]))
+    params["layers"] = [conv(blocks[f"l{p}"], i) for i in range(n_blocks)
+                        for p in range(cfg.block_len)]
+    if len(params["layers"]) != cfg.n_layers:
+        raise ValueError(f"{len(params['layers'])} layers in the tree, "
+                         f"{cfg.n_layers} in {cfg.name}")
+    return params

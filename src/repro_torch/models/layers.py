@@ -1,0 +1,133 @@
+"""Shared layers: norms, rotary embeddings, MLPs, embeddings.
+
+Counterpart of ``repro.models.layers``.  Everything is a function over
+explicit dicts of parameter tensors.  Norms, RoPE and the softmax run in
+f32, as in JAX.  ``apply_mrope`` (Qwen2-VL) waits for the VLM slice.
+
+Rounding that differs from JAX: JAX's ``dot`` asks the matrix unit for an
+f32 result (``preferred_element_type``).  A bf16 ``torch.matmul`` also sums
+in f32 but rounds its result to bf16, and ``dot`` then casts that to f32.
+In f32 (the CPU tests) the two are the same product.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+F32 = torch.float32
+
+
+def dot(x, w):
+    """``x @ w`` with an f32 result; mixed operand dtypes promote first, as
+    ``jnp.matmul`` does.  In bf16 the product is rounded to bf16 before the
+    cast (see the module docstring)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return torch.matmul(x.to(dt), w.to(dt)).to(F32)
+
+
+# --------------------------------------------------------------------------
+# init helpers: draws on ``gen``'s device; equal to JAX in distribution only
+# --------------------------------------------------------------------------
+
+def normal(gen, shape, scale=1.0, shift=0.0):
+    """f32 standard normal draws times ``scale`` plus ``shift``."""
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=F32) * scale + shift
+
+
+def uniform(gen, shape, scale=1.0):
+    """f32 uniform draws on [0, scale)."""
+    return torch.rand(shape, generator=gen, device=gen.device,
+                      dtype=F32) * scale
+
+
+def dense_init(gen, d_in, d_out, dtype, scale=None):
+    scale = scale if scale is not None else d_in ** -0.5
+    return normal(gen, (d_in, d_out), scale).to(dtype)
+
+
+def embed_init(gen, vocab, d, dtype):
+    return normal(gen, (vocab, d), 0.02).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# norms
+# --------------------------------------------------------------------------
+
+def rmsnorm(x, gamma, eps=1e-6):
+    """RMS norm scaled by ``1 + gamma`` (gamma starts at zero), unlike
+    ``torch.nn.RMSNorm``, which scales by ``gamma``."""
+    xf = x.to(F32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + gamma.to(F32))).to(x.dtype)
+
+
+def layernorm(x, gamma, beta, eps=1e-5):
+    xf = x.to(F32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * gamma.to(F32) + beta.to(F32)).to(x.dtype)
+
+
+def norm_init(cfg, d=None, *, device):
+    d = d or cfg.d_model
+    if cfg.norm == "rmsnorm":
+        return {"gamma": torch.zeros((d,), dtype=cfg.pdtype, device=device)}
+    return {"gamma": torch.ones((d,), dtype=cfg.pdtype, device=device),
+            "beta": torch.zeros((d,), dtype=cfg.pdtype, device=device)}
+
+
+def apply_norm(cfg, p, x):
+    if cfg.norm == "rmsnorm":
+        return rmsnorm(x, p["gamma"], cfg.rms_eps)
+    return layernorm(x, p["gamma"], p["beta"])
+
+
+# --------------------------------------------------------------------------
+# rotary embeddings
+# --------------------------------------------------------------------------
+
+def _rope_freqs(hd_half, theta, device):
+    return theta ** (-torch.arange(0, hd_half, dtype=F32, device=device)
+                     / hd_half)
+
+
+def apply_rope(x, positions, theta):
+    """x: (..., S, H, hd); positions: broadcastable to (..., S) integers."""
+    hd = x.shape[-1]
+    freqs = _rope_freqs(hd // 2, theta, x.device)
+    angles = positions[..., None].to(F32) * freqs        # (..., S, hd/2)
+    angles = angles[..., None, :]                        # head axis
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = torch.chunk(x.to(F32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# MLP
+# --------------------------------------------------------------------------
+
+def mlp_init(cfg, gen, d_ff=None):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.act == "swiglu":
+        return {"wg": dense_init(gen, d, f, cfg.pdtype),
+                "wu": dense_init(gen, d, f, cfg.pdtype),
+                "wd": dense_init(gen, f, d, cfg.pdtype)}
+    return {"wu": dense_init(gen, d, f, cfg.pdtype),
+            "bu": torch.zeros((f,), dtype=cfg.pdtype, device=gen.device),
+            "wd": dense_init(gen, f, d, cfg.pdtype),
+            "bd": torch.zeros((d,), dtype=cfg.pdtype, device=gen.device)}
+
+
+def mlp_apply(cfg, p, x):
+    if cfg.act == "swiglu":
+        g = dot(x, p["wg"])
+        u = dot(x, p["wu"])
+        h = (F.silu(g) * u).to(x.dtype)                  # f32 product, as JAX
+        return dot(h, p["wd"]).to(x.dtype)
+    h = dot(x, p["wu"]) + p["bu"].to(F32)
+    h = F.gelu(h, approximate="tanh").to(x.dtype)        # jax.nn.gelu default
+    return (dot(h, p["wd"]) + p["bd"].to(F32)).to(x.dtype)

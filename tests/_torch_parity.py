@@ -85,3 +85,14 @@ def np_(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def assert_rel_close(got, want, rel, label=""):
+    """max |got - want| <= rel * max |want|, for tensors or arrays of any
+    float dtype (compared in f32)."""
+    got = (got.to(torch.float32).numpy() if isinstance(got, torch.Tensor)
+           else np.asarray(got, np.float32))
+    want = np.asarray(want, np.float32)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(got - want).max())
+    assert err <= rel * scale, f"{label}: max err {err} > {rel} x {scale}"

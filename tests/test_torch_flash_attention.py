@@ -1,0 +1,117 @@
+"""Parity of the port's attention (``repro_torch.models.attention``) and the
+plain version of its flash-attention kernel
+(``repro_torch.kernels.flash_attention``) with the JAX package.
+
+On the CPU the kernel wrapper runs its plain version, the dense oracle.  It
+is held to the JAX Pallas kernel run as the JAX tests run it
+(``interpret=True``) and to the JAX oracle, at the shapes and tolerances
+of ``tests/test_kernels.py::test_flash_attention_sweep``: 1e-4 in f32 (the
+two sum the same products in another order and the Pallas kernel's online
+softmax rescales) and 3e-2 in bf16 (one bf16 rounding of the output, at
+most 2^-8 relative, on values of order 1).  Inputs are drawn with numpy
+and rounded to bf16 identically on both sides.  The port's chunked online
+softmax and its dense fallback are held to JAX's ``attention`` in f32
+within 1e-5: the same f32 formula, summed in another order.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.kernel import flash_attention as j_flash
+from repro.models import attention as jattn
+from repro_torch.kernels.flash_attention import kernel as tk
+from repro_torch.kernels.flash_attention import ops as tops
+from repro_torch.kernels.flash_attention import ref as tref
+from repro_torch.models import attention as tattn
+
+DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
+
+
+def qkv(seed, B, Sq, Skv, Hq, Hkv, hd, dtype="float32"):
+    """The same q, k, v for both packages, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((B, S, H, hd)).astype(np.float32)
+            for S, H in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv))]
+    jdt, tdt, _ = DTYPES[dtype]
+    return ([jnp.asarray(a, dtype=jdt) for a in arrs],
+            [torch.tensor(a).to(tdt) for a in arrs])
+
+
+def f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,causal,bq,bk", [
+    (2, 256, 4, 2, 64, True, 64, 64),
+    (1, 128, 8, 8, 32, False, 64, 32),
+    (2, 192, 6, 3, 64, True, 64, 64),
+    (1, 256, 4, 1, 128, True, 128, 64),
+])
+def test_plain_matches_jax_kernel(dtype, B, S, Hq, Hkv, hd, causal, bq, bk):
+    (jq, jk_, jv), (tq, tk_, tv) = qkv(S + hd, B, S, S, Hq, Hkv, hd, dtype)
+    tol = DTYPES[dtype][2]
+    got = tk.flash_attention(tq, tk_, tv, causal=causal)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    want = j_flash(jq, jk_, jv, causal=causal, block_q=bq, block_k=bk,
+                   interpret=True)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=tol, atol=tol)
+    oracle = jattn.reference(jq, jk_, jv, causal=causal)
+    np.testing.assert_allclose(f32(got), f32(oracle), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_matches_jax_oracle_at_a_ragged_shape(causal, dtype):
+    """S = 200 fits no 64- or 128-row tile: the Pallas kernel refuses it,
+    the JAX model takes its dense oracle, and so does the port's plain
+    version (the CUDA kernel masks the ragged edges itself)."""
+    (jq, jk_, jv), (tq, tk_, tv) = qkv(7, 2, 200, 200, 6, 3, 64, dtype)
+    tol = DTYPES[dtype][2]
+    got = tops.attention(tq, tk_, tv, causal=causal)
+    want = jattn.reference(jq, jk_, jv, causal=causal)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("Sq,Skv,qc,kc,causal,triangle,q_offset,kv_len", [
+    (64, 64, 16, 16, True, False, 0, None),      # chunked online softmax
+    (64, 64, 16, 32, True, True, 0, None),       # triangle skips kv chunks
+    (48, 96, 16, 32, False, False, 0, None),     # cross-length, not causal
+    (32, 64, 16, 16, True, False, 32, 50),       # q offset and a kv length
+    (40, 40, 16, 16, True, False, 0, None),      # not chunk-divisible: dense
+    (8, 8, 16, 16, True, False, 0, None),        # small: dense
+])
+def test_attention_matches_jax(Sq, Skv, qc, kc, causal, triangle, q_offset,
+                               kv_len):
+    (jq, jk_, jv), (tq, tk_, tv) = qkv(Sq * 3 + Skv, 2, Sq, Skv, 4, 2, 16)
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len, q_chunk=qc,
+              kv_chunk=kc, triangle=triangle)
+    got = tattn.attention(tq, tk_, tv, **kw)
+    want = jattn.attention(jq, jk_, jv, **kw)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=1e-5, atol=1e-5)
+
+
+def test_reference_and_decode_attention_match_jax():
+    (jq, jk_, jv), (tq, tk_, tv) = qkv(3, 2, 1, 24, 4, 2, 16)
+    for kv_len in (1, 9, 24):
+        got = tattn.decode_attention(tq, tk_, tv, kv_len)
+        want = jattn.decode_attention(jq, jk_, jv, kv_len)
+        np.testing.assert_allclose(f32(got), f32(want), rtol=1e-5, atol=1e-5)
+    got = tattn.reference(tq, tk_, tv, causal=True, q_offset=20, kv_len=22)
+    want = jattn.reference(jq, jk_, jv, causal=True, q_offset=20, kv_len=22)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=1e-5, atol=1e-5)
+
+
+def test_wrapper_takes_the_plain_version_only_on_cpu():
+    _, (tq, tk_, tv) = qkv(5, 1, 40, 40, 4, 2, 32)
+    before = tk.flash_attention.launches
+    got = tk.flash_attention(tq, tk_, tv, causal=True)
+    want = tref.reference(tq, tk_, tv, causal=True)
+    assert torch.equal(got, want)
+    assert tk.flash_attention.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.flash_attention(*(t.to("meta") for t in (tq, tk_, tv)))

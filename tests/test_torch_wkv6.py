@@ -1,0 +1,162 @@
+"""Parity of the port's WKV paths (``repro_torch.models.rwkv``) and the plain
+version of its WKV6 kernel (``repro_torch.kernels.rwkv6``) with the JAX
+package.
+
+The kernel computes the chunked form at the chunk it is given, and the
+form's clamps make the result depend on the chunk once cumulative decays
+pass 30, so the plain version is held to JAX's ``wkv_chunked`` at the same
+chunk and to the Pallas kernel run as the JAX tests run it
+(``interpret=True``).  Tolerances: in f32 1e-4 relative to the output's
+largest magnitude (the same formula; cumulative sums and products summed in
+another order, through exponentials of sums of up to 256 terms); in bf16
+inputs 3e-2 as in ``tests/test_kernels.py::test_wkv6_sweep`` (one bf16
+rounding of y).  The recurrence and the decode step are held within 1e-5
+relative (the same products, summed in another order).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import assert_rel_close
+from repro.kernels.rwkv6.kernel import wkv6 as j_wkv6
+from repro.models import rwkv as jrwkv
+from repro.models.config import ModelConfig as JConfig
+from repro_torch.kernels.rwkv6 import kernel as tk
+from repro_torch.kernels.rwkv6 import ops as tops
+from repro_torch.kernels.rwkv6 import ref as tref
+from repro_torch.models import rwkv as trwkv
+from repro_torch.models.config import ModelConfig as TConfig
+
+SHAPES = [(2, 128, 3, 16, 32), (1, 256, 2, 64, 64), (2, 64, 4, 8, 16)]
+
+
+def wkv_inputs(seed, B, T, H, K, *, decay_shift=-0.6, state=False):
+    """r, k, v, w_log (B,T,H,K), u (H,K) and S0 (B,H,K,K) as numpy f32."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, T, H, K)) for _ in range(3))
+    w_log = -np.exp(rng.standard_normal((B, T, H, K)) * 0.5 + decay_shift)
+    w_log = np.clip(w_log, -8.0, -1e-5)
+    u = rng.standard_normal((H, K)) * 0.3
+    S0 = (rng.standard_normal((B, H, K, K)) if state
+          else np.zeros((B, H, K, K)))
+    return [np.asarray(a, np.float32) for a in (r, k, v, w_log, u, S0)]
+
+
+def both(arrs):
+    return [jnp.asarray(a) for a in arrs], [torch.tensor(a) for a in arrs]
+
+
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("B,T,H,K,chunk", SHAPES)
+def test_wkv_chunked_matches_jax(B, T, H, K, chunk, state):
+    (jr, jk_, jv, jw, ju, jS), (tr, tk_, tv, tw, tu, tS) = both(
+        wkv_inputs(T + K, B, T, H, K, state=state))
+    y, S = trwkv.wkv_chunked(tr, tk_, tv, tw, tu, tS, chunk=chunk)
+    jy, jS2 = jrwkv.wkv_chunked(jr, jk_, jv, jw, ju, jS, chunk=chunk)
+    assert_rel_close(y, jy, 1e-4, "y")
+    assert_rel_close(S, jS2, 1e-4, "S")
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("B,T,H,K,chunk", SHAPES)
+def test_plain_wkv6_matches_jax_kernel(B, T, H, K, chunk, dtype, tol):
+    r, k, v, w, u, _ = wkv_inputs(B * T + H, B, T, H, K)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jy, jS = j_wkv6(*(jnp.asarray(a, dtype=jdt) for a in (r, k, v, w)),
+                    jnp.asarray(u), chunk=chunk, interpret=True)
+    y, S = tk.wkv6(*(torch.tensor(a).to(tdt) for a in (r, k, v, w)),
+                   torch.tensor(u), chunk=chunk)
+    assert y.dtype == tdt and S.dtype == torch.float32
+    assert_rel_close(y, jy, tol, "y")
+    assert_rel_close(S, jS, tol, "S")
+
+
+def test_clamped_decays_match_jax_at_the_same_chunk():
+    """w_log near -8 per step: cumulative decays pass the +-30 clamp inside
+    every chunk, so the chunked result depends on the chunk.  The port's
+    plain wkv6 follows JAX's wkv_chunked at each chunk."""
+    arrs = wkv_inputs(11, 2, 64, 2, 16, decay_shift=2.0, state=True)
+    assert float(np.cumsum(arrs[3][:, :16], axis=1).min()) < -60
+    (jr, jk_, jv, jw, ju, jS), (tr, tk_, tv, tw, tu, tS) = both(arrs)
+    for chunk in (4, 16, 32):
+        y, S = tk.wkv6(tr, tk_, tv, tw, tu, chunk=chunk, S0=tS)
+        jy, jS2 = jrwkv.wkv_chunked(jr, jk_, jv, jw, ju, jS, chunk=chunk)
+        assert_rel_close(y, jy, 1e-4, f"y chunk {chunk}")
+        assert_rel_close(S, jS2, 1e-4, f"S chunk {chunk}")
+
+
+def test_model_decays_at_the_prefill_chunk_match_jax():
+    """The RWKV6 prefill's chunk (256 at T = 1024) with the model's decays
+    (about -0.55 per step): the port's plain wkv6 follows JAX's
+    wkv_chunked, and both depart from the exact recurrence, since half a
+    chunk of decays passes the +-30 clamp (ROADMAP.md Queue 3)."""
+    arrs = wkv_inputs(1024, 1, 1024, 2, 64)
+    (jr, jk_, jv, jw, ju, jS), (tr, tk_, tv, tw, tu, _) = both(arrs)
+    y, S = tk.wkv6(tr, tk_, tv, tw, tu, chunk=256)
+    jy, jS2 = jrwkv.wkv_chunked(jr, jk_, jv, jw, ju, jS, chunk=256)
+    assert_rel_close(y, jy, 1e-4, "y")
+    assert_rel_close(S, jS2, 1e-4, "S")
+    jy_rec, _ = jrwkv.wkv_recurrent(jr, jk_, jv, jw, ju, jS)
+    departure = float(np.abs(np.asarray(jy) - np.asarray(jy_rec)).max()
+                      / np.abs(np.asarray(jy_rec)).max())
+    assert departure > 1.0, departure
+
+
+def test_recurrence_and_step_match_jax():
+    (jr, jk_, jv, jw, ju, jS), (tr, tk_, tv, tw, tu, tS) = both(
+        wkv_inputs(3, 2, 24, 3, 8, state=True))
+    jy, jS2 = jrwkv.wkv_recurrent(jr, jk_, jv, jw, ju, jS)
+    for fn in (trwkv.wkv_recurrent, tref.reference):
+        y, S = fn(tr, tk_, tv, tw, tu, tS)
+        assert_rel_close(y, jy, 1e-5, "recurrent y")
+        assert_rel_close(S, jS2, 1e-5, "recurrent S")
+    y, S = trwkv.wkv_step(tr[:, 0], tk_[:, 0], tv[:, 0], tw[:, 0], tu, tS)
+    jy, jS2 = jrwkv.wkv_step(jr[:, 0], jk_[:, 0], jv[:, 0], jw[:, 0], ju, jS)
+    assert_rel_close(y, jy, 1e-5, "step y")
+    assert_rel_close(S, jS2, 1e-5, "step S")
+
+
+@pytest.mark.parametrize("T,chunk", [(1, 64), (12, 16), (48, 16)])
+def test_time_mix_dispatch_matches_jax(T, chunk):
+    """T == 1 -> the step, T <= chunk -> the recurrence, longer -> the wkv6
+    wrapper (its plain chunked version here), each from a carried state."""
+    jcfg = JConfig(name="t", family="ssm", n_layers=1, d_model=32, n_heads=4,
+                   n_kv=4, d_ff=64, vocab=16, rwkv=True, rwkv_head_dim=8,
+                   dtype="float32", param_dtype="float32")
+    tcfg = TConfig(**{f: getattr(jcfg, f) for f in jcfg.__dataclass_fields__})
+    p = jrwkv.time_mix_init(jcfg, jax.random.PRNGKey(0))
+    tp = {k: torch.tensor(np.asarray(v)) for k, v in p.items()}
+    rng = np.random.default_rng(T)
+    x = rng.standard_normal((2, T, 32)).astype(np.float32)
+    S = rng.standard_normal((2, 4, 8, 8)).astype(np.float32) * 0.3
+    shift = rng.standard_normal((2, 32)).astype(np.float32)
+    before = tk.wkv6.launches
+    out, st = trwkv.time_mix(tcfg, tp, torch.tensor(x),
+                             {"S": torch.tensor(S), "shift": torch.tensor(shift)},
+                             chunk=chunk)
+    jout, jst = jrwkv.time_mix(jcfg, p, jnp.asarray(x),
+                               {"S": jnp.asarray(S), "shift": jnp.asarray(shift)},
+                               chunk=chunk)
+    assert tk.wkv6.launches == before
+    assert_rel_close(out, jout, 1e-4, "out")
+    assert_rel_close(st["S"], jst["S"], 1e-4, "S")
+    np.testing.assert_array_equal(st["shift"].numpy(), np.asarray(jst["shift"]))
+
+
+def test_wrapper_takes_the_plain_version_only_on_cpu():
+    r, k, v, w, u, S0 = (torch.tensor(a) for a in
+                         wkv_inputs(5, 1, 32, 2, 8, state=True))
+    before = tk.wkv6.launches
+    y, S = tops.wkv(r, k, v, w, u, chunk=8)
+    y0, S_0 = trwkv.wkv_chunked(r, k, v, w, u, torch.zeros_like(S0), chunk=8)
+    assert torch.equal(y, y0) and torch.equal(S, S_0)
+    y, S = tk.wkv6(r, k, v, w, u, chunk=8, S0=S0)
+    y1, S1 = tref.chunked_reference(r, k, v, w, u, S0, chunk=8)
+    assert torch.equal(y, y1) and torch.equal(S, S1)
+    assert tk.wkv6.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.wkv6(*(t.to("meta") for t in (r, k, v, w, u)), chunk=8)
+    with pytest.raises(ValueError, match="divisible"):
+        tk.wkv6(r, k, v, w, u, chunk=5)
