@@ -66,7 +66,8 @@ SERVE_B, SERVE_PROMPT, SERVE_NEW = 4, 1024, 16
 # departs from the exact recurrence (ROADMAP Queue 3), so a prefill and a
 # forward over a longer sequence compute different functions there
 RWKV_AGREE_PROMPT = 1040
-# flash attention: the Qwen3-0.6B prefill, then a ragged f32 shape
+# flash attention: the Qwen3-0.6B prefill, then a ragged shape (bf16 runs
+# the tensor-core kernel, f32 the CUDA-core one)
 FLASH_MAIN = (4, 1024, 16, 8, 128)           # B, S, Hq, Hkv, hd
 FLASH_RAGGED = (2, 200, 6, 3, 64)
 # WKV6: (B, T, H, K, chunk, decay shift, with S0); the RWKV6-7B prefill,
@@ -571,40 +572,76 @@ def phase_flash(gen):
     # roundings of nearly equal values differ by at most one bf16 spacing
     # (2^-7 of the value); f32: the same sums in another order, with the
     # online softmax's rescaling, within 1e-4 relative.
-    cases = [(FLASH_MAIN, torch.bfloat16, True, 1e-5, 2.0 ** -7)] + [
-        (FLASH_RAGGED, torch.float32, c, 1e-5, 1e-4) for c in (True, False)]
-    for shape, dtype, causal, atol, rtol in cases:
+    bf16, f32 = (torch.bfloat16, 1e-5, 2.0 ** -7), (torch.float32, 1e-5, 1e-4)
+    cases = [(FLASH_MAIN, True, *bf16)] + [
+        (FLASH_RAGGED, c, *f32) for c in (True, False)] + [
+        (FLASH_MAIN, False, *bf16)] + [
+        (FLASH_RAGGED, c, *bf16) for c in (True, False)]
+    for shape, causal, dtype, atol, rtol in cases:
         q, k, v = flash_inputs(gen, *shape, dtype)
         errs.append(check_close(
             flash_attention(q, k, v, causal=causal),
             reference(q, k, v, causal=causal), atol, rtol,
             f"flash_attention {shape} {str(dtype)[6:]} causal={causal}"))
-        if row is not None:
+        if shape != FLASH_MAIN:
             continue
+        # the kernel, SDPA and the plain version in turns: k, l, p, l, k
         B, S, Hq, Hkv, hd = shape
-        t_k = cuda_ms(lambda: flash_attention(q, k, v, causal=causal), 20)
-        t_p = cuda_ms(lambda: reference(q, k, v, causal=causal), 5)
-        t_l = cuda_ms(lambda: sdpa(q, k, v, causal), 20)
+        fns = {"kernel": (lambda: flash_attention(q, k, v, causal=causal), 20),
+               "library": (lambda: sdpa(q, k, v, causal), 20),
+               "plain": (lambda: reference(q, k, v, causal=causal), 5)}
+        times = {name: [] for name in fns}
+        for name in ("kernel", "library", "plain", "library", "kernel"):
+            fn, reps = fns[name]
+            times[name].append(cuda_ms(fn, reps))
+        t_k, t_l, t_p = (statistics.mean(times[n])
+                         for n in ("kernel", "library", "plain"))
         lib_err = float((sdpa(q, k, v, causal).double()
                          - reference(q, k, v, causal=causal).double()
                          ).abs().max())
         print(f"  (yardstick, not checked) scaled_dot_product_attention: "
               f"max_abs_err={lib_err!r}")
         # q, k, v read and o written once; two products of 2 * hd
-        # operations for every (query, key) pair the causal mask keeps
+        # operations for every (query, key) pair the mask keeps
         pairs = S * (S + 1) // 2 if causal else S * S
-        b_ms, b_by = bound(nbytes(q, k, v, q), 4 * hd * B * Hq * pairs,
-                           BF16_OPS_PER_S)
-        row = dict(name="flash_attention", route="cuda",
-                   source="src/repro_torch/csrc/flash_attention.cu",
-                   replaces="src/repro/kernels/flash_attention/kernel.py:71",
-                   ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
-                   library_ms=t_l)
-        print(f"  flash_attention: ms={t_k!r} plain_ms={t_p!r} "
-              f"library_ms={t_l!r} bound_ms={b_ms!r} ({b_by}, bf16 tensor-"
-              "core rate)")
+        ops = 4 * hd * B * Hq * pairs
+        b_ms, b_by = bound(nbytes(q, k, v, q), ops, BF16_OPS_PER_S)
+        # the kernel's own floor: P V runs twice (P_hi and P_lo)
+        split_ms = 1.5 * ops / BF16_OPS_PER_S * 1e3
+        print(f"  flash_attention causal={causal}: ms={t_k!r} "
+              f"plain_ms={t_p!r} library_ms={t_l!r} bound_ms={b_ms!r} "
+              f"({b_by}, bf16 tensor-core rate) split_floor_ms={split_ms!r} "
+              f"turns={times!r}")
+        if causal:  # the main path's case: Qwen3's prefill is causal
+            row = dict(name="flash_attention", route="cuda",
+                       source="src/repro_torch/csrc/flash_attention.cu",
+                       replaces="src/repro/kernels/flash_attention/kernel.py"
+                                ":71",
+                       ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=t_l)
+    check_tma_refusal(flash_attention)
     row["max_abs_err"] = max(errs)
     return row
+
+
+def check_tma_refusal(flash_attention):
+    """A bf16 view whose base is not 16-byte aligned (q taken one element
+    into the head axis of a wider tensor) is refused before any launch."""
+    B, S, Hq, Hkv, hd = FLASH_RAGGED
+    wide = torch.zeros((B, S, Hq, hd + 8), dtype=torch.bfloat16,
+                       device="cuda")
+    q = wide[..., 1:hd + 1]
+    k = torch.zeros((B, S, Hkv, hd), dtype=torch.bfloat16, device="cuda")
+    before = flash_attention.launches
+    try:
+        flash_attention(q, k, k, causal=True)
+    except ValueError as exc:
+        print(f"  misaligned q refused: {exc}")
+    else:
+        raise AssertionError("flash_attention launched on a q view that TMA "
+                             "cannot read")
+    if flash_attention.launches != before:
+        raise AssertionError("flash_attention counted a refused launch")
 
 
 def wkv_inputs(gen, B, T, H, K, shift, with_state):

@@ -9,7 +9,10 @@ and counts the launch in ``flash_attention.launches``.  The TPU kernel's
 uses its own tiles and masks ragged edges itself, so it takes any Sq and
 Skv.  It takes bfloat16 or float32 with head width 32, 64 or 128, reads
 q / k / v through their strides (the last axis contiguous) and writes a
-contiguous output in q's dtype.
+contiguous output in q's dtype.  bfloat16 at head width 64 or 128 runs the
+tensor-core kernel, which reads q / k / v by TMA and so also needs what
+``_tma_ok`` checks; float32, and bfloat16 at head width 32, run the
+CUDA-core kernel.
 """
 from __future__ import annotations
 
@@ -25,6 +28,18 @@ _SIGNATURES = {f"flash_attention_{t}": [_P] * 4 + [_I] * 6 + [_L] * 9
                + [_I, ctypes.c_float, _P] for t in ("f32", "bf16")}
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _HEAD_DIMS = (32, 64, 128)
+_TMA_HEAD_DIMS = (64, 128)
+
+
+def _tma_ok(t) -> bool:
+    """Whether TMA can read ``t``, a (B, S, H, hd) operand whose head axis is
+    contiguous: its base is 16-byte aligned and its batch, row and head
+    strides are multiples of 16 bytes (an axis of extent 1 is never
+    stepped, so its stride does not matter)."""
+    size = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        n == 1 or st * size % 16 == 0
+        for n, st in zip(t.shape[:3], t.stride()[:3]))
 
 
 def flash_attention(q, k, v, *, causal=True):
@@ -51,6 +66,12 @@ def flash_attention(q, k, v, *, causal=True):
                          f"got {hd}")
     if any(t.stride(-1) != 1 for t in args):
         raise ValueError(f"{what}: the head axis must be contiguous")
+    if q.dtype == torch.bfloat16 and hd in _TMA_HEAD_DIMS:
+        bad = [n for n, t in zip("qkv", args) if not _tma_ok(t)]
+        if bad:
+            raise ValueError(f"{what}: TMA needs a 16-byte aligned base and "
+                             "batch, row and head strides of multiples of 16 "
+                             f"bytes, which {', '.join(bad)} lack")
     o = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
     lib = _build.load("flash_attention", _SIGNATURES)
     fn = getattr(lib, f"{what}_{_SUFFIX[q.dtype]}")

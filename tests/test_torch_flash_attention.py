@@ -115,3 +115,58 @@ def test_wrapper_takes_the_plain_version_only_on_cpu():
     assert tk.flash_attention.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         tk.flash_attention(*(t.to("meta") for t in (tq, tk_, tv)))
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_tma_check_takes_contiguous_and_refuses_misaligned_views(hd):
+    """What the tensor-core kernel's TMA loads need of a bf16 operand: a
+    16-byte aligned base and batch / row / head strides of multiples of 16
+    bytes, except on an axis of extent 1, which is never stepped."""
+    B, S, H = 2, 40, 4
+    assert tk._tma_ok(torch.zeros((B, S, H, hd), dtype=torch.bfloat16))
+    wide = torch.zeros((B, S, H, hd + 8), dtype=torch.bfloat16)
+    assert tk._tma_ok(wide[..., :hd])
+    assert not tk._tma_ok(wide[..., 1:hd + 1])       # base 2 bytes off
+    flat = torch.zeros((B, S, H * hd + 1), dtype=torch.bfloat16)
+    rows = flat[..., :H * hd].unflatten(-1, (H, hd))
+    assert rows.stride(1) * 2 % 16 and not tk._tma_ok(rows)
+    buf = torch.zeros(S * H * hd + 8, dtype=torch.bfloat16)
+    one = buf.as_strided((1, S, H, hd), (3, H * hd, hd, 1))
+    assert tk._tma_ok(one)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_p_split_keeps_the_bf16_gate_where_bf16_p_breaks_it(causal):
+    """Why the tensor-core kernel splits P.  Its plain version weighs v by
+    the f32 softmax weights P, and the card holds the kernel to it within
+    1e-5 + 2^-7 |plain| elementwise in bf16.  Emulated here in plain torch
+    at the kernel's head width: P rounded to bf16 before P V breaks that
+    gate by more than 10x on more than 5 % of the outputs (outputs near 0
+    move by about 2^-10 |v|), while P_hi = bf16(P), P_lo = bf16(P - P_hi)
+    and O = P_hi V + P_lo V keeps every output inside it."""
+    rng = np.random.default_rng(0)
+    B, S, H, hd = 1, 256, 4, 128
+    q, k, v = (torch.tensor(rng.standard_normal((B, S, H, hd)),
+                            dtype=torch.float32).bfloat16().float()
+               for _ in range(3))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * hd ** -0.5
+    if causal:
+        s = s.masked_fill(~torch.ones(S, S, dtype=torch.bool).tril(), -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True)
+
+    def out(*parts):
+        o = sum(torch.einsum("bhqk,bkhd->bhqd", part, v) for part in parts)
+        return (o / l).bfloat16().double()
+
+    want = out(p)
+    p_hi = p.bfloat16().float()
+    p_lo = (p - p_hi).bfloat16().float()
+
+    def ratio(got):
+        return (got - want).abs() / (1e-5 + 2 ** -7 * want.abs())
+
+    assert float(ratio(out(p_hi, p_lo)).max()) <= 1.0
+    r_bf16 = ratio(out(p_hi))
+    assert float(r_bf16.max()) > 10.0
+    assert float((r_bf16 > 1.0).double().mean()) > 0.05
