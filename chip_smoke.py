@@ -9,7 +9,8 @@ at once), then runs these phases, each of which raises on failure:
 1. every kernel against its plain PyTorch version on the card, at its main
    path's shapes and at ragged shapes, with its time, the plain version's
    time, the card's least time for the same work and, where one PyTorch
-   call computes the same function, that call's time;
+   call computes the same function, that call's time; and ``layers.dot``
+   on bf16 operands against the f32 product;
 2. the allocator's main path at the paper's scale (Sec. 5.3: 256 lanes of
    100-500 job classes, capacity factor 0.95, f64): ``CapacityEngine.solve``
    under the fused-kernel, sweep-kernel and default configurations, plus
@@ -44,10 +45,11 @@ from pathlib import Path
 import torch
 
 # H100 SXM data sheet: HBM3 bandwidth, the FP64 and FP32 (non-tensor-core)
-# rates and the dense bf16 tensor-core rate.
+# rates and the dense TF32 and bf16 tensor-core rates.
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
 FP32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 BF16_OPS_PER_S = 989e12
 F64 = torch.float64
 
@@ -72,11 +74,20 @@ FLASH_MAIN = (4, 1024, 16, 8, 128)           # B, S, Hq, Hkv, hd
 FLASH_RAGGED = (2, 200, 6, 3, 64)
 # WKV6: (B, T, H, K, chunk, decay shift, with S0); the RWKV6-7B prefill,
 # a 1040-token forward's chunk 16, and a ragged chunk-4 case whose
-# cumulative decays pass the +-30 clamp
+# cumulative decays pass the +-30 clamp (the per-head kernel); then the
+# chunk-parallel kernels' prefix from a state, chunk 128, a single chunk and
+# K = V = 32
 WKV_CASES = ((4, 1024, 64, 64, 256, -0.6, False),
              (4, 1040, 64, 64, 16, -0.6, False),
              (2, 300, 4, 64, 4, 2.0, False),
-             (2, 300, 4, 64, 4, 2.0, True))
+             (2, 300, 4, 64, 4, 2.0, True),
+             (4, 1024, 64, 64, 256, -0.6, True),
+             (4, 1024, 64, 64, 128, -0.6, False),
+             (2, 256, 4, 64, 256, -0.6, False),
+             (2, 512, 4, 32, 64, -0.6, False))
+# layers.dot on the card: bf16 (M x D) . (D x N), the Qwen3 MLP's up
+# projection at the serving prefill (4 x 1024 tokens, d 1024, d_ff 3072)
+DOT_SHAPE = (4096, 1024, 3072)
 
 
 def card_line() -> str:
@@ -669,7 +680,7 @@ def wkv_ops(B, T, H, K, L):
 
 
 def phase_wkv(gen):
-    from repro_torch.kernels.rwkv6.kernel import wkv6
+    from repro_torch.kernels.rwkv6.kernel import pass_launchers, route, wkv6
     from repro_torch.kernels.rwkv6.ref import chunked_reference
     print("phase 1c: wkv6 against its plain version (the chunked form at "
           "the same chunk)")
@@ -678,12 +689,17 @@ def phase_wkv(gen):
         r, k, v, w, u, S0 = wkv_inputs(gen, B, T, H, K, shift, with_state)
         S0_plain = S0 if with_state else torch.zeros(
             (B, H, K, K), device="cuda")
+        how = route(r, k, v, w, L)
+        if (L % 64 == 0) != (how == "chunk-parallel"):
+            raise AssertionError(f"wkv6 chunk {L} K {K} took the {how} "
+                                 "route")
         y, S = wkv6(r, k, v, w, u, chunk=L, S0=S0)
         y_p, S_p = chunked_reference(r, k, v, w, u, S0_plain, chunk=L)
-        # the same f32 formula summed in another order: within 1e-4 of the
+        # the same f32 formula summed in another order (the products in
+        # three TF32 parts on the chunk-parallel route): within 1e-4 of the
         # largest magnitude of each output
         label = (f"wkv6 B={B} T={T} H={H} K={K} chunk={L} "
-                 f"{'S0' if with_state else 'zero state'}")
+                 f"{'S0' if with_state else 'zero state'} route={how}")
         errs.append(max(
             check_close(y, y_p, 1e-4 * float(y_p.abs().max()), 0.0,
                         label + " y"),
@@ -700,17 +716,53 @@ def phase_wkv(gen):
         t_k = cuda_ms(lambda: wkv6(r, k, v, w, u, chunk=L), 20)
         t_p = cuda_ms(lambda: chunked_reference(r, k, v, w, u, S0_plain,
                                                 chunk=L), 5)
-        b_ms, b_by = bound(nbytes(r, k, v, w, u, y, S),
-                           wkv_ops(B, T, H, K, L), FP32_OPS_PER_S)
+        passes = {name: cuda_ms(fn, 20) for name, fn in
+                  pass_launchers(r, k, v, w, u, chunk=L).items()}
+        # the least time: the bytes (inputs read once, y and S written
+        # once) against the operations on the tensor cores as the kernel
+        # runs them, each product as three TF32 products, and the decay
+        # work (12 per (row, channel)) at the f32 rate; beside it the
+        # operations all at the f32 rate (the CUDA-core kernel's bound)
+        moved = nbytes(r, k, v, w, u, y, S)
+        elem = 12 * B * T * H * K
+        prod = wkv_ops(B, T, H, K, L) - elem
+        t_ops = (3 * prod / TF32_OPS_PER_S + elem / FP32_OPS_PER_S) * 1e3
+        b_ms, b_by = max((moved / HBM_BYTES_PER_S * 1e3, "bytes"),
+                         (t_ops, "operations"))
+        f32_ms, _ = bound(moved, wkv_ops(B, T, H, K, L), FP32_OPS_PER_S)
         row = dict(name="wkv6", route="cuda",
                    source="src/repro_torch/csrc/wkv6.cu",
                    replaces="src/repro/kernels/rwkv6/kernel.py:73",
                    ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
                    library_ms=None)
-        print(f"  wkv6: ms={t_k!r} plain_ms={t_p!r} bound_ms={b_ms!r} "
-              f"({b_by}, f32 rate)")
+        print(f"  wkv6 ({how}): ms={t_k!r} plain_ms={t_p!r} "
+              f"bound_ms={b_ms!r} ({b_by}, split TF32 products) "
+              f"f32_rate_bound_ms={f32_ms!r} passes_ms={passes!r}")
     row["max_abs_err"] = max(errs)
     return row
+
+
+def phase_dot(gen):
+    """``layers.dot`` on bf16 operands: an f32 result within 1e-5 of the
+    largest |x.float() @ w.float()| (TF32 off: a full f32 product), where a
+    bf16-rounded result departs by about 2^-9 of it."""
+    from repro_torch.models import layers
+    M, D, N = DOT_SHAPE
+    x = torch.randn((M, D), generator=gen, device="cuda").bfloat16()
+    w = (torch.randn((D, N), generator=gen, device="cuda")
+         * D ** -0.5).bfloat16()
+    got = layers.dot(x, w)
+    want = x.float() @ w.float()
+    if got.dtype != torch.float32:
+        raise AssertionError(f"layers.dot returned {got.dtype} for bf16")
+    err = float((got - want).abs().max() / want.abs().max())
+    bf16_err = float((torch.matmul(x, w).float() - want).abs().max()
+                     / want.abs().max())
+    print(f"phase 1d: layers.dot bf16 {DOT_SHAPE}: max|dot - f32 "
+          f"product|/max = {err!r} (a bf16-rounded product: {bf16_err!r})")
+    if not err <= 1e-5:
+        raise AssertionError(f"layers.dot departs from the f32 product by "
+                             f"{err} of its largest value")
 
 
 # --------------------------------------------------------------------------
@@ -915,6 +967,7 @@ def main() -> int:
     cuda_gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows["flash_attention"] = timed("phase 1b", phase_flash, cuda_gen)
     rows["wkv6"] = timed("phase 1c", phase_wkv, cuda_gen)
+    timed("phase 1d", phase_dot, cuda_gen)
     configs, counts = timed("phase 2", phase_main, main_batch, gen,
                             counters)
     timed("phase 2 reference", phase_reference, gen)

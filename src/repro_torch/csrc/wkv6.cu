@@ -10,12 +10,62 @@
 // The state starts at S0 (zeros for the TPU kernel's function) and the
 // final state is written out.  All of it in f32.
 //
-// What bounds it: operations.  At the RWKV6-7B prefill (B 4, T 1024, 64
-// heads of 64, chunk 256, f32) the chunked form does about 13 GFLOP against
-// about 0.34 GB of traffic: 0.19 ms at the card's f32 rate, 0.1 ms at its
-// memory rate.
+// What bounds it.  At the RWKV6-7B prefill (B 4, T 1024, 64 heads of 64,
+// chunk 256, f32) the chunked form does about 13 GFLOP against about 0.34
+// GB of operands read and results written: 0.19 ms at the card's f32 rate
+// on the CUDA cores, 0.1 ms at its memory rate, 0.076 ms for the three TF32
+// products below at the tensor-core rate.  So with the products on the
+// tensor cores, bytes bound it.  The three passes below move about 0.59 GB
+// (k, v and w are read by the first pass and again by the third, and the
+// state scratch goes through the second), and mma.sync issues TF32 at
+// about half the dense rate; those are this design's own floors.
 //
-// Design: the Pallas kernel keeps the K x V state in VMEM scratch over a
+// Two routes; the wrapper (kernels/rwkv6/kernel.py: route) picks one by L.
+//
+// Chunk-parallel (L a multiple of 64, K == V a multiple of 4, operands
+// 16-byte aligned: every RWKV6 prefill whose chunk is 64 or more).  Three
+// kernels on the stream, in parallel over chunks:
+//   1. wkv6_state, one block per (batch, head, chunk).  A first sweep sums
+//      w over each 16-row segment, and one thread per channel forms the LW
+//      before each 64-row sub-tile (the carry), Z and LW_end from those
+//      sums, adding them in the order the scan below does.  A second sweep
+//      scans each sub-tile and sums U = K2^T V on the tensor cores, its k
+//      and v double-buffered.  U, D = e^{LW_end}, Z and the carries go to
+//      scratch that the wrapper allocates.
+//   2. wkv6_prefix, one thread per (batch, head, state element): walks the
+//      chunks in order, stores the state at each chunk's start over U_c
+//      and carries S <- D_c S + U_c, the reference's carry in its order;
+//      the last S is the state output.
+//   3. wkv6_output, one block per (batch, head, chunk, 64-row sub-tile i),
+//      a chunk's sub-tiles adjacent in blockIdx (heaviest first) so that
+//      their re-reads of the chunk hit L2.  The bonus term in f32 FMAs,
+//      the inter term (r e^{LWp}) S_c, the diagonal product Q_i Kf_i^T
+//      masked m < t and times V_i, and the full products Q_i Kf_j^T V_j of
+//      every earlier sub-tile j < i, whose k, w and v stream in by
+//      cp.async, double-buffered (k and v) across j.  The sub-tile's own
+//      loads come in two groups: r, w and k for the elementwise step, then
+//      S_c and v for the products.
+// The scan (scan_rows): 256 threads, each one channel of a 16-row segment;
+// each sums its segment in order, then adds the carry and the totals of the
+// earlier segments.  Every kernel starts from the same carry and adds in
+// the same order, so a row's LW has the same bits in every block.
+// The products are mma.sync m16n8k8 TF32 with f32 accumulators.  A single
+// TF32 product keeps 11 bits of each operand and misses the 1e-4 gate by
+// 4-5x, so each product is three: a_hi b_hi + a_hi b_lo + a_lo b_hi, with
+// hi and lo the top two 11-bit pieces of x (masks, not cvt, which issues at
+// a quarter rate), as good as f32 here.  The products go out kind by kind
+// over independent accumulators.  The masked A goes from the accumulator to
+// the next product's A operand in registers: the k order inside an 8-wide
+// step is free, so the accumulator's columns (2q, 2q + 1) serve as k
+// (q, q + 4), and V's rows are read in that order.  Exponentials are
+// __expf (ex2.approx).  Shared rows are 68 floats (4 mod 32): fragment
+// loads are free of bank conflicts and 16-byte cp.async rows stay aligned.
+// wkv6_output holds six 64 x 68 tiles (Q, two k and two v buffers, w):
+// 106 KB and 128 registers a thread, two blocks an SM.
+//
+// Per-head (any other L, as the 1040- and 300-token prompts' chunks 16 and
+// 4): wkv6_kernel, the CUDA-core kernel of the first port.  The Pallas
+// kernel keeps the K x V state in VMEM scratch over a
 // sequential chunk axis.  Here one block owns one (batch, head), keeps the
 // state in shared memory and loops over the chunks in order.  A chunk of
 // 256 rows does not fit on chip in all its operands, so it is cut into
@@ -34,6 +84,7 @@
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <cstdint>
 
 namespace {
 
@@ -305,10 +356,529 @@ size_t smem_bytes(int L) {
   return sizeof(float) * (2 * kTS * kTS + 4 * kTS + 4 * kTS * kLD + nsub * kTS);
 }
 
+
+// --------------------------------------------------------------------------
+// the chunk-parallel route: wkv6_state, wkv6_prefix, wkv6_output
+// --------------------------------------------------------------------------
+
+// A shared tile's row is 68 floats (4 mod 32): the fragment reads are free
+// of bank conflicts and 16-byte cp.async rows stay aligned
+constexpr int kLDT = kTS + 4;
+constexpr int kTile = kTS * kLDT;        // floats of one 64-row tile
+constexpr int kSeg = 16;                 // rows of one scan segment
+constexpr unsigned kTF32 = 0xffffe000u;  // sign, exponent, 10 mantissa bits
+
+// x = hi + lo, each a TF32 value (x's top 11 significant bits, then the
+// next 11, both truncated), to within 2^-20 |x|
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & kTF32;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & kTF32;
+}
+
+__device__ __forceinline__ void split4(const float* a, uint32_t* hi,
+                                       uint32_t* lo) {
+#pragma unroll
+  for (int x = 0; x < 4; ++x) split(a[x], hi[x], lo[x]);
+}
+
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c[x] += a b[x] for N accumulators, each as a_lo b_hi + a_hi b_lo +
+// a_hi b_hi, with a split by split4.  a is the m16 x k8 A fragment (a0
+// (g, q), a1 (g + 8, q), a2 (g, q + 4), a3 (g + 8, q + 4)), b[x] the k8 x n8
+// B fragment (b0 (q, g), b1 (q + 4, g)), c[x] the accumulator (c0 (g, 2q),
+// c1 (g, 2q + 1), c2 (g + 8, 2q), c3 (g + 8, 2q + 1)), where g = lane / 4
+// and q = lane % 4.  The products go out one kind at a time over the N
+// accumulators, so no mma waits on the one before it.
+template <int N>
+__device__ __forceinline__ void mma3(float (*c)[4], const uint32_t* ah,
+                                     const uint32_t* al, const float (*b)[2]) {
+  uint32_t bh[N][2], bl[N][2];
+#pragma unroll
+  for (int x = 0; x < N; ++x) {
+    split(b[x][0], bh[x][0], bl[x][0]);
+    split(b[x][1], bh[x][1], bl[x][1]);
+  }
+#pragma unroll
+  for (int x = 0; x < N; ++x) mma_tf32(c[x], al, bh[x]);
+#pragma unroll
+  for (int x = 0; x < N; ++x) mma_tf32(c[x], ah, bl[x]);
+#pragma unroll
+  for (int x = 0; x < N; ++x) mma_tf32(c[x], ah, bh[x]);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// rows x n (n a multiple of 4) of a row-strided operand -> dst[t * kLDT + c]
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          long long row_stride, int rows,
+                                          int n) {
+  const int per_row = n >> 2;
+  for (int idx = threadIdx.x; idx < rows * per_row; idx += kThreads) {
+    const int t = idx / per_row, c = (idx % per_row) * 4;
+    cp_async16(dst + t * kLDT + c, src + (long long)t * row_stride + c);
+  }
+}
+
+// exp(clip(x, -30, 30)) by ex2.approx (__expf): within 2 + 1.2 |x| ulp, so
+// under 1e-5 relative at |x| <= 30.  The unclipped __expf below it is as
+// close down to e^-87, where it flushes to 0 and the plain version keeps a
+// subnormal.
+__device__ __forceinline__ float fast_clamp_exp(float x) {
+  return __expf(fminf(fmaxf(x, -kClamp), kClamp));
+}
+
+// Thread (seg, ch), seg = tid / 64, ch = tid % 64: its 16 values of w in
+// rows 16 seg .. + 15 of a 64-row sub-tile, channel ch (0 past K), straight
+// from device memory; a warp reads 32 neighbouring floats of a row.
+__device__ __forceinline__ void load_w(float* wv, const float* src,
+                                       long long row_stride, int K) {
+  const int seg = threadIdx.x >> 6, ch = threadIdx.x & 63;
+#pragma unroll
+  for (int t = 0; t < kSeg; ++t)
+    wv[t] = ch < K ? src[(long long)(seg * kSeg + t) * row_stride + ch] : 0.0f;
+}
+
+// The blocked scan of one 64-row sub-tile: from its values wv (load_w) and
+// the channel's LW before the sub-tile, carry, thread (seg, ch) gets LW of
+// its 16 rows in lw: its segment summed in order, plus the carry and the
+// earlier segments' totals.  It syncs the block once; seg_sum (4 x 64
+// floats) is free again after the caller's next __syncthreads.
+__device__ __forceinline__ void scan_rows(const float* wv, float* seg_sum,
+                                          float carry, float* lw) {
+  const int seg = threadIdx.x >> 6, ch = threadIdx.x & 63;
+  float run = 0.0f;
+#pragma unroll
+  for (int t = 0; t < kSeg; ++t) {
+    run += wv[t];
+    lw[t] = run;
+  }
+  seg_sum[seg * kTS + ch] = run;
+  __syncthreads();
+  float base = carry;
+  for (int s = 0; s < seg; ++s) base += seg_sum[s * kTS + ch];
+#pragma unroll
+  for (int t = 0; t < kSeg; ++t) lw[t] = base + lw[t];
+}
+
+__device__ __forceinline__ void zero_smem(float* p, int n) {
+  for (int idx = threadIdx.x; idx < n; idx += kThreads) p[idx] = 0.0f;
+}
+
+// Pass 1: one block per (batch, head, chunk).  A first sweep sums each
+// 16-row segment of w, from which one thread per channel forms the carries,
+// Z and LW_end by the scan's own additions; a second sweep scans each
+// sub-tile and sums U = K2^T V, its k and v double-buffered.
+__global__ void __launch_bounds__(kThreads, 2)
+wkv6_state(const float* __restrict__ k, const float* __restrict__ v,
+           const float* __restrict__ w, float* __restrict__ U,
+           float* __restrict__ carry_out, float* __restrict__ Z_out,
+           float* __restrict__ D_out, int T, int H, int K, int L) {
+  extern __shared__ float smem[];
+  float* seg_sum = smem + 4 * kTile;    // 4 x 64
+  float* run = seg_sum + 4 * kTS;       // LW before the current sub-tile
+  float* lwe = run + kTS;               // LW_end
+  float* tot = lwe + kTS;               // segment totals, L / 16 x 64
+  // k (then K2 = k e^{LW_end - LW}) in buffer 2x, v in 2x + 1
+  auto buf = [&](int x) { return smem + x * kTile; };
+
+  const int n = T / L, nsub = L / kTS;
+  const int c = blockIdx.x % n, bh = blockIdx.x / n;
+  const int h = bh % H, b = bh / H;
+  const int tid = threadIdx.x, seg = tid >> 6, ch = tid & 63;
+  const long long row = (long long)H * K;
+  const long long base = ((long long)b * T + (long long)c * L) * row
+                         + (long long)h * K;
+  const long long chunk = (long long)bh * n + c;
+
+  if (K < kTS) zero_smem(smem, 4 * kTile);
+  __syncthreads();
+  load_tile(buf(0), k + base, row, kTS, K);  // sweep 2's first tiles
+  load_tile(buf(1), v + base, row, kTS, K);
+  cp_commit();
+
+  float wv[kSeg], wn[kSeg], lw[kSeg];
+  for (int s = 0; s < nsub; ++s) {             // sweep 1
+    load_w(wv, w + base + (long long)s * kTS * row, row, K);
+    float sum = 0.0f;
+#pragma unroll
+    for (int t = 0; t < kSeg; ++t) sum += wv[t];
+    tot[(s * 4 + seg) * kTS + ch] = sum;
+  }
+  __syncthreads();
+  if (tid < kTS) {
+    // the carries as scan_rows forms them: LW after sub-tile s is
+    // (((carry + t0) + t1) + t2) + t3; Z = LW[L / 2], the first row of its
+    // segment, is that segment's base plus w of the row
+    const int zseg = L / 2 / kSeg;
+    float carry = 0.0f;
+    for (int s = 0; s < nsub; ++s) {
+      if (tid < K) carry_out[(chunk * nsub + s) * K + tid] = carry;
+      for (int sg = 0; sg < 4; ++sg) {
+        if (s * 4 + sg == zseg && tid < K)
+          Z_out[chunk * K + tid] =
+              carry + w[base + (long long)(L / 2) * row + tid];
+        carry += tot[(s * 4 + sg) * kTS + tid];
+      }
+    }
+    lwe[tid] = carry;
+    if (tid < K) D_out[chunk * K + tid] = expf(carry);
+    run[tid] = 0.0f;
+  }
+  load_w(wv, w + base, row, K);
+
+  // sweep 2.  Warp wp owns state rows 16 (wp % 4) .. + 15 and columns
+  // 32 (wp / 4) .. + 31.
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
+  const int m0 = 16 * (warp & 3), n0 = 32 * (warp >> 2);
+  float acc[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[nt][x] = 0.0f;
+  for (int s = 0; s < nsub; ++s) {
+    const int bs = s & 1;
+    __syncthreads();                           // the other buffers are free
+    if (s + 1 < nsub) {
+      const long long off = base + (long long)(s + 1) * kTS * row;
+      load_tile(buf(2 - 2 * bs), k + off, row, kTS, K);
+      load_tile(buf(3 - 2 * bs), v + off, row, kTS, K);
+      load_w(wn, w + off, row, K);
+    }
+    cp_commit();
+    scan_rows(wv, seg_sum, run[ch], lw);
+    cp_wait<1>();
+    __syncthreads();
+    float* Ks = buf(2 * bs);
+    const float* Vs = buf(2 * bs + 1);
+    if (ch < K) {
+#pragma unroll
+      for (int t = 0; t < kSeg; ++t) {
+        float* p = Ks + (seg * kSeg + t) * kLDT + ch;
+        *p = *p * __expf(lwe[ch] - lw[t]);
+      }
+    }
+    __syncthreads();
+    if (seg == 3) run[ch] = lw[kSeg - 1];
+    if (s + 1 < nsub) {
+#pragma unroll
+      for (int t = 0; t < kSeg; ++t) wv[t] = wn[t];
+    }
+#pragma unroll
+    for (int ks = 0; ks < kTS / 8; ++ks) {
+      const float* kr = Ks + (8 * ks + q) * kLDT + m0 + g;   // A = K2^T
+      const float a[4] = {kr[0], kr[8], kr[4 * kLDT], kr[4 * kLDT + 8]};
+      uint32_t ah[4], al[4];
+      split4(a, ah, al);
+      const float* vr = Vs + (8 * ks + q) * kLDT + n0 + g;
+      float bb[4][2];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        bb[nt][0] = vr[8 * nt];
+        bb[nt][1] = vr[4 * kLDT + 8 * nt];
+      }
+      mma3<4>(acc, ah, al, bb);
+    }
+  }
+  float* Ub = U + chunk * K * K;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int col = n0 + 8 * nt + 2 * q;
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int kk = m0 + g + 8 * (x >> 1), vv = col + (x & 1);
+      if (kk < K && vv < K) Ub[kk * K + vv] = acc[nt][x];
+    }
+  }
+}
+
+// Pass 2: one thread per (batch, head, state element), the chunks in order.
+__global__ void __launch_bounds__(kThreads)
+wkv6_prefix(float* __restrict__ U, const float* __restrict__ D,
+            const float* __restrict__ S0, float* __restrict__ S_out, int BH,
+            int n, int K) {
+  const long long KV = (long long)K * K;
+  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= BH * KV) return;
+  const long long bh = idx / KV, e = idx % KV;
+  const int kk = (int)(e / K);
+  float s = S0 ? S0[idx] : 0.0f;
+  for (int c = 0; c < n; ++c) {
+    const long long chunk = bh * n + c;
+    float* p = U + chunk * KV + e;
+    const float uc = *p;
+    *p = s;                              // the state at the chunk's start
+    s = D[chunk * K + kk] * s + uc;
+  }
+  S_out[idx] = s;
+}
+
+// y[16 rows of warp rg] += A V, A = Q Kf^T over the 32 key rows of half hf
+// (masked m < t when diag), both from shared tiles of one 64-row sub-tile.
+__device__ __forceinline__ void attend(const float* Qs, const float* Kf,
+                                       const float* Vt, float (*acc)[4],
+                                       bool diag) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int t0 = 16 * (warp & 3), m0 = 32 * (warp >> 2);
+  if (diag && t0 + 15 < m0) return;      // every m > every t: A = 0
+  float a[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) a[nt][x] = 0.0f;
+#pragma unroll
+  for (int ks = 0; ks < kTS / 8; ++ks) {
+    const float* qr = Qs + (t0 + g) * kLDT + 8 * ks + q;
+    const float qa[4] = {qr[0], qr[8 * kLDT], qr[4], qr[8 * kLDT + 4]};
+    uint32_t qh[4], ql[4];
+    split4(qa, qh, ql);
+    const float* kr = Kf + (m0 + g) * kLDT + 8 * ks + q;
+    float bb[4][2];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      bb[nt][0] = kr[8 * nt * kLDT];
+      bb[nt][1] = kr[8 * nt * kLDT + 4];
+    }
+    mma3<4>(a, qh, ql, bb);
+  }
+  if (diag) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int m = m0 + 8 * nt + 2 * q, t = t0 + g;
+      if (!(m < t)) a[nt][0] = 0.0f;
+      if (!(m + 1 < t)) a[nt][1] = 0.0f;
+      if (!(m < t + 8)) a[nt][2] = 0.0f;
+      if (!(m + 1 < t + 8)) a[nt][3] = 0.0f;
+    }
+  }
+  // k step nt covers key rows m0 + 8 nt .. + 7, k index q <-> row 2q and
+  // q + 4 <-> row 2q + 1: then the accumulator is the A fragment
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const float fa[4] = {a[nt][0], a[nt][2], a[nt][1], a[nt][3]};
+    uint32_t ah[4], al[4];
+    split4(fa, ah, al);
+    const float* vr = Vt + (m0 + 8 * nt + 2 * q) * kLDT + g;
+    float bb[kTS / 8][2];
+#pragma unroll
+    for (int vt = 0; vt < kTS / 8; ++vt) {
+      bb[vt][0] = vr[8 * vt];
+      bb[vt][1] = vr[kLDT + 8 * vt];
+    }
+    mma3<kTS / 8>(acc, ah, al, bb);
+  }
+}
+
+// Pass 3: one block per (batch, head, chunk, 64-row sub-tile).  Warp wp
+// owns output rows 16 (wp % 4) .. + 15, all columns, and sums over half
+// wp / 4 of every contraction (key rows, state rows); the halves are added
+// at the end.
+__global__ void __launch_bounds__(kThreads, 2)
+wkv6_output(const float* __restrict__ r, const float* __restrict__ k,
+            const float* __restrict__ v, const float* __restrict__ w,
+            const float* __restrict__ u, const float* __restrict__ Sc,
+            const float* __restrict__ carry_in, const float* __restrict__ Z_in,
+            float* __restrict__ y, int T, int H, int K, int L) {
+  extern __shared__ float smem[];
+  float* Qs = smem;                     // r, then Q; the output at the end
+  float* Ws = Qs + 5 * kTile;           // w of the sub-tile in flight
+  float* seg_sum = Ws + kTile;
+  float* Zs = seg_sum + 4 * kTS;
+  float* us = Zs + kTS;
+  float* diag = us + kTS;
+  // two k buffers (k, then Kf; S_c in the second at first) and two v
+  // buffers (r e^{LWp} in the second at first)
+  auto kbuf = [&](int x) { return Qs + (1 + x) * kTile; };
+  auto vbuf = [&](int x) { return Qs + (3 + x) * kTile; };
+
+  const int n = T / L, nsub = L / kTS;
+  const int i = nsub - 1 - (int)(blockIdx.x % nsub);
+  const int c = (blockIdx.x / nsub) % n, bh = blockIdx.x / nsub / n;
+  const int h = bh % H, b = bh / H;
+  const int tid = threadIdx.x, seg = tid >> 6, ch = tid & 63;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
+  const int t0w = 16 * (warp & 3), hf = warp >> 2;
+  const long long row = (long long)H * K;
+  const long long base = ((long long)b * T + (long long)c * L) * row
+                         + (long long)h * K;
+  const long long chunk = (long long)bh * n + c;
+  const float* carry = carry_in + chunk * nsub * K;
+  const long long off_i = base + (long long)i * kTS * row;
+
+  if (K < kTS) zero_smem(smem, 6 * kTile);
+  const float zc = ch < K ? Z_in[chunk * K + ch] : 0.0f;
+  float carry_next = ch < K ? carry[i * K + ch] : 0.0f;
+  if (tid < kTS) {
+    Zs[tid] = zc;
+    us[tid] = tid < K ? u[(long long)h * K + tid] : 0.0f;
+  }
+  __syncthreads();
+  load_tile(Qs, r + off_i, row, kTS, K);  // group 1: elementwise
+  load_tile(Ws, w + off_i, row, kTS, K);
+  load_tile(kbuf(0), k + off_i, row, kTS, K);
+  cp_commit();
+  load_tile(kbuf(1), Sc + chunk * K * K, K, K, K);  // group 2: products
+  load_tile(vbuf(0), v + off_i, row, kTS, K);
+  cp_commit();
+  cp_wait<1>();
+  __syncthreads();
+
+  float wv[kSeg], lw[kSeg];
+#pragma unroll
+  for (int t = 0; t < kSeg; ++t) wv[t] = Ws[(seg * kSeg + t) * kLDT + ch];
+  scan_rows(wv, seg_sum, carry_next, lw);
+  if (i > 0) carry_next = ch < K ? carry[ch] : 0.0f;
+  for (int t = warp * 8; t < warp * 8 + 8; ++t) {   // sum_k r u k
+    float p = 0.0f;
+    for (int kk = lane; kk < K; kk += 32)
+      p += Qs[t * kLDT + kk] * us[kk] * kbuf(0)[t * kLDT + kk];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
+    if (lane == 0) diag[t] = p;
+  }
+  __syncthreads();
+  if (ch < K) {
+#pragma unroll
+    for (int t = 0; t < kSeg; ++t) {
+      const int e = (seg * kSeg + t) * kLDT + ch;
+      const float lwp = lw[t] - wv[t], rr = Qs[e];
+      Qs[e] = rr * fast_clamp_exp(lwp - zc);
+      vbuf(1)[e] = rr * __expf(lwp);
+      kbuf(0)[e] = kbuf(0)[e] * fast_clamp_exp(zc - lw[t]);
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();
+
+  float acc[kTS / 8][4];
+#pragma unroll
+  for (int vt = 0; vt < kTS / 8; ++vt)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[vt][x] = 0.0f;
+  // the inter term (r e^{LWp}) S_c over state rows 32 hf .. + 31
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    const int k0 = 32 * hf + 8 * ks;
+    const float* rr = vbuf(1) + (t0w + g) * kLDT + k0 + q;
+    const float ra[4] = {rr[0], rr[8 * kLDT], rr[4], rr[8 * kLDT + 4]};
+    uint32_t rh[4], rl[4];
+    split4(ra, rh, rl);
+    const float* sr = kbuf(1) + (k0 + q) * kLDT + g;
+    float bb[kTS / 8][2];
+#pragma unroll
+    for (int vt = 0; vt < kTS / 8; ++vt) {
+      bb[vt][0] = sr[8 * vt];
+      bb[vt][1] = sr[4 * kLDT + 8 * vt];
+    }
+    mma3<kTS / 8>(acc, rh, rl, bb);
+  }
+  if (hf == 0) {                        // the bonus term, once
+#pragma unroll
+    for (int vt = 0; vt < kTS / 8; ++vt)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int t = t0w + g + 8 * (x >> 1), vv = 8 * vt + 2 * q + (x & 1);
+        acc[vt][x] += diag[t] * vbuf(0)[t * kLDT + vv];
+      }
+  }
+  __syncthreads();                      // kbuf(1), vbuf(1) and Ws are free
+  if (i > 0) {
+    load_tile(Ws, w + base, row, kTS, K);
+    load_tile(kbuf(1), k + base, row, kTS, K);
+    load_tile(vbuf(1), v + base, row, kTS, K);
+    cp_commit();
+  }
+  attend(Qs, kbuf(0), vbuf(0), acc, true);
+
+  for (int j = 0; j < i; ++j) {
+    const int bj = (j + 1) & 1;
+    cp_wait<0>();
+    __syncthreads();
+#pragma unroll
+    for (int t = 0; t < kSeg; ++t) wv[t] = Ws[(seg * kSeg + t) * kLDT + ch];
+    scan_rows(wv, seg_sum, carry_next, lw);
+    if (j + 1 < i) carry_next = ch < K ? carry[(j + 1) * K + ch] : 0.0f;
+    if (ch < K) {
+#pragma unroll
+      for (int t = 0; t < kSeg; ++t) {
+        float* p = kbuf(bj) + (seg * kSeg + t) * kLDT + ch;
+        *p = *p * fast_clamp_exp(zc - lw[t]);
+      }
+    }
+    __syncthreads();                    // Kf ready; Ws and the other set free
+    if (j + 1 < i) {
+      const long long off = base + (long long)(j + 1) * kTS * row;
+      load_tile(Ws, w + off, row, kTS, K);
+      load_tile(kbuf(bj ^ 1), k + off, row, kTS, K);
+      load_tile(vbuf(bj ^ 1), v + off, row, kTS, K);
+      cp_commit();
+    }
+    attend(Qs, kbuf(bj), vbuf(bj), acc, false);
+  }
+
+  // add the two halves in Qs and write the sub-tile's rows out
+  __syncthreads();
+  if (hf == 1) {
+#pragma unroll
+    for (int vt = 0; vt < kTS / 8; ++vt) {
+      float* o = Qs + (t0w + g) * kLDT + 8 * vt + 2 * q;
+      o[0] = acc[vt][0];
+      o[1] = acc[vt][1];
+      o[8 * kLDT] = acc[vt][2];
+      o[8 * kLDT + 1] = acc[vt][3];
+    }
+  }
+  __syncthreads();
+  if (hf == 0) {
+#pragma unroll
+    for (int vt = 0; vt < kTS / 8; ++vt) {
+      float* o = Qs + (t0w + g) * kLDT + 8 * vt + 2 * q;
+      o[0] += acc[vt][0];
+      o[1] += acc[vt][1];
+      o[8 * kLDT] += acc[vt][2];
+      o[8 * kLDT + 1] += acc[vt][3];
+    }
+  }
+  __syncthreads();
+  const int per_row = K >> 2;
+  for (int idx = tid; idx < kTS * per_row; idx += kThreads) {
+    const int t = idx / per_row, cc = (idx % per_row) * 4;
+    *reinterpret_cast<float4*>(y + off_i + (long long)t * row + cc) =
+        *reinterpret_cast<const float4*>(Qs + t * kLDT + cc);
+  }
+}
+
+size_t state_smem(int L) {
+  return sizeof(float) * (4 * kTile + 6 * kTS + (size_t)(L / kSeg) * kTS);
+}
+constexpr size_t kOutputSmem = sizeof(float) * (6 * kTile + 7 * kTS);
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
 }  // namespace
 
 extern "C" {
 
+// The per-head route: any L that divides T.
 int wkv6_f32(const float* r, const float* k, const float* v, const float* w,
              const float* u, const float* S0, float* y, float* S, int B, int T,
              int H, int K, int V, int L, cudaStream_t stream) {
@@ -320,6 +890,47 @@ int wkv6_f32(const float* r, const float* k, const float* v, const float* w,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   wkv6_kernel<<<B * H, kThreads, smem, stream>>>(r, k, v, w, u, S0, y, S, T,
                                                  H, K, V, L);
+  return (int)cudaGetLastError();
+}
+
+// The chunk-parallel route.  U (B, H, T / L, K, K), carry (B, H, T / L,
+// L / 64, K), Z and D (B, H, T / L, K) are the wrapper's scratch.  passes
+// is a mask of the kernels to launch (1 state, 2 prefix, 4 output): 7 for a
+// call, one bit to time one kernel alone.
+int wkv6_chunked_f32(const float* r, const float* k, const float* v,
+                     const float* w, const float* u, const float* S0,
+                     float* y, float* S, float* U, float* carry, float* Z,
+                     float* D, int B, int T, int H, int K, int L, int passes,
+                     cudaStream_t stream) {
+  if (K < 4 || K > kTS || K % 4 != 0 || L < kTS || L % kTS != 0 ||
+      T % L != 0 || state_smem(L) > 232448 || !aligned16(r) ||
+      !aligned16(k) || !aligned16(v) || !aligned16(w) || !aligned16(y) ||
+      !aligned16(U))
+    return (int)cudaErrorInvalidValue;
+  const int n = T / L, nsub = L / kTS, BH = B * H;
+  cudaError_t err;
+  if (passes & 1) {
+    const size_t smem = state_smem(L);
+    err = cudaFuncSetAttribute(wkv6_state,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    wkv6_state<<<BH * n, kThreads, smem, stream>>>(k, v, w, U, carry, Z, D,
+                                                   T, H, K, L);
+  }
+  if (passes & 2) {
+    const long long total = (long long)BH * K * K;
+    wkv6_prefix<<<(int)((total + kThreads - 1) / kThreads), kThreads, 0,
+                  stream>>>(U, D, S0, S, BH, n, K);
+  }
+  if (passes & 4) {
+    err = cudaFuncSetAttribute(wkv6_output,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kOutputSmem);
+    if (err != cudaSuccess) return (int)err;
+    wkv6_output<<<BH * n * nsub, kThreads, kOutputSmem, stream>>>(
+        r, k, v, w, u, U, carry, Z, y, T, H, K, L);
+  }
   return (int)cudaGetLastError();
 }
 

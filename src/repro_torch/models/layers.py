@@ -3,11 +3,6 @@
 Counterpart of ``repro.models.layers``.  Everything is a function over
 explicit dicts of parameter tensors.  Norms, RoPE and the softmax run in
 f32, as in JAX.  ``apply_mrope`` (Qwen2-VL) waits for the VLM slice.
-
-Rounding that differs from JAX: JAX's ``dot`` asks the matrix unit for an
-f32 result (``preferred_element_type``).  A bf16 ``torch.matmul`` also sums
-in f32 but rounds its result to bf16, and ``dot`` then casts that to f32.
-In f32 (the CPU tests) the two are the same product.
 """
 from __future__ import annotations
 
@@ -18,11 +13,23 @@ F32 = torch.float32
 
 
 def dot(x, w):
-    """``x @ w`` with an f32 result; mixed operand dtypes promote first, as
-    ``jnp.matmul`` does.  In bf16 the product is rounded to bf16 before the
-    cast (see the module docstring)."""
+    """``x @ w`` with an f32 result, as JAX's ``dot`` asks the matrix unit
+    for one (``preferred_element_type``); mixed operand dtypes promote
+    first, as ``jnp.matmul`` does.
+
+    For 16-bit floats the product is never rounded to 16 bits: on the card
+    ``torch.mm(..., out_dtype=torch.float32)`` sums in f32 and writes f32;
+    on the CPU, which lacks that overload, both operands are cast to f32
+    first, which is what JAX's CPU backend computes.  ``w`` is 2-D.
+    """
     dt = torch.promote_types(x.dtype, w.dtype)
-    return torch.matmul(x.to(dt), w.to(dt)).to(F32)
+    x, w = x.to(dt), w.to(dt)
+    if dt not in (torch.bfloat16, torch.float16):
+        return torch.matmul(x, w).to(F32)
+    if x.device.type == "cpu":
+        return torch.matmul(x.to(F32), w.to(F32))
+    out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=F32)
+    return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
 # --------------------------------------------------------------------------

@@ -12,6 +12,13 @@ another order, through exponentials of sums of up to 256 terms); in bf16
 inputs 3e-2 as in ``tests/test_kernels.py::test_wkv6_sweep`` (one bf16
 rounding of y).  The recurrence and the decode step are held within 1e-5
 relative (the same products, summed in another order).
+
+The CUDA kernel's chunk-parallel route is emulated here in plain torch: its
+three passes (per-chunk state, prefix over chunks, output by 64-row
+sub-tile, with the blocked scan of the decays) are held to JAX's
+``wkv_chunked`` within the same 1e-4, and its TF32 products are emulated to
+show why each is split in three (a single TF32 product breaks 1e-4 of
+max |y|; the split stays within 1e-5 of an f64 evaluation).
 """
 import jax
 import jax.numpy as jnp
@@ -160,3 +167,168 @@ def test_wrapper_takes_the_plain_version_only_on_cpu():
         tk.wkv6(*(t.to("meta") for t in (r, k, v, w, u)), chunk=8)
     with pytest.raises(ValueError, match="divisible"):
         tk.wkv6(r, k, v, w, u, chunk=5)
+
+
+# --------------------------------------------------------------------------
+# the chunk-parallel route of csrc/wkv6.cu, emulated in plain torch
+# --------------------------------------------------------------------------
+
+SUB, SEG = 64, 16      # the kernel's sub-tile and scan-segment rows
+
+
+def three_pass(r, k, v, w, u, S0, chunk):
+    """The kernel's chunk-parallel route in f32: LW by the blocked scan
+    (16-row segments summed in order, then the carry and the earlier
+    segments' totals), a state pass per chunk (Z, D = e^{LW_end}, U = K2^T V
+    summed by sub-tile), the prefix over chunks, and an output pass by
+    64-row sub-tile i (bonus, inter term, diagonal product masked m < t,
+    full products with every earlier sub-tile)."""
+    B, T, H, K = r.shape
+    n, nsub = T // chunk, chunk // SUB
+    f = lambda x: x.reshape(B, n, chunk, H, -1).permute(0, 3, 1, 2, 4)
+    r_, k_, v_, w_ = (f(x) for x in (r, k, v, w))          # (B,H,n,L,K)
+    local = w_.reshape(B, H, n, chunk // SEG, SEG, K).cumsum(4)
+    base = torch.zeros(B, H, n, chunk // SEG, K)
+    carry = torch.zeros(B, H, n, K)
+    for sg in range(chunk // SEG):
+        base[:, :, :, sg] = carry
+        carry = carry + local[:, :, :, sg, -1]
+    LW = (base[:, :, :, :, None] + local).reshape(B, H, n, chunk, K)
+    LWp = LW - w_
+    Z = LW[:, :, :, chunk // 2][:, :, :, None]
+
+    # pass 1: per chunk
+    LWe = LW[:, :, :, -1]
+    K2 = k_ * torch.exp(LWe[:, :, :, None] - LW)
+    U = sum(K2[:, :, :, s * SUB:(s + 1) * SUB].transpose(-1, -2)
+            @ v_[:, :, :, s * SUB:(s + 1) * SUB] for s in range(nsub))
+    D = torch.exp(LWe)
+    # pass 2: the states at the chunks' starts, in order
+    Sc, S = [], S0
+    for c in range(n):
+        Sc.append(S)
+        S = D[:, :, c, :, None] * S + U[:, :, c]
+    Sc = torch.stack(Sc, 2)
+    # pass 3: by sub-tile
+    Q = r_ * torch.exp((LWp - Z).clamp(-30, 30))
+    Kf = k_ * torch.exp((Z - LW).clamp(-30, 30))
+    R = r_ * torch.exp(LWp)
+    bonus = (r_ * u[None, :, None, None] * k_).sum(-1, keepdim=True)
+    mask = torch.ones(SUB, SUB, dtype=torch.bool).tril(-1)
+    rows = lambda x, i: x[:, :, :, i * SUB:(i + 1) * SUB]
+    y = torch.empty_like(v_)
+    for i in range(nsub):
+        yi = rows(R, i) @ Sc + rows(bonus, i) * rows(v_, i)
+        A = (rows(Q, i) @ rows(Kf, i).transpose(-1, -2)).masked_fill(~mask, 0)
+        yi = yi + A @ rows(v_, i)
+        for j in range(i):
+            yi = yi + (rows(Q, i) @ rows(Kf, j).transpose(-1, -2)) @ rows(v_, j)
+        y[:, :, :, i * SUB:(i + 1) * SUB] = yi
+    return y.permute(0, 2, 3, 1, 4).reshape(B, T, H, -1), S
+
+
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("B,T,H,K,chunk", [(2, 512, 2, 64, 64),
+                                           (2, 512, 2, 64, 128),
+                                           (2, 512, 2, 64, 256),
+                                           (2, 256, 3, 32, 64)])
+def test_three_pass_emulation_matches_jax(B, T, H, K, chunk, state):
+    """The chunk-parallel route's decomposition computes JAX's chunked form
+    at the chunk it is given, within 1e-4 of max |y| and of max |S|."""
+    arrs = wkv_inputs(T + chunk + K, B, T, H, K, state=state)
+    (jr, jk_, jv, jw, ju, jS), targs = both(arrs)
+    y, S = three_pass(*targs, chunk)
+    jy, jS2 = jrwkv.wkv_chunked(jr, jk_, jv, jw, ju, jS, chunk=chunk)
+    assert_rel_close(y, jy, 1e-4, "y")
+    assert_rel_close(S, jS2, 1e-4, "S")
+
+
+def tf32(x, rounding):
+    """x (f32) with a 10-bit mantissa: round half away ("rna", as
+    cvt.rna.tf32.f32) or truncate ("trunc", the kernel's masks)."""
+    bits = x.float().contiguous().view(torch.int32)
+    if rounding == "rna":
+        bits = bits + 0x1000
+    return (bits & ~0x1fff).view(torch.float32).double()
+
+
+def tf32_mm(parts, rounding):
+    """a @ b on f32 operands as the tensor cores take them, summed in f64:
+    one TF32 product, or three (a_hi b_hi + a_hi b_lo + a_lo b_hi, with
+    hi = tf32(x) and lo = tf32(x - hi))."""
+    def mm(a, b):
+        a, b = a.float(), b.float()
+        ah, bh = tf32(a, rounding), tf32(b, rounding)
+        if parts == 1:
+            return ah @ bh
+        al = tf32((a.double() - ah).float(), rounding)
+        bl = tf32((b.double() - bh).float(), rounding)
+        return ah @ bh + ah @ bl + al @ bh
+    return mm
+
+
+def chunked_f64(r, k, v, w, u, S0, chunk, mm):
+    """The chunked form in f64 with its four products (Q Kf^T, A V,
+    (r e^{LWp}) S and K2^T V) through ``mm``."""
+    B, T, H, K = r.shape
+    n = T // chunk
+    f = lambda x: x.double().reshape(B, n, chunk, H, -1).permute(0, 3, 1, 2, 4)
+    r_, k_, v_, w_ = (f(x) for x in (r, k, v, w))
+    S = S0.double()
+    mask = torch.ones(chunk, chunk, dtype=torch.bool).tril(-1)
+    ys = []
+    for c in range(n):
+        rc, kc, vc, wc = (x[:, :, c] for x in (r_, k_, v_, w_))
+        LW = wc.cumsum(2)
+        LWp = LW - wc
+        Z = LW[:, :, chunk // 2][:, :, None]
+        Q = rc * torch.exp((LWp - Z).clamp(-30, 30))
+        Kf = kc * torch.exp((Z - LW).clamp(-30, 30))
+        A = mm(Q, Kf.transpose(-1, -2)).masked_fill(~mask, 0.0)
+        bonus = (rc * u.double()[None, :, None] * kc).sum(-1, keepdim=True)
+        ys.append(mm(A, vc) + bonus * vc + mm(rc * torch.exp(LWp), S))
+        LWe = LW[:, :, -1]
+        K2 = kc * torch.exp(LWe[:, :, None] - LW)
+        S = torch.exp(LWe)[..., None] * S + mm(K2.transpose(-1, -2), vc)
+    return torch.stack(ys, 2), S
+
+
+@pytest.mark.parametrize("B,T,H,K,chunk,shift,state", [
+    (1, 512, 2, 64, 256, -0.6, False), (1, 64, 2, 64, 4, 2.0, True)])
+def test_tf32_split_keeps_the_gate_where_one_tf32_product_breaks_it(
+        B, T, H, K, chunk, shift, state):
+    """Why the tensor-core kernel splits every product in three.  Against an
+    f64 evaluation of the chunked form, with the smoke test's decay
+    distributions: one TF32 product per product departs by more than 1e-4
+    of max |y| (the kernel's gate), while the split stays within 1e-5 of
+    max |y| and of max |S|, rounded to nearest (cvt.rna) or truncated (the
+    kernel's masks) alike."""
+    arrs = [torch.tensor(a) for a in
+            wkv_inputs(0, B, T, H, K, decay_shift=shift, state=state)]
+    exact = lambda a, b: a @ b
+    y0, S0 = chunked_f64(*arrs, chunk, exact)
+
+    def rel(mm):
+        y, S = chunked_f64(*arrs, chunk, mm)
+        return (float((y - y0).abs().max() / y0.abs().max()),
+                float((S - S0).abs().max() / S0.abs().max()))
+
+    assert rel(tf32_mm(1, "rna"))[0] > 1e-4
+    for rounding in ("rna", "trunc"):
+        ey, eS = rel(tf32_mm(3, rounding))
+        assert ey <= 1e-5 and eS <= 1e-5, (rounding, ey, eS)
+
+
+def test_route_by_chunk_and_alignment():
+    """The tensor-core route takes chunks that are multiples of 64 with
+    K == V a multiple of 4 and 16-byte aligned operands; the per-head kernel
+    takes the rest (the 1040- and 300-token prompts' chunks 16 and 4)."""
+    r, k, v, w, u, _ = (torch.tensor(a) for a in wkv_inputs(7, 1, 256, 2, 32))
+    assert tk.route(r, k, v, w, 256) == "chunk-parallel"
+    assert tk.route(r, k, v, w, 64) == "chunk-parallel"
+    for chunk in (16, 4, 32):
+        assert tk.route(r, k, v, w, chunk) == "per-head"
+    assert tk.route(r, k, v[..., :28].contiguous(), w, 64) == "per-head"
+    flat = torch.zeros(r.numel() + 1)
+    shifted = flat[1:].view(r.shape)
+    assert tk.route(shifted, k, v, w, 64) == "per-head"
