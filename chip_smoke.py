@@ -7,10 +7,13 @@ Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, every source
 at once), then runs these phases, each of which raises on failure:
 
 1. every kernel against its plain PyTorch version on the card, at its main
-   path's shapes and at ragged shapes, with its time, the plain version's
-   time, the card's least time for the same work and, where one PyTorch
-   call computes the same function, that call's time; and ``layers.dot``
-   on bf16 operands against the f32 product;
+   path's shapes and at ragged shapes (the RM sweep also in f32 and on an
+   operand off a 16-byte boundary, each case with the access it took,
+   and bit for bit against ``emulated_sweep`` at a few lanes),
+   with its time, the plain version's time, the card's least time for the
+   same work and, where one PyTorch call computes the same function, that
+   call's time; and ``layers.dot`` on bf16 operands against the f32
+   product;
 2. the allocator's main path at the paper's scale (Sec. 5.3: 256 lanes of
    100-500 job classes, capacity factor 0.95, f64): ``CapacityEngine.solve``
    under the fused-kernel, sweep-kernel and default configurations, plus
@@ -58,6 +61,7 @@ MAIN_B, MAIN_N_LO, MAIN_N_MAX = 256, 100, 500
 PIN_B, PIN_N, PIN_STEPS = 64, 500, 48
 SMALL_NS = (37, 5, 29)  # ragged, N not a multiple of any tile, Nc = N + 2
 SEED = 0
+ORDER_LANES = 8  # lanes of a sweep case held bit for bit to emulated_sweep
 ALLOCATOR_KERNELS = ("fused_iter_sweep", "rm_sweep_batched", "rm_sweep")
 
 # the serving path: both configurations at full width and depth
@@ -113,6 +117,31 @@ def cuda_ms(fn, reps, warmup=2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps, warmup=2) -> float:
+    """Mean milliseconds per call of ``reps`` calls captured in one CUDA
+    graph, by CUDA events around its replay: the device's time per call
+    without the host's cost of each launch."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def wall_s(fn, reps=3) -> float:
     """Median host seconds of ``fn`` ending in a synchronize."""
     times = []
@@ -140,7 +169,8 @@ def bitwise(a, b) -> bool:
     if a.dtype != b.dtype or a.shape != b.shape:
         return False
     if a.is_floating_point():
-        a, b = a.view(torch.int64), b.view(torch.int64)
+        bits = {8: torch.int64, 4: torch.int32, 2: torch.int16}
+        a, b = a.view(bits[a.element_size()]), b.view(bits[b.element_size()])
     return bool(torch.equal(a, b))
 
 
@@ -170,19 +200,20 @@ def trajectory_bids(batch, steps=3):
 
 def check_sweep(inc, spare, p, kernel, plain, label):
     """Kernel vs plain sweep within (2N + 8) ULPs of each row's running-sum
-    scale: the two sum N terms in different orders (sequential in the
-    kernel; torch.cumsum's scan and a tree reduction in the plain version),
+    scale: the two sum N terms in different orders (the kernel's striped
+    warp scan and butterfly; torch.cumsum's scan and a tree reduction in
+    the plain version),
     and the textbook bound for the difference of two summation orders of N
     terms is about 2N rounding units of the sum of their magnitudes."""
     got = kernel(inc, spare, p)
     want = plain(inc, spare, p)
     n = inc.shape[-1]
     eps = torch.finfo(inc.dtype).eps
-    scale = inc.abs().sum(-1)
-    pscale = (inc * p.unsqueeze(-2)).abs().sum(-1)
+    # the ratios in f64, where the floor of 1e-300 on the scale holds
+    scale = inc.double().abs().sum(-1)
+    pscale = (inc.double() * p.double().unsqueeze(-2)).abs().sum(-1)
     tol = (2 * n + 8) * eps
-    errs = [(got[0] - want[0]).abs(), (got[1] - want[1]).abs(),
-            (got[2] - want[2]).abs()]
+    errs = [(g.double() - w.double()).abs() for g, w in zip(got, want)]
     ratio = max(float((errs[0] / (tol * scale[..., None]).clamp_min(1e-300)
                        ).max()),
                 float((errs[1] / (tol * scale).clamp_min(1e-300)).max()),
@@ -217,6 +248,115 @@ def fused_args(batch, prep, bids):
             prep.rho_bar, prep.sum_r_low, prep.p_r_low, prep.const)
 
 
+def emulated_sweep(inc, spare, p_sorted, width):
+    """``src/repro_torch/csrc/gnep_sweep.cu``'s arithmetic, step for step,
+    in torch: (fill, sum_fill, p_fill) of (B, Nc, N) / (B,) / (B, N)
+    operands at ``width`` values per access (``access_width``).
+
+    A warp owns a row; stripe k holds 32 x ``width`` values, thread t the
+    ``width`` consecutive ones at k * 32 * width + t * width.  Each thread
+    adds its values in order; five shift-and-add steps (``__shfl_up_sync``
+    by 1, 2, 4, 8, 16) give the inclusive scan of the 32 thread totals,
+    a shift by one the exclusive prefix, and thread 31's total carries to
+    the next stripe.  From carry + prefix each thread walks its values in
+    order: cum, fill, and its own sum_fill and p_fill terms, which a
+    butterfly (``__shfl_xor_sync`` by 16, 8, 4, 2, 1) adds; thread 0's sum
+    is the result.  Values past N are zeros, as the kernel's are.  Each
+    step is one elementwise torch operation, so nothing contracts into an
+    FMA (the kernel builds with -fmad=false): on the card the kernel
+    matches this bit for bit (phase 1), and the CPU tests hold it to the
+    plain version and to the JAX reference."""
+    B, Nc, N = inc.shape
+    S = 32 * width
+    K = -(-N // S)
+    pad = K * S - N
+    x = torch.nn.functional.pad(inc, (0, pad)).reshape(B, Nc, K, 32, width)
+    pv = torch.nn.functional.pad(p_sorted, (0, pad)).reshape(B, 1, K, 32,
+                                                              width)
+    lane = torch.arange(32, device=inc.device)
+    s = x[..., 0]
+    for v in range(1, width):
+        s = s + x[..., v]
+    incl = s
+    for d in (1, 2, 4, 8, 16):
+        up = torch.zeros_like(incl)
+        up[..., d:] = incl[..., :-d]
+        incl = torch.where(lane >= d, incl + up, incl)
+    excl = torch.zeros_like(incl)
+    excl[..., 1:] = incl[..., :-1]
+    sp = spare[:, None, None]
+    carry = inc.new_zeros((B, Nc, 1))
+    sacc = inc.new_zeros((B, Nc, 32))
+    pacc = inc.new_zeros((B, Nc, 32))
+    fill = torch.empty_like(x)
+    for k in range(K):
+        cum = carry + excl[:, :, k]
+        carry = carry + incl[:, :, k, 31:]
+        for v in range(width):
+            xv = x[:, :, k, :, v]
+            cum = cum + xv
+            f = torch.minimum(torch.clamp(sp - (cum - xv), min=0.0), xv)
+            fill[:, :, k, :, v] = f
+            sacc = sacc + f
+            pacc = pacc + f * pv[:, :, k, :, v]
+    for d in (16, 8, 4, 2, 1):
+        sacc = sacc + sacc[..., lane ^ d]
+        pacc = pacc + pacc[..., lane ^ d]
+    return (fill.reshape(B, Nc, K * S)[..., :N], sacc[..., 0], pacc[..., 0])
+
+
+def check_sweep_order(inc, spare, p, kernel, label):
+    """``kernel`` on (B, Nc, N) operands bit for bit against
+    ``emulated_sweep`` at the access width the wrapper takes for them."""
+    from repro_torch.kernels.gnep_sweep.kernel import access_width
+    got = kernel(inc, spare, p)
+    want = emulated_sweep(inc, spare, p, access_width(inc, p))
+    ok = all(bitwise(g.reshape(w.shape), w) for g, w in zip(got, want))
+    print(f"  {label}, {inc.shape[0]} lane(s): bitwise to emulated_sweep "
+          f"{ok}")
+    if not ok:
+        raise AssertionError(f"{label}: the kernel's order of operations "
+                             "is not the one emulated_sweep writes out")
+
+
+def sweep_label(name, inc, p):
+    from repro_torch.kernels.gnep_sweep.kernel import access_width
+    w = access_width(inc, p)
+    how = f"16-byte access, {w} values" if w > 1 else "scalar access"
+    return f"{name} {tuple(inc.shape)} {str(inc.dtype)[6:]} ({how})"
+
+
+def offset_copy(t):
+    """A contiguous copy of ``t`` whose base lies one element past a 16-byte
+    boundary (a view into a buffer one element longer)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def check_v16_refusal():
+    """The 16-byte entry point returns an error, and launches nothing, for
+    a base that is not on a 16-byte boundary."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.gnep_sweep import kernel as sk
+    lib = _build.load("gnep_sweep", sk._SIGNATURES)
+    buf = torch.zeros(2 * 4 * 4 + 2, dtype=F64, device="cuda")
+    spare = torch.ones(2, dtype=F64, device="cuda")
+    out = torch.zeros(2 * 4 * 4 + 2 * 4 * 2, dtype=F64, device="cuda")
+    err = lib.rm_sweep_v16_f64(buf[1:].data_ptr(), spare.data_ptr(),
+                               buf.data_ptr(), out.data_ptr(),
+                               out[32:].data_ptr(), out[40:].data_ptr(),
+                               2, 4, 4, _build.stream_of(buf))
+    torch.cuda.synchronize()
+    msg = lib.error_string(err).decode()
+    print(f"  rm_sweep_v16_f64 on a base 8 bytes past a 16-byte boundary: "
+          f"error {err} ({msg})")
+    if err == 0 or torch.count_nonzero(out):
+        raise AssertionError("the 16-byte sweep entry point took a "
+                             "misaligned operand")
+
+
 def phase_kernels(main, small):
     from repro_torch.core.game import _rm_candidates
     from repro_torch.kernels.gnep_iter.kernel import fused_iter_sweep
@@ -232,16 +372,46 @@ def phase_kernels(main, small):
         scns, mask = batch.scenarios, batch.mask
         # the batched sweep at the shapes the sweep configuration gives it
         _, inc, spare, p_sorted, _ = _rm_candidates(scns, bids, mask)
-        err_b = check_sweep(inc, spare.contiguous(), p_sorted,
-                            rm_sweep_batched, reference_batched,
-                            f"rm_sweep_batched {label} {tuple(inc.shape)}")
+        spare = spare.contiguous()
         # one instance, as rm_solve(sweep_fn=make_sweep_fn()) gives it
         lane = batch.instance(0)
         _, inc1, spare1, p1, _ = _rm_candidates(
             lane, bids[0][batch.mask[0]],
             torch.ones(lane.n, dtype=torch.bool, device=bids.device))
-        err_1 = check_sweep(inc1, spare1, p1, rm_sweep, reference,
-                            f"rm_sweep {label} {tuple(inc1.shape)}")
+        # f64 as the main path runs them; at the main shapes also f32
+        # (four values to a 16-byte access) and the batched sweep on an
+        # operand one element off a 16-byte boundary (scalar access)
+        cases = [(inc, spare, p_sorted, inc1, spare1, p1)]
+        if label == "main":
+            cases.append(tuple(t.float() for t in cases[0]))
+        err_b = err_1 = 0.0   # the kernels' rows report the f64 errors
+        cut = slice(0, ORDER_LANES)
+        for ib, sb, pb, i1, s1, p1_ in cases:
+            what_b = sweep_label(f"rm_sweep_batched {label}", ib, pb)
+            what_1 = sweep_label(f"rm_sweep {label}", i1, p1_)
+            e_b = check_sweep(ib, sb, pb, rm_sweep_batched, reference_batched,
+                              what_b)
+            e_1 = check_sweep(i1, s1, p1_, rm_sweep, reference, what_1)
+            if ib.dtype == F64:
+                err_b, err_1 = max(err_b, e_b), max(err_1, e_1)
+            check_sweep_order(ib[cut], sb[cut], pb[cut], rm_sweep_batched,
+                              what_b)
+            check_sweep_order(i1[None], s1.reshape(1), p1_[None],
+                              lambda i, s_, p_: rm_sweep(i[0], s_[0], p_[0]),
+                              what_1)
+        if label == "main":
+            inc_off = offset_copy(inc)
+            what = sweep_label("rm_sweep_batched main, offset view", inc_off,
+                               p_sorted)
+            err_b = max(err_b, check_sweep(
+                inc_off, spare, p_sorted, rm_sweep_batched, reference_batched,
+                what))
+            check_sweep_order(inc_off[cut], spare[cut], p_sorted[cut],
+                              rm_sweep_batched, what)
+            t_scalar = cuda_ms(
+                lambda: rm_sweep_batched(inc_off, spare, p_sorted), 20)
+            del inc_off
+            check_v16_refusal()
         args = fused_args(batch, prep, bids)
         err_f = check_fused(args, fused_iter_sweep, fused_middle_reference,
                             f"fused_iter_sweep {label} "
@@ -257,10 +427,21 @@ def phase_kernels(main, small):
         B, Nc, N = inc.shape
         t_k = cuda_ms(lambda: rm_sweep_batched(inc, spare, p_sorted), 20)
         t_p = cuda_ms(lambda: reference_batched(inc, spare, p_sorted), 5)
+        t_32 = cuda_ms(lambda: rm_sweep_batched(*cases[1][:3]), 20)
         # inc read and fill written once, spare/p read, sums written;
         # eight operations per (candidate, class) element
         b_ms, b_by = bound(nbytes(inc, spare, p_sorted) + nbytes(inc)
                            + 2 * B * Nc * inc.element_size(), 8 * B * Nc * N)
+        b_32, _ = bound(nbytes(*cases[1][:3]) + nbytes(cases[1][0])
+                        + 2 * B * Nc * 4, 8 * B * Nc * N, FP32_OPS_PER_S)
+        # the practical floor of the same traffic: one copy of inc (its
+        # bytes read and written once), a yardstick the port never calls
+        dst = torch.empty_like(inc)
+        t_copy = cuda_ms(lambda: dst.copy_(inc), 20)
+        del dst
+        print(f"  rm_sweep_batched f32: ms={t_32!r} bound_ms={b_32!r}; "
+              f"f64 with scalar access (offset view): ms={t_scalar!r}; "
+              f"(yardstick) inc.copy_ of the f64 main shape: ms={t_copy!r}")
         rows["rm_sweep_batched"] = dict(
             name="rm_sweep_batched", route="cuda",
             source="src/repro_torch/csrc/gnep_sweep.cu",
@@ -268,9 +449,18 @@ def phase_kernels(main, small):
             max_abs_err=err_b, ms=t_k, plain_ms=t_p, bound_ms=b_ms,
             bound_by=b_by, library_ms=None)
 
+        # the single instance's 2.6 MB sit in L2 and its kernel takes a few
+        # microseconds, less than the wrapper's host work: its time is the
+        # device's per call in one CUDA graph of back-to-back calls; the
+        # stream-launched loop, paced by the host, is what the main path
+        # pays and how earlier rows were timed (stream_ms, plain_stream_ms)
         Nc1, N1 = inc1.shape
-        t_k = cuda_ms(lambda: rm_sweep(inc1, spare1, p1), 50)
-        t_p = cuda_ms(lambda: reference(inc1, spare1, p1), 20)
+        t_k = graph_ms(lambda: rm_sweep(inc1, spare1, p1), 50)
+        t_p = graph_ms(lambda: reference(inc1, spare1, p1), 20)
+        t_k_host = cuda_ms(lambda: rm_sweep(inc1, spare1, p1), 50)
+        t_p_host = cuda_ms(lambda: reference(inc1, spare1, p1), 20)
+        print(f"  rm_sweep stream-launched loop: ms={t_k_host!r} "
+              f"plain_ms={t_p_host!r}")
         b_ms, b_by = bound(nbytes(inc1, spare1, p1) + nbytes(inc1)
                            + 2 * Nc1 * inc1.element_size(), 8 * Nc1 * N1)
         rows["rm_sweep"] = dict(
@@ -278,7 +468,8 @@ def phase_kernels(main, small):
             source="src/repro_torch/csrc/gnep_sweep.cu",
             replaces="src/repro/kernels/gnep_sweep/kernel.py:64",
             max_abs_err=err_1, ms=t_k, plain_ms=t_p, bound_ms=b_ms,
-            bound_by=b_by, library_ms=None)
+            bound_by=b_by, library_ms=None, stream_ms=t_k_host,
+            plain_stream_ms=t_p_host)
 
         t_k = cuda_ms(lambda: fused_iter_sweep(*args), 20)
         t_p = cuda_ms(lambda: fused_middle_reference(*args), 3, warmup=1)
@@ -991,7 +1182,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card_line())
-    print(json.dumps({"kernels": [{k: row[k] for k in keys}
+    # the contract's keys first, then a row's own (rm_sweep's stream times)
+    print(json.dumps({"kernels": [{**{k: row[k] for k in keys}, **row}
                                   for row in rows.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

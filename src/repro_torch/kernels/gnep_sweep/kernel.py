@@ -5,6 +5,8 @@ tensors returns the plain PyTorch version (``ref.py``); given CUDA tensors
 it launches the kernel on PyTorch's current stream or raises.  Each wrapper
 counts its own launches in its ``launches`` attribute.  Both take the input
 dtype (float32 or float64): the TPU path's forced f32 cast is not ported.
+The kernel reads and writes 16-byte vectors where the rows allow it and
+single values otherwise; ``access_width`` picks the entry point.
 """
 from __future__ import annotations
 
@@ -16,10 +18,26 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.gnep_sweep.ref import reference, reference_batched
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {f"rm_sweep_{t}": [_P] * 6 + [_I] * 3 + [_P]
-               for t in ("f32", "f64")}
+_SIGNATURES = {f"rm_sweep_{v}{t}": [_P] * 6 + [_I] * 3 + [_P]
+               for v in ("", "v16_") for t in ("f32", "f64")}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _INT_MAX = 2**31 - 1
+
+
+def access_width(inc, p_sorted) -> int:
+    """Values per access the kernel takes for these operands: one 16-byte
+    vector (2 in f64, 4 in f32) where every row of ``inc`` and ``p_sorted``
+    (and of the freshly allocated fill) starts on a 16-byte boundary, which
+    needs N * element size a multiple of 16 and 16-byte aligned bases;
+    else 1, the same kernel with scalar access."""
+    return _width(inc.shape[-1], inc.element_size(), inc.data_ptr(),
+                  p_sorted.data_ptr())
+
+
+def _width(n, size, inc_ptr, p_ptr) -> int:
+    vec = 16 // size
+    aligned = inc_ptr % 16 == 0 and p_ptr % 16 == 0
+    return vec if n % vec == 0 and aligned else 1
 
 
 def _launch(inc, spare, p_sorted, what):
@@ -45,10 +63,12 @@ def _launch(inc, spare, p_sorted, what):
     sum_fill = inc.new_empty((B, Nc))
     p_fill = inc.new_empty((B, Nc))
     lib = _build.load("gnep_sweep", _SIGNATURES)
-    fn = getattr(lib, f"rm_sweep_{_SUFFIX[inc.dtype]}")
-    err = fn(inc.data_ptr(), spare.data_ptr(), p_sorted.data_ptr(),
-             fill.data_ptr(), sum_fill.data_ptr(), p_fill.data_ptr(),
-             B, Nc, N, _build.stream_of(inc))
+    inc_ptr, p_ptr = inc.data_ptr(), p_sorted.data_ptr()
+    v16 = "v16_" if _width(N, inc.element_size(), inc_ptr, p_ptr) > 1 else ""
+    fn = getattr(lib, f"rm_sweep_{v16}{_SUFFIX[inc.dtype]}")
+    err = fn(inc_ptr, spare.data_ptr(), p_ptr, fill.data_ptr(),
+             sum_fill.data_ptr(), p_fill.data_ptr(), B, Nc, N,
+             _build.stream_of(inc))
     _build.check(lib, err, what)
     return fill, sum_fill, p_fill
 

@@ -12,7 +12,16 @@ and sum_fill are held to ``2N + 8`` ULPs of each row's ``sum(inc)`` and
 p_fill to as many of its ``sum(inc * p)``.  Solver-level results use 64
 ULPs of the allocation scale: prefix sums of <= 24 terms reordered through
 a few iterations.  Prices, iteration counts and feasibility match exactly.
+
+The CUDA kernel cannot run here, so its own order of operations (a striped
+warp scan, ``chip_smoke.emulated_sweep``, which the kernel matches bit for
+bit on the card) is written out in torch and held to the plain version and
+the JAX reference within the same gate, and the wrapper's choice between its
+16-byte and scalar entry points (``access_width``) is tested directly.
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +36,19 @@ from repro_torch.core import game as tg
 from repro_torch.kernels.gnep_sweep import kernel as tk
 from repro_torch.kernels.gnep_sweep import ops as tops
 from repro_torch.kernels.gnep_sweep import ref as tref
+
+
+def _chip_smoke_module():
+    """``chip_smoke.py``, whose phase 1 holds the CUDA kernel bit for bit
+    to its ``emulated_sweep`` (importing it runs no phase)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+emulated_sweep = _chip_smoke_module().emulated_sweep
 
 
 def sweep_inputs(seed, B, Nc, N, dtype=np.float32):
@@ -142,3 +164,65 @@ def test_batched_sweep_solve_matches_jax():
         assert_ulp_close(np_(getattr(got, fld)), np_(getattr(want, fld)),
                          ulps=64, scale=np_(want.r), err_msg=fld)
     assert_bitwise_equal(np_(got.aux), np_(want.aux), label="rho")
+
+
+# --------------------------------------------------------------------------
+# The CUDA kernel's order of operations, and which access it takes
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("N", [5, 37, 64, 400, 500, 518])
+def test_kernel_order_within_the_reordering_gate(N, dtype):
+    """The kernel's summation order (``chip_smoke.emulated_sweep``, which
+    the kernel matches bit for bit on the card) against the plain version
+    and the JAX reference within the (2N + 8)-ULP gate that
+    ``chip_smoke.py`` holds the kernel to.  N = 518 is not a multiple of
+    f32's vector of four (scalar access there) and takes two passes of
+    f64's 512-value register rows; 5 and 37 are odd (scalar access in both
+    types)."""
+    inc_np, spare_np, p_np = sweep_inputs(N, 2, 12, N, dtype)
+    inc, spare, p = map(torch.as_tensor, (inc_np, spare_np, p_np))
+    width = tk.access_width(inc, p)
+    assert width == (16 // inc.element_size()
+                     if N % (16 // inc.element_size()) == 0 else 1)
+    got = emulated_sweep(inc, spare, p, width)
+    assert_sweep_close(got, tref.reference_batched(inc, spare, p),
+                       inc_np, p_np)
+    assert_sweep_close(got, jref.reference_batched(inc_np, spare_np, p_np),
+                       inc_np, p_np)
+
+
+def _offset_view(shape, dtype, offset):
+    """A contiguous tensor of ``shape`` that starts ``offset`` elements into
+    a 16-byte aligned buffer."""
+    n = int(np.prod(shape))
+    buf = torch.zeros(n + offset, dtype=dtype)
+    assert buf.data_ptr() % 16 == 0
+    view = buf[offset:].view(shape)
+    assert view.is_contiguous()
+    return view
+
+
+@pytest.mark.parametrize("N,dtype,inc_offset,p_offset,want", [
+    (500, torch.float64, 0, 0, 2),     # the main batched shape
+    (400, torch.float64, 0, 0, 2),     # the main single instance
+    (500, torch.float32, 0, 0, 4),
+    (37, torch.float64, 0, 0, 1),      # the ragged batch: 296-byte rows
+    (37, torch.float32, 0, 0, 1),
+    (518, torch.float32, 0, 0, 1),     # 2,072-byte rows
+    (518, torch.float64, 0, 0, 2),
+    (500, torch.float64, 1, 0, 1),     # inc's base 8 bytes off
+    (500, torch.float32, 2, 0, 1),
+    (500, torch.float32, 4, 0, 4),     # 16 bytes off: still aligned
+    (500, torch.float64, 0, 1, 1),     # p's base 8 bytes off
+])
+def test_access_width_follows_row_alignment(N, dtype, inc_offset, p_offset,
+                                            want):
+    """The wrapper's choice of the 16-byte or the scalar entry point: a
+    16-byte vector only where every row of inc and p starts on a 16-byte
+    boundary."""
+    inc = _offset_view((2, N + 2, N), dtype, inc_offset)
+    p = _offset_view((2, N), dtype, p_offset)
+    assert tk.access_width(inc, p) == want
+
