@@ -9,11 +9,14 @@ at once), then runs these phases, each of which raises on failure:
 1. every kernel against its plain PyTorch version on the card, at its main
    path's shapes and at ragged shapes (the RM sweep also in f32 and on an
    operand off a 16-byte boundary, each case with the access it took,
-   and bit for bit against ``emulated_sweep`` at a few lanes),
+   and bit for bit against ``emulated_sweep`` at a few lanes; the fused
+   middle bit for bit in f64 and f32, with every price distinct, at a
+   tie, at a cold start, with signed-zero bids and past one staged chunk),
    with its time, the plain version's time, the card's least time for the
-   same work and, where one PyTorch call computes the same function, that
-   call's time; and ``layers.dot`` on bf16 operands against the f32
-   product;
+   same work (the fused middle's counting only the distinct prices and
+   live classes these inputs need) and, where one PyTorch call computes
+   the same function, that call's time; and ``layers.dot`` on bf16
+   operands against the f32 product;
 2. the allocator's main path at the paper's scale (Sec. 5.3: 256 lanes of
    100-500 job classes, capacity factor 0.95, f64): ``CapacityEngine.solve``
    under the fused-kernel, sweep-kernel and default configurations, plus
@@ -21,7 +24,9 @@ at once), then runs these phases, each of which raises on failure:
    ``rm_solve(sweep_fn=...)``, with every kernel's launch count read
    around it;
 3. the pinned loop (``eps_bar=0``, 48 steps, 64 lanes of 500 classes): the
-   fused kernel path against the plain middle, bit for bit;
+   fused kernel path against the plain middle, bit for bit, then the fused
+   solve's median wall, its device busy time and the idle gaps next to
+   the fused kernel;
 4. solve times and the device's idle share in one fused solve;
 5. the tenant LM serving path (``repro_torch.serving.generate``, as
    ``python -m repro_torch.launch.serve`` drives it) for Qwen3-0.6B and
@@ -60,6 +65,9 @@ F64 = torch.float64
 MAIN_B, MAIN_N_LO, MAIN_N_MAX = 256, 100, 500
 PIN_B, PIN_N, PIN_STEPS = 64, 500, 48
 SMALL_NS = (37, 5, 29)  # ragged, N not a multiple of any tile, Nc = N + 2
+# the fused middle past one staged chunk of classes (1,024) and one
+# compacted segment of candidates (2,048): ragged, longest N = 2,100
+CHUNK_NS = (2100, 1500, 900, 2100)
 SEED = 0
 ORDER_LANES = 8  # lanes of a sweep case held bit for bit to emulated_sweep
 ALLOCATOR_KERNELS = ("fused_iter_sweep", "rm_sweep_batched", "rm_sweep")
@@ -233,7 +241,12 @@ def check_fused(args, kernel, plain, label):
     bad = [nm for nm, g, w in zip(names, got, want) if not bitwise(g, w)]
     max_err = max(float((g.double() - w.double()).abs().max())
                   for g, w in zip(got, want))
-    print(f"  {label}: bitwise={not bad} max_abs_err={max_err!r}")
+    # the lanes whose winner is the rho_bar group (its price admits every
+    # class), whose replay the kernel can take off the critical path
+    ints = {8: torch.int64, 4: torch.int32}[args[5].element_size()]
+    won = int((got[3].view(ints) == args[5].view(ints)).sum())
+    print(f"  {label}: bitwise={not bad} max_abs_err={max_err!r} "
+          f"rho_bar group wins {won} of {args[5].shape[0]} lanes")
     if bad:
         raise AssertionError(f"{label}: kernel not bitwise equal to the "
                              f"plain middle in {bad}")
@@ -246,6 +259,74 @@ def fused_args(batch, prep, bids):
     bids_sorted = torch.gather(bids_eff, 1, prep.order)
     return (bids_sorted, prep.inc_max_sorted, prep.p_sorted, cand, prep.spare,
             prep.rho_bar, prep.sum_r_low, prep.p_r_low, prep.const)
+
+
+def fused_work(args):
+    """Per lane of a fused-middle case: D, the number of distinct candidate
+    bit patterns, and L, one past the last class that can change an
+    accumulator (every class but those with zero headroom and a finite
+    penalty rate)."""
+    _, inc_max, p, cand = args[:4]
+    ints = {8: torch.int64, 4: torch.int32}[cand.element_size()]
+    D = torch.tensor([torch.unique(row).numel() for row in cand.view(ints)],
+                     dtype=torch.float64)
+    live = ~((inc_max == 0) & torch.isfinite(p))
+    col = torch.arange(1, p.shape[1] + 1, device=p.device)
+    L = torch.where(live, col, 0).amax(1).double().cpu()
+    return D, L
+
+
+def fused_bound(args, outs):
+    """(ms, 'bytes' | 'operations') of the fused middle on these inputs: the
+    operands read once and the outputs written once, against the work these
+    inputs need: nine operations for every (distinct price, live class)
+    step (compare, cum add, two subtracts, max, min, two adds, multiply),
+    six for every distinct price's objective and six for every replayed
+    live class.  The rate is half the data sheet's, which counts an FMA as
+    two operations: the kernel builds with -fmad=false, so each of its
+    operations is one instruction."""
+    D, L = fused_work(args)
+    ops = float((9 * D * L + 6 * D + 6 * L).sum())
+    rate = (FP64_OPS_PER_S if args[0].dtype == F64 else FP32_OPS_PER_S) / 2
+    return bound(nbytes(*args) + nbytes(*outs), ops, rate)
+
+
+def fused_label(name, args):
+    D, L = fused_work(args)
+    B, N = args[0].shape
+    return (f"fused_iter_sweep {name} {str(args[0].dtype)[6:]} B={B} N={N} "
+            f"Nc={args[3].shape[1]} (distinct prices a lane: mean "
+            f"{float(D.mean())!r}, max {int(D.max())}; live classes: max "
+            f"{int(L.max())})")
+
+
+def fused_cases(batch, prep, args):
+    """Further bitwise cases of the fused middle beside the main one: the
+    main batch in f32; with bids drawn uniformly in [rho_bar, rho_up] per
+    class (every price distinct, as phase 2 draws rm_solve's bids); with
+    spare = sum_r_low = 0 (every objective equal, so best is 0); at a cold
+    start (bids = rho_bar: two prices a lane, the rho_bar group led by real
+    slot 0); with bids drawn from {-0, +0, -1.5, 1} (signed zeros are equal
+    prices but two bit patterns); and a batch past one staged chunk and one
+    candidate segment."""
+    from repro_torch.core import cold_start
+    gen = torch.Generator().manual_seed(SEED + 1)
+    scns, mask = batch.scenarios, batch.mask
+    u = torch.rand(mask.shape, generator=gen, dtype=F64).to(mask.device)
+    rb = scns.rho_bar[:, None]
+    zero = torch.zeros_like(args[4])
+    signed = torch.tensor([-0.0, 0.0, -1.5, 1.0], dtype=F64)[
+        torch.randint(0, 4, mask.shape, generator=gen)].to(mask.device)
+    chunk_batch = sample_batch(gen, CHUNK_NS, max(CHUNK_NS))
+    chunk_prep, chunk_bids = trajectory_bids(chunk_batch)
+    return {
+        "main": tuple(t.float() for t in args),
+        "all-distinct": fused_args(batch, prep, rb + u * (scns.rho_up - rb)),
+        "tie": args[:4] + (zero, args[5], zero) + args[7:],
+        "cold-start": fused_args(batch, prep, cold_start(batch).bids),
+        "signed zeros": fused_args(batch, prep, signed),
+        "chunked": fused_args(chunk_batch, chunk_prep, chunk_bids),
+    }
 
 
 def emulated_sweep(inc, spare, p_sorted, width):
@@ -414,9 +495,7 @@ def phase_kernels(main, small):
             check_v16_refusal()
         args = fused_args(batch, prep, bids)
         err_f = check_fused(args, fused_iter_sweep, fused_middle_reference,
-                            f"fused_iter_sweep {label} "
-                            f"B={args[0].shape[0]} N={args[0].shape[1]} "
-                            f"Nc={args[3].shape[1]}")
+                            fused_label(label, args))
         if label != "main":
             for name, err in (("rm_sweep_batched", err_b), ("rm_sweep", err_1),
                               ("fused_iter_sweep", err_f)):
@@ -471,26 +550,48 @@ def phase_kernels(main, small):
             bound_by=b_by, library_ms=None, stream_ms=t_k_host,
             plain_stream_ms=t_p_host)
 
-        t_k = cuda_ms(lambda: fused_iter_sweep(*args), 20)
+        more = fused_cases(batch, prep, args)
+        for name, case in more.items():
+            e = check_fused(case, fused_iter_sweep, fused_middle_reference,
+                            fused_label(name, case))
+            if case[0].dtype == F64:
+                err_f = max(err_f, e)
+        tie_best = fused_iter_sweep(*more["tie"])[2]
+        if torch.count_nonzero(tie_best):
+            raise AssertionError("fused_iter_sweep tie: best is not 0 in "
+                                 "every lane")
+
+        # each case's time per call in a stream-launched loop of 20 calls
+        # (ms, as every PR has timed this kernel; at a few microseconds it
+        # is paced by the wrapper's host work) and in one CUDA graph of 20
+        # calls (graph_ms, the device's own time); the B = 1 case is the
+        # longest lane alone, the floor that the chain of one lane's walk
+        # sets
+        lane = int(batch.n_classes.argmax())
+        one = tuple(t[lane:lane + 1].contiguous() for t in args)
+        timed_cases = {"main f64": args, "main f32": more["main"],
+                       "all-distinct": more["all-distinct"],
+                       f"B=1 lane {lane} (n={int(batch.n_classes[lane])})":
+                       one}
+        fused_times = {}
+        for name, case in timed_cases.items():
+            t = cuda_ms(lambda: fused_iter_sweep(*case), 20)
+            t_graph = graph_ms(lambda: fused_iter_sweep(*case), 20)
+            b_ms, b_by = fused_bound(case, fused_iter_sweep(*case))
+            fused_times[name] = dict(ms=t, graph_ms=t_graph, bound_ms=b_ms,
+                                     bound_by=b_by)
+            print(f"  fused_iter_sweep {name}: ms={t!r} graph_ms={t_graph!r}"
+                  f" bound_ms={b_ms!r} ({b_by})")
+        main_t = fused_times["main f64"]
         t_p = cuda_ms(lambda: fused_middle_reference(*args), 3, warmup=1)
-        Bf, Nf = args[0].shape
-        Ncf = args[3].shape[1]
-        # operands read once; fill_best, obj, best and rho written once.
-        # Work this data needs: each lane's real candidates (n + 2) x real
-        # classes n, nine operations each (compare, cum add, two subtracts,
-        # max, min, two adds, multiply), six per candidate objective and per
-        # replayed class.
-        n_real = batch.n_classes.double()
-        ops = float((9 * (n_real + 2) * n_real + 6 * (n_real + 2)
-                     + 6 * n_real).sum())
-        out_bytes = (Bf * Nf + Bf * Ncf + 2 * Bf) * 8
-        b_ms, b_by = bound(nbytes(*args) + out_bytes, ops)
         rows["fused_iter_sweep"] = dict(
             name="fused_iter_sweep", route="cuda",
             source="src/repro_torch/csrc/gnep_iter.cu",
             replaces="src/repro/kernels/gnep_iter/kernel.py:137",
-            max_abs_err=err_f, ms=t_k, plain_ms=t_p, bound_ms=b_ms,
-            bound_by=b_by, library_ms=None)
+            max_abs_err=err_f, ms=main_t["ms"], plain_ms=t_p,
+            bound_ms=main_t["bound_ms"], bound_by=main_t["bound_by"],
+            library_ms=None, graph_ms=main_t["graph_ms"],
+            cases=fused_times)
     for row in rows.values():
         print(f"  {row['name']}: ms={row['ms']!r} plain_ms={row['plain_ms']!r}"
               f" bound_ms={row['bound_ms']!r} ({row['bound_by']})")
@@ -673,6 +774,23 @@ def phase_pinned(gen):
         raise AssertionError("pinned solve differs from the stepped loop")
     print(f"  engine solves bitwise equal, {PIN_STEPS} iterations per lane; "
           f"s: {times}")
+
+    # the fused solve again: its median wall over repeats, and one under the
+    # profiler, with the gaps beside the kernel's spans
+    from torch.profiler import ProfilerActivity, profile
+    eng = core.CapacityEngine(core.SolverConfig(
+        eps_bar=0.0, max_iters=PIN_STEPS, iter_fn=kernel_fn))
+    median = wall_s(lambda: eng.solve(batch), reps=7)
+    print(f"  fused kernel solve, median of 7: s={median!r}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.solve(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report_idle(prof, wall, "one pinned fused solve", rows=4)
+    report_gaps(prof, "fused_iter")
     return times
 
 
@@ -734,6 +852,29 @@ def report_idle(prof, wall, what, rows=6):
 # --------------------------------------------------------------------------
 # phase 1b: the model kernels against their plain versions
 # --------------------------------------------------------------------------
+
+
+def report_gaps(prof, name):
+    """Print the mean device time of the kernels whose name holds ``name``
+    and the mean idle gap (us) between neighbouring device spans, for the
+    gaps next to such a kernel and for all others: a kernel that makes its
+    neighbours wait (a shared-memory carveout switch, say) widens the
+    first."""
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    own = [e - s for s, e, n in spans if name in n]
+    near, other = [], []
+    for (_, e0, n0), (s1, _, n1) in zip(spans, spans[1:]):
+        (near if name in n0 or name in n1 else other).append(s1 - e0)
+
+    def mean(xs):
+        return sum(xs) / len(xs) if xs else None
+    print(f"  {name} spans: {len(own)}, mean us={mean(own)!r}; gaps next to "
+          f"them: {len(near)}, mean us={mean(near)!r}, median us="
+          f"{statistics.median(near) if near else None!r}; other gaps: "
+          f"{len(other)}, mean us={mean(other)!r}, median us="
+          f"{statistics.median(other) if other else None!r}")
 
 
 def check_close(got, want, atol, rtol, label):

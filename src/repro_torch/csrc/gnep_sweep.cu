@@ -47,9 +47,10 @@
 // sums with torch.cumsum and a tree reduction, so the two agree within the
 // reordering bound, not bitwise.  The source builds with -fmad=false
 // (kernels/_build.py), so no multiply and add contract into an FMA.
-#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "resident.cuh"
 
 namespace {
 
@@ -189,26 +190,6 @@ bool aligned16(const void* ptr) {
   return reinterpret_cast<std::uintptr_t>(ptr) % 16 == 0;
 }
 
-// Blocks of rm_sweep_rows<T, VEC> resident at once on the current device
-// (its occupancy times the SM count), queried once for each device.
-template <typename T, int VEC>
-long long resident_blocks() {
-  constexpr int kMaxDevices = 64;
-  static std::atomic<long long> cached[kMaxDevices];
-  int dev = 0;
-  cudaGetDevice(&dev);
-  long long n = dev < kMaxDevices ? cached[dev].load() : 0;
-  if (n == 0) {
-    int per_sm = 0, sms = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, rm_sweep_rows<T, VEC>, kThreads, 0);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    n = (long long)(per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 1);
-    if (dev < kMaxDevices) cached[dev].store(n);
-  }
-  return n;
-}
-
 template <typename T, int VEC>
 int launch(const T* inc, const T* spare, const T* p, T* fill, T* sum_fill,
            T* p_fill, int B, int Nc, int N, cudaStream_t stream) {
@@ -221,7 +202,8 @@ int launch(const T* inc, const T* spare, const T* p, T* fill, T* sum_fill,
     // persistent grid: as many blocks as are resident at once, fewer when
     // the rows run out first
     const long long want = (rows + kThreads / 32 - 1) / (kThreads / 32);
-    const long long resident = resident_blocks<T, VEC>();
+    const long long resident =
+        device_fit<rm_sweep_rows<T, VEC>, kThreads>().resident();
     const int grid = (int)(want < resident ? want : resident);
     rm_sweep_rows<T, VEC><<<grid, kThreads, 0, stream>>>(
         inc, spare, p, fill, sum_fill, p_fill, Nc, N, rows);

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` exports plain C entry points (pointers, ints and a
 ``cudaStream_t``) and is compiled at first use by ``nvcc`` into
 ``build/kernels/lib<name>-<hash>.so`` at the repository root; the hash of
-the source names the library, so an edited source is never served by a
-stale build.  Nothing here runs when a module is imported: the CPU tests
+the source, its flags and the shared headers (``csrc/*.cuh``) names the
+library, so an edited source or header is never served by a stale build.  Nothing here runs when a module is imported: the CPU tests
 import every module on hosts that have no ``nvcc``.
 """
 from __future__ import annotations
@@ -52,8 +52,10 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     flags = " ".join(nvcc_flags(name)).encode()
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + flags).hexdigest()[:12]
+    # the shared headers too, so that an edited header rebuilds its sources
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes() + flags
+                            + headers).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -6,6 +6,18 @@ CUDA tensors it launches the kernel on PyTorch's current stream or raises,
 and counts the launch in ``fused_iter_sweep.launches``.  The kernel writes
 only the winning candidate's fill row, ``(B, N)``, not the ``(B, Nc, N)``
 fill tensor of the TPU kernel: the solver takes nothing else from it.
+
+The kernel skips work that cannot change a bit of any output.  It walks
+each lane's classes only up to the last one that can move an accumulator
+(a class with zero headroom and a finite penalty rate adds +-0 to sums that
+are never -0; padded classes are such classes, and sort last).  It walks
+each distinct candidate price once: ``obj`` is a function of a candidate's
+bits and the lane's data, so every candidate carrying ``rho_bar``'s bits
+(the padded slots, column N and, at a cold start, every bid) takes the
+objective of one walk, and counts in the first-max argmax at its smallest
+index, where ``torch.argmax`` finds the first of equal maxima.  Its grid
+(a block a lane, at most as many as are resident at once) is sized inside
+the C launcher, from the occupancy and SM count it queries once a device.
 """
 from __future__ import annotations
 

@@ -190,3 +190,139 @@ def test_fused_iter_fn_is_memoized_and_named_as_in_jax():
     assert make_fused_iter_fn() is PORT
     assert PORT.__name__ == j_make().__name__
     assert FusedIterFn("x").__name__ == "x"
+
+
+# --------------------------------------------------------------------------
+# The premises of the CUDA kernel's design, on the plain version: what it
+# skips changes no bit, and what it must not skip is pinned.
+# --------------------------------------------------------------------------
+
+
+def _middle_operands(seed, steps, zero_class=None):
+    """The JAX prep's operand bits after ``steps`` reference iterations, as
+    numpy; ``zero_class = (lane, column)`` gives that real class zero fill
+    headroom (r_up == r_low), inside the lane's live columns."""
+    bj, _ = batch_pair(seed)
+    args = [np.array(a) for a in jax_middle_inputs(bj, steps)]
+    if zero_class is not None:
+        args[1][zero_class] = 0.0
+    return args
+
+
+def _live(inc_max, p):
+    """Per lane, one past the last column that can change an accumulator:
+    every column but those with zero headroom and a finite penalty rate."""
+    live = ~((inc_max == 0) & np.isfinite(p))
+    cols = np.arange(1, inc_max.shape[1] + 1)
+    return np.where(live, cols, 0).max(axis=1)
+
+
+def _plain(args):
+    return tk.fused_iter_sweep(*(torch.as_tensor(a) for a in args))
+
+
+def _assert_matches_jax(args, got):
+    """The JAX Pallas kernel (interpret mode) on the same operand bits, as
+    ``test_plain_middle_matches_jax_kernel`` holds it: the winner exact,
+    the objective and the winning fill row within 4 ULPs."""
+    import jax.numpy as jnp
+    f_j, o_j, b_j, r_j = j_fused(*(jnp.asarray(a) for a in args),
+                                 block_c=7, block_n=5, interpret=True)
+    f_t, o_t, b_t, r_t = got
+    np.testing.assert_array_equal(np_(b_t), np_(b_j), err_msg="best")
+    assert_bitwise_equal(np_(r_t), np_(r_j), label="rho")
+    scale = np.abs(args[8])[:, None]
+    assert_ulp_close(np_(o_t), np_(o_j), ulps=4, scale=scale, err_msg="obj")
+    win = np_(f_j)[np.arange(len(b_j)), np_(b_j)]
+    assert_ulp_close(np_(f_t), win, ulps=4, scale=args[4], err_msg="fill")
+
+
+@pytest.mark.parametrize("steps", [0, 3])
+def test_truncating_to_live_columns_changes_no_bit(steps):
+    """Each lane cut to its live columns gives the same obj, best and rho
+    bit for bit, and the full replay's fill past them is +0.  Lane 1 has a
+    real zero-headroom class inside its live range, which stays walked."""
+    args = _middle_operands(0, steps, zero_class=(1, 2))
+    L = _live(args[1], args[2])
+    n_max = args[0].shape[1]
+    assert L[1] > 3 and (L < n_max).any()
+    fill, obj, best, rho = _plain(args)
+    for b in range(len(L)):
+        cut = [a[b:b + 1, :L[b]] for a in args[:3]] + \
+              [a[b:b + 1] for a in args[3:]]
+        f_b, o_b, b_b, r_b = _plain(cut)
+        assert_bitwise_equal(np_(o_b)[0], np_(obj)[b], label=f"obj {b}")
+        assert int(b_b[0]) == int(best[b])
+        assert_bitwise_equal(np_(r_b)[0], np_(rho)[b], label=f"rho {b}")
+        assert_bitwise_equal(np_(f_b)[0], np_(fill)[b, :L[b]],
+                             label=f"fill {b}")
+        tail = np_(fill)[b, L[b]:]
+        assert_bitwise_equal(tail, np.zeros_like(tail), label=f"tail {b}")
+
+
+def test_live_column_operands_match_jax_kernel():
+    args = _middle_operands(0, 3, zero_class=(1, 2))
+    _assert_matches_jax(args, _plain(args))
+
+
+def _with_duplicates(args):
+    """The candidates with copies of column N (rho_bar) in front and of
+    columns N and N + 1 (rho_bar, rho_hat) behind: equal bits, new
+    indices.  Returns the operands and the source column of each."""
+    n = args[0].shape[1]
+    src = np.concatenate([[n], np.arange(n + 2), [n, n + 1]])
+    dup = list(args)
+    dup[3] = np.ascontiguousarray(args[3][:, src])
+    return dup, src
+
+
+@pytest.mark.parametrize("steps", [0, 3])
+def test_equal_candidate_bits_share_the_objective(steps):
+    """Every copy of a candidate gets its objective bit for bit; where the
+    rho_bar group wins, best is the group's smallest index."""
+    args = _middle_operands(1, steps)
+    _, obj, _, rho = _plain(args)
+    dup, src = _with_duplicates(args)
+    _, obj_d, best_d, rho_d = _plain(dup)
+    assert_bitwise_equal(np_(obj_d), np_(obj)[:, src], label="obj copies")
+    assert_bitwise_equal(np_(rho_d), np_(rho), label="rho")
+    rb_bits = args[5].view(np.int64)[:, None]
+    in_group = dup[3].view(np.int64) == rb_bits
+    won = np_(rho_d).view(np.int64) == args[5].view(np.int64)
+    assert won.any()
+    np.testing.assert_array_equal(np_(best_d)[won],
+                                  in_group.argmax(axis=1)[won])
+    np.testing.assert_array_equal(np_(best_d)[won], 0)
+
+
+def test_duplicated_candidates_match_jax_kernel():
+    dup, _ = _with_duplicates(_middle_operands(1, 3))
+    _assert_matches_jax(dup, _plain(dup))
+
+
+def test_tie_picks_the_first_candidate():
+    """spare = sum_r_low = 0: no class fills, every objective is equal, and
+    the first maximum is candidate 0 in every lane (also in JAX)."""
+    args = _middle_operands(2, 3)
+    args[4] = np.zeros_like(args[4])
+    args[6] = np.zeros_like(args[6])
+    got = _plain(args)
+    obj = np_(got[1])
+    np.testing.assert_array_equal(obj, np.repeat(obj[:, :1], obj.shape[1], 1))
+    np.testing.assert_array_equal(np_(got[2]), 0)
+    _assert_matches_jax(args, got)
+
+
+def test_fill_can_follow_a_saturated_cum():
+    """Why no walk stops when cum reaches spare: (cum + inc) - inc can lose
+    the old cum, so a later column still fills.  spare = 1, increments
+    (1, 2^60): cum is 1 = spare after column 0, yet column 1 fills 1."""
+    one = torch.ones((1, 1), dtype=torch.float64)
+    bids = torch.full((1, 2), 5.0, dtype=torch.float64)
+    inc = torch.tensor([[1.0, 2.0 ** 60]], dtype=torch.float64)
+    p = torch.ones((1, 2), dtype=torch.float64)
+    z = torch.zeros(1, dtype=torch.float64)
+    fill, _, best, _ = tk.fused_iter_sweep(bids, inc, p, one, one[0], z, z,
+                                           z, z)
+    assert int(best[0]) == 0
+    assert_bitwise_equal(np_(fill), np.array([[1.0, 1.0]]))
