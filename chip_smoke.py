@@ -36,12 +36,29 @@ at once), then runs these phases, each of which raises on failure:
    against a forward pass over the prompt and the generated tokens are
    checked; prefill seconds, decode tokens/s and (Qwen3) the device's idle
    share are printed;
-6. the ``kernels`` line.
+6. the admission window (``CapacityEngine.open_window`` /
+   ``WindowSession.stream``) at the same scale, n_max 512: a trace of
+   arrivals, departures, SLA edits and capacity changes, a burst that grows
+   the window to 1,024 columns, flushes of 8 events under the fused and
+   sweep configurations with the centralized cross-check on, and the fused
+   session compacted after 8 flushes at the grown width.  Each flush must
+   resolve exactly the lanes its events touched and pass the others
+   through bit for bit, launch its kernel once per loop step, and, every
+   8th flush, equal a cold solve of the same window (resolved lanes bit for
+   bit), while the kernel is held to its plain version on that window
+   (rows with holes, at the grown and the compacted width); the window
+   must equal an event-by-event replay of the trace, and a lane's
+   constants ``derive`` on the card.  Events per second, flush and
+   cold re-solve walls, dirty lanes and launches per flush and one flush's
+   device idle share are printed;
+7. the ``kernels`` line, whose launch counts add phases 2 and 6.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the repository's ``src/`` beside it, the script fails before
 printing any result.
 """
+import contextlib
+import dataclasses
 import json
 import math
 import statistics
@@ -50,6 +67,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 # H100 SXM data sheet: HBM3 bandwidth, the FP64 and FP32 (non-tensor-core)
@@ -100,6 +118,11 @@ WKV_CASES = ((4, 1024, 64, 64, 256, -0.6, False),
 # layers.dot on the card: bf16 (M x D) . (D x N), the Qwen3 MLP's up
 # projection at the serving prefill (4 x 1024 tokens, d 1024, d_ff 3072)
 DOT_SHAPE = (4096, 1024, 3072)
+# the admission window: MAIN_B lanes at n_max 512 (grown to 1,024 by a
+# burst), flushes of 8 events, a cold re-solve against every 8th flush, and
+# the fused session compacted after 8 flushes at the grown width
+WIN_N_MAX, WIN_EVENTS, WIN_FLUSH = 512, 256, 8
+WIN_GATE_EVERY, WIN_COMPACT_AFTER = 8, 8
 
 
 def card_line() -> str:
@@ -182,10 +205,14 @@ def bitwise(a, b) -> bool:
     return bool(torch.equal(a, b))
 
 
+def sample_scenarios(gen, ns):
+    from repro_torch.core import sample_scenario
+    return [sample_scenario(gen, int(n), capacity_factor=0.95) for n in ns]
+
+
 def sample_batch(gen, ns, n_max):
-    from repro_torch.core import sample_scenario, stack_scenarios
-    scns = [sample_scenario(gen, int(n), capacity_factor=0.95) for n in ns]
-    return stack_scenarios(scns, n_max=n_max)
+    from repro_torch.core import stack_scenarios
+    return stack_scenarios(sample_scenarios(gen, ns), n_max=n_max)
 
 
 def trajectory_bids(batch, steps=3):
@@ -1249,6 +1276,382 @@ def _leaves(tree):
             yield from _leaves(v)
 
 
+# --------------------------------------------------------------------------
+# phase 6: the admission window
+# --------------------------------------------------------------------------
+
+
+def window_trace(scns):
+    """The phase's trace, sampled so that every event addresses a slot that
+    is occupied when it is applied: 256 events of the reference mix; a
+    burst of arrivals that fills the fullest lane and grows the window
+    512 -> 1,024; then 256 events sampled on a window with the trace so far
+    replayed, cut where the fused session compacts (after its 8th flush at
+    the grown width; flushes fall every ``WIN_FLUSH`` events) and the rest
+    sampled on the compacted window.  Returns the trace, the event count at
+    the compaction, the count through the burst (the sweep session's) and
+    the burst lane."""
+    from repro_torch import core
+    base = core.AdmissionWindow(scns, n_max=WIN_N_MAX)
+    first = core.sample_event_trace(0, base, WIN_EVENTS)
+    scratch = core.AdmissionWindow(scns, n_max=WIN_N_MAX)
+    core.replay(scratch, first)
+    lane = int(np.argmax(scratch.n_classes))
+    free = WIN_N_MAX - int(scratch.n_classes[lane])
+    gen = torch.Generator().manual_seed(SEED + 7)
+    burst = [core.ClassArrival(lane=lane, params=core.sample_class_params(gen))
+             for _ in range(free + 8)]
+    width = scratch.n_max
+    core.replay(scratch, burst)
+    if width != WIN_N_MAX or scratch.n_max != 2 * WIN_N_MAX:
+        raise AssertionError(f"the window grew {width} -> {scratch.n_max}")
+    grew = len(first) + free           # the arrival that finds its row full
+    cut = WIN_FLUSH * (grew // WIN_FLUSH + WIN_COMPACT_AFTER)
+    head = len(first) + len(burst)
+    mid = core.sample_event_trace(1, scratch, cut - head)
+    core.replay(scratch, mid)
+    scratch.compact()
+    last = core.sample_event_trace(2, scratch, WIN_EVENTS - (cut - head))
+    return first + burst + mid + last, cut, head, lane
+
+
+def holey_lanes(mask):
+    """Lanes with an empty slot before their last occupied one."""
+    n = mask.shape[1]
+    col = torch.arange(1, n + 1, device=mask.device)
+    end = torch.where(mask, col, 0).amax(1)
+    return torch.nonzero(mask.sum(1) < end)[:, 0]
+
+
+def passes_through(prev, rep, slot_map=None):
+    """Gate 1: lanes ``rep`` did not resolve keep ``prev``'s r, price and
+    iterations bit for bit (the common columns after a growth, through
+    ``slot_map`` after a compaction)."""
+    frozen = torch.as_tensor(~rep.resolved, device=rep.mask.device)
+    if slot_map is None:
+        n = min(prev.mask.shape[1], rep.mask.shape[1])
+        old, new = prev.fractional.r[:, :n], rep.fractional.r[:, :n]
+    else:
+        occ = torch.as_tensor(slot_map >= 0, device=rep.mask.device)
+        dst = torch.as_tensor(slot_map.clip(min=0), device=rep.mask.device)
+        old = torch.where(occ, prev.fractional.r, 0.0)
+        new = torch.where(occ, torch.gather(rep.fractional.r, 1, dst), 0.0)
+    return (bitwise(old[frozen], new[frozen])
+            and bitwise(prev.fractional.aux[frozen], rep.fractional.aux[frozen])
+            and torch.equal(prev.iters[frozen], rep.iters[frozen]))
+
+
+def against_cold(rep, batch, cfg):
+    """Gate 2: the flush against a cold solve of the window it solved
+    (``batch``, held as it was) under the same kernel configuration: resolved lanes bit for bit (each lane's trajectory is
+    its own row's), frozen lanes within 1e-9 of their largest r with equal
+    iterations, feasibility equal.  Returns the cold solve, its wall and
+    the frozen lanes' largest departure."""
+    from repro_torch import core
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cold = core.solve_distributed_batch(batch, sweep_fn=cfg.sweep_fn,
+                                        iter_fn=cfg.iter_fn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = torch.as_tensor(rep.resolved, device=rep.mask.device)
+    got, want = rep.fractional, cold
+    if not (bitwise(got.r[res], want.r[res])
+            and bitwise(got.aux[res], want.aux[res])
+            and torch.equal(rep.iters, cold.iters)
+            and torch.equal(rep.feasible, cold.feasible)):
+        raise AssertionError("gate 2: a resolved lane, an iteration count or "
+                             "a feasibility flag differs from the cold solve")
+    scale = want.r.abs().amax(1).clamp_min(1.0)
+    dr = float(((got.r - want.r).abs().amax(1) / scale).max())
+    drho = float(((got.aux - want.aux).abs() / want.aux.abs()).max())
+    if not (dr <= 1e-9 and drho <= 1e-9):
+        raise AssertionError(f"gate 2: a frozen lane departs from the cold "
+                             f"solve ({dr}, {drho})")
+    return cold, wall, max(dr, drho)
+
+
+def against_plain(batch, cfg, cold, label):
+    """Gate 2, the kernel itself: the flush's kernel against its plain
+    version on this window (rows with holes, the grown or compacted
+    width), at bids three cold Alg. 4.1 steps in (every re-solved lane
+    starts cold).  The fused middle bit for bit, and ``cold`` bit for bit
+    equal to a cold solve with the plain middle; the sweep within
+    (2N + 8) ULPs on every lane, and bit for bit to ``emulated_sweep`` on
+    lanes with holes.  Returns the max abs error and the holey lanes'
+    count."""
+    from repro_torch import core
+    from repro_torch.core.game import _rm_candidates
+    from repro_torch.kernels.gnep_iter.kernel import fused_iter_sweep
+    from repro_torch.kernels.gnep_iter.ops import FusedIterFn
+    from repro_torch.kernels.gnep_iter.ref import fused_middle_reference
+    from repro_torch.kernels.gnep_sweep.kernel import rm_sweep_batched
+    from repro_torch.kernels.gnep_sweep.ref import reference_batched
+    holey = holey_lanes(batch.mask)
+    label = f"{label}, {holey.numel()} lanes with holes"
+    prep, bids = trajectory_bids(batch)
+    if cfg.iter_fn is not None:
+        args = fused_args(batch, prep, bids)
+        err = check_fused(args, fused_iter_sweep, fused_middle_reference,
+                          fused_label(label, args))
+        plain = core.solve_distributed_batch(
+            batch, iter_fn=FusedIterFn("plain middle", None))
+        if not (bitwise(cold.r, plain.r) and bitwise(cold.aux, plain.aux)
+                and torch.equal(cold.iters, plain.iters)):
+            raise AssertionError(f"{label}: the cold solve through the kernel "
+                                 "differs from the plain middle's")
+        return err, holey.numel()
+    _, inc, spare, p_sorted, _ = _rm_candidates(batch.scenarios, bids,
+                                                batch.mask)
+    spare = spare.contiguous()
+    what = sweep_label(f"rm_sweep_batched {label}", inc, p_sorted)
+    err = check_sweep(inc, spare, p_sorted, rm_sweep_batched,
+                      reference_batched, what)
+    some = holey[:ORDER_LANES]
+    if some.numel():
+        check_sweep_order(inc[some], spare[some], p_sorted[some],
+                          rm_sweep_batched, what)
+    return err, holey.numel()
+
+
+def window_session(name, cfg, scns, trace, kernel, compact_at=None):
+    """Drive one session over the trace and hold gates 1, 2, 4 and 5 at
+    every flush, compacting after the flush that ends at event
+    ``compact_at``.  Returns the session and its measurements."""
+    from repro_torch import core
+    from torch.profiler import ProfilerActivity, profile
+    pol = core.Policies(flush=core.FlushPolicy(max_events=WIN_FLUSH),
+                        cross_check=core.CrossCheckPolicy(True))
+    session = core.CapacityEngine(cfg, pol).open_window(
+        core.AdmissionWindow(scns, n_max=WIN_N_MAX))
+    window = session.window
+    kernel.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prev = session.solve()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = kernel.launches
+    if not prev.resolved.all() or launches != int(prev.iters.max()):
+        raise AssertionError(f"{name}: the first solve resolved "
+                             f"{int(prev.resolved.sum())} lanes in "
+                             f"{launches} launches")
+    # the cross-check solved all 256 lanes in one batched call: its totals
+    # against the reference's one solve a lane, on a few lanes
+    batch, lanes = window.batch, min(8, window.batch_size)
+    per_lane = torch.stack([core.solve_centralized(
+        core.Scenario(**{f.name: getattr(batch.scenarios, f.name)[b]
+                         for f in dataclasses.fields(core.Scenario)}),
+        mask=batch.mask[b]).total for b in range(lanes)])
+    memo = torch.tensor(window.baseline_totals[:lanes], dtype=F64,
+                        device=per_lane.device)
+    cc_rel = float(((memo - per_lane).abs() / per_lane.abs()).max())
+    print(f"  {name}: the batched cross-check's totals against one solve a "
+          f"lane (lanes 0-{lanes - 1}): max relative difference {cc_rel!r}")
+    if not cc_rel <= 1e-12:
+        raise AssertionError(f"{name}: the batched cross-check departs from "
+                             f"per-lane solves ({cc_rel})")
+    stream = session.stream(trace)
+    walls, cold_walls, dirty, per_flush, widths = [], [], [], [], []
+    compacted_at, slot_map, idle, worst = None, None, None, 0.0
+    timed_events, profiled_once, gated = 0, False, []
+    while True:
+        before, start = kernel.launches, session.events_folded
+        # profile the flush after the first one at the grown width (the
+        # last flush where the trace ends with the growth); its wall is
+        # left out of the timings
+        profiled = not profiled_once and (
+            widths[-1:] == [2 * WIN_N_MAX]
+            or len(trace) - start <= WIN_FLUSH)
+        prof = (profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])
+                if profiled else contextlib.nullcontext())
+        with prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = next(stream, None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if rep is None:
+            break
+        end = session.events_folded
+        if profiled:
+            profiled_once = True
+            idle, _ = report_idle(prof, wall, f"{name}: one flush at width "
+                                  f"{rep.mask.shape[1]}", rows=6)
+        else:
+            walls.append(wall)
+            timed_events += end - start
+        n = kernel.launches - before
+        widths.append(rep.mask.shape[1])
+        dirty.append(int(rep.resolved.sum()))
+        per_flush.append(n)
+        launches += n
+        # gate 1: resolved = the lanes the flushed events touched
+        touched = np.zeros(window.batch_size, bool)
+        touched[[ev.lane for ev in trace[start:end]]] = True
+        if not np.array_equal(rep.resolved, touched):
+            raise AssertionError(f"{name} flush {len(widths)}: resolved "
+                                 "lanes are not the lanes its events touched")
+        if not passes_through(prev, rep, slot_map):
+            raise AssertionError(f"{name} flush {len(widths)}: a frozen lane "
+                                 "did not pass through bit for bit")
+        # gate 4: one launch per loop step; the loop runs until the slowest
+        # resolved lane converges
+        res = torch.as_tensor(rep.resolved, device=rep.iters.device)
+        steps = int(rep.iters[res].max()) if rep.resolved.any() else 0
+        if n != steps:
+            raise AssertionError(f"{name} flush {len(widths)}: {n} launches "
+                                 f"for {steps} loop steps")
+        if len(widths) % WIN_GATE_EVERY == 0 or end == len(trace):
+            # held for gate 2 after the stream, so that no check runs
+            # between the timed flushes (a report and a batch never change)
+            gated.append((len(widths), rep, window.batch,
+                          compacted_at is not None))
+        prev, slot_map = rep, None
+        if end == compact_at:
+            # gate 5: 8 flushes at the grown width, then a map that follows
+            # the mask and a width that is the widest lane's
+            if widths.count(2 * WIN_N_MAX) != WIN_COMPACT_AFTER:
+                raise AssertionError(f"{name}: {widths.count(2 * WIN_N_MAX)} "
+                                     f"flushes at width {2 * WIN_N_MAX} "
+                                     "before the compaction")
+            pre = window._mask.copy()
+            slot_map = session.compact()
+            compacted_at = end
+            counts = pre.sum(1)
+            packed = all(np.array_equal(slot_map[b, pre[b]],
+                                        np.arange(counts[b]))
+                         for b in range(window.batch_size))
+            if not (np.array_equal(slot_map >= 0, pre) and packed
+                    and np.array_equal(window._mask,
+                                       np.arange(window.n_max)[None]
+                                       < counts[:, None])
+                    and window.n_max == int(counts.max())):
+                raise AssertionError(f"{name}: compact() gave a slot map or "
+                                     f"width ({window.n_max}) that does not "
+                                     "follow the mask")
+            print(f"  {name}: compact() after flush {len(widths)} (event "
+                  f"{end}): n_max {2 * WIN_N_MAX} -> {window.n_max}")
+    # gate 2 at every 8th flush and the last; its kernel checks held on
+    # rows with holes at the grown width and, where the session compacts,
+    # after the compaction
+    plain_err, held = 0.0, set()
+    for flush, rep, batch, compacted in gated:
+        cold, cold_s, err = against_cold(rep, batch, session.engine.config)
+        cold_walls.append(cold_s)
+        worst = max(worst, err)
+        err, holes = against_plain(
+            batch, session.engine.config, cold,
+            f"{name} flush {flush} width {batch.n_max}")
+        plain_err = max(plain_err, err)
+        if holes:
+            held.add("compacted" if compacted else batch.n_max)
+    want = {2 * WIN_N_MAX} | ({"compacted"} if compact_at else set())
+    if not want <= held:
+        raise AssertionError(f"{name}: the kernel was held to its plain "
+                             f"version on windows with holes only at "
+                             f"{held}")
+    # gate 4, the clean window: a solve and a flush launch nothing
+    before = kernel.launches
+    echo = session.flush()
+    clean = session.solve()
+    if kernel.launches != before or clean.resolved.any() or (
+            echo.fractional is not prev.fractional):
+        raise AssertionError(f"{name}: a flush of a clean window solved")
+    # gate 5: growth (and, where asked, compaction after 8 flushes at the
+    # grown width) both happened
+    at_full = widths.count(2 * WIN_N_MAX)
+    if at_full < 1 or compacted_at != compact_at:
+        raise AssertionError(f"{name}: {at_full} flushes at width "
+                             f"{2 * WIN_N_MAX}, compacted at {compacted_at}")
+    out = dict(flushes=len(widths), events=session.events_folded,
+               events_per_s=timed_events / sum(walls),
+               flush_s=statistics.median(walls),
+               cold_s=statistics.median(cold_walls),
+               dirty=statistics.median(dirty),
+               launches_per_flush=statistics.mean(per_flush),
+               launches=launches, idle=idle, first_s=first_s,
+               widths=sorted(set(widths)), frozen_err=worst,
+               plain_err=plain_err)
+    print(f"  {name}: {out['flushes']} flushes of {out['events']} events "
+          f"(widths {out['widths']}); events_per_s={out['events_per_s']!r} "
+          f"median flush_s={out['flush_s']!r} median cold re-solve "
+          f"s={out['cold_s']!r}; median dirty lanes a flush {out['dirty']!r}; "
+          f"{kernel.__name__} launches a flush {out['launches_per_flush']!r} "
+          f"({launches} in all, first solve {first_s!r} s); frozen lanes "
+          f"against the cold solve within {worst!r}; kernel against its "
+          f"plain version on the window: max_abs_err={plain_err!r}")
+    return session, out
+
+
+def phase_window(counters):
+    """The runtime loop at the paper's scale: gates 1-6 (see each helper)."""
+    from repro_torch import core
+    from repro_torch.core.streaming import _CLASS_FIELDS
+    from repro_torch.kernels.gnep_iter.kernel import fused_iter_sweep
+    from repro_torch.kernels.gnep_iter.ops import make_fused_iter_fn
+    from repro_torch.kernels.gnep_sweep.kernel import rm_sweep_batched
+    from repro_torch.kernels.gnep_sweep.ops import make_batched_sweep_fn
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED + 6)
+    ns = torch.randint(MAIN_N_LO, MAIN_N_MAX + 1, (MAIN_B,), generator=gen)
+    scns = sample_scenarios(gen, ns.tolist())
+    trace, cut, head, lane = window_trace(scns)
+    print(f"phase 6: the admission window, {MAIN_B} lanes of "
+          f"{int(ns.min())}-{int(ns.max())} classes, n_max {WIN_N_MAX}, f64; "
+          f"trace {WIN_EVENTS} events + a burst of {head - WIN_EVENTS} into "
+          f"lane {lane} + {len(trace) - head} events (sampled on the window "
+          f"compacted after event {cut}), a flush every {WIN_FLUSH}")
+    for fn in counters:
+        fn.launches = 0
+    fused_cfg = core.SolverConfig(iter_fn=make_fused_iter_fn())
+    session, fused = window_session("fused", fused_cfg, scns, trace,
+                                    fused_iter_sweep, compact_at=cut)
+    sweep_cfg = core.SolverConfig(sweep_fn=make_batched_sweep_fn())
+    _, sweep = window_session("sweep", sweep_cfg, scns, trace[:head],
+                              rm_sweep_batched)
+    others = {fn.__name__: fn.launches for fn in counters
+              if fn not in (fused_iter_sweep, rm_sweep_batched)}
+    if any(others.values()):
+        raise AssertionError(f"another kernel launched in phase 6: {others}")
+
+    # gate 6: the coalesced session equals an event-by-event replay with the
+    # same compaction, and the burst lane's constants equal derive afresh
+    window = session.window
+    replayed = core.AdmissionWindow(scns, n_max=WIN_N_MAX)
+    core.replay(replayed, trace[:cut])
+    replayed.compact()
+    core.replay(replayed, trace[cut:])
+    fields = [f.name for f in dataclasses.fields(core.Scenario)]
+    bad = [f for f in fields if not bitwise(getattr(window._scn, f),
+                                            getattr(replayed._scn, f))]
+    if bad or not np.array_equal(window._mask, replayed._mask) or (
+            window._raw != replayed._raw):
+        raise AssertionError(f"gate 6: the session's window differs from the "
+                             f"event-by-event replay in {bad}")
+    slots = window.occupied(lane)
+    raw = {f: torch.tensor([window._raw[(lane, s)][f] for s in slots],
+                           dtype=F64, device=window.device)
+           for f in core.RAW_CLASS_FIELDS}
+    fresh = core.derive(**raw, R=window._scn.R[lane],
+                        rho_bar=window._scn.rho_bar[lane])
+    idx = torch.tensor(slots, device=window.device)
+    bad = [f for f in _CLASS_FIELDS
+           if not bitwise(getattr(window._scn, f)[lane, idx],
+                          getattr(fresh, f))]
+    if bad or not bitwise(window._scn.rho_hat[lane], fresh.rho_hat):
+        raise AssertionError(f"gate 6: lane {lane}'s constants differ from "
+                             f"derive on the card in {bad}")
+    print(f"  gate 6: the window after {len(trace)} events equals their "
+          f"event-by-event replay bit for bit; lane {lane}'s {len(slots)} "
+          "classes equal derive on the card bit for bit")
+    took = time.perf_counter() - t_phase
+    print(f"  phase 6: {took!r} s")
+    return {"fused": fused, "sweep": sweep, "seconds": took}
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs on an "
@@ -1310,6 +1713,13 @@ def main() -> int:
     counts["flash_attention"] = serving["qwen3-0.6b"]["counts"][
         "flash_attention"]
     counts["wkv6"] = serving["rwkv6-7b"]["counts"]["wkv6"]
+    window = timed("phase 6", phase_window, counters)
+    by_path = {name: {"phase 2": n} for name, n in counts.items()
+               if name in ALLOCATOR_KERNELS}
+    for name, session in (("fused_iter_sweep", "fused"),
+                          ("rm_sweep_batched", "sweep")):
+        by_path[name]["phase 6"] = window[session]["launches"]
+        counts[name] += window[session]["launches"]
     for arch, res in serving.items():
         print(f"  serving {arch}: f32 decode-vs-forward "
               f"{res.get('f32_rel')!r} prefill_s={res['prefill_s']!r} "
@@ -1320,6 +1730,8 @@ def main() -> int:
 
     for row in rows.values():
         row["launches"] = counts[row["name"]]
+        if row["name"] in by_path:
+            row["launches_by_path"] = by_path[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card_line())

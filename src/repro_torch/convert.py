@@ -2,9 +2,11 @@
 
 The scenario data and the warm-start state play the part weights play in a
 model: the tests turn a JAX ``Scenario`` / ``ScenarioBatch`` /
-``BatchWarmStart`` into numpy arrays and build the port's counterpart from
-them with these functions, so that both packages solve the same instance.
-``lm_params_from_numpy`` does the same for the language models' weights.
+``BatchWarmStart`` / ``WindowState`` into numpy arrays and build the port's
+counterpart from them with these functions, so that both packages solve the
+same instance.  Stream events cross as plain records of Python scalars
+(``event_from_record``).  ``lm_params_from_numpy`` does the same for the
+language models' weights.
 """
 from __future__ import annotations
 
@@ -14,12 +16,15 @@ import numpy as np
 import torch
 
 from repro_torch.core.game import BatchWarmStart
-from repro_torch.core.types import Scenario, ScenarioBatch
+from repro_torch.core.types import (CapacityChange, ClassArrival,
+                                    ClassDeparture, Scenario, ScenarioBatch,
+                                    SLAEdit, StreamEvent, WindowState)
 from repro_torch.models.transformer import check_supported
 from repro_torch.utils import resolve_device
 from repro_torch.utils import to_np as to_numpy  # the other direction
 
 __all__ = ["scenario_from_numpy", "batch_from_numpy", "warm_start_from_numpy",
+           "window_state_from_numpy", "event_from_record",
            "lm_params_from_numpy", "to_numpy"]
 
 
@@ -67,6 +72,47 @@ def warm_start_from_numpy(leaves: dict, *, device="cuda",
         lane_iters=_tensor(np.asarray(leaves["lane_iters"], dtype=np.int32),
                            dev, None),
         active=_tensor(np.asarray(leaves["active"], dtype=bool), dev, None))
+
+
+def window_state_from_numpy(leaves: dict, *, device="cuda",
+                            dtype=None) -> WindowState:
+    """A :class:`WindowState` from a dict of its four fields (``r``,
+    ``rho``, ``lane_iters``, ``solved``): a window's last equilibrium."""
+    dev = resolve_device(device)
+    return WindowState(
+        r=_tensor(leaves["r"], dev, dtype),
+        rho=_tensor(leaves["rho"], dev, dtype),
+        lane_iters=_tensor(np.asarray(leaves["lane_iters"], dtype=np.int32),
+                           dev, None),
+        solved=_tensor(np.asarray(leaves["solved"], dtype=bool), dev, None))
+
+
+_EVENTS = {cls.__name__: cls for cls in (ClassArrival, ClassDeparture,
+                                         SLAEdit, CapacityChange)}
+
+
+def event_from_record(record: dict) -> StreamEvent:
+    """The port's stream event from a plain record of one.
+
+    ``record["kind"]`` names the event class (``"ClassArrival"``,
+    ``"ClassDeparture"``, ``"SLAEdit"`` or ``"CapacityChange"``); the other
+    keys are its fields: ``lane``, and ``params``, ``slot``, ``updates`` or
+    ``R`` as Python scalars (dicts of them for ``params`` / ``updates``).
+    """
+    fields = dict(record)
+    kind = fields.pop("kind")
+    if kind not in _EVENTS:
+        raise ValueError(f"unknown event kind {kind!r}; expected one of "
+                         f"{sorted(_EVENTS)}")
+    for key in ("params", "updates"):
+        if key in fields:
+            fields[key] = {k: float(v) for k, v in fields[key].items()}
+    for key in ("lane", "slot"):
+        if key in fields:
+            fields[key] = int(fields[key])
+    if "R" in fields:
+        fields["R"] = float(fields["R"])
+    return _EVENTS[kind](**fields)
 
 
 def lm_params_from_numpy(cfg, tree: dict, *, device="cuda", dtype=None):

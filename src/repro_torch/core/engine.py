@@ -1,45 +1,80 @@
 """Session API over the GNEP solver stack: one engine, one config (PyTorch).
 
-Counterpart of ``repro.core.engine``, one-shot path only:
+Counterpart of ``repro.core.engine``:
 
 * :class:`SolverConfig` — every Algorithm 4.1 knob plus the kernel plug-ins
   in one frozen object, with the reference's
   :meth:`~SolverConfig.fingerprint` strings;
-* :class:`Policies` — Algorithm 4.2 rounding and the centralized (P3)
-  cross-check (the flush and compaction policies come with the streaming
-  slice, ROADMAP.md Queue 1 item 9);
+* :class:`Policies` — flush cadence (:class:`~repro_torch.core.streaming
+  .FlushPolicy`), compaction (:class:`CompactionPolicy`), Algorithm 4.2
+  rounding and the centralized (P3) cross-check;
 * :class:`CapacityEngine` — :meth:`~CapacityEngine.solve` for one instance
-  or a batch, on the engine's device (the card unless asked otherwise).
+  or a batch and :meth:`~CapacityEngine.open_window` for the paper's runtime
+  loop, on the engine's device (the card unless asked otherwise);
+* :class:`WindowSession` — the live loop: ``apply`` events, ``flush``
+  coalesced warm re-solves, ``stream`` whole traces.
 
-Windows (``open_window`` / :class:`WindowSession`) and device-resident
-sessions are not ported yet and raise ``NotImplementedError``.
+Device-resident sessions (``residency="resident"``) are not ported yet and
+raise ``NotImplementedError`` (ROADMAP.md Queue 1 item 10); the deprecated
+``allocator`` facades and their ``_legacy_solve_window`` come with item 21.
 """
 from __future__ import annotations
 
 import re
 import time
-from dataclasses import dataclass
-from typing import Any, Callable, Optional, Sequence, Union
+from dataclasses import dataclass, replace
+from typing import (Any, Callable, Iterable, Iterator, List, Optional,
+                    Sequence, Set, Tuple, Union)
 
 import numpy as np
 import torch
 
 from repro_torch.core import game
-from repro_torch.core.centralized import solve_centralized
+from repro_torch.core.centralized import (solve_centralized,
+                                          solve_centralized_batch)
 from repro_torch.core.rounding import (IntegerSolution, round_solution,
                                        round_solution_batch)
-from repro_torch.core.types import (Scenario, ScenarioBatch, Solution,
+from repro_torch.core.streaming import _RESIDENT, AdmissionWindow, FlushPolicy
+from repro_torch.core.types import (ClassArrival, Scenario, ScenarioBatch,
+                                    SLAEdit, Solution, StreamEvent,
                                     stack_scenarios)
 from repro_torch.utils import resolve_device, tree_map
-
-_WINDOWS = ("admission windows are not ported yet (ROADMAP.md Queue 1 "
-            "item 9, core/streaming.py)")
-_RESIDENT = ("device-resident sessions are not ported yet (ROADMAP.md "
-             "Queue 1 item 10, core/sharding.py)")
 
 
 class InfeasibleError(RuntimeError):
     """Deadlines/SLAs cannot be met with the available capacity."""
+
+
+class QuotaExceededError(RuntimeError):
+    """A session operation would exceed its :class:`TenantQuota`.
+
+    Raised by :meth:`WindowSession.offer` (event budget) and
+    :meth:`WindowSession.add_lane` (lane budget).
+    """
+
+
+@dataclass(frozen=True)
+class TenantQuota:
+    """Per-tenant admission budget enforced by a :class:`WindowSession`.
+
+    Attributes
+    ----------
+    max_queued : int, optional
+        Upper bound on the session's buffered, not-yet-flushed events.
+    max_lanes : int, optional
+        Upper bound on the window's lanes (:meth:`WindowSession.add_lane`
+        refuses to grow past it).  ``None`` fields are unlimited.
+    """
+    max_queued: Optional[int] = None
+    max_lanes: Optional[int] = None
+
+    def admits_event(self, n_queued: int) -> bool:
+        """Whether one more event fits under ``max_queued``."""
+        return self.max_queued is None or n_queued < self.max_queued
+
+    def admits_lane(self, n_lanes: int) -> bool:
+        """Whether one more lane fits under ``max_lanes``."""
+        return self.max_lanes is None or n_lanes < self.max_lanes
 
 
 # --------------------------------------------------------------------------
@@ -178,19 +213,45 @@ class RoundingPolicy:
 
 @dataclass(frozen=True)
 class CrossCheckPolicy:
-    """Compare every lane against its exact centralized (P3) optimum.
+    """Compare every window lane against its exact centralized (P3) optimum.
 
-    Window solves use it (ROADMAP.md Queue 1 item 9); ``atol`` is the
-    absolute slack allowed when a feasible lane's GNEP total undercuts the
-    exact optimum.
+    Window solves attach the per-lane relative gap of the GNEP total over
+    the exact optimum (``WindowSolveReport.centralized_gap``), recomputing
+    the optimum only for lanes whose scenario changed.  ``atol`` is the
+    absolute slack allowed before a feasible lane's GNEP total undercutting
+    the exact optimum raises ``RuntimeError``.
     """
     enabled: bool = False
     atol: float = 1e-6
 
 
 @dataclass(frozen=True)
+class CompactionPolicy:
+    """When a :class:`WindowSession` re-packs its sparse window.
+
+    At every flush, after the buffered events are folded in, the session
+    compacts (``AdmissionWindow.compact``) when ``window.occupancy`` is
+    below ``occupancy``; the report carries the old -> new ``slot_map``.
+
+    Attributes
+    ----------
+    occupancy : float, optional
+        Occupied-slot fraction below which the session compacts; ``None``
+        (default) never compacts on its own.
+    headroom : float
+        The compacted width is ``ceil(headroom * widest lane)`` (at least
+        the widest lane).
+    """
+    occupancy: Optional[float] = None
+    headroom: float = 1.0
+
+
+@dataclass(frozen=True)
 class Policies:
-    """The engine's operational policy bundle (one-shot solves)."""
+    """The engine's operational policy bundle: flush cadence, compaction,
+    rounding and the centralized cross-check."""
+    flush: FlushPolicy = FlushPolicy()
+    compaction: CompactionPolicy = CompactionPolicy()
     rounding: RoundingPolicy = RoundingPolicy()
     cross_check: CrossCheckPolicy = CrossCheckPolicy()
 
@@ -288,6 +349,27 @@ class BatchSolveReport(SolveReport):
                            elapsed_s=self.elapsed_s)
 
 
+@dataclass
+class WindowSolveReport(BatchSolveReport):
+    """One window re-solve: a batch report plus incremental bookkeeping.
+
+    Attributes (beyond :class:`BatchSolveReport`)
+    ---------------------------------------------
+    resolved : np.ndarray
+        (B,) bool — lanes that iterated this solve (dirty or never solved);
+        the others were frozen at their stored equilibrium.
+    centralized_gap : torch.Tensor or None
+        (B,) relative gap of the fractional GNEP total over the exact (P3)
+        optimum, when the cross-check policy is enabled.
+    slot_map : np.ndarray or None
+        (B, old_n_max) old-slot -> new-slot map when this flush compacted
+        the window under a :class:`CompactionPolicy` (None otherwise).
+    """
+    resolved: Optional[np.ndarray] = None
+    centralized_gap: Optional[torch.Tensor] = None
+    slot_map: Optional[np.ndarray] = None
+
+
 # --------------------------------------------------------------------------
 # Input coercion
 # --------------------------------------------------------------------------
@@ -300,9 +382,10 @@ def _coerce(problem, *, dtype=None, n_max: Optional[int] = None,
 
     Parameters
     ----------
-    problem : ScenarioBatch, Scenario or Sequence[Scenario]
-        A prepared batch, a single instance (stacked as one lane) or a
-        plain — possibly ragged — scenario list (stacked/padded here).
+    problem : ScenarioBatch, Scenario, Sequence[Scenario] or AdmissionWindow
+        A prepared batch, a single instance (stacked as one lane), a plain
+        — possibly ragged — scenario list (stacked/padded here) or a live
+        window (its current batch).
     dtype : torch.dtype or str, optional
         Cast every float leaf to this dtype; ``None`` keeps the input's.
     n_max : int, optional
@@ -316,6 +399,8 @@ def _coerce(problem, *, dtype=None, n_max: Optional[int] = None,
         For anything else (with the accepted forms named).
     """
     dev = resolve_device(device)
+    if isinstance(problem, AdmissionWindow):
+        problem = problem.batch
     if isinstance(problem, ScenarioBatch):
         batch = tree_map(lambda t: t.to(dev), problem)
     elif isinstance(problem, Scenario):
@@ -329,7 +414,7 @@ def _coerce(problem, *, dtype=None, n_max: Optional[int] = None,
     else:
         raise TypeError(
             f"cannot coerce {type(problem).__name__!r} — pass a Scenario, a "
-            "Sequence[Scenario] or a ScenarioBatch")
+            "Sequence[Scenario], a ScenarioBatch or an AdmissionWindow")
     if dtype is not None:
         batch = ScenarioBatch(scenarios=_cast_floats(batch.scenarios, dtype),
                               mask=batch.mask, n_classes=batch.n_classes)
@@ -343,19 +428,21 @@ def _cast_floats(tree, dtype):
     return tree_map(lambda t: t.to(dt) if t.is_floating_point() else t, tree)
 
 
-def _dtype_check(cfg: SolverConfig, batch: ScenarioBatch,
-                 sol: Solution) -> Optional[dict]:
+def _dtype_check(cfg: SolverConfig, batch: ScenarioBatch, sol: Solution,
+                 masks=None) -> Optional[dict]:
     """The ``dtype_policy="f32_checked"`` cross-check of a batched solve.
 
     Re-solves ``cfg.check_sample()`` evenly-spaced sample lanes in float64
     on the unfused plain path and holds each lane's relative L1 allocation
-    deviation to ``2 * cfg.eps_bar`` (plus 1e-6).
+    deviation to ``2 * cfg.eps_bar`` (plus 1e-6).  ``masks``, a (B,) host
+    bool array, restricts the sample to the lanes it flags (windows pass
+    the lanes that hold a class); None samples every lane.
 
     Returns
     -------
     dict or None
         ``{"lanes": [...], "max_rel": float, "bound": float}``; None when
-        the policy does not check.
+        the policy does not check or no lane is eligible.
 
     Raises
     ------
@@ -365,10 +452,13 @@ def _dtype_check(cfg: SolverConfig, batch: ScenarioBatch,
     k = cfg.check_sample()
     if k == 0:
         return None
-    B = batch.batch_size
-    k = min(k, B)
-    lanes = [int(b) for b in
-             np.unique(np.linspace(0, B - 1, k).round().astype(int))]
+    eligible = (np.arange(batch.batch_size) if masks is None
+                else np.flatnonzero(np.asarray(masks)))
+    if eligible.size == 0:
+        return None
+    k = min(k, eligible.size)
+    pick = np.unique(np.linspace(0, eligible.size - 1, k).round().astype(int))
+    lanes = [int(b) for b in eligible[pick]]
 
     sub = batch.take(lanes)
     sub64 = ScenarioBatch(scenarios=_cast_floats(sub.scenarios, torch.float64),
@@ -530,14 +620,336 @@ class CapacityEngine:
                                 feasible=sol.feasible,
                                 dtype_check=dtype_check)
 
+
     # ------------------------------------------------------------ sessions
-    def open_window(self, *args, **kwargs):
-        """Not ported yet: the runtime loop over admission windows."""
-        raise NotImplementedError(_WINDOWS)
+    def open_window(self, lanes, *, n_max: Optional[int] = None,
+                    growth_factor: float = 2.0,
+                    quota: Optional[TenantQuota] = None) -> "WindowSession":
+        """Open the runtime loop: a live window driven by this engine.
+
+        Parameters
+        ----------
+        lanes : AdmissionWindow, Scenario, Sequence[Scenario] or ScenarioBatch
+            An existing window is adopted as it is (its state, occupancy and
+            dirty flags kept); anything else is coerced by :func:`_coerce`
+            onto the engine's device into the lanes of a fresh
+            :class:`~repro_torch.core.streaming.AdmissionWindow`.
+        n_max : int, optional
+            Initial padded width of a fresh window (default: the coerced
+            batch's); ignored when adopting a window.
+        growth_factor : float, optional
+            Fresh-window growth multiplier when a lane's row fills.
+        quota : TenantQuota, optional
+            Budget the session enforces on ``offer`` and ``add_lane``; the
+            initial lane count must already fit it.
+
+        Returns
+        -------
+        WindowSession
+            The session; solver and policy behaviour come from this engine.
+        """
+        if isinstance(lanes, AdmissionWindow):
+            return WindowSession(self, lanes, quota=quota)
+        batch = _coerce(lanes, dtype=self.config.effective_dtype(),
+                        device=self.device)
+        scns = [batch.instance(b) for b in range(batch.batch_size)]
+        window = AdmissionWindow(scns, n_max=n_max or batch.n_max,
+                                 growth_factor=growth_factor)
+        return WindowSession(self, window, quota=quota)
+
+    # ----------------------------------------------------------- internals
+    def _solve_window(self, window: AdmissionWindow) -> WindowSolveReport:
+        """Warm-started incremental re-solve of a live window, where its
+        tensors lie: only dirty lanes iterate, clean lanes pass through at
+        their stored equilibrium (the round-trip path; the resident one is
+        not ported yet, and a resident config is refused when the engine is
+        built)."""
+        cfg = self.config
+        t0 = time.perf_counter()
+        batch = window.batch
+        init = window.warm_start()
+        resolved = init.active.cpu().numpy().copy()
+
+        sol = game.solve_distributed_batch(batch, eps_bar=cfg.eps_bar,
+                                           lam=cfg.lam,
+                                           max_iters=cfg.max_iters,
+                                           sweep_fn=cfg.sweep_fn, init=init,
+                                           mesh=cfg.mesh, iter_fn=cfg.iter_fn)
+        window.commit(sol.r, sol.aux, sol.iters)
+        dtype_check = _dtype_check(cfg, batch, sol,
+                                   masks=window._mask.any(axis=1))
+        return self._window_report(window, batch, sol, resolved, t0,
+                                   dtype_check=dtype_check)
+
+    def _window_report(self, window: AdmissionWindow, batch: ScenarioBatch,
+                       sol: Solution, resolved: np.ndarray, t0: float,
+                       dtype_check: Optional[dict] = None
+                       ) -> WindowSolveReport:
+        """Centralized cross-check, Algorithm 4.2 rounding and the report.
+
+        The exact (P3) optimum of a lane changes only with its scenario, so
+        only the stale lanes are solved, all of them in one
+        :func:`solve_centralized_batch` (lanes are independent rows of it),
+        and the rest come from the window's memo.
+        """
+        cfg, pol = self.config, self.policies
+        gap = None
+        if pol.cross_check.enabled:
+            stale = np.flatnonzero(window.baseline_stale)
+            if stale.size:
+                totals = solve_centralized_batch(batch.take(stale)).total
+                window.baseline_totals[stale] = (
+                    totals.to(torch.float64).cpu().numpy())
+            window.baseline_stale[stale] = False
+            cent_total = torch.tensor(window.baseline_totals,
+                                      dtype=sol.total.dtype,
+                                      device=sol.total.device)
+            scale = torch.clamp(torch.abs(cent_total), min=1.0)
+            gap = (sol.total - cent_total) / scale
+            undercut = ((sol.total < cent_total - pol.cross_check.atol)
+                        & sol.feasible)
+            if bool(undercut.any()):
+                bad = [int(b) for b in torch.nonzero(undercut)[:, 0]]
+                raise RuntimeError(
+                    f"lanes {bad}: GNEP total beats the exact (P3) optimum "
+                    "— solver inconsistency (check mask/padding invariants)")
+
+        integer_sol = (round_solution_batch(batch, sol.r, sol.sM, sol.sR,
+                                            sol.psi)
+                       if pol.rounding.enabled else None)
+        return WindowSolveReport(method="streaming", fractional=sol,
+                                 integer=integer_sol, iters=sol.iters,
+                                 config=cfg,
+                                 elapsed_s=time.perf_counter() - t0,
+                                 mask=batch.mask, n_classes=batch.n_classes,
+                                 feasible=sol.feasible, resolved=resolved,
+                                 centralized_gap=gap,
+                                 dtype_check=dtype_check)
 
 
 class WindowSession:
-    """Not ported yet: the live admission-window loop."""
+    """The paper's runtime loop as a session: events in, equilibria out.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_WINDOWS)
+    Wraps a live :class:`~repro_torch.core.streaming.AdmissionWindow` and
+    owns the event buffer and its flush policy, the warm-start state carried
+    between re-solves, compaction, rounding and the centralized
+    cross-check.  Per-lane ``feasible`` flags report infeasible transients
+    without raising.  Obtain sessions from :meth:`CapacityEngine.open_window`.
+
+    Parameters
+    ----------
+    engine : CapacityEngine
+        Supplies ``config`` and ``policies``.
+    window : AdmissionWindow
+        The live window; mutated by ``apply`` / ``flush`` / lane operations.
+    quota : TenantQuota, optional
+        Budget ``offer`` and ``add_lane`` enforce with
+        :class:`QuotaExceededError`; ``None`` is unlimited.
+
+    Attributes
+    ----------
+    flushes : int
+        Flushes that solved (a no-op echo does not count).
+    events_folded : int
+        Events applied to the window so far.
+    last_slots : list
+        Per-event slot grants of the last drain.
+    """
+
+    def __init__(self, engine: CapacityEngine, window: AdmissionWindow,
+                 quota: Optional[TenantQuota] = None):
+        if (quota is not None
+                and not quota.admits_lane(window.batch_size - 1)):
+            raise QuotaExceededError(
+                f"window opens with {window.batch_size} lanes, quota "
+                f"allows {quota.max_lanes}")
+        self.engine = engine
+        self.window = window
+        self.quota = quota
+        self._pending: List[StreamEvent] = []
+        self.flushes = 0
+        self.events_folded = 0
+        self.last_slots: List[Optional[int]] = []
+        self._last_report: Optional[WindowSolveReport] = None
+
+    # ------------------------------------------------------------- queries
+    @property
+    def pending(self) -> Tuple[StreamEvent, ...]:
+        """Buffered, not-yet-applied events (application order)."""
+        return tuple(self._pending)
+
+    @property
+    def dirty_lanes(self) -> Set[int]:
+        """Lanes the next flush will re-solve: window-dirty | buffered."""
+        return ({int(b) for b in np.flatnonzero(self.window.dirty)}
+                | {ev.lane for ev in self._pending})
+
+    # --------------------------------------------------------------- verbs
+    def solve(self) -> WindowSolveReport:
+        """Warm-started re-solve of the window as it is (buffered events are
+        not applied — :meth:`flush` does that): dirty lanes iterate from the
+        cold init, clean lanes are frozen."""
+        return self.engine._solve_window(self.window)
+
+    def apply(self, *events: StreamEvent) -> Optional[WindowSolveReport]:
+        """Buffer events, flushing whenever the flush policy fires.
+
+        Returns
+        -------
+        WindowSolveReport or None
+            The report of the last flush the events triggered, or None when
+            everything is still buffered.
+        """
+        policy = self.engine.policies.flush
+        report = None
+        for ev in events:
+            self._pending.append(ev)
+            if self._policy_fires(policy, ev):
+                report = self.flush()
+        return report
+
+    def _policy_fires(self, policy: FlushPolicy, ev: StreamEvent) -> bool:
+        """One buffered event's flush decision (dirty lanes are counted only
+        when the policy has a dirty-fraction trigger)."""
+        if policy.is_critical(ev, self.window):
+            return True
+        n_dirty = (len(self.dirty_lanes)
+                   if policy.max_dirty_fraction is not None else 0)
+        return policy.should_flush(n_events=len(self._pending),
+                                   n_dirty=n_dirty,
+                                   batch_size=self.window.batch_size)
+
+    def offer(self, event: StreamEvent) -> bool:
+        """Buffer one event without flushing; True when a flush is due.
+
+        The external-scheduler hook: the same policy check as :meth:`apply`,
+        with the flush left to the caller.  Once it returns True, offer no
+        more events until :meth:`flush` has run.
+
+        Raises
+        ------
+        QuotaExceededError
+            When the buffer already holds the quota's ``max_queued`` events.
+        """
+        if (self.quota is not None
+                and not self.quota.admits_event(len(self._pending))):
+            raise QuotaExceededError(
+                f"session buffer holds {len(self._pending)} events, quota "
+                f"allows {self.quota.max_queued}")
+        self._pending.append(event)
+        return self._policy_fires(self.engine.policies.flush, event)
+
+    def pending_slack(self) -> float:
+        """Tightest SLA slack [s] of the buffered events: ``min(-E)`` over
+        arrivals' params and SLA edits' updates that carry ``E``; ``inf``
+        when none does."""
+        slack = np.inf
+        for ev in self._pending:
+            E = None
+            if isinstance(ev, ClassArrival):
+                E = ev.params.get("E")
+            elif isinstance(ev, SLAEdit):
+                E = ev.updates.get("E")
+            if E is not None:
+                slack = min(slack, -float(E))
+        return slack
+
+    def drain(self) -> List[Optional[int]]:
+        """Fold every buffered event into the window without re-solving.
+
+        Returns
+        -------
+        list of (int or None)
+            Per-event slot grants (arrivals) in buffer order — also kept on
+            ``last_slots``; empty when nothing was pending.
+        """
+        if not self._pending:
+            return []
+        slots = self.window.apply_epoch(self._pending)
+        self.events_folded += len(self._pending)
+        self._pending = []
+        self.last_slots = slots
+        return slots
+
+    def discard_pending(self) -> Tuple[StreamEvent, ...]:
+        """Drop every buffered event without folding it in; returns them in
+        buffer order.  The window is untouched."""
+        dropped = tuple(self._pending)
+        self._pending = []
+        return dropped
+
+    def flush(self) -> WindowSolveReport:
+        """Apply buffered events, run policy compaction, re-solve once.
+
+        An empty flush on a clean, solved window whose mask is the last
+        report's is a no-op: it echoes that report (``slot_map`` cleared)
+        without solving, and ``flushes`` / ``events_folded`` stay.
+
+        Returns
+        -------
+        WindowSolveReport
+            Equal to having re-solved after every single event.
+        """
+        if (not self._pending and self._last_report is not None
+                and self.window.state is not None
+                and not self.window.dirty.any()
+                and np.array_equal(self._last_report.mask.cpu().numpy(),
+                                   self.window._mask)):
+            return replace(self._last_report, slot_map=None)
+        self.drain()
+        report_map = None
+        comp = self.engine.policies.compaction
+        if (comp.occupancy is not None
+                and self.window.occupancy < comp.occupancy):
+            widest = max(int(self.window.n_classes.max()), 1)
+            target = max(int(np.ceil(comp.headroom * widest)), widest)
+            report_map = self.window.compact(n_max=target)
+        report = self.engine._solve_window(self.window)
+        report.slot_map = report_map
+        self.flushes += 1
+        self._last_report = report
+        return report
+
+    def stream(self, events: Iterable[StreamEvent]
+               ) -> Iterator[WindowSolveReport]:
+        """Replay an event stream in policy-coalesced flushes, yielding one
+        report per flush; a trailing partial epoch is flushed at the end, so
+        the window is left clean and solved."""
+        for ev in events:
+            report = self.apply(ev)
+            if report is not None:
+                yield report
+        if self._pending:
+            yield self.flush()
+
+    # ----------------------------------------------------- window geometry
+    def add_lane(self, scn: Optional[Scenario] = None, *,
+                 R: Optional[float] = None,
+                 rho_bar: Optional[float] = None) -> int:
+        """Append one lane (buffered events drain first); see
+        ``AdmissionWindow.add_lane``.
+
+        Raises
+        ------
+        QuotaExceededError
+            When the window already holds the quota's ``max_lanes``.
+        """
+        if (self.quota is not None
+                and not self.quota.admits_lane(self.window.batch_size)):
+            raise QuotaExceededError(
+                f"window already holds {self.window.batch_size} lanes, "
+                f"quota allows {self.quota.max_lanes}")
+        self.drain()
+        return self.window.add_lane(scn, R=R, rho_bar=rho_bar)
+
+    def remove_lane(self, lane: int) -> None:
+        """Drop ``lane`` and shrink B by one (buffered events drain
+        first)."""
+        self.drain()
+        self.window.remove_lane(lane)
+
+    def compact(self, *, n_max: Optional[int] = None) -> np.ndarray:
+        """Re-pack the window now (buffered events drain first); returns the
+        (B, old_n_max) old-slot -> new-slot map (-1 where empty)."""
+        self.drain()
+        return self.window.compact(n_max=n_max)

@@ -3,13 +3,14 @@
 PyTorch counterpart of ``repro.core.types``.  All per-class quantities are
 (N,) tensors and scalars are 0-d tensors; a :class:`ScenarioBatch` stacks B
 instances with a leading batch dimension.  Notation follows the paper
-(Tables 1-4).  Stream events and ``WindowState`` come with the streaming
-slice (ROADMAP.md Queue 1 item 9).
+(Tables 1-4).  The stream events and :class:`WindowState` at the end are
+what :mod:`repro_torch.core.streaming` applies and carries.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import NamedTuple, Union
 
 import numpy as np
 import torch
@@ -242,3 +243,71 @@ def objective(scn: Scenario, r, psi) -> torch.Tensor:
 def deadline_lhs(scn: Scenario, psi, sM, sR) -> torch.Tensor:
     """LHS of (P2d): A/(sM psi) + B/(sR psi) + E  (<= 0 when deadline met)."""
     return scn.A / (sM * psi) + scn.B / (sR * psi) + scn.E
+
+
+# --------------------------------------------------------------------------
+# Streaming admission: events + per-window solver state
+# --------------------------------------------------------------------------
+#
+# Events are plain host-side records of Python scalars: they mutate the
+# AdmissionWindow (core.streaming) between solves; only the resulting padded
+# ScenarioBatch reaches the solver.
+
+
+@dataclass(frozen=True)
+class ClassArrival:
+    """A new job class entering ``lane``'s allocation game.
+
+    ``params`` holds the raw per-class scalars (the :data:`RAW_CLASS_FIELDS`:
+    A, B, E, cM, cR, H_up, H_low, m, rho_up); derived constants are computed
+    by the window on admission.  The slot is chosen by the window (lowest
+    free slot, growing ``n_max`` only when the lane's row is full).
+    """
+    lane: int
+    params: dict
+
+
+@dataclass(frozen=True)
+class ClassDeparture:
+    """Job class in (``lane``, ``slot``) leaves; its slot is recycled."""
+    lane: int
+    slot: int
+
+
+@dataclass(frozen=True)
+class SLAEdit:
+    """In-place SLA / profile renegotiation for the class in (lane, slot).
+
+    ``updates`` maps raw field names (subset of :data:`RAW_CLASS_FIELDS`) to
+    new values; the window merges them and re-derives the class constants.
+    """
+    lane: int
+    slot: int
+    updates: dict
+
+
+@dataclass(frozen=True)
+class CapacityChange:
+    """Lane capacity R changes (node failures / restores, paper Fig. 2)."""
+    lane: int
+    R: float
+
+
+StreamEvent = Union[ClassArrival, ClassDeparture, SLAEdit, CapacityChange]
+
+
+class WindowState(NamedTuple):
+    """Last-equilibrium solver state an ``AdmissionWindow`` carries.
+
+    Shapes: ``r`` is (B, n_max); ``rho`` / ``lane_iters`` / ``solved`` are
+    (B,), all on the window's device.  ``solved`` marks lanes whose stored
+    equilibrium is valid; the window's host-side *dirty* flags mark lanes
+    whose scenario changed after the state was stored.  Clean solved lanes
+    are frozen at their stored equilibrium, all others re-iterate from the
+    cold Alg. 4.1 init (bids are not stored: they only escalate in the game,
+    so carrying them over would steer a changed lane elsewhere).
+    """
+    r: torch.Tensor
+    rho: torch.Tensor
+    lane_iters: torch.Tensor
+    solved: torch.Tensor

@@ -96,3 +96,29 @@ def assert_rel_close(got, want, rel, label=""):
     scale = max(float(np.abs(want).max()), 1e-30)
     err = float(np.abs(got - want).max())
     assert err <= rel * scale, f"{label}: max err {err} > {rel} x {scale}"
+
+
+def event_record(ev):
+    """A JAX stream event as the plain record ``convert.event_from_record``
+    takes: its class name under ``kind`` and its fields as Python scalars."""
+    rec = {"kind": type(ev).__name__}
+    for key, value in vars(ev).items():
+        rec[key] = ({k: float(v) for k, v in value.items()}
+                    if isinstance(value, dict) else value)
+    return rec
+
+
+def port_events(events):
+    """JAX stream events handed to the port as records."""
+    return [convert.event_from_record(event_record(ev)) for ev in events]
+
+
+def window_pair(seed, ns=(5, 8, 3, 6), n_max=None, capacity_factor=1.2,
+                growth_factor=2.0):
+    """(JAX AdmissionWindow, port AdmissionWindow on the CPU) over the same
+    drawn instances."""
+    from repro.core import streaming as js
+    from repro_torch.core import streaming as ts
+    sj, st = scenario_pairs(seed, ns, capacity_factor)
+    return (js.AdmissionWindow(sj, n_max=n_max, growth_factor=growth_factor),
+            ts.AdmissionWindow(st, n_max=n_max, growth_factor=growth_factor))

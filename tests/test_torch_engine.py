@@ -161,12 +161,7 @@ def test_f32_checked_policy_matches_jax():
     np.testing.assert_array_equal(np_(got.iters), np_(want.iters))
 
 
-def test_windows_and_residency_are_not_ported_yet():
-    eng = te.CapacityEngine(device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        eng.open_window([])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        te.WindowSession()
+def test_residency_is_not_ported_yet():
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         te.CapacityEngine(te.SolverConfig(residency="resident"),
                           device="cpu")

@@ -206,6 +206,9 @@ def test_default_device_is_the_card(monkeypatch):
             leaves(bj.scenarios), np_(bj.mask), np_(bj.n_classes), **kw),
         lambda **kw: te._coerce(bt, **kw),
         lambda **kw: te.CapacityEngine(**kw),
+        lambda **kw: convert.window_state_from_numpy(
+            {"r": np.zeros((1, 2)), "rho": np.ones(1),
+             "lane_iters": np.zeros(1), "solved": np.ones(1)}, **kw),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="cuda"):
