@@ -51,7 +51,21 @@ at once), then runs these phases, each of which raises on failure:
    constants ``derive`` on the card.  Events per second, flush and
    cold re-solve walls, dirty lanes and launches per flush and one flush's
    device idle share are printed;
-7. the ``kernels`` line, whose launch counts add phases 2 and 6.
+7. lane shards, resident sessions and the facades at phase 2's scale:
+   (a) phase 2's fused and sweep solves over ``lane_mesh()`` (1 shard) and
+   ``lane_mesh(devices=["cuda:0"] * 3)`` (258 padded lanes, 2 inert), and
+   2 lanes over the 3 shards, each bit for bit phase 2's unsharded solve,
+   with one launch a loop step a shard; (b) phase 6's fused session over
+   its trace, resident on the 3 shards and then on 1, every report bit for
+   bit the round-trip session's, the fused middle bit for bit its plain
+   version on the padded resident batch every 8th flush and after the
+   compaction, a lane pair that moves B across a multiple of 3, and
+   ``release_resident`` leaving the round-trip window leaf by leaf; (c)
+   ``allocator.solve_batch`` and ``solve_coalesced`` bit for bit their
+   engine calls, warning; and a CPU mesh under card tensors refused.
+   Resident flush walls, events per second and one flush's idle share are
+   printed beside phase 6's;
+8. the ``kernels`` line, whose launch counts add phases 2, 6 and 7.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the repository's ``src/`` beside it, the script fails before
@@ -65,6 +79,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -123,6 +138,9 @@ DOT_SHAPE = (4096, 1024, 3072)
 # the fused session compacted after 8 flushes at the grown width
 WIN_N_MAX, WIN_EVENTS, WIN_FLUSH = 512, 256, 8
 WIN_GATE_EVERY, WIN_COMPACT_AFTER = 8, 8
+# phase 7's odd width: 255 lanes at n_max 501 put shards 1 and 2 of a 3-shard
+# mesh off the 16-byte boundary
+ODD_N_MAX = 501
 
 
 def card_line() -> str:
@@ -723,7 +741,7 @@ def phase_main(batch, gen, counters):
                                  "price or allocation disagrees")
     print(f"  rm_solve(sweep_fn=make_sweep_fn()) on lanes "
           f"{list(rm_lanes)}: price equal, allocation within 1e-9")
-    return configs, counts
+    return configs, counts, reports
 
 
 def phase_reference(gen):
@@ -1648,8 +1666,463 @@ def phase_window(counters):
           "classes equal derive on the card bit for bit")
     took = time.perf_counter() - t_phase
     print(f"  phase 6: {took!r} s")
-    return {"fused": fused, "sweep": sweep, "seconds": took}
+    return {"fused": fused, "sweep": sweep, "seconds": took, "scns": scns,
+            "trace": trace, "cut": cut}
 
+
+
+# --------------------------------------------------------------------------
+# phase 7: lane shards, resident window sessions and the facades
+# --------------------------------------------------------------------------
+
+
+def shard_steps(iters, n_shards, inert):
+    """Loop steps of a sharded solve whose lanes iterated ``iters`` times:
+    for each shard its lanes' most, summed over the shards, the inert
+    padding lanes taking ``inert`` (1 cold, 0 warm: they are frozen)."""
+    pad = -(-iters.shape[0] // n_shards) * n_shards - iters.shape[0]
+    iters = torch.cat([iters, iters.new_full((pad,), inert)])
+    return int(iters.view(n_shards, -1).amax(1).sum())
+
+
+def resolved_iters(rep):
+    """A window report's iterations on the lanes it resolved, 0 elsewhere."""
+    res = torch.as_tensor(rep.resolved, device=rep.iters.device)
+    return torch.where(res, rep.iters, 0)
+
+
+def same_report(a, b):
+    """The fields in which two reports differ bit for bit (empty if none)."""
+    bad = [f.name for f in dataclasses.fields(a.fractional)
+           if not bitwise(getattr(a.fractional, f.name),
+                          getattr(b.fractional, f.name))]
+    if (a.integer is None) != (b.integer is None):
+        bad.append("integer")
+    elif a.integer is not None:
+        bad += [f"integer.{f}" for f, x, y in zip(a.integer._fields,
+                                                  a.integer, b.integer)
+                if not bitwise(x, y)]
+    if not np.array_equal(getattr(a, "resolved", None),
+                          getattr(b, "resolved", None)):
+        bad.append("resolved")
+    for name in ("iters", "mask", "n_classes", "centralized_gap"):
+        x, y = getattr(a, name, None), getattr(b, name, None)
+        if (x is None) != (y is None) or (x is not None
+                                          and not bitwise(x, y)):
+            bad.append(name)
+    return bad
+
+
+def counted(tally, kernel, fn, *args, **kw):
+    """``fn(*args, **kw)``, adding ``kernel``'s launches in it to ``tally``."""
+    before = kernel.launches
+    out = fn(*args, **kw)
+    n = kernel.launches - before
+    tally[kernel.__name__] = tally.get(kernel.__name__, 0) + n
+    return out, n
+
+
+def sharded_solves(batch, configs, reports, window, kernels, tally):
+    """7a: phase 2's batch over a 1-shard and a 3-shard mesh on the card
+    (258 padded lanes, 2 inert), each configuration against phase 2's
+    unsharded report bit for bit, with one launch a loop step a shard; then
+    2 lanes over the 3 shards (a shard of inert lanes only), and 255 of
+    phase 6's lanes at an odd width on the 3 shards (``odd_width``)."""
+    from repro_torch import core
+    meshes = {1: core.lane_mesh(), 3: core.lane_mesh(devices=["cuda:0"] * 3)}
+    for name in ("fused", "sweep"):
+        kernel = kernels[name]
+        for d, mesh in meshes.items():
+            cfg = dataclasses.replace(configs[name], mesh=mesh)
+            if f"|mesh={d}:lanes" not in cfg.fingerprint():
+                raise AssertionError(f"7a: fingerprint {cfg.fingerprint()}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep, n = counted(tally, kernel, core.CapacityEngine(cfg).solve,
+                             batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            steps = shard_steps(rep.iters, d, inert=1)
+            bad = same_report(rep, reports[name])
+            print(f"  7a {name} on {d} shard(s): {n} {kernel.__name__} "
+                  f"launches (the shards' loop steps: {steps}), wall "
+                  f"{wall!r} s; differs from phase 2's unsharded solve in "
+                  f"{bad or 'nothing'}")
+            if n != steps or bad:
+                raise AssertionError(f"7a {name} on {d} shard(s): {n} "
+                                     f"launches for {steps} steps; {bad}")
+    two = batch.take([0, 1])
+    for name in ("fused", "sweep"):
+        cfg = dataclasses.replace(configs[name], mesh=meshes[3])
+        rep, n = counted(tally, kernels[name],
+                         core.CapacityEngine(cfg).solve, two)
+        bad = same_report(rep, core.CapacityEngine(configs[name]).solve(two))
+        steps = shard_steps(rep.iters, 3, inert=1)
+        print(f"  7a {name}, 2 lanes on 3 shards (the last only an inert "
+              f"lane): {n} launches for {steps} loop steps; differs from "
+              f"the unsharded solve in {bad or 'nothing'}")
+        if bad or n != steps:
+            raise AssertionError(f"7a {name}, 2 lanes on 3 shards")
+    odd_width(window, configs, meshes[3], kernels, tally)
+
+
+def ulp_errors(got, want, fields):
+    """Each of ``fields`` of two Solutions: its largest difference in ULPs
+    of its own largest magnitude (the unit of
+    ``tests/_tolerance.assert_ulp_close``)."""
+    err = {}
+    for name in fields:
+        x, y = getattr(got, name), getattr(want, name)
+        unit = max(float(y.abs().max()), torch.finfo(y.dtype).tiny) \
+            * torch.finfo(y.dtype).eps
+        err[name] = float((x - y).abs().max()) / unit
+    return err
+
+
+def odd_width(window, configs, mesh, kernels, tally):
+    """7a at an odd width: 255 of phase 6's lanes at n_max 501 on 3 shards
+    of 85.  Shard d's rows start d * 85 * 501 * 8 bytes in (8 mod 16 for
+    d = 1), its rho_bar (a view the fused kernel reads) d * 85 * 8 bytes
+    in, and the sweep's rows take scalar access.  Iterations, feasibility,
+    price, integer results and everything else but the fractional fields
+    must equal the unsharded solve's; r, cost, penalty and total are held
+    to 64 ULPs of their own scale (``ulp_errors``), and psi, sM and sR bit
+    for bit to ``cm_best_response`` of the sharded r (an elementwise
+    function, so all their difference comes from r's), because torch's
+    CUDA row sum (``sum(-1)``) adds a row in an order set by the row's
+    32-byte alignment, and a shard's freshly allocated rows at an odd width lie
+    differently from the same rows of the whole batch.  The probes show
+    it: that sum on a copy of shard 1 against the whole batch's, at widths
+    ODD_N_MAX and MAIN_N_MAX; the same solve through the plain middle (no
+    kernel); and the fused kernel on shard 1's row slice of the whole
+    batch's operands, bit for bit its rows of the whole launch."""
+    from repro_torch import core
+    from repro_torch.core import game
+    from repro_torch.kernels.gnep_iter import ref
+    from repro_torch.kernels.gnep_iter.kernel import fused_iter_sweep
+    from repro_torch.kernels.gnep_iter.ops import FusedIterFn
+    odd = core.stack_scenarios(window["scns"][:255], n_max=ODD_N_MAX)
+    offsets = [odd.scenarios.A.narrow(0, 85, 85).data_ptr() % 16,
+               odd.scenarios.rho_bar.narrow(0, 85, 85).data_ptr() % 16]
+    if offsets != [8, 8]:
+        raise AssertionError(f"7a: shard 1 starts at {offsets} mod 16")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    same_sum = {}
+    for width in (ODD_N_MAX, MAIN_N_MAX):
+        x = torch.rand((255, width), generator=gen, device="cuda",
+                       dtype=torch.float64)
+        same_sum[width] = bitwise(x.narrow(0, 85, 85).clone().sum(-1),
+                                  x.sum(-1)[85:170])
+    summed = ("r", "cost", "penalty", "total")
+    plain = dict(configs, plain=core.SolverConfig(
+        iter_fn=FusedIterFn("plain middle", None)))
+    for name in ("fused", "sweep", "plain"):
+        cfg = dataclasses.replace(plain[name], mesh=mesh)
+        if name in kernels:
+            rep, n = counted(tally, kernels[name],
+                             core.CapacityEngine(cfg).solve, odd)
+            steps = shard_steps(rep.iters, 3, inert=1)
+        else:
+            rep, n, steps = core.CapacityEngine(cfg).solve(odd), 0, 0
+        want = core.CapacityEngine(plain[name]).solve(odd)
+        differ = same_report(rep, want)
+        ulps = ulp_errors(rep.fractional, want.fractional, summed)
+        derived = game.cm_best_response(odd.scenarios, rep.fractional.r,
+                                        mask=odd.mask)
+        bad = [f for f, e in ulps.items() if e > 64]
+        bad += [f for f, x in zip(("psi", "sM", "sR"), derived)
+                if not bitwise(getattr(rep.fractional, f), x)]
+        bad += [f for f in differ if f not in summed
+                and f not in ("psi", "sM", "sR")]
+        print(f"  7a {name}, 255 lanes at width {ODD_N_MAX} on 3 shards "
+              f"(shard 1's rows and rho_bar at {offsets} mod 16 bytes): {n} "
+              f"launches for {steps} loop steps; differs from the unsharded "
+              f"solve bit for bit in {differ or 'nothing'}; ULPs {ulps}; "
+              f"outside the gate {bad or 'nothing'}")
+        if bad or n != steps:
+            raise AssertionError(f"7a {name}, 255 lanes at width "
+                                 f"{ODD_N_MAX} on 3 shards: {bad}")
+    prep, bids = trajectory_bids(odd)
+    args = fused_args(odd, prep, bids)
+    whole = fused_iter_sweep(*args)
+    part = fused_iter_sweep(*(t.narrow(0, 85, 85) for t in args))
+    rows = all(bitwise(p, w.narrow(0, 85, 85)) for p, w in zip(part, whole))
+    sub = odd.take(list(range(85, 170)))
+    sprep = ref.prepare(sub.scenarios, sub.mask)
+    prep_differs = [k for k in sprep._fields
+                    if not bitwise(getattr(sprep, k),
+                                   getattr(prep, k).narrow(0, 85, 85))]
+    print(f"  7a probes: row sum of a copy of shard 1 bit for bit the whole "
+          f"batch's at width {ODD_N_MAX}: {same_sum[ODD_N_MAX]}, at "
+          f"{MAIN_N_MAX}: {same_sum[MAIN_N_MAX]}; fused kernel on shard 1's "
+          f"row slice bit for bit its rows of the whole launch: {rows}; "
+          f"the fused prep built on shard 1 differs in {prep_differs}")
+    if not rows or not same_sum[MAIN_N_MAX]:
+        raise AssertionError("7a probes: the kernel depends on the row "
+                             "offset, or the row sum does at width "
+                             f"{MAIN_N_MAX}")
+
+
+def drive(cfg, scns, trace, cut, kernel, tally=None, profile_at=None):
+    """One session over phase 6's trace, compacting after the flush that
+    ends at event ``cut``.  Returns a namespace: the ``session``, its
+    ``reports`` (the first solve's, then a flush's), the compaction's
+    ``slot_map``, the ``launches`` of each report, the flush ``walls`` and
+    ``events`` (one profiled flush left out), the resident batches ``held``
+    for the kernel check (every 8th flush and after the compaction) and
+    the profiled ``idle`` share.  Launches count in ``tally`` when it is
+    given."""
+    from repro_torch import core
+    from torch.profiler import ProfilerActivity, profile
+    pol = core.Policies(flush=core.FlushPolicy(max_events=WIN_FLUSH),
+                        cross_check=core.CrossCheckPolicy(True))
+    session = core.CapacityEngine(cfg, pol).open_window(
+        core.AdmissionWindow(scns, n_max=WIN_N_MAX))
+    resident = cfg.residency == "resident"
+    local = {}
+    rep, n = counted(local, kernel, session.solve)
+    reports, launches = [rep], [n]
+    stream = session.stream(trace)
+    walls, events, held, idle, slot_map = [], [], [], None, None
+    profiled_once = False
+    while True:
+        start = session.events_folded
+        profiled = (not profiled_once and profile_at is not None
+                    and session.window.n_max == profile_at)
+        prof = (profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])
+                if profiled else contextlib.nullcontext())
+        with prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep, n = counted(local, kernel, next, stream, None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if rep is None:
+            break
+        if profiled:
+            profiled_once = True
+            idle, _ = report_idle(prof, wall, f"7b resident on "
+                                  f"{cfg.mesh.devices.size} shard(s): one "
+                                  f"flush at width {rep.mask.shape[1]}",
+                                  rows=4)
+        else:
+            walls.append(wall)
+            events.append(session.events_folded - start)
+        reports.append(rep)
+        launches.append(n)
+        if resident and (len(reports) - 1) % WIN_GATE_EVERY == 0:
+            held.append((f"flush {len(reports) - 1}",
+                         session.window.resident_batch()))
+        if session.events_folded == cut:
+            slot_map = session.compact()
+            if resident:
+                held.append((f"compacted after flush {len(reports) - 1}",
+                             session.window.resident_batch()))
+    if tally is not None:
+        for k, v in local.items():
+            tally[k] = tally.get(k, 0) + v
+    return types.SimpleNamespace(
+        session=session, reports=reports, slot_map=slot_map,
+        launches=launches, walls=walls, events=events, held=held, idle=idle)
+
+
+def hold_session(label, got, want, n_shards):
+    """Every report of ``got`` equals ``want``'s bit for bit, and each took
+    one launch a loop step a shard."""
+    if (len(got.reports) != len(want.reports)
+            or not np.array_equal(got.slot_map, want.slot_map)):
+        raise AssertionError(f"7b {label}: {len(got.reports)} reports "
+                             f"against {len(want.reports)}, or the slot maps "
+                             "differ")
+    for i, (a, b, n) in enumerate(zip(got.reports, want.reports,
+                                      got.launches)):
+        bad = same_report(a, b)
+        steps = shard_steps(resolved_iters(a), n_shards, inert=int(i == 0))
+        if bad or n != steps:
+            raise AssertionError(f"7b {label}, report {i}: {n} launches for "
+                                 f"{steps} loop steps; differs from the "
+                                 f"round trip in {bad}")
+
+
+def resident_sessions(configs, window, kernels, tally):
+    """7b: phase 6's fused session over its trace, resident on 3 shards of
+    the card (258 padded lanes, 2 inert) and then on 1, every report held
+    to the round-trip session's bit for bit; the fused middle held to its
+    plain version on the padded resident batch; a lane pair that moves B
+    across a multiple of 3; and release_resident.  Returns measurements."""
+    from repro_torch import core
+    from repro_torch.kernels.gnep_iter.kernel import fused_iter_sweep
+    from repro_torch.kernels.gnep_iter.ref import fused_middle_reference
+    scns, trace, cut = window["scns"], window["trace"], window["cut"]
+    kernel, rt_cfg = kernels["fused"], configs["fused"]
+    rt = drive(rt_cfg, scns, trace, cut, kernel)
+    mesh3 = core.lane_mesh(devices=["cuda:0"] * 3)
+    res3 = drive(dataclasses.replace(rt_cfg, mesh=mesh3,
+                                     residency="resident"),
+                 scns, trace, cut, kernel, tally)
+    hold_session("3 shards", res3, rt, 3)
+    w = res3.session.window
+    rows = -(-MAIN_B // 3) * 3
+    if not (w.is_resident and w._scn.A.shape[0] == rows
+            and not w._mask_dev[MAIN_B:].any()):
+        raise AssertionError(f"7b: the window is not resident at {rows} "
+                             "lanes")
+    print(f"  7b resident on 3 shards: the first solve, "
+          f"{len(res3.reports) - 1} flushes and the compaction equal the "
+          f"round trip's bit for bit, {sum(res3.launches)} {kernel.__name__} "
+          f"launches (one a loop step a shard); median flush "
+          f"{statistics.median(res3.walls)!r} s (round trip "
+          f"{statistics.median(rt.walls)!r} s)")
+    err = 0.0
+    for label, rbatch in res3.held:
+        prep, bids = trajectory_bids(rbatch)
+        args = fused_args(rbatch, prep, bids)
+        err = max(err, check_fused(args, fused_iter_sweep,
+                                   fused_middle_reference,
+                                   fused_label(f"7b padded {label}", args)))
+    # a lane pair that moves B across a multiple of 3: 256 -> 255 (no
+    # padding lane; a capacity cut in each shard first, so the solve has
+    # dirty lanes in every shard) -> 256 (258 rows; the new lane dirty),
+    # each followed by a solve
+    res, ref = res3.session, rt.session
+    lane = ref.window.batch.instance(MAIN_B - 1)
+    R = ref.window.batch.scenarios.R.tolist()
+    cuts = [core.CapacityChange(b, R[b] * 0.97) for b in (0, 100, 200)]
+    for step in ("remove_lane", "add_lane"):
+        for s in (res, ref):
+            if step == "remove_lane":
+                for ev in cuts:
+                    s.offer(ev)
+                s.remove_lane(MAIN_B - 1)
+            else:
+                s.add_lane(lane)
+        a, n = counted(tally, kernel, res.solve)
+        bad = same_report(a, ref.solve())
+        rows = w._scn.A.shape[0]
+        steps = shard_steps(resolved_iters(a), 3, inert=0)
+        print(f"  7b {step}: B={w.batch_size}, {rows} resident rows, "
+              f"{int(np.sum(a.resolved))} lanes re-solved, {n} launches for "
+              f"{steps} loop steps; differs from the round trip in "
+              f"{bad or 'nothing'}")
+        if bad or rows != -(-w.batch_size // 3) * 3 or n != steps or not n:
+            raise AssertionError(f"7b {step}: {bad}, {rows} rows, {n} "
+                                 f"launches for {steps} steps")
+    w.release_resident()
+    fields = [f.name for f in dataclasses.fields(core.Scenario)]
+    bad = [f for f in fields if not bitwise(getattr(w._scn, f),
+                                            getattr(ref.window._scn, f))]
+    bad += [f for f, x, y in zip(core.WindowState._fields, w.state,
+                                 ref.window.state) if not bitwise(x, y)]
+    if bad or w.is_resident or not np.array_equal(w._mask, ref.window._mask) \
+            or w._raw != ref.window._raw:
+        raise AssertionError(f"7b: the released window differs in {bad}")
+    print("  7b release_resident: the window equals the round trip's leaf "
+          "by leaf")
+    res1 = drive(dataclasses.replace(rt_cfg, mesh=core.lane_mesh(),
+                                     residency="resident"),
+                 scns, trace, cut, kernel, tally, profile_at=2 * WIN_N_MAX)
+    hold_session("1 shard", res1, rt, 1)
+    idle1 = res1.idle
+    out = dict(flush3_s=statistics.median(res3.walls),
+               flush1_s=statistics.median(res1.walls),
+               flush_rt_s=statistics.median(rt.walls),
+               events_per_s3=sum(res3.events) / sum(res3.walls),
+               events_per_s1=sum(res1.events) / sum(res1.walls),
+               launches_per_flush3=statistics.mean(res3.launches[1:]),
+               launches_per_flush1=statistics.mean(res1.launches[1:]),
+               idle1=idle1, plain_err=err)
+    fused = window["fused"]
+    print(f"  7b resident on 1 shard: every report equal to the round trip's "
+          f"bit for bit; median flush {out['flush1_s']!r} s, "
+          f"events_per_s={out['events_per_s1']!r}, idle share of one "
+          f"profiled flush {idle1!r}; 3 shards: "
+          f"events_per_s={out['events_per_s3']!r}, launches a flush "
+          f"{out['launches_per_flush3']!r} (1 shard "
+          f"{out['launches_per_flush1']!r}); phase 6's fused session: "
+          f"median flush {fused['flush_s']!r} s, "
+          f"events_per_s={fused['events_per_s']!r}, idle {fused['idle']!r}")
+    return out
+
+
+def facades(batch, configs, window, kernels, tally):
+    """7c: the deprecated facades on the card, each bit for bit its engine
+    call, each seen to warn and to launch its kernel."""
+    import warnings
+    from repro_torch import core
+    kernel, sweep = kernels["sweep"], configs["sweep"].sweep_fn
+    events = window["trace"][:4 * WIN_FLUSH]
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        got, n_batch = counted(tally, kernel, core.solve_batch, batch,
+                               sweep_fn=sweep)
+        w_shim = core.AdmissionWindow(window["scns"], n_max=WIN_N_MAX)
+        got_c, n_coal = counted(tally, kernel, lambda: list(
+            core.solve_coalesced(w_shim, events, sweep_fn=sweep)))
+    warned = [str(x.message).split(" is deprecated")[0] for x in seen
+              if issubclass(x.category, DeprecationWarning)]
+    want = core.CapacityEngine(configs["sweep"]).solve(batch)
+    eng = core.CapacityEngine(configs["sweep"], core.Policies(
+        flush=core.FlushPolicy(max_events=WIN_FLUSH)))
+    want_c = list(eng.open_window(core.AdmissionWindow(
+        window["scns"], n_max=WIN_N_MAX)).stream(events))
+    bad = same_report(got, want)
+    bad += [f"flush {i}: {b}" for i, (x, y) in enumerate(zip(got_c, want_c))
+            for b in same_report(x, y)]
+    print(f"  7c solve_batch: {n_batch} launches; solve_coalesced: "
+          f"{len(got_c)} flushes, {n_coal} launches; warned: {warned}; "
+          f"differs from the engine calls in {bad or 'nothing'}")
+    if (bad or len(got_c) != len(want_c) or not n_batch or not n_coal
+            or warned != ["repro_torch.core.allocator.solve_batch",
+                          "repro_torch.core.allocator.solve_coalesced"]):
+        raise AssertionError("7c: a facade failed its gates")
+
+
+def no_fallback(batch, window):
+    """A CPU mesh under tensors on the card is refused, never taken."""
+    from repro_torch import core
+    cpu = core.lane_mesh(devices=["cpu"] * 2)
+    w = core.AdmissionWindow(window["scns"][:4], n_max=WIN_N_MAX)
+    for what, call in (("solve_sharded_batch",
+                        lambda: core.solve_sharded_batch(batch, cpu)),
+                       ("make_resident", lambda: w.make_resident(cpu))):
+        try:
+            call()
+        except ValueError:
+            continue
+        raise AssertionError(f"{what} took a CPU mesh for tensors on the "
+                             "card")
+    print("  no fallback: solve_sharded_batch and make_resident refuse a CPU "
+          "mesh under tensors on the card")
+
+
+def phase_shards(batch, configs, reports, window, counters):
+    """Phase 7: 7a, 7b and 7c (see each helper).  The counts are set to 0
+    before; the launches of the paths under test are tallied, those of the
+    round-trip references and of the kernel checks are not."""
+    from repro_torch.kernels.gnep_iter.kernel import fused_iter_sweep
+    from repro_torch.kernels.gnep_sweep.kernel import rm_sweep_batched
+    t_phase = time.perf_counter()
+    kernels = {"fused": fused_iter_sweep, "sweep": rm_sweep_batched}
+    print(f"phase 7: lane shards, resident sessions and the facades on the "
+          f"card, {batch.batch_size} lanes, f64")
+    for fn in counters:
+        fn.launches = 0
+    tally = {}
+    sharded_solves(batch, configs, reports, window, kernels, tally)
+    out = resident_sessions(configs, window, kernels, tally)
+    facades(batch, configs, window, kernels, tally)
+    no_fallback(batch, window)
+    others = {fn.__name__: fn.launches for fn in counters
+              if fn not in kernels.values() and fn.launches}
+    if others or set(tally) != {k.__name__ for k in kernels.values()} or (
+            not all(tally.values())):
+        raise AssertionError(f"phase 7 launches: {tally}, others {others}")
+    out["launches"] = tally
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 7: launches of the paths under test {tally}; "
+          f"{out['seconds']!r} s")
+    return out
 
 
 def main() -> int:
@@ -1703,8 +2176,8 @@ def main() -> int:
     rows["flash_attention"] = timed("phase 1b", phase_flash, cuda_gen)
     rows["wkv6"] = timed("phase 1c", phase_wkv, cuda_gen)
     timed("phase 1d", phase_dot, cuda_gen)
-    configs, counts = timed("phase 2", phase_main, main_batch, gen,
-                            counters)
+    configs, counts, reports = timed("phase 2", phase_main, main_batch, gen,
+                                     counters)
     timed("phase 2 reference", phase_reference, gen)
     timed("phase 3", phase_pinned, gen)
     timed("phase 4", phase_timing, main_batch, configs)
@@ -1716,10 +2189,14 @@ def main() -> int:
     window = timed("phase 6", phase_window, counters)
     by_path = {name: {"phase 2": n} for name, n in counts.items()
                if name in ALLOCATOR_KERNELS}
+    shards = timed("phase 7", phase_shards, main_batch, configs, reports,
+                   window, counters)
     for name, session in (("fused_iter_sweep", "fused"),
                           ("rm_sweep_batched", "sweep")):
         by_path[name]["phase 6"] = window[session]["launches"]
-        counts[name] += window[session]["launches"]
+        by_path[name]["phase 7"] = shards["launches"][name]
+        counts[name] += (window[session]["launches"]
+                         + shards["launches"][name])
     for arch, res in serving.items():
         print(f"  serving {arch}: f32 decode-vs-forward "
               f"{res.get('f32_rel')!r} prefill_s={res['prefill_s']!r} "

@@ -14,9 +14,10 @@ Counterpart of ``repro.core.engine``:
 * :class:`WindowSession` — the live loop: ``apply`` events, ``flush``
   coalesced warm re-solves, ``stream`` whole traces.
 
-Device-resident sessions (``residency="resident"``) are not ported yet and
-raise ``NotImplementedError`` (ROADMAP.md Queue 1 item 10); the deprecated
-``allocator`` facades and their ``_legacy_solve_window`` come with item 21.
+A ``mesh=`` (``sharding.lane_mesh``) splits every batched solve into lane
+slices, each with its own loop; ``residency="resident"`` keeps a session's
+window padded on that mesh across flushes.  ``_legacy_solve_window`` maps
+the deprecated ``allocator`` facades' keyword arguments onto an engine.
 """
 from __future__ import annotations
 
@@ -29,12 +30,12 @@ from typing import (Any, Callable, Iterable, Iterator, List, Optional,
 import numpy as np
 import torch
 
-from repro_torch.core import game
+from repro_torch.core import game, sharding
 from repro_torch.core.centralized import (solve_centralized,
                                           solve_centralized_batch)
 from repro_torch.core.rounding import (IntegerSolution, round_solution,
                                        round_solution_batch)
-from repro_torch.core.streaming import _RESIDENT, AdmissionWindow, FlushPolicy
+from repro_torch.core.streaming import AdmissionWindow, FlushPolicy
 from repro_torch.core.types import (ClassArrival, Scenario, ScenarioBatch,
                                     SLAEdit, Solution, StreamEvent,
                                     stack_scenarios)
@@ -125,11 +126,14 @@ class SolverConfig:
     sweep_fn : callable, optional
         Batched RM price sweep, e.g. ``kernels.gnep_sweep.ops
         .make_batched_sweep_fn()`` (the CUDA kernel on the card).
-    mesh : object, optional
-        Lane mesh; recorded in the fingerprint, but sharded solves are not
-        ported yet (ROADMAP.md Queue 1 item 10) and raise.
+    mesh : repro_torch.core.sharding.LaneMesh, optional
+        1-D lane mesh (``sharding.lane_mesh``) whose first device is the
+        engine's: batched and window solves split the lanes into one slice
+        a device, each with its own loop.
     residency : str
-        ``"round-trip"``; ``"resident"`` is not ported yet and raises.
+        ``"round-trip"`` (default: a window flush builds its batch and warm
+        start at the logical lane count) or ``"resident"`` (the window is
+        kept padded on ``mesh`` across flushes; needs a mesh).
     iter_fn : object, optional
         Fused-iteration plug-in, e.g. ``kernels.gnep_iter.ops
         .make_fused_iter_fn()``; takes precedence over ``sweep_fn``.
@@ -504,12 +508,23 @@ class CapacityEngine:
         self.config = config if config is not None else SolverConfig()
         self.policies = policies if policies is not None else Policies()
         self.device = resolve_device(device)
-        if self.config.residency == "resident":
-            raise NotImplementedError(_RESIDENT)
-        if self.config.residency != "round-trip":
+        if self.config.residency not in ("round-trip", "resident"):
             raise ValueError(
                 f"unknown residency {self.config.residency!r} — "
                 "expected 'round-trip' or 'resident'")
+        if self.config.residency == "resident" and self.config.mesh is None:
+            raise ValueError(
+                "residency='resident' needs a mesh= in the SolverConfig "
+                "(repro_torch.core.sharding.lane_mesh)")
+        if (self.config.check_sample() > 0
+                and self.config.residency == "resident"):
+            # as in the reference: the check's f64 shadow re-solve is made
+            # at the logical lane count, so resident sessions refuse it
+            # rather than weaken it
+            raise ValueError(
+                "dtype_policy='f32_checked' is not supported with "
+                "residency='resident' — use residency='round-trip' for "
+                "checked f32, or dtype_policy='f64' for resident sessions")
 
     # ------------------------------------------------------------- one-shot
     def solve(self, problem, *, method: str = "distributed",
@@ -661,9 +676,24 @@ class CapacityEngine:
     def _solve_window(self, window: AdmissionWindow) -> WindowSolveReport:
         """Warm-started incremental re-solve of a live window, where its
         tensors lie: only dirty lanes iterate, clean lanes pass through at
-        their stored equilibrium (the round-trip path; the resident one is
-        not ported yet, and a resident config is refused when the engine is
-        built)."""
+        their stored equilibrium.  A resident window (or a
+        ``residency='resident'`` config, which makes the window resident on
+        first use) takes the resident path."""
+        cfg = self.config
+        if not window.is_resident and cfg.residency == "resident":
+            window.make_resident(cfg.mesh)
+        if window.is_resident:
+            if cfg.mesh is not None and cfg.mesh != window.resident_mesh:
+                raise ValueError(
+                    "window is resident on a different mesh than the "
+                    "engine's config.mesh — release_resident or match them")
+            return self._solve_window_resident(window)
+        return self._solve_window_roundtrip(window)
+
+    def _solve_window_roundtrip(self,
+                                window: AdmissionWindow) -> WindowSolveReport:
+        """The round-trip flush: the warm start built at the logical lane
+        count, split over ``config.mesh`` per solve when one is set."""
         cfg = self.config
         t0 = time.perf_counter()
         batch = window.batch
@@ -680,6 +710,28 @@ class CapacityEngine:
                                    masks=window._mask.any(axis=1))
         return self._window_report(window, batch, sol, resolved, t0,
                                    dtype_check=dtype_check)
+
+    def _solve_window_resident(self,
+                               window: AdmissionWindow) -> WindowSolveReport:
+        """The resident flush: the padded batch, mask mirror and stored
+        equilibrium already lie on the window's mesh; the warm start is
+        built there, the padded solution is committed, and the report is
+        trimmed to the logical lanes."""
+        cfg = self.config
+        t0 = time.perf_counter()
+        rbatch = window.resident_batch()
+        init, resolved = window.resident_warm_start(rbatch)
+        sol_p = sharding.solve_resident_batch(
+            rbatch, window.resident_mesh, eps_bar=cfg.eps_bar, lam=cfg.lam,
+            max_iters=cfg.max_iters, sweep_fn=cfg.sweep_fn, init=init,
+            iter_fn=cfg.iter_fn)
+        window.commit(sol_p.r, sol_p.aux, sol_p.iters)
+        b = window.batch_size
+        sol = (sol_p if rbatch.batch_size == b
+               else tree_map(lambda leaf: leaf[:b], sol_p))
+        # the report's batch is the logical window, as on the round trip,
+        # so the two paths' reports are alike leaf for leaf
+        return self._window_report(window, window.batch, sol, resolved, t0)
 
     def _window_report(self, window: AdmissionWindow, batch: ScenarioBatch,
                        sol: Solution, resolved: np.ndarray, t0: float,
@@ -953,3 +1005,25 @@ class WindowSession:
         (B, old_n_max) old-slot -> new-slot map (-1 where empty)."""
         self.drain()
         return self.window.compact(n_max=n_max)
+
+
+# --------------------------------------------------------------------------
+# Legacy plumbing (no DeprecationWarning: mechanism, not facade)
+# --------------------------------------------------------------------------
+
+
+def _legacy_solve_window(window: AdmissionWindow, *, eps_bar: float = 0.03,
+                         lam: float = 0.05, max_iters: int = 200,
+                         integer: bool = True, sweep_fn=None, mesh=None,
+                         cross_check: bool = False,
+                         cross_check_atol: float = 1e-6) -> WindowSolveReport:
+    """Keyword arguments -> (config, policies) adapter of the deprecated
+    facades and ``EventEpoch.flush``, with the engine on the window's
+    device, so that in-package code never goes through a warning shim."""
+    eng = CapacityEngine(
+        SolverConfig(eps_bar=eps_bar, lam=lam, max_iters=max_iters,
+                     sweep_fn=sweep_fn, mesh=mesh),
+        Policies(rounding=RoundingPolicy(integer),
+                 cross_check=CrossCheckPolicy(cross_check, cross_check_atol)),
+        device=window.device)
+    return eng._solve_window(window)

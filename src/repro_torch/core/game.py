@@ -321,8 +321,11 @@ def solve_distributed_batch(batch: ScenarioBatch, *, eps_bar: float = 0.03,
         (B, N))`` — ``kernels.gnep_sweep.ops.make_batched_sweep_fn()``.
     init : BatchWarmStart, optional
         Warm start; lanes with ``init.active`` False are frozen.
-    mesh : None
-        Lane sharding is not ported yet; any mesh raises.
+    mesh : repro_torch.core.sharding.LaneMesh, optional
+        1-D lane mesh (``sharding.lane_mesh``): the lanes are padded to a
+        multiple of the device count with inert lanes and each contiguous
+        slice runs its own loop (``sharding.solve_sharded_batch``).  None
+        (default) solves the whole batch in one loop.
     iter_fn : object, optional
         Fused-iteration plug-in (``kernels.gnep_iter.ops
         .make_fused_iter_fn()``); takes precedence over ``sweep_fn``.
@@ -334,9 +337,10 @@ def solve_distributed_batch(batch: ScenarioBatch, *, eps_bar: float = 0.03,
         total, feasible, iters and aux (= final RM price rho) are (B,).
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "lane sharding over a mesh is not ported yet "
-            "(ROADMAP.md Queue 1 item 10, core/sharding.py)")
+        from repro_torch.core.sharding import solve_sharded_batch
+        return solve_sharded_batch(batch, mesh, eps_bar=eps_bar, lam=lam,
+                                   max_iters=max_iters, sweep_fn=sweep_fn,
+                                   init=init, iter_fn=iter_fn)
     return _solve_batch_core(batch, eps_bar, lam, max_iters, sweep_fn, init,
                              iter_fn=iter_fn)
 
@@ -437,3 +441,32 @@ def solve_distributed_python(scn: Scenario, *, eps_bar: float = 0.03,
                                    and np.all(E < 0)), device=dev),
         iters=torch.tensor(it, device=dev), aux=t(rho))
     return sol, it, cm_seconds
+
+
+def distributed_walltime_estimate(n_cms: int, iters: int,
+                                  serial_cm_seconds: float,
+                                  rm_seconds: float = 0.0,
+                                  net_rtt_s: float = 1.3e-4) -> float:
+    """Paper Sec. 5.3 timing model for true-distributed wall-clock.
+
+    Parameters
+    ----------
+    n_cms : int
+        Number of Class Managers (the CM solves run in parallel).
+    iters : int
+        Best-reply iterations of the run being estimated.
+    serial_cm_seconds : float
+        Total serial CM-loop seconds measured by
+        :func:`solve_distributed_python`.
+    rm_seconds : float, optional
+        RM solve seconds (not divided: the RM is a single player).
+    net_rtt_s : float, optional
+        Per-iteration network round trip (the reference model's figure for
+        a 100 Mb/s LAN, two floats each way).
+
+    Returns
+    -------
+    float
+        ``serial_cm_seconds / N + rm_seconds + iters * net_rtt_s``.
+    """
+    return serial_cm_seconds / max(n_cms, 1) + rm_seconds + iters * net_rtt_s

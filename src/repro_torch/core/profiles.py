@@ -4,8 +4,8 @@ PyTorch counterpart of ``repro.core.profiles``.  The ranges are the
 reference's; the draws come from a ``torch.Generator``, so instances match
 the JAX ones in distribution, not bit for bit.  Draws are taken on the CPU
 generator and then placed on ``device``, so one seed gives the same instance
-on the CPU and on the card.  ``from_roofline`` comes with ROADMAP.md
-Queue 1 item 8.
+on the CPU and on the card.  ``from_roofline`` fits the same profile form
+from measured compute, collective and overhead seconds.
 
 The ARIA-style profile form (DESIGN.md Sec. 6):
 
@@ -116,3 +116,33 @@ def sample_class_params(gen: torch.Generator, *,
     """
     raw = _table5_raw(gen, (), deadline_scale, fdtype())
     return {k: float(v) for k, v in raw.items()}
+
+
+def from_roofline(compute_s, collective_s, overhead_s, deadline_s, *,
+                  chips_ref: float, H_up, H_low, m, rho_up, R,
+                  rho_bar: float = 1.0, device="cuda") -> Scenario:
+    """Fit the paper's job profiles from measured roofline terms.
+
+    A tenant job profiled at ``chips_ref`` chips spends ``compute_s``
+    seconds in math (the "map wave"), ``collective_s`` seconds in
+    collectives (the "reduce wave") and ``overhead_s`` fixed time per SLA
+    window.  Both wave terms scale as 1 / chips, the paper's ``A h / s``
+    form with h = 1 job:
+
+        T(r) = A / sM + B / sR + C,  sM = sR = r  (cM = cR = 1 slot a chip).
+
+    Every argument is a scalar or a (N,) array of the classes; the result is
+    a :class:`Scenario` in f64 on ``device`` (default the card).
+    """
+    dev = resolve_device(device)
+    dt = fdtype()
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dt, device=dev)
+
+    A = t(compute_s) * chips_ref
+    B = t(collective_s) * chips_ref
+    E = t(overhead_s) - t(deadline_s)
+    ones = torch.ones_like(A)
+    return derive(A, B, E, ones, ones, t(H_up), t(H_low), t(m), t(rho_up),
+                  R=t(R), rho_bar=t(rho_bar))

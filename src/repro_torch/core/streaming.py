@@ -1,8 +1,7 @@
 """Streaming admission — the paper's *runtime* allocation loop, in PyTorch.
 
-Counterpart of ``repro.core.streaming`` (without its device-resident
-layout, ROADMAP.md Queue 1 item 10).  The Resource Manager and the Class
-Managers re-negotiate capacity as job classes arrive and leave:
+Counterpart of ``repro.core.streaming``.  The Resource Manager and the
+Class Managers re-negotiate capacity as job classes arrive and leave:
 
 * :class:`AdmissionWindow` keeps a *live* padded :class:`ScenarioBatch`
   under :class:`~repro_torch.core.types.ClassArrival` /
@@ -22,6 +21,12 @@ Managers re-negotiate capacity as job classes arrive and leave:
   re-solve; lanes are added and removed between solves, and
   :meth:`AdmissionWindow.compact` re-packs a sparse window, remapping the
   stored equilibrium so frozen lanes stay frozen.
+* :meth:`AdmissionWindow.make_resident` keeps the window's tensors, a
+  device mirror of its mask and its stored equilibrium at the lane count
+  padded to a :class:`~repro_torch.core.sharding.LaneMesh`'s multiple, so
+  a resident flush (:meth:`AdmissionWindow.resident_batch`,
+  :meth:`AdmissionWindow.resident_warm_start`) solves the padded tensors
+  as they are and uploads only the dirty flags.
 
 The window's tensors live on the device of the scenarios it is built from.
 The occupancy mask, the dirty flags, the raw parameters of every admitted
@@ -35,6 +40,7 @@ The user-facing layer is :class:`repro_torch.core.engine.CapacityEngine` /
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from dataclasses import dataclass
@@ -43,20 +49,18 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import game
+from repro_torch.core import game, sharding
 from repro_torch.core.profiles import sample_class_params
 from repro_torch.core.types import (RAW_CLASS_FIELDS, CapacityChange,
                                     ClassArrival, ClassDeparture, Scenario,
                                     ScenarioBatch, SLAEdit, StreamEvent,
                                     WindowState, derive, neutral_class_values,
                                     pad_scenario, stack_scenarios)
+from repro_torch.utils import tree_map
 
 #: Per-class Scenario fields (raw + derived) written on every class write.
 _CLASS_FIELDS = tuple(neutral_class_values(0.0).keys())
 _RHO_UP = _CLASS_FIELDS.index("rho_up")
-
-_RESIDENT = ("device-resident sessions are not ported yet (ROADMAP.md "
-             "Queue 1 item 10, core/sharding.py)")
 
 
 def _np_dtype(dt: torch.dtype) -> np.dtype:
@@ -163,6 +167,12 @@ class AdmissionWindow:
         self.baseline_totals = np.full(self.batch_size, np.nan)
         self.baseline_stale = np.ones(self.batch_size, bool)
         self._state: Optional[WindowState] = None
+        # the resident layout (make_resident): the mesh, the (padded B,
+        # n_max) device mask mirror and the cached class counts
+        self._resident_mesh: Optional[sharding.LaneMesh] = None
+        self._mask_dev: Optional[torch.Tensor] = None
+        self._n_classes_dev: Optional[torch.Tensor] = None
+        self._n_classes_host: Optional[np.ndarray] = None
         # raw per-class parameters, so SLA edits can merge partial updates
         cols = {f: getattr(self._scn, f).cpu().numpy()
                 for f in RAW_CLASS_FIELDS}
@@ -190,10 +200,14 @@ class AdmissionWindow:
 
         Its mask is a copy of the host mask: on the CPU a tensor made with
         ``torch.from_numpy`` would share ``_mask``'s memory, and a report
-        holding it would follow later events.
+        holding it would follow later events.  A resident window's padding
+        lanes are left out (row views of its tensors).
         """
+        scn, b = self._scn, self.batch_size
+        if scn.A.shape[0] > b:
+            scn = tree_map(lambda leaf: leaf[:b], scn)
         return ScenarioBatch(
-            scenarios=self._scn, mask=_to_device(self._mask, self.device),
+            scenarios=scn, mask=_to_device(self._mask, self.device),
             n_classes=_to_device(self.n_classes.astype(np.int64),
                                  self.device))
 
@@ -215,29 +229,163 @@ class AdmissionWindow:
     # -------------------------------------------------------- device residency
     @property
     def is_resident(self) -> bool:
-        """Always False: the resident layout is not ported yet."""
-        return False
+        """Whether the window's tensors are kept padded on a lane mesh."""
+        return self._resident_mesh is not None
 
     @property
-    def resident_mesh(self):
-        """Always None: the resident layout is not ported yet."""
-        return None
+    def resident_mesh(self) -> Optional[sharding.LaneMesh]:
+        """The 1-D lane mesh the window is resident on (None when not)."""
+        return self._resident_mesh
 
-    def make_resident(self, mesh) -> None:
-        """Not ported yet (ROADMAP.md Queue 1 item 10)."""
-        raise NotImplementedError(_RESIDENT)
+    def make_resident(self, mesh: sharding.LaneMesh) -> None:
+        """Keep the window's device state padded on ``mesh``, to stay.
+
+        The scenario tensors, a device mirror of the occupancy mask and the
+        stored equilibrium are padded with inert lanes
+        (``sharding.pad_batch_lanes``) to the mesh's device multiple; every
+        later event updates the padded tensors (out of place), and
+        :meth:`grow` re-places them.  Lane geometry changes (:meth:`add_lane`,
+        :meth:`remove_lane`, :meth:`compact`) run at the logical lane count
+        and re-establish residency before they return.  The host mask and
+        raw parameters stay authoritative.
+
+        Parameters
+        ----------
+        mesh : repro_torch.core.sharding.LaneMesh
+            1-D lane mesh whose first device is the window's.  Calling again
+            with another mesh migrates the window.
+
+        Raises
+        ------
+        ValueError
+            For a mesh that is not 1-D or that starts on another device than
+            the window's (a window never moves to a mesh elsewhere).
+        """
+        sharding.lane_sharding(mesh)                 # refuses a mesh not 1-D
+        if mesh.devices[0] != self.device:
+            raise ValueError(
+                f"the window lies on {self.device}, the mesh starts on "
+                f"{mesh.devices[0]}: a resident mesh starts on the window's "
+                "device")
+        if self._resident_mesh is not None and self._resident_mesh != mesh:
+            self._exit_residency()
+        self._resident_mesh = mesh
+        self._place_device_leaves()
 
     def release_resident(self) -> None:
-        """Not ported yet (ROADMAP.md Queue 1 item 10)."""
-        raise NotImplementedError(_RESIDENT)
+        """Return to the round-trip layout: trim the padding lanes off every
+        tensor and drop the device mask mirror.  The window is then equal,
+        leaf by leaf, to one that was never resident."""
+        if self._resident_mesh is not None:
+            self._exit_residency()
 
     def resident_batch(self) -> ScenarioBatch:
-        """Not ported yet (ROADMAP.md Queue 1 item 10)."""
-        raise NotImplementedError(_RESIDENT)
+        """The resident (lane-padded) solver view of the window.
 
-    def resident_warm_start(self, rbatch: ScenarioBatch):
-        """Not ported yet (ROADMAP.md Queue 1 item 10)."""
-        raise NotImplementedError(_RESIDENT)
+        Scenarios and mask are the live padded tensors; the (padded B,)
+        class counts are uploaded again only when occupancy changed.
+
+        Raises
+        ------
+        RuntimeError
+            When the window is not resident.
+        """
+        self._check_resident()
+        pad_b = self._mask_dev.shape[0]
+        counts = np.zeros(pad_b, np.int64)
+        counts[:self.batch_size] = self.n_classes
+        # the solver reads the mask, never n_classes: the counts are report
+        # surface only, so their device copy is kept until occupancy changes
+        if (self._n_classes_dev is None
+                or not np.array_equal(counts, self._n_classes_host)):
+            self._n_classes_dev = _to_device(counts, self.device)
+            self._n_classes_host = counts
+        return ScenarioBatch(scenarios=self._scn, mask=self._mask_dev,
+                             n_classes=self._n_classes_dev)
+
+    def resident_warm_start(self, rbatch: ScenarioBatch
+                            ) -> Tuple[game.BatchWarmStart, np.ndarray]:
+        """Incremental-re-solve init of a resident flush, over the padded
+        lanes (``sharding.resident_warm_init``); only the dirty flags are
+        uploaded.
+
+        Parameters
+        ----------
+        rbatch : ScenarioBatch
+            The window's :meth:`resident_batch`.
+
+        Returns
+        -------
+        (game.BatchWarmStart, np.ndarray)
+            The padded init, and the (B,) host ``resolved`` flags: the lanes
+            that will iterate (dirty or never solved).
+        """
+        self._check_resident()
+        if self._state is None:
+            return (sharding.resident_cold_init(rbatch),
+                    np.ones(self.batch_size, bool))
+        dirty = np.zeros(rbatch.batch_size, bool)
+        dirty[:self.batch_size] = self.dirty
+        init = sharding.resident_warm_init(rbatch, self._state,
+                                           _to_device(dirty, self.device))
+        # active == dirty here: a never-solved lane is always dirty (add_lane
+        # makes the only unsolved rows, and dirties them)
+        return init, self.dirty.copy()
+
+    def _check_resident(self) -> None:
+        if self._resident_mesh is None:
+            raise RuntimeError(
+                "window is not device-resident — call make_resident(mesh)")
+
+    def _place_device_leaves(self) -> None:
+        """(Re-)establish the resident layout: pad the lane axis to the mesh
+        multiple where it is not, rebuild the device mask mirror from the
+        host mask, pad the stored equilibrium."""
+        B, n_max = self.batch_size, self.n_max
+        pad_b = sharding.padded_lane_count(B, self._resident_mesh.devices.size)
+        rows = self._scn.A.shape[0]
+        if rows == B and pad_b > B:
+            self._scn = sharding.pad_batch_lanes(self.batch, pad_b).scenarios
+        elif rows not in (B, pad_b):
+            raise AssertionError(
+                f"resident lane-axis invariant broken: {rows} device rows, "
+                f"B={B}, padded={pad_b}")
+        full = np.zeros((pad_b, n_max), bool)
+        full[:B] = self._mask
+        self._mask_dev = _to_device(full, self.device)
+        self._n_classes_dev = self._n_classes_host = None
+        if self._state is not None:
+            self._state = sharding.pad_window_state(self._state, pad_b)
+
+    def _exit_residency(self) -> None:
+        """Back to the logical layout: trim the padding lanes (row views)
+        and drop the mask mirror."""
+        b = self.batch_size
+
+        def trim(leaf):
+            return leaf[:b] if leaf.shape[0] > b else leaf
+
+        self._scn = tree_map(trim, self._scn)
+        if self._state is not None:
+            self._state = WindowState(*map(trim, self._state))
+        self._mask_dev = None
+        self._n_classes_dev = self._n_classes_host = None
+        self._resident_mesh = None
+
+    @contextlib.contextmanager
+    def _host_geometry(self):
+        """Run a lane-geometry change (add / remove / compact) at the
+        logical lane count, then re-establish residency, so that the
+        geometry code never sees the padding."""
+        mesh = self._resident_mesh
+        if mesh is None:
+            yield
+            return
+        self._exit_residency()
+        try:
+            yield
+        finally:
+            self.make_resident(mesh)
 
     # ------------------------------------------------------------------ events
     def apply(self, event: StreamEvent) -> Optional[int]:
@@ -358,6 +506,7 @@ class AdmissionWindow:
                     1, _to_device(occ_pos, dev),
                     torch.stack([derived[f] for f in _CLASS_FIELDS]))
             li, si = _to_device(np.asarray(keys, np.int64).T, dev)
+            occ_dev = _to_device(occ, dev)
             kw = {f: getattr(self._scn, f).index_put((li, si), vals_dev[j])
                   for j, f in enumerate(_CLASS_FIELDS)}
             for k in keys:
@@ -367,11 +516,13 @@ class AdmissionWindow:
                     self._raw[k] = dict(staged[k])
                 else:
                     self._raw.pop(k, None)
+            if self._mask_dev is not None:           # the resident mirror
+                self._mask_dev = self._mask_dev.index_put((li, si), occ_dev)
             if vacated and self._state is not None:
                 # vacated slots restart from 0; occupied staged slots keep
                 # their stored allocation (their lane goes dirty anyway)
                 r = self._state.r
-                kept = torch.where(_to_device(occ, dev), r[li, si],
+                kept = torch.where(occ_dev, r[li, si],
                                    torch.zeros((), dtype=r.dtype, device=dev))
                 self._state = self._state._replace(
                     r=r.index_put((li, si), kept))
@@ -419,20 +570,24 @@ class AdmissionWindow:
         """Repad every (B, n_max) leaf to ``new_n_max`` columns.
 
         Padding is solver-inert (neutral classes, mask False), so stored
-        equilibria of clean lanes remain exact across growth.
+        equilibria of clean lanes remain exact across growth.  A resident
+        window grows its actual rows, padding lanes included (their
+        ``rho_bar`` is 1, so their ``rho_up`` fill stays the inert 1), and
+        re-places them.
         """
         old = self.n_max
         if new_n_max <= old:
             raise ValueError(f"new_n_max={new_n_max} must exceed {old}")
         B, pad = self.batch_size, new_n_max - old
+        rows = self._scn.A.shape[0]
         neutral = neutral_class_values(0.0)
         kw = {}
         for f in _CLASS_FIELDS:
             leaf = getattr(self._scn, f)
             if f == "rho_up":
-                fill = self._scn.rho_bar[:, None].expand(B, pad)
+                fill = self._scn.rho_bar[:, None].expand(rows, pad)
             else:
-                fill = leaf.new_full((B, pad), neutral[f])
+                fill = leaf.new_full((rows, pad), neutral[f])
             kw[f] = torch.cat([leaf, fill], dim=1)
         self._scn = self._scn.replace(**kw)
         self._mask = np.concatenate(
@@ -440,7 +595,9 @@ class AdmissionWindow:
         if self._state is not None:
             r = self._state.r
             self._state = self._state._replace(
-                r=torch.cat([r, r.new_zeros((B, pad))], dim=1))
+                r=torch.cat([r, r.new_zeros((r.shape[0], pad))], dim=1))
+        if self._resident_mesh is not None:
+            self._place_device_leaves()
 
     # ------------------------------------------------------- dynamic lanes
     def add_lane(self, scn: Optional[Scenario] = None, *,
@@ -468,44 +625,49 @@ class AdmissionWindow:
         """
         if scn is None and (R is None or rho_bar is None):
             raise ValueError("an empty lane needs explicit R= and rho_bar=")
-        if scn is not None and scn.n > self.n_max:
-            self.grow(int(scn.n))
-        b, n_max = self.batch_size, self.n_max
-        dt, dev = self._scn.A.dtype, self.device
-        if scn is not None:
-            row = pad_scenario(scn, n_max)
-            new = {f.name: getattr(row, f.name).to(dev, dt)[None]
-                   for f in dataclasses.fields(Scenario)}
-        else:
-            neutral = {**neutral_class_values(1.0), "rho_up": float(rho_bar)}
-            scalars = {"R": float(R), "rho_bar": float(rho_bar),
-                       "rho_hat": float(rho_bar)}
-            new = {f: torch.full((1, n_max), v, dtype=dt, device=dev)
-                   for f, v in neutral.items()}
-            new.update({f: torch.full((1,), v, dtype=dt, device=dev)
-                        for f, v in scalars.items()})
-        self._scn = self._scn.replace(**{
-            f: torch.cat([getattr(self._scn, f), t]) for f, t in new.items()})
-        self._mask = np.concatenate(
-            [self._mask, np.zeros((1, n_max), bool)], axis=0)
-        if scn is not None:
-            self._mask[b, :scn.n] = True
-            cols = {f: getattr(scn, f).cpu().numpy() for f in RAW_CLASS_FIELDS}
-            for i in range(scn.n):
-                self._raw[(b, i)] = {f: float(cols[f][i])
-                                     for f in RAW_CLASS_FIELDS}
-        if self._state is not None:
-            st = self._state
-            self._state = WindowState(
-                r=torch.cat([st.r, st.r.new_zeros((1, n_max))]),
-                rho=torch.cat([st.rho, st.rho.new_ones((1,))]),
-                lane_iters=torch.cat([st.lane_iters,
-                                      st.lane_iters.new_zeros((1,))]),
-                solved=torch.cat([st.solved, st.solved.new_zeros((1,))]))
-        self.dirty = np.append(self.dirty, True)
-        self.baseline_totals = np.append(self.baseline_totals, np.nan)
-        self.baseline_stale = np.append(self.baseline_stale, True)
-        self._rho_bar_host = self._scn.rho_bar.double().cpu().numpy().copy()
+        with self._host_geometry():
+            if scn is not None and scn.n > self.n_max:
+                self.grow(int(scn.n))
+            b, n_max = self.batch_size, self.n_max
+            dt, dev = self._scn.A.dtype, self.device
+            if scn is not None:
+                row = pad_scenario(scn, n_max)
+                new = {f.name: getattr(row, f.name).to(dev, dt)[None]
+                       for f in dataclasses.fields(Scenario)}
+            else:
+                neutral = {**neutral_class_values(1.0),
+                           "rho_up": float(rho_bar)}
+                scalars = {"R": float(R), "rho_bar": float(rho_bar),
+                           "rho_hat": float(rho_bar)}
+                new = {f: torch.full((1, n_max), v, dtype=dt, device=dev)
+                       for f, v in neutral.items()}
+                new.update({f: torch.full((1,), v, dtype=dt, device=dev)
+                            for f, v in scalars.items()})
+            self._scn = self._scn.replace(**{
+                f: torch.cat([getattr(self._scn, f), t])
+                for f, t in new.items()})
+            self._mask = np.concatenate(
+                [self._mask, np.zeros((1, n_max), bool)], axis=0)
+            if scn is not None:
+                self._mask[b, :scn.n] = True
+                cols = {f: getattr(scn, f).cpu().numpy()
+                        for f in RAW_CLASS_FIELDS}
+                for i in range(scn.n):
+                    self._raw[(b, i)] = {f: float(cols[f][i])
+                                         for f in RAW_CLASS_FIELDS}
+            if self._state is not None:
+                st = self._state
+                self._state = WindowState(
+                    r=torch.cat([st.r, st.r.new_zeros((1, n_max))]),
+                    rho=torch.cat([st.rho, st.rho.new_ones((1,))]),
+                    lane_iters=torch.cat([st.lane_iters,
+                                          st.lane_iters.new_zeros((1,))]),
+                    solved=torch.cat([st.solved, st.solved.new_zeros((1,))]))
+            self.dirty = np.append(self.dirty, True)
+            self.baseline_totals = np.append(self.baseline_totals, np.nan)
+            self.baseline_stale = np.append(self.baseline_stale, True)
+            self._rho_bar_host = (
+                self._scn.rho_bar.double().cpu().numpy().copy())
         return b
 
     def remove_lane(self, lane: int) -> None:
@@ -520,18 +682,19 @@ class AdmissionWindow:
 
         def drop(t):
             return torch.cat([t[:lane], t[lane + 1:]])
-        self._scn = self._scn.replace(
-            **{f.name: drop(getattr(self._scn, f.name))
-               for f in dataclasses.fields(Scenario)})
-        self._mask = np.delete(self._mask, lane, axis=0)
-        self.dirty = np.delete(self.dirty, lane)
-        self.baseline_totals = np.delete(self.baseline_totals, lane)
-        self.baseline_stale = np.delete(self.baseline_stale, lane)
-        if self._state is not None:
-            self._state = WindowState(*map(drop, self._state))
-        self._raw = {(b - (b > lane), s): raw
-                     for (b, s), raw in self._raw.items() if b != lane}
-        self._rho_bar_host = np.delete(self._rho_bar_host, lane)
+        with self._host_geometry():
+            self._scn = self._scn.replace(
+                **{f.name: drop(getattr(self._scn, f.name))
+                   for f in dataclasses.fields(Scenario)})
+            self._mask = np.delete(self._mask, lane, axis=0)
+            self.dirty = np.delete(self.dirty, lane)
+            self.baseline_totals = np.delete(self.baseline_totals, lane)
+            self.baseline_stale = np.delete(self.baseline_stale, lane)
+            if self._state is not None:
+                self._state = WindowState(*map(drop, self._state))
+            self._raw = {(b - (b > lane), s): raw
+                         for (b, s), raw in self._raw.items() if b != lane}
+            self._rho_bar_host = np.delete(self._rho_bar_host, lane)
 
     def compact(self, *, n_max: Optional[int] = None) -> np.ndarray:
         """Re-pack every lane's admitted classes into a slot prefix.
@@ -571,23 +734,24 @@ class AdmissionWindow:
         new_mask = np.arange(target)[None, :] < counts[:, None]
         if target == old and np.array_equal(new_mask, self._mask):
             return slot_map                      # already packed at this width
-        src_dev = _to_device(src, self.device)
-        nm = _to_device(new_mask, self.device)
-        neutral = neutral_class_values(0.0)
-        kw = {}
-        for f in _CLASS_FIELDS:
-            gathered = torch.gather(getattr(self._scn, f), 1, src_dev)
-            fill = (self._scn.rho_bar[:, None] if f == "rho_up"
-                    else neutral[f])
-            kw[f] = torch.where(nm, gathered, fill)
-        self._scn = self._scn.replace(**kw)
-        self._mask = new_mask
-        self._raw = {(b, int(slot_map[b, s])): raw
-                     for (b, s), raw in self._raw.items()}
-        if self._state is not None:
-            r = self._state.r
-            self._state = self._state._replace(
-                r=torch.where(nm, torch.gather(r, 1, src_dev), 0.0))
+        with self._host_geometry():
+            src_dev = _to_device(src, self.device)
+            nm = _to_device(new_mask, self.device)
+            neutral = neutral_class_values(0.0)
+            kw = {}
+            for f in _CLASS_FIELDS:
+                gathered = torch.gather(getattr(self._scn, f), 1, src_dev)
+                fill = (self._scn.rho_bar[:, None] if f == "rho_up"
+                        else neutral[f])
+                kw[f] = torch.where(nm, gathered, fill)
+            self._scn = self._scn.replace(**kw)
+            self._mask = new_mask
+            self._raw = {(b, int(slot_map[b, s])): raw
+                         for (b, s), raw in self._raw.items()}
+            if self._state is not None:
+                r = self._state.r
+                self._state = self._state._replace(
+                    r=torch.where(nm, torch.gather(r, 1, src_dev), 0.0))
         return slot_map
 
     # ------------------------------------------------------------ solver state
@@ -602,6 +766,10 @@ class AdmissionWindow:
             never-solved lanes get the cold Algorithm 4.1 init, so they
             reproduce the cold trajectory exactly.
         """
+        if self._resident_mesh is not None:
+            raise RuntimeError(
+                "resident windows build their init on the device — use "
+                "resident_warm_start (or release_resident first)")
         cold = game.cold_start(self.batch)
         if self._state is None:
             return cold
@@ -803,9 +971,9 @@ class EventEpoch:
               max_iters: int = 200, integer: bool = True, sweep_fn=None,
               mesh=None, cross_check: bool = False,
               cross_check_atol: float = 1e-6):
-        """Apply the buffered events and re-solve the window once, with a
-        :class:`~repro_torch.core.engine.CapacityEngine` built from these
-        solver knobs and policies on the window's device.
+        """Apply the buffered events and re-solve the window once through
+        ``engine._legacy_solve_window`` (an engine built from these solver
+        knobs and policies on the window's device; no deprecation warning).
 
         Returns
         -------
@@ -813,19 +981,15 @@ class EventEpoch:
             The coalesced re-solve (an empty flush with a clean window is
             legal: every lane freezes).
         """
-        from repro_torch.core import engine
+        from repro_torch.core.engine import _legacy_solve_window
         self.last_slots = self.window.apply_epoch(self._events)
         self.events_folded += len(self._events)
         self._events = []
-        eng = engine.CapacityEngine(
-            engine.SolverConfig(eps_bar=eps_bar, lam=lam, max_iters=max_iters,
-                                sweep_fn=sweep_fn, mesh=mesh),
-            engine.Policies(
-                rounding=engine.RoundingPolicy(integer),
-                cross_check=engine.CrossCheckPolicy(cross_check,
-                                                    cross_check_atol)),
-            device=self.window.device)
-        res = eng._solve_window(self.window)
+        res = _legacy_solve_window(self.window, eps_bar=eps_bar, lam=lam,
+                                   max_iters=max_iters, integer=integer,
+                                   sweep_fn=sweep_fn, mesh=mesh,
+                                   cross_check=cross_check,
+                                   cross_check_atol=cross_check_atol)
         self.flushes += 1
         return res
 

@@ -2,8 +2,10 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import time
+from typing import Any, Callable, List
 
+import numpy as np
 import torch
 
 
@@ -47,3 +49,48 @@ def tree_map(fn, obj):
 def to_np(tree: Any) -> Any:
     """Copy every tensor of ``tree`` to a numpy array (structure kept)."""
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def tree_leaves(tree: Any) -> List[torch.Tensor]:
+    """Every tensor of ``tree``, in :func:`tree_map`'s order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        kids = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+    elif isinstance(tree, dict):
+        kids = list(tree.values())
+    elif isinstance(tree, (list, tuple)):
+        kids = list(tree)
+    else:
+        return []
+    return [leaf for kid in kids for leaf in tree_leaves(kid)]
+
+
+def tree_bytes(tree: Any) -> int:
+    """Bytes held by the tensors of ``tree``."""
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def tree_params(tree: Any) -> int:
+    """Number of values held by the tensors of ``tree``."""
+    return sum(t.numel() for t in tree_leaves(tree))
+
+
+def block_until_ready(tree: Any) -> Any:
+    """Wait for the work queued on every CUDA device that a tensor of
+    ``tree`` lies on (nothing to wait for on the CPU); returns ``tree``."""
+    for dev in {t.device for t in tree_leaves(tree) if t.is_cuda}:
+        torch.cuda.synchronize(dev)
+    return tree
+
+
+def time_fn(fn: Callable[[], Any], *, warmup: int = 1, iters: int = 5) -> float:
+    """Median wall-clock seconds a call (waits for each call's tensors)."""
+    for _ in range(warmup):
+        block_until_ready(fn())
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        block_until_ready(fn())
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))

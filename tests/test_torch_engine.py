@@ -27,6 +27,7 @@ from repro.kernels.gnep_sweep.ops import make_sweep_fn as j_sweep1
 from repro_torch.core import centralized as tc
 from repro_torch.core import engine as te
 from repro_torch.core import rounding as tr
+from repro_torch.core.sharding import lane_mesh as te_lane_mesh
 from repro_torch.kernels.gnep_iter.ops import make_fused_iter_fn as t_iter
 from repro_torch.kernels.gnep_sweep.ops import make_batched_sweep_fn as t_sweep
 from repro_torch.kernels.gnep_sweep.ops import make_sweep_fn as t_sweep1
@@ -54,7 +55,7 @@ def assert_integer_equal(got, want):
 
 
 def test_fingerprints_match_jax():
-    mesh = lane_mesh(2)
+    jmesh, tmesh = lane_mesh(2), te_lane_mesh(devices=["cpu"] * 2)
     table = [
         ({}, {}),
         ({"eps_bar": 0.1, "lam": 0.2, "max_iters": 50},) * 2,
@@ -63,7 +64,7 @@ def test_fingerprints_match_jax():
         ({"sweep_fn": j_sweep()}, {"sweep_fn": t_sweep()}),
         ({"sweep_fn": j_sweep1()}, {"sweep_fn": t_sweep1()}),
         ({"iter_fn": j_iter()}, {"iter_fn": t_iter()}),
-        ({"mesh": mesh},) * 2,
+        ({"mesh": jmesh}, {"mesh": tmesh}),
         ({"iter_fn": j_iter(), "dtype_policy": "f32_checked[:2]"},
          {"iter_fn": t_iter(), "dtype_policy": "f32_checked[:2]"}),
         ({"dtype_policy": "f64"},) * 2,
@@ -162,15 +163,25 @@ def test_f32_checked_policy_matches_jax():
 
 
 def test_residency_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    """Residency and meshes are ported (the name predates them): a resident
+    config is validated as the reference validates it, and a batch solve on
+    a mesh matches JAX's on its mesh."""
+    with pytest.raises(ValueError, match="needs a mesh"):
         te.CapacityEngine(te.SolverConfig(residency="resident"),
                           device="cpu")
     with pytest.raises(ValueError, match="residency"):
         te.CapacityEngine(te.SolverConfig(residency="x"), device="cpu")
-    _, bt = batch_pair(0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        te.CapacityEngine(te.SolverConfig(mesh=object()),
-                          device="cpu").solve(bt)
+    tmesh = te_lane_mesh(devices=["cpu"] * 2)
+    eng = te.CapacityEngine(te.SolverConfig(mesh=tmesh, residency="resident"),
+                            device="cpu")
+    assert eng.config.fingerprint().endswith("residency=resident")
+    bj, bt = batch_pair(0)
+    got = te.CapacityEngine(te.SolverConfig(mesh=tmesh),
+                            device="cpu").solve(bt)
+    want = je.CapacityEngine(je.SolverConfig(mesh=lane_mesh(2))).solve(bj)
+    np.testing.assert_array_equal(np_(got.iters), np_(want.iters))
+    assert_bitwise_equal(np_(got.fractional.aux), np_(want.fractional.aux))
+    assert_integer_equal(got.integer, want.integer)
 
 
 def test_round_solution_batch_matches_jax():

@@ -17,6 +17,7 @@ from _torch_parity import RAGGED_NS, batch_pair, leaves, np_, scenario_pair
 from repro.core import game as jg
 from repro_torch import convert
 from repro_torch.core import game as tg
+from repro_torch.core.sharding import LaneMesh, lane_mesh
 
 SOLUTION_R = ("r", "psi", "sM", "sR")
 SOLUTION_TOTALS = ("cost", "penalty", "total")
@@ -143,6 +144,15 @@ def test_serial_baseline_matches_jax():
 
 
 def test_mesh_is_not_ported_yet():
+    """Meshes are ported (the name predates them): ``mesh=`` dispatches to
+    the sharded solver, which equals the unsharded solve bit for bit and
+    refuses a mesh that is not 1-D."""
     _, bt = batch_pair(0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tg.solve_distributed_batch(bt, mesh=object())
+    mesh = lane_mesh(devices=["cpu"] * 3)
+    got = tg.solve_distributed_batch(bt, mesh=mesh)
+    want = tg.solve_distributed_batch(bt)
+    for f in ("r", "psi", "aux", "total", "iters", "feasible"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    with pytest.raises(ValueError, match="1-D mesh"):
+        tg.solve_distributed_batch(
+            bt, mesh=LaneMesh(mesh.devices.reshape(1, 3), ("a", "b")))

@@ -33,6 +33,7 @@ from repro_torch.core import engine as te
 from repro_torch.core import game as tg
 from repro_torch.core import streaming as ts
 from repro_torch.core import types as tt
+from repro_torch.core.sharding import lane_mesh as ts_lane_mesh
 
 FIELDS = [f.name for f in dataclasses.fields(tt.Scenario)]
 SQRT_DERIVED = ("xiM", "xiR", "K", "r_up", "r_low", "p")
@@ -492,12 +493,28 @@ def test_window_state_from_numpy_bitwise():
 
 
 def test_residency_is_refused_with_item_10():
-    _, wt = window_pair(12, ns=(2, 3))
-    for call in (lambda: wt.make_resident(object()), wt.release_resident,
-                 lambda: wt.resident_batch(),
+    """The resident layout is ported (the name predates it): before
+    ``make_resident`` the resident views refuse, after it they carry the
+    padded lanes (3 on a 2-shard mesh -> 4), and ``release_resident``
+    restores the window bit for bit."""
+    _, wt = window_pair(12, ns=(2, 3, 4))
+    for call in (lambda: wt.resident_batch(),
                  lambda: wt.resident_warm_start(wt.batch)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        with pytest.raises(RuntimeError, match="not device-resident"):
             call()
+    wt.release_resident()                             # a no-op when not
+    before = {f: np_(getattr(wt._scn, f)).copy() for f in FIELDS}
+    wt.make_resident(ts_lane_mesh(devices=["cpu"] * 2))
+    assert wt.is_resident and wt.resident_mesh.devices.size == 2
+    rb = wt.resident_batch()
+    assert rb.batch_size == 4 and not np_(rb.mask[3]).any()
+    init, resolved = wt.resident_warm_start(rb)
+    assert init.active.shape == (4,) and resolved.all()
+    assert wt.batch.batch_size == 3
+    wt.release_resident()
+    assert not wt.is_resident and wt.resident_mesh is None
+    for f in FIELDS:
+        assert_bitwise_equal(np_(getattr(wt._scn, f)), before[f], f)
 
 
 def test_cold_start_of_window_batch_matches_game():

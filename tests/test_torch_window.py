@@ -27,6 +27,7 @@ from repro_torch.core import engine as te
 from repro_torch.core import game as tg
 from repro_torch.core import streaming as ts
 from repro_torch.core import types as tt
+from repro_torch.core.sharding import lane_mesh
 from repro_torch.kernels.gnep_iter.ops import make_fused_iter_fn as t_iter
 from repro_torch.kernels.gnep_sweep.ops import make_batched_sweep_fn as t_sweep
 from repro_torch.utils import tree_map
@@ -333,12 +334,18 @@ def test_cross_check_batches_stale_lanes_with_per_lane_totals():
 
 
 def test_engine_accepts_window_and_refuses_residency():
+    """An engine solves a window and adopts it; a round-trip engine leaves
+    it unresident, a resident engine (the port has one now) makes it
+    resident on its first flush."""
     _, et = engines()
     _, wt = window_pair(36, (2, 3))
     rep = et.solve(wt)
     np.testing.assert_array_equal(np_(rep.mask), wt._mask)
     assert et.open_window(wt).window is wt
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        te.CapacityEngine(te.SolverConfig(residency="resident"),
-                          device="cpu")
+    et.open_window(wt).solve()
     assert not wt.is_resident and wt.resident_mesh is None
+    mesh = lane_mesh(devices=["cpu"])
+    res = te.CapacityEngine(te.SolverConfig(mesh=mesh, residency="resident"),
+                            device="cpu")
+    res.open_window(wt).flush()
+    assert wt.is_resident and wt.resident_mesh == mesh
