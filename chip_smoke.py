@@ -63,9 +63,38 @@ at once), then runs these phases, each of which raises on failure:
    ``release_resident`` leaving the round-trip window leaf by leaf; (c)
    ``allocator.solve_batch`` and ``solve_coalesced`` bit for bit their
    engine calls, warning; and a CPU mesh under card tensors refused.
-   Resident flush walls, events per second and one flush's idle share are
-   printed beside phase 6's;
-8. the ``kernels`` line, whose launch counts add phases 2, 6 and 7.
+   255 of phase 6's lanes at the odd width 501 on the 3 shards are bit
+   for bit the unsharded solve too: on the card the loop widens the class
+   axis to a multiple of 4 (``game._aligned_classes``), so torch's row
+   sums add every row in the same order in any shard; there the fused
+   solve is also bit for bit the unsharded plain middle's and the sweep
+   solve within phase 2's gate of the default configuration's.  Resident
+   flush walls, events per second and one flush's idle share are printed
+   beside phase 6's;
+8. the capacity planner (``repro_torch.core.solve_plan``) over
+   ``benchmarks/plan_perf.py``'s full design space (1,024 candidates of 12
+   classes) under the fused and sweep configurations: chunks of 64 and 48
+   and one shot bit for bit, warm starts bit for bit the cold solve where
+   both stop at the same iteration, the same frontier and cheapest design
+   in both configurations, one launch a loop step a chunk; the same
+   invariance at 101 classes (256 candidates) and at 257 classes in
+   chunks of 37.  At each of the three widths the fused plan is bit for
+   bit the plain middle's and the sweep plan within phase 2's gate of the
+   default configuration's, and each kernel is held to its plain version
+   on the operands of a ragged last chunk as the loop sees them (inert
+   lanes, classes widened to a multiple of 4).  Candidates per second
+   (cold and warm, grid excluded), one chunk's idle share, and
+   ``repro_torch.launch.plan.main`` once;
+9. the admission daemon (``repro_torch.serving.AllocDaemon``): 4 tenants
+   of 64 lanes (100-500 classes, n_max 512), 96 events each, flushes of 8,
+   fused, open loop at 400 events/s on a Poisson and a flash-crowd
+   schedule, in process and over loopback TCP (``AllocServer`` and
+   ``AllocClient``, tenants resident on a 1-device mesh): every tenant's
+   flushes bit for bit an offline ``WindowSession`` replay, the wire's bit
+   for bit the in-process ones, no rejection, one launch a loop step;
+   events per second, admission latency, one flush's idle share, and
+   ``repro_torch.launch.allocd.main --conformance`` once;
+10. the ``kernels`` line, whose launch counts add phases 2 and 6-9.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the repository's ``src/`` beside it, the script fails before
@@ -141,6 +170,26 @@ WIN_GATE_EVERY, WIN_COMPACT_AFTER = 8, 8
 # phase 7's odd width: 255 lanes at n_max 501 put shards 1 and 2 of a 3-shard
 # mesh off the 16-byte boundary
 ODD_N_MAX = 501
+# the capacity planner: benchmarks/plan_perf.py's full design space (12
+# classes sized against a bursty trace; 8 cluster sizes x 4 tiers x 4
+# penalty scales x 8 deadline scales = 1,024 candidates) in chunks of 64;
+# the same axes at an odd class count (one penalty scale: 256 candidates,
+# 101 classes) and past 128 classes at a chunk that shifts every chunk's
+# rows by 8 bytes mod 32 (two tiers: 128 candidates, 257 classes, chunk 37)
+PLAN_CLASSES, PLAN_PROFILE, PLAN_RATE, PLAN_EVENTS = 12, "bursty", 50.0, 1024
+PLAN_CLUSTERS = tuple(float(r) for r in np.geomspace(1000.0, 128000.0,
+                                                     8).round())
+PLAN_TIERS = (("small", 1.0, 6.0), ("mid", 2.0, 10.0),
+              ("large", 4.0, 16.0), ("xlarge", 8.0, 28.0))
+PLAN_PENALTIES = (0.5, 1.0, 2.0, 4.0)
+PLAN_DEADLINES = tuple(float(d) for d in np.linspace(0.7, 1.4, 8).round(2))
+PLAN_CHUNK, PLAN_CHUNKS = 64, (48,)
+PLAN_ODD = ((101, 4, (64, 48)), (257, 2, (37,)))   # classes, tiers, chunks
+# the admission daemon: 4 tenants of 64 lanes (100-500 classes, n_max 512),
+# 96 events each, flushes of 8, open loop at allocd_perf's 400 events/s
+DAEMON_TENANTS, DAEMON_LANES, DAEMON_EVENTS = 4, 64, 96
+DAEMON_RATE, DAEMON_FLUSH, DAEMON_QUEUE = 400.0, 8, 4096
+DAEMON_FRAME = 1 << 24      # a flush frame at 64 lanes x 512 is ~1.4 MB
 
 
 def card_line() -> str:
@@ -1766,39 +1815,24 @@ def sharded_solves(batch, configs, reports, window, kernels, tally):
     odd_width(window, configs, meshes[3], kernels, tally)
 
 
-def ulp_errors(got, want, fields):
-    """Each of ``fields`` of two Solutions: its largest difference in ULPs
-    of its own largest magnitude (the unit of
-    ``tests/_tolerance.assert_ulp_close``)."""
-    err = {}
-    for name in fields:
-        x, y = getattr(got, name), getattr(want, name)
-        unit = max(float(y.abs().max()), torch.finfo(y.dtype).tiny) \
-            * torch.finfo(y.dtype).eps
-        err[name] = float((x - y).abs().max()) / unit
-    return err
-
-
 def odd_width(window, configs, mesh, kernels, tally):
     """7a at an odd width: 255 of phase 6's lanes at n_max 501 on 3 shards
     of 85.  Shard d's rows start d * 85 * 501 * 8 bytes in (8 mod 16 for
-    d = 1), its rho_bar (a view the fused kernel reads) d * 85 * 8 bytes
-    in, and the sweep's rows take scalar access.  Iterations, feasibility,
-    price, integer results and everything else but the fractional fields
-    must equal the unsharded solve's; r, cost, penalty and total are held
-    to 64 ULPs of their own scale (``ulp_errors``), and psi, sM and sR bit
-    for bit to ``cm_best_response`` of the sharded r (an elementwise
-    function, so all their difference comes from r's), because torch's
-    CUDA row sum (``sum(-1)``) adds a row in an order set by the row's
-    32-byte alignment, and a shard's freshly allocated rows at an odd width lie
-    differently from the same rows of the whole batch.  The probes show
-    it: that sum on a copy of shard 1 against the whole batch's, at widths
-    ODD_N_MAX and MAIN_N_MAX; the same solve through the plain middle (no
-    kernel); and the fused kernel on shard 1's row slice of the whole
+    d = 1) and its rho_bar (a view the fused kernel reads) d * 85 * 8 bytes
+    in.  torch's CUDA row sum (``sum(-1)``) adds a row in an order set by
+    the row's 32-byte alignment, so the loop widens the class axis to a
+    multiple of 4 with masked classes on the card
+    (``game._aligned_classes``: 504 here), where every row of any shard
+    starts on the boundary.  Every field of the report must equal the
+    unsharded solve's bit for bit, under the fused, sweep and plain
+    middles, with one launch a loop step a shard; and the unsharded solves
+    against their plain versions (``odd_against_plain``).  The probes show
+    the premise: that sum on a copy of shard 1 against the whole batch's, at
+    widths ODD_N_MAX (differs) and MAIN_N_MAX and the widened width (the
+    same); and the fused kernel on shard 1's row slice of the whole
     batch's operands, bit for bit its rows of the whole launch."""
     from repro_torch import core
     from repro_torch.core import game
-    from repro_torch.kernels.gnep_iter import ref
     from repro_torch.kernels.gnep_iter.kernel import fused_iter_sweep
     from repro_torch.kernels.gnep_iter.ops import FusedIterFn
     odd = core.stack_scenarios(window["scns"][:255], n_max=ODD_N_MAX)
@@ -1806,16 +1840,18 @@ def odd_width(window, configs, mesh, kernels, tally):
                odd.scenarios.rho_bar.narrow(0, 85, 85).data_ptr() % 16]
     if offsets != [8, 8]:
         raise AssertionError(f"7a: shard 1 starts at {offsets} mod 16")
+    wide, _ = game._aligned_classes(odd, None)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     same_sum = {}
-    for width in (ODD_N_MAX, MAIN_N_MAX):
+    for width in (ODD_N_MAX, MAIN_N_MAX, wide.n_max):
         x = torch.rand((255, width), generator=gen, device="cuda",
                        dtype=torch.float64)
         same_sum[width] = bitwise(x.narrow(0, 85, 85).clone().sum(-1),
                                   x.sum(-1)[85:170])
-    summed = ("r", "cost", "penalty", "total")
     plain = dict(configs, plain=core.SolverConfig(
         iter_fn=FusedIterFn("plain middle", None)))
+    unsharded = {name: core.CapacityEngine(plain[name]).solve(odd)
+                 for name in ("fused", "sweep", "plain", "default")}
     for name in ("fused", "sweep", "plain"):
         cfg = dataclasses.replace(plain[name], mesh=mesh)
         if name in kernels:
@@ -1824,43 +1860,52 @@ def odd_width(window, configs, mesh, kernels, tally):
             steps = shard_steps(rep.iters, 3, inert=1)
         else:
             rep, n, steps = core.CapacityEngine(cfg).solve(odd), 0, 0
-        want = core.CapacityEngine(plain[name]).solve(odd)
-        differ = same_report(rep, want)
-        ulps = ulp_errors(rep.fractional, want.fractional, summed)
-        derived = game.cm_best_response(odd.scenarios, rep.fractional.r,
-                                        mask=odd.mask)
-        bad = [f for f, e in ulps.items() if e > 64]
-        bad += [f for f, x in zip(("psi", "sM", "sR"), derived)
-                if not bitwise(getattr(rep.fractional, f), x)]
-        bad += [f for f in differ if f not in summed
-                and f not in ("psi", "sM", "sR")]
-        print(f"  7a {name}, 255 lanes at width {ODD_N_MAX} on 3 shards "
-              f"(shard 1's rows and rho_bar at {offsets} mod 16 bytes): {n} "
-              f"launches for {steps} loop steps; differs from the unsharded "
-              f"solve bit for bit in {differ or 'nothing'}; ULPs {ulps}; "
-              f"outside the gate {bad or 'nothing'}")
-        if bad or n != steps:
+        bad = same_report(rep, unsharded[name])
+        print(f"  7a {name}, 255 lanes at width {ODD_N_MAX} (the loop at "
+              f"{wide.n_max}) on 3 shards (shard 1's rows and rho_bar at "
+              f"{offsets} mod 16 bytes): {n} launches for {steps} loop "
+              f"steps; differs from the unsharded solve bit for bit in "
+              f"{bad or 'nothing'}")
+        if bad or n != steps or rep.fractional.r.shape[1] != ODD_N_MAX:
             raise AssertionError(f"7a {name}, 255 lanes at width "
                                  f"{ODD_N_MAX} on 3 shards: {bad}")
+    odd_against_plain(unsharded)
     prep, bids = trajectory_bids(odd)
     args = fused_args(odd, prep, bids)
     whole = fused_iter_sweep(*args)
     part = fused_iter_sweep(*(t.narrow(0, 85, 85) for t in args))
     rows = all(bitwise(p, w.narrow(0, 85, 85)) for p, w in zip(part, whole))
-    sub = odd.take(list(range(85, 170)))
-    sprep = ref.prepare(sub.scenarios, sub.mask)
-    prep_differs = [k for k in sprep._fields
-                    if not bitwise(getattr(sprep, k),
-                                   getattr(prep, k).narrow(0, 85, 85))]
     print(f"  7a probes: row sum of a copy of shard 1 bit for bit the whole "
           f"batch's at width {ODD_N_MAX}: {same_sum[ODD_N_MAX]}, at "
-          f"{MAIN_N_MAX}: {same_sum[MAIN_N_MAX]}; fused kernel on shard 1's "
-          f"row slice bit for bit its rows of the whole launch: {rows}; "
-          f"the fused prep built on shard 1 differs in {prep_differs}")
-    if not rows or not same_sum[MAIN_N_MAX]:
+          f"{MAIN_N_MAX}: {same_sum[MAIN_N_MAX]}, at the widened "
+          f"{wide.n_max}: {same_sum[wide.n_max]}; fused kernel on shard 1's "
+          f"row slice bit for bit its rows of the whole launch: {rows}")
+    if not rows or not same_sum[MAIN_N_MAX] or not same_sum[wide.n_max]:
         raise AssertionError("7a probes: the kernel depends on the row "
-                             "offset, or the row sum does at width "
-                             f"{MAIN_N_MAX}")
+                             "offset, or the row sum does at an aligned "
+                             "width")
+
+
+def odd_against_plain(unsharded):
+    """7a at width 501: the unsharded fused solve bit for bit the plain
+    middle's in every field, and the sweep solve against the default
+    configuration's under phase 2's gate (iterations and feasibility
+    exact, r within 1e-9 of each lane's largest allocation), both on the
+    widened class axis."""
+    bad = same_report(unsharded["fused"], unsharded["plain"])
+    got, want = unsharded["sweep"], unsharded["default"]
+    scale = want.fractional.r.abs().amax(1, keepdim=True).clamp_min(1.0)
+    dr = float(((got.fractional.r - want.fractional.r).abs() / scale).max())
+    exact = (torch.equal(got.iters, want.iters)
+             and torch.equal(got.feasible, want.feasible))
+    print(f"  7a at width {ODD_N_MAX}, unsharded: fused differs from the "
+          f"plain middle bit for bit in {bad or 'nothing'}; sweep against "
+          f"the default configuration: iterations and feasibility equal "
+          f"{exact}, max |r - r_default| / max|r| = {dr!r}")
+    if bad or not exact or not dr <= 1e-9:
+        raise AssertionError(f"7a at width {ODD_N_MAX}: a kernel's solve "
+                             f"departs from its plain version's ({bad}, "
+                             f"{exact}, {dr})")
 
 
 def drive(cfg, scns, trace, cut, kernel, tally=None, profile_at=None):
@@ -2125,6 +2170,544 @@ def phase_shards(batch, configs, reports, window, counters):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 8: the capacity planner
+# --------------------------------------------------------------------------
+
+
+def plan_spec(n_classes=None, tiers=None, penalties=None):
+    """The phase's design space: plan_perf's axes, or ``n_classes``
+    classes over the first ``tiers`` tiers and ``penalties``."""
+    from repro_torch.core import PlanSpec, VMTier
+    return PlanSpec(
+        n_classes=n_classes or PLAN_CLASSES, profile=PLAN_PROFILE,
+        rate=PLAN_RATE, trace_events=PLAN_EVENTS,
+        cluster_sizes=PLAN_CLUSTERS,
+        vm_tiers=tuple(VMTier(*t) for t in PLAN_TIERS[:tiers]),
+        penalty_scales=penalties or PLAN_PENALTIES,
+        deadline_scales=PLAN_DEADLINES, seed=SEED)
+
+
+def plan_steps(iters, groups):
+    """Loop steps of a plan: for each solve (a group of candidate rows) its
+    lanes' most, at least 1 (inert padding lanes iterate once)."""
+    return sum(max(1, int(iters[rows].max())) for rows in groups)
+
+
+def cold_groups(n, chunk):
+    return [np.arange(s, min(s + chunk, n)) for s in range(0, n, chunk)]
+
+
+def warm_groups(n, chunk, depth):
+    """The rows of each solve of the warm mode: chains of ``depth`` deadline
+    steps, ``chunk`` chains a solve, one solve a step."""
+    cross = n // depth
+    return [np.arange(c0, min(c0 + chunk, cross)) * depth + d
+            for c0 in range(0, cross, chunk) for d in range(depth)]
+
+
+def same_plan(a, b, rows=None):
+    """The fields in which two plan reports differ bit for bit (on ``rows``
+    when given)."""
+    pick = slice(None) if rows is None else rows
+    return [k for k in ("cost", "penalty", "total", "r", "iters", "feasible")
+            if np.asarray(getattr(a, k))[pick].tobytes()
+            != np.asarray(getattr(b, k))[pick].tobytes()]
+
+
+def planned(counters, kernel, fn, *args, **kw):
+    """``fn(*args, **kw)`` with every count set to 0 just before and read
+    just after: returns its result and ``kernel``'s launches (0 for
+    ``kernel=None``), and fails if another kernel launched."""
+    for k in counters:
+        k.launches = 0
+    out = fn(*args, **kw)
+    others = {k.__name__: k.launches for k in counters
+              if k is not kernel and k.launches}
+    if others:
+        raise AssertionError(f"another kernel launched: {others}")
+    return out, kernel.launches if kernel is not None else 0
+
+
+def plan_against_plain(counters, grid, name, got, chunk):
+    """The kernel's plan ``got`` against its plain version's on the same
+    grid and chunk, solved with no kernel: the fused plan bit for bit in
+    every field to the plain middle's (``FusedIterFn("plain middle",
+    None)``, as phases 3 and 6 hold it); the sweep plan to the default
+    configuration's with iterations and feasibility exact, r within 1e-9
+    of each candidate's largest allocation and cost / penalty / total
+    within 1e-9 of the largest of the three (phase 2's gate for the same
+    pair of solves: the kernel sums a row's terms in another order)."""
+    from repro_torch import core
+    from repro_torch.core import solve_plan
+    from repro_torch.kernels.gnep_iter.ops import FusedIterFn
+    if name == "fused":
+        what, cfg = "the plain middle", core.SolverConfig(
+            iter_fn=FusedIterFn("plain middle", None))
+    else:
+        what, cfg = "the default configuration", core.SolverConfig()
+    want, _ = planned(counters, None, solve_plan, grid, config=cfg,
+                      chunk=chunk)
+    if name == "fused":
+        bad = same_plan(got, want)
+        dev = "bit for bit"
+    else:
+        bad = [k for k in ("iters", "feasible")
+               if not np.array_equal(getattr(got, k), getattr(want, k))]
+        scale = np.maximum(np.abs(want.r).max(1), 1.0)
+        dr = float((np.abs(got.r - want.r).max(1) / scale).max())
+        big = np.maximum.reduce([np.abs(want.cost), np.abs(want.penalty),
+                                 np.abs(want.total), np.ones_like(want.cost)])
+        dt = max(float((np.abs(getattr(got, k) - getattr(want, k)) / big
+                        ).max()) for k in ("cost", "penalty", "total"))
+        bad += [k for k, d in (("r", dr), ("cost/penalty/total", dt))
+                if not d <= 1e-9]
+        dev = f"max relative departure r {dr!r}, cost/penalty/total {dt!r}"
+    print(f"  {name}, {len(grid)} candidates, chunk {chunk}, against "
+          f"{what} ({dev}): differs in {bad or 'nothing'}")
+    if bad:
+        raise AssertionError(f"phase 8 {name}: the plan departs from "
+                             f"{what}'s in {bad}")
+
+
+def plan_chunk_kernels(grid, name, chunk):
+    """The kernel against its plain version on the operands of the plan's
+    last chunk of ``chunk`` as the loop sees them: inert-lane padded to the
+    chunk width and widened by ``game._aligned_classes`` (masked tail
+    classes bidding rho_bar), at bids three cold Alg. 4.1 steps in and at
+    bids drawn uniformly in [rho_bar, rho_up] per class (every price
+    distinct).  The fused middle bit for bit; the sweep within (2N + 8)
+    ULPs on every lane and bit for bit to ``emulated_sweep`` on the first
+    and last lanes (real lanes with the masked tail, inert lanes when the
+    chunk is ragged).  Returns the max abs error."""
+    from repro_torch import core
+    from repro_torch.core import game, sharding
+    from repro_torch.core.game import _rm_candidates
+    from repro_torch.kernels.gnep_iter.kernel import fused_iter_sweep
+    from repro_torch.kernels.gnep_iter.ref import fused_middle_reference
+    from repro_torch.kernels.gnep_sweep.kernel import rm_sweep_batched
+    from repro_torch.kernels.gnep_sweep.ref import reference_batched
+    start = (len(grid) - 1) // chunk * chunk
+    n_max = max(c.scenario.n for c in grid)
+    batch = core.stack_scenarios([c.scenario for c in grid[start:]],
+                                 n_max=n_max)
+    batch = sharding.pad_batch_lanes(batch, chunk)
+    wide, _ = game._aligned_classes(batch, None)
+    scns, mask = wide.scenarios, wide.mask
+    prep, stepped = trajectory_bids(wide)
+    gen = torch.Generator().manual_seed(SEED + 2)
+    u = torch.rand(mask.shape, generator=gen, dtype=F64).to(mask.device)
+    rb = scns.rho_bar[:, None]
+    label = (f"the plan's last chunk ({len(grid) - start} candidates and "
+             f"{chunk - len(grid) + start} inert lanes, {n_max} classes "
+             f"widened to {wide.n_max})")
+    half = ORDER_LANES // 2
+    lanes = torch.cat([torch.arange(half), torch.arange(chunk - half, chunk)]
+                      ).to(mask.device)
+    err = 0.0
+    for how, bids in (("three steps in", stepped),
+                      ("uniform bids", rb + u * (scns.rho_up - rb))):
+        what = f"{label}, {how}"
+        if name == "fused":
+            args = fused_args(wide, prep, bids)
+            err = max(err, check_fused(args, fused_iter_sweep,
+                                       fused_middle_reference,
+                                       fused_label(what, args)))
+            continue
+        _, inc, spare, p_sorted, _ = _rm_candidates(scns, bids, mask)
+        spare = spare.contiguous()
+        what = sweep_label(f"rm_sweep_batched {what}", inc, p_sorted)
+        err = max(err, check_sweep(inc, spare, p_sorted, rm_sweep_batched,
+                                   reference_batched, what))
+        check_sweep_order(inc[lanes], spare[lanes], p_sorted[lanes],
+                          rm_sweep_batched, what)
+    return err
+
+
+def plan_invariance(counters, cfg, kernel, name, n_classes, tiers, penalties,
+                    chunks, tally):
+    """Chunks ``chunks`` and one shot bit for bit the first chunk width's
+    plan at ``n_classes`` classes, each one launch a loop step a chunk;
+    that plan against its plain version's (``plan_against_plain``) and the
+    kernel against its plain version on the last chunk of the last width
+    (``plan_chunk_kernels``)."""
+    from repro_torch.core import generate_grid, solve_plan
+    grid = generate_grid(plan_spec(n_classes, tiers, penalties))
+    n = len(grid)
+    ref = None
+    for chunk in chunks + (n,):
+        rep, k = planned(counters, kernel, solve_plan, grid, config=cfg,
+                         chunk=chunk)
+        tally[name] += k
+        steps = plan_steps(rep.iters, cold_groups(n, chunk))
+        bad = [] if ref is None else same_plan(rep, ref)
+        print(f"  {name}, {n} candidates of {n_classes} classes, chunk "
+              f"{chunk}: {rep.n_chunks} chunks, {k} launches for {steps} "
+              f"loop steps; differs from chunk {chunks[0]} in "
+              f"{bad or 'nothing'}")
+        if bad or k != steps or rep.r.shape != (n, n_classes):
+            raise AssertionError(f"phase 8 {name} at {n_classes} classes, "
+                                 f"chunk {chunk}: {k} launches for {steps} "
+                                 f"steps; {bad}")
+        if ref is None:
+            ref = rep
+    plan_against_plain(counters, grid, name, ref, chunks[0])
+    plan_chunk_kernels(grid, name, chunks[-1])
+    return ref
+
+
+def phase_plan(counters):
+    """Phase 8: the planner over plan_perf's full design space, under the
+    fused and sweep configurations: chunk invariance, warm against cold,
+    the frontier queries across configurations, launches, throughput and
+    one chunk's idle share; then the odd widths and the launcher."""
+    from repro_torch import core
+    from repro_torch.core import generate_grid, solve_plan
+    from repro_torch.kernels.gnep_iter.kernel import fused_iter_sweep
+    from repro_torch.kernels.gnep_iter.ops import make_fused_iter_fn
+    from repro_torch.kernels.gnep_sweep.kernel import rm_sweep_batched
+    from repro_torch.kernels.gnep_sweep.ops import make_batched_sweep_fn
+    from repro_torch.launch import plan as plan_cli
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
+    spec = plan_spec()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grid = generate_grid(spec)
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    n, depth = len(grid), len(spec.deadline_scales)
+    print(f"phase 8: the capacity planner, {n} candidates "
+          f"({'x'.join(map(str, spec.grid_shape))}) of {spec.n_classes} "
+          f"classes sized against a {PLAN_PROFILE} trace of {PLAN_EVENTS} "
+          f"events, chunks of {PLAN_CHUNK}; grid derived on the card in "
+          f"{grid_s!r} s")
+    paths = {"fused": (core.SolverConfig(iter_fn=make_fused_iter_fn()),
+                       fused_iter_sweep),
+             "sweep": (core.SolverConfig(sweep_fn=make_batched_sweep_fn()),
+                       rm_sweep_batched)}
+    tally = {"fused": 0, "sweep": 0}
+    out = {}
+    for name, (cfg, kernel) in paths.items():
+        cold = plan_invariance(counters, cfg, kernel, name, PLAN_CLASSES,
+                               len(PLAN_TIERS), PLAN_PENALTIES,
+                               (PLAN_CHUNK,) + PLAN_CHUNKS, tally)
+        warm, k = planned(counters, kernel, solve_plan, spec, config=cfg,
+                          chunk=PLAN_CHUNK, warm_start=True)
+        tally[name] += k
+        steps = plan_steps(warm.iters, warm_groups(n, PLAN_CHUNK, depth))
+        same = warm.iters == cold.iters
+        bad = same_plan(warm, cold, same)
+        if not same[::depth].all():
+            bad.append("a chain's first step")
+        print(f"  {name}, warm start: {warm.n_chunks} solves, {k} launches "
+              f"for {steps} loop steps; {int(same.sum())} of {n} candidates "
+              f"stop at the cold iteration, differing from it in "
+              f"{bad or 'nothing'}")
+        if bad or k != steps or not np.array_equal(warm.feasible,
+                                                   cold.feasible):
+            raise AssertionError(f"phase 8 {name}, warm start: {k} launches "
+                                 f"for {steps} steps; {bad}")
+        for label, rep in (("cold", cold), ("warm", warm)):
+            if not (np.isfinite(rep.r).all() and np.isfinite(rep.total).all()
+                    and rep.r.shape == (n, PLAN_CLASSES)):
+                raise AssertionError(f"phase 8 {name} {label}: non-finite "
+                                     "or misshapen results")
+        # each plan's own clock (PlanReport.elapsed_s): from after the grid
+        # is expanded to the last chunk's read-back, so the warm plan's
+        # grid derivation (grid_s above) is not in its time
+        cold_s = statistics.median(
+            solve_plan(grid, config=cfg, chunk=PLAN_CHUNK).elapsed_s
+            for _ in range(3))
+        walls = {"cold": cold_s, "warm": warm.elapsed_s}
+        out[name] = {"cold": cold, "warm": warm, "walls": walls,
+                     "cands_per_s": {k_: n / w for k_, w in walls.items()}}
+        print(f"  {name}: cold plan (median of 3) and warm plan (once), grid "
+              f"excluded, {walls!r} s, candidates/s "
+              f"{out[name]['cands_per_s']!r}")
+    fronts = {name: (o["cold"].pareto_frontier().tolist(),
+                     o["cold"].cheapest_feasible()) for name, o in out.items()}
+    print(f"  frontier and cheapest feasible design: {fronts}; "
+          f"{int(out['fused']['cold'].feasible.sum())} of {n} feasible")
+    if fronts["fused"] != fronts["sweep"] or fronts["fused"][1] is None:
+        raise AssertionError(f"phase 8: the configurations' frontiers "
+                             f"differ: {fronts}")
+    for n_classes, tiers, chunks in PLAN_ODD:
+        for name, (cfg, kernel) in paths.items():
+            plan_invariance(counters, cfg, kernel, name, n_classes, tiers,
+                            (1.0,), chunks, tally)
+    probes = {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for width in [c for c, _, _ in PLAN_ODD]:
+        x = torch.rand((128, width), generator=gen, device="cuda",
+                       dtype=torch.float64)
+        probes[width] = bitwise(x.narrow(0, 37, 64).clone().sum(-1),
+                                x.sum(-1)[37:101])
+    print(f"  probe: a row sum of a copy of rows 37-100 bit for bit the "
+          f"whole's, by width (unwidened): {probes}")
+
+    cfg, kernel = paths["fused"]
+    engine = core.CapacityEngine(cfg, core.Policies(
+        rounding=core.RoundingPolicy(False)))
+    batch = core.stack_scenarios([c.scenario for c in grid[:PLAN_CHUNK]])
+    engine.solve(batch, check_feasible=False)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.solve(batch, check_feasible=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    idle, busy = report_idle(prof, wall, f"one fused chunk of {PLAN_CHUNK}",
+                             rows=4)
+    t0 = time.perf_counter()
+    rep = plan_cli.main(["--classes", str(PLAN_CLASSES), "--profile",
+                         PLAN_PROFILE, "--warm-start"])
+    if rep.cheapest_feasible() is None or rep.n_candidates != 18:
+        raise AssertionError("phase 8: the launcher found no design")
+    print(f"  repro_torch.launch.plan.main on the card: {rep.n_candidates} "
+          f"candidates in {time.perf_counter() - t0!r} s")
+    took = time.perf_counter() - t_phase
+    print(f"  phase 8: launches {tally}; {took!r} s")
+    return {"launches": tally, "seconds": took, "idle": idle, "busy": busy,
+            "cands_per_s": {k: o["cands_per_s"] for k, o in out.items()},
+            "chunks": out["fused"]["cold"].n_chunks}
+
+
+# --------------------------------------------------------------------------
+# phase 9: the admission daemon, in process and over the wire
+# --------------------------------------------------------------------------
+
+
+def daemon_tenants():
+    """The tenants' lanes and traces: DAEMON_LANES lanes of 100-500 classes
+    each (n_max 512), DAEMON_EVENTS events sampled on each window."""
+    from repro_torch import core
+    gen = torch.Generator().manual_seed(SEED + 9)
+    lanes, traces = {}, {}
+    for t in range(DAEMON_TENANTS):
+        ns = torch.randint(MAIN_N_LO, MAIN_N_MAX + 1, (DAEMON_LANES,),
+                           generator=gen)
+        name = f"tenant-{t}"
+        lanes[name] = [core.sample_scenario(gen, int(k), capacity_factor=1.3)
+                       for k in ns]
+        traces[name] = core.sample_event_trace(
+            SEED + 7919 * t, core.AdmissionWindow(lanes[name],
+                                                  n_max=WIN_N_MAX),
+            DAEMON_EVENTS)
+    return lanes, traces
+
+
+def daemon_engine(cfg):
+    from repro_torch import core
+    return core.CapacityEngine(cfg, core.Policies(
+        flush=core.FlushPolicy(max_events=DAEMON_FLUSH),
+        rounding=core.RoundingPolicy(False)))
+
+
+def host_bits(x):
+    x = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
+    return np.asarray(x).dtype.str, np.asarray(x).shape, np.asarray(x).tobytes()
+
+
+def same_flushes(got, want):
+    """(flush, field) pairs in which two lists of flush reports differ bit
+    for bit: every Solution leaf, the iterations and the mask."""
+    from repro_torch.serving.wire import _SOLUTION_FIELDS
+    if len(got) != len(want):
+        return [("flushes", len(got), len(want))]
+    bad = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        pairs = [(f, getattr(a.fractional, f), getattr(b.fractional, f))
+                 for f in _SOLUTION_FIELDS]
+        pairs += [("iters", a.iters, b.iters), ("mask", a.mask, b.mask)]
+        bad += [(i, f) for f, x, y in pairs if host_bits(x) != host_bits(y)]
+    return bad
+
+
+async def client_open_loop(client, schedule):
+    """Offer a timed schedule over the wire open-loop (each offer at its
+    scheduled offset, its latency measured from there), drain, and wait for
+    every ticket's covering flush."""
+    import asyncio
+    t0 = time.perf_counter()
+    tickets = []
+    for t_off, tenant, event in schedule:
+        delay = (t0 + t_off) - time.perf_counter()
+        if delay > 0:
+            await asyncio.sleep(delay)
+        tickets.append(client.offer(tenant, event, t_submit=t0 + t_off))
+    await client.drain()
+    for tk in tickets:
+        await tk.result()
+    return tickets, time.perf_counter() - t0
+
+
+def daemon_run(counters, cfg, lanes, schedule, kernel, wire=False):
+    """One open-loop run of the daemon: in process, or behind an
+    ``AllocServer`` driven by an ``AllocClient`` over loopback TCP (the
+    tenants resident on the engine's mesh; frames up to DAEMON_FRAME
+    bytes, as a flush report of 64 lanes at width 512 outgrows the default
+    1 MiB).  Every count is set to 0 just before the schedule starts and
+    read just after.  Returns the reports by tenant and the run's
+    numbers."""
+    import asyncio
+    from repro_torch import core
+    from repro_torch.serving import (AllocClient, AllocDaemon, AllocServer,
+                                     drive_open_loop)
+
+    async def run():
+        engine = daemon_engine(cfg)
+        daemon = AllocDaemon(engine, queue_limit=DAEMON_QUEUE)
+        if not wire:
+            for name, lns in lanes.items():
+                daemon.add_tenant(name, core.AdmissionWindow(
+                    lns, n_max=WIN_N_MAX))
+            await daemon.start()
+            for k in counters:
+                k.launches = 0
+            t0 = time.perf_counter()
+            tickets = await drive_open_loop(daemon, schedule)
+            await daemon.shutdown(drain=True)
+            wall = time.perf_counter() - t0
+            lat = [tk.t_done - tk.t_submit for tk in tickets]
+            return ({n: list(daemon.reports(n)) for n in lanes}, lat, wall,
+                    daemon, None, tickets)
+        server = AllocServer(daemon, max_frame=DAEMON_FRAME)
+        await server.start()
+        client = await AllocClient.connect(*server.address,
+                                           max_frame=DAEMON_FRAME)
+        for name, lns in lanes.items():
+            await client.register_tenant(name, lns, n_max=WIN_N_MAX)
+        resident = all(daemon._tenants[n].session.window.is_resident
+                       for n in lanes)
+        for k in counters:
+            k.launches = 0
+        tickets, wall = await client_open_loop(client, schedule)
+        got = {n: list(client.reports(n)) for n in lanes}
+        daemon_side = {n: list(daemon.reports(n)) for n in lanes}
+        await client.close()
+        await server.close()
+        lat = [tk.t_done - tk.t_submit for tk in tickets]
+        return got, lat, wall, daemon, (daemon_side, resident), tickets
+
+    got, lat, wall, daemon, extra, tickets = asyncio.run(run())
+    launches = kernel.launches
+    others = {k.__name__: k.launches for k in counters
+              if k is not kernel and k.launches}
+    if others:
+        raise AssertionError(f"phase 9: another kernel launched: {others}")
+    rep = daemon.report()
+    lat = np.asarray(lat) * 1e3
+    steps = sum(int(resolved_iters(r).max()) if r.resolved.any() else 0
+                for n in lanes for r in daemon.reports(n))
+    return types.SimpleNamespace(
+        reports=got, launches=launches, steps=steps, report=rep,
+        wall=wall, p50=float(np.percentile(lat, 50)),
+        p99=float(np.percentile(lat, 99)), extra=extra,
+        accepted=[tk.accepted for tk in tickets])
+
+
+def phase_daemon(counters):
+    """Phase 9: the admission daemon at DAEMON_TENANTS tenants of
+    DAEMON_LANES lanes, under the fused configuration, open loop at
+    DAEMON_RATE events/s on a Poisson and then a flash-crowd schedule, in
+    process and over loopback TCP (tenants resident on a 1-device mesh):
+    every tenant's flushes bit for bit an offline replay, the wire's bit for
+    bit the in-process ones, no rejection, one launch a loop step; then the
+    launcher with ``--conformance``."""
+    from repro_torch import core
+    from repro_torch.kernels.gnep_iter.kernel import fused_iter_sweep
+    from repro_torch.kernels.gnep_iter.ops import make_fused_iter_fn
+    from repro_torch.launch import allocd as allocd_cli
+    from repro_torch.serving import interleave_traces
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
+    lanes, traces = daemon_tenants()
+    total = sum(len(t) for t in traces.values())
+    print(f"phase 9: the admission daemon, {DAEMON_TENANTS} tenants of "
+          f"{DAEMON_LANES} lanes (n_max {WIN_N_MAX}), {DAEMON_EVENTS} events "
+          f"each, flushes of {DAEMON_FLUSH}, fused, open loop at "
+          f"{DAEMON_RATE} events/s")
+    cfg = core.SolverConfig(iter_fn=make_fused_iter_fn())
+    resident = dataclasses.replace(
+        cfg, mesh=core.lane_mesh(devices=["cuda:0"]), residency="resident")
+    offline = {n: list(daemon_engine(cfg).open_window(core.AdmissionWindow(
+        lanes[n], n_max=WIN_N_MAX)).stream(traces[n])) for n in lanes}
+    schedules = {
+        "poisson": core.poisson_times(SEED, total, DAEMON_RATE),
+        "flash": core.flash_crowd_times(SEED, total, DAEMON_RATE)}
+    runs, launches = {}, 0
+    for arrival, times in schedules.items():
+        schedule = interleave_traces(traces, times)
+        for where in ("in process", "over TCP"):
+            wire = where == "over TCP"
+            run = daemon_run(counters, resident if wire else cfg, lanes,
+                             schedule, fused_iter_sweep, wire=wire)
+            bad = {n: same_flushes(run.reports[n], offline[n])
+                   for n in lanes}
+            bad = {n: b[:4] for n, b in bad.items() if b}
+            if wire:
+                daemon_side, all_resident = run.extra
+                inproc = runs[(arrival, "in process")]
+                for n in lanes:
+                    for label, got, want in (
+                            ("daemon side", daemon_side[n], offline[n]),
+                            ("against in process", run.reports[n],
+                             inproc.reports[n])):
+                        diff = same_flushes(got, want)
+                        if diff:
+                            bad[f"{n} ({label})"] = diff[:4]
+                if not all_resident:
+                    bad["residency"] = "a tenant is not resident"
+            rep = run.report
+            launches += run.launches
+            print(f"  {arrival} {where}: {rep['events_folded']:.0f} events "
+                  f"in {run.wall!r} s, {total / run.wall!r} events/s, "
+                  f"admission p50 {run.p50!r} ms / p99 {run.p99!r} ms, "
+                  f"{rep['flushes']:.0f} flushes, {run.launches} "
+                  f"fused_iter_sweep launches for {run.steps} loop steps, "
+                  f"{rep['rejected']:.0f} rejected; differs from the "
+                  f"offline replay in {bad or 'nothing'}")
+            if bad or rep["rejected"] or not all(run.accepted) or (
+                    run.launches != run.steps) or (
+                    rep["events_folded"] != total):
+                raise AssertionError(f"phase 9 {arrival} {where}: {bad}; "
+                                     f"{run.launches} launches for "
+                                     f"{run.steps} steps; {rep}")
+            runs[(arrival, where)] = run
+
+    session = daemon_engine(cfg).open_window(core.AdmissionWindow(
+        lanes["tenant-0"], n_max=WIN_N_MAX))
+    session.solve()
+    for ev in traces["tenant-0"][:DAEMON_FLUSH]:
+        session.offer(ev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    idle, busy = report_idle(prof, wall, f"one flush of {DAEMON_FLUSH} "
+                             f"events on {DAEMON_LANES} lanes", rows=4)
+    t0 = time.perf_counter()
+    rep = allocd_cli.main(["--tenants", "2", "--lanes", "4", "--classes",
+                           "64", "--events", "24", "--arrival", "flash",
+                           "--conformance"])
+    if rep["rejected"] or rep["events_folded"] != 48:
+        raise AssertionError(f"phase 9: the launcher's run: {rep}")
+    print(f"  repro_torch.launch.allocd.main --conformance on the card: "
+          f"{time.perf_counter() - t0!r} s")
+    took = time.perf_counter() - t_phase
+    print(f"  phase 9: {launches} fused_iter_sweep launches; {took!r} s")
+    return {"launches": launches, "seconds": took, "idle": idle,
+            "busy": busy, "runs": {f"{a} {w}": {
+                "events_per_s": total / r.wall, "p50_ms": r.p50,
+                "p99_ms": r.p99, "flushes": r.report["flushes"],
+                "launches": r.launches} for (a, w), r in runs.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs on an "
@@ -2191,12 +2774,18 @@ def main() -> int:
                if name in ALLOCATOR_KERNELS}
     shards = timed("phase 7", phase_shards, main_batch, configs, reports,
                    window, counters)
+    plan = timed("phase 8", phase_plan, counters)
+    daemon = timed("phase 9", phase_daemon, counters)
     for name, session in (("fused_iter_sweep", "fused"),
                           ("rm_sweep_batched", "sweep")):
         by_path[name]["phase 6"] = window[session]["launches"]
         by_path[name]["phase 7"] = shards["launches"][name]
+        by_path[name]["phase 8"] = plan["launches"][session]
         counts[name] += (window[session]["launches"]
-                         + shards["launches"][name])
+                         + shards["launches"][name]
+                         + plan["launches"][session])
+    by_path["fused_iter_sweep"]["phase 9"] = daemon["launches"]
+    counts["fused_iter_sweep"] += daemon["launches"]
     for arch, res in serving.items():
         print(f"  serving {arch}: f32 decode-vs-forward "
               f"{res.get('f32_rel')!r} prefill_s={res['prefill_s']!r} "

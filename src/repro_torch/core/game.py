@@ -18,13 +18,15 @@ Python loop; its condition is read back to the host once per iteration.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core.types import Scenario, ScenarioBatch, Solution
+from repro_torch.core.types import (Scenario, ScenarioBatch, Solution,
+                                    neutral_class_values)
 
 # --------------------------------------------------------------------------
 # Resource Manager — problem (P5)
@@ -243,10 +245,68 @@ def _lane_eps(r_new, r_old, mask):
     return torch.where(mask, rel, 0.0).sum(-1)
 
 
+#: Device types whose row sums the loop keeps independent of a row's place
+#: in memory.  torch's CUDA ``sum(-1)`` adds a row in an order set by the
+#: row's 32-byte alignment, so a lane's bits would depend on where its row
+#: lies in a shard, chunk or batch; the CPU's order depends on the row's
+#: length alone, so the CPU path is left as it is.
+_ALIGNED_ROW_DEVICES = ("cuda",)
+
+#: Class-axis multiple the loop widens to on those devices: 4 doubles (or 4
+#: floats) are the 32-byte (16-byte) unit of torch's vectorized row sums.
+_CLASS_ALIGN = 4
+
+
+def _aligned_classes(batch: ScenarioBatch, init: Optional[BatchWarmStart]):
+    """Widen the class axis to a multiple of :data:`_CLASS_ALIGN` with masked
+    neutral classes, so that every (lane, ...) row of the loop starts on an
+    aligned boundary in any batch, shard or chunk.
+
+    A masked class adds exactly 0.0 to every masked sum and its bid is
+    ``rho_bar``, a candidate price that is present anyway, so the equilibrium
+    of the real classes keeps its meaning; only the rows' summation order is
+    pinned.  Returns ``(batch, init)`` unchanged where nothing is to widen.
+    """
+    n = batch.n_max
+    width = -(-n // _CLASS_ALIGN) * _CLASS_ALIGN
+    if width == n or batch.device.type not in _ALIGNED_ROW_DEVICES:
+        return batch, init
+    scn, pad = batch.scenarios, width - n
+    rho_bar = scn.rho_bar[:, None].expand(-1, pad)
+    neutral = neutral_class_values(0.0)
+
+    def widen(leaf, fill):
+        return torch.cat([leaf, fill], dim=1)
+
+    kw = {}
+    for f in dataclasses.fields(Scenario):
+        leaf = getattr(scn, f.name)
+        if leaf.ndim == 2:
+            fill = (rho_bar.to(leaf.dtype) if f.name == "rho_up"
+                    else leaf.new_full((leaf.shape[0], pad), neutral[f.name]))
+            leaf = widen(leaf, fill)
+        kw[f.name] = leaf
+    mask = widen(batch.mask, batch.mask.new_zeros((batch.batch_size, pad)))
+    wide = ScenarioBatch(scenarios=Scenario(**kw), mask=mask,
+                         n_classes=batch.n_classes)
+    if init is not None:
+        init = init._replace(
+            r=widen(init.r, init.r.new_zeros((init.r.shape[0], pad))),
+            bids=widen(init.bids, rho_bar.to(init.bids.dtype)))
+    return wide, init
+
+
 def _solve_batch_core(batch: ScenarioBatch, eps_bar, lam, max_iters,
                       sweep_fn, init: Optional[BatchWarmStart],
                       iter_fn=None) -> Solution:
-    """Body of the batched Algorithm 4.1 (see ``solve_distributed_batch``)."""
+    """Body of the batched Algorithm 4.1 (see ``solve_distributed_batch``).
+
+    On a device of :data:`_ALIGNED_ROW_DEVICES` the loop runs on the class
+    axis widened by :func:`_aligned_classes` and trims the result back to
+    ``batch.n_max``, so a lane's bits do not depend on the lanes beside it.
+    """
+    n = batch.n_max
+    batch, init = _aligned_classes(batch, init)
     scns, mask = batch.scenarios, batch.mask
     dt = scns.A.dtype
     feasible = ((torch.where(mask, scns.r_low, 0.0).sum(-1) <= scns.R)
@@ -294,6 +354,8 @@ def _solve_batch_core(batch: ScenarioBatch, eps_bar, lam, max_iters,
     psi, sM, sR = cm_best_response(scns, r, mask=mask)
     cost = scns.rho_bar * r.sum(-1)
     pen = torch.where(mask, scns.alpha * psi - scns.beta, 0.0).sum(-1)
+    if r.shape[1] != n:
+        r, psi, sM, sR = (x[:, :n].contiguous() for x in (r, psi, sM, sR))
     return Solution(r=r, psi=psi, sM=sM, sR=sR, cost=cost, penalty=pen,
                     total=cost + pen, feasible=feasible, iters=lane_iters,
                     aux=rho)

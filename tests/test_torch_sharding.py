@@ -292,3 +292,62 @@ def test_random_trace_under_mesh_matches_unsharded_and_jax():
             np.testing.assert_allclose(np_(getattr(rm.fractional, f)), want,
                                        rtol=1e-12, atol=1e-12 * scale)
     assert w_mesh.n_max == wj.n_max > 8
+
+
+# --------------------------------------------------------------------------
+# Row sums independent of a row's place (game._aligned_classes)
+# --------------------------------------------------------------------------
+
+ODD_WIDTH = 501     # odd: shard d of 3 starts d * 3 * 501 * 8 bytes in
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+@pytest.mark.parametrize("widened", [False, True])
+def test_sharded_solve_at_an_odd_width_is_bitwise(name, widened,
+                                                  monkeypatch):
+    """9 lanes at width 501 on 3 CPU shards equal the unsharded solve bit
+    for bit, as the loop runs on the card (``widened``: the class axis
+    widened to a multiple of 4, as it is for CUDA tensors) and as it runs
+    on the CPU (not widened: the CPU's row sums depend on a row's length
+    alone)."""
+    if widened:
+        monkeypatch.setattr(tg, "_ALIGNED_ROW_DEVICES", ("cuda", "cpu"))
+    _, bt = batch_pair(48, (501, 3, 260, 499, 17, 1, 333, 501, 90),
+                       n_max=ODD_WIDTH)
+    _, kt = CONFIGS[name]
+    ref = tg.solve_distributed_batch(bt, **kt)
+    sol = tg.solve_distributed_batch(bt, mesh=mesh(3), **kt)
+    assert sol.r.shape == ref.r.shape == (9, ODD_WIDTH)
+    assert sol.r.is_contiguous()
+    assert_solutions_bitwise(sol, ref)
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_widened_class_axis_keeps_the_equilibrium(name, monkeypatch):
+    """The widened loop against the loop as it runs on the CPU (and
+    against JAX): iterations, feasibility and the price equal; the
+    fractional fields within 64 ULPs of their scale, r's for the
+    allocations and the total's for cost, penalty and total (only row
+    sums' order differs); the widening is invisible in the result's
+    shape."""
+    bj, bt = batch_pair(49, (37, 5, 29, 21), n_max=37)
+    kj, kt = CONFIGS[name]
+    plain = tg.solve_distributed_batch(bt, **kt)
+    monkeypatch.setattr(tg, "_ALIGNED_ROW_DEVICES", ("cuda", "cpu"))
+    wide, init = tg._aligned_classes(bt, tg.cold_start(bt))
+    assert wide.n_max == 40 and init.r.shape == (4, 40)
+    assert not bool(wide.mask[:, 37:].any())
+    assert_bitwise_equal(np_(wide.scenarios.rho_up[:, 37:]),
+                         np_(bt.scenarios.rho_bar[:, None].expand(4, 3)))
+    got = tg.solve_distributed_batch(bt, **kt)
+    assert got.r.shape == plain.r.shape
+    for sol in (plain, got):
+        np.testing.assert_array_equal(np_(sol.iters), np_(plain.iters))
+        np.testing.assert_array_equal(np_(sol.feasible),
+                                      np_(plain.feasible))
+        assert_bitwise_equal(np_(sol.aux), np_(plain.aux), "aux")
+        for f in ("r", "psi", "sM", "sR", "cost", "penalty", "total"):
+            scale = plain.r if f in ("r", "psi", "sM", "sR") else plain.total
+            assert_ulp_close(np_(getattr(sol, f)), np_(getattr(plain, f)),
+                             ulps=64, scale=np_(scale), err_msg=f)
+    assert_solution_matches_jax(got, jg.solve_distributed_batch(bj, **kj))
