@@ -15,8 +15,8 @@ at once), then runs these phases, each of which raises on failure:
    with its time, the plain version's time, the card's least time for the
    same work (the fused middle's counting only the distinct prices and
    live classes these inputs need) and, where one PyTorch call computes
-   the same function, that call's time; and ``layers.dot`` on bf16
-   operands against the f32 product;
+   the same function, that call's time; and ``layers.dot`` and
+   ``layers.bmm`` on bf16 operands against the f32 product;
 2. the allocator's main path at the paper's scale (Sec. 5.3: 256 lanes of
    100-500 job classes, capacity factor 0.95, f64): ``CapacityEngine.solve``
    under the fused-kernel, sweep-kernel and default configurations, plus
@@ -29,13 +29,19 @@ at once), then runs these phases, each of which raises on failure:
    the fused kernel;
 4. solve times and the device's idle share in one fused solve;
 5. the tenant LM serving path (``repro_torch.serving.generate``, as
-   ``python -m repro_torch.launch.serve`` drives it) for Qwen3-0.6B and
-   RWKV6-7B at full width and depth, random weights from a seed: batch 4,
-   prompt 1024, 16 new tokens, greedy.  Every kernel's launch count is
-   read around each generate; tokens, logits and the last decode step
-   against a forward pass over the prompt and the generated tokens are
-   checked; prefill seconds, decode tokens/s and (Qwen3) the device's idle
-   share are printed;
+   ``python -m repro_torch.launch.serve`` drives it) for Qwen3-0.6B,
+   RWKV6-7B and DeepSeekMoE-16B at full width and depth, random weights
+   from a seed: batch 4, prompt 1024, 16 new tokens, greedy.  Every
+   kernel's launch count is read around each generate; tokens, logits and
+   the last decode step against a forward pass over the prompt and the
+   generated tokens are checked; prefill seconds, decode tokens/s and the
+   device's idle share are printed.  DeepSeekMoE also gates (b) a second
+   generate bit for bit the first, (c) one full-width MoE layer in f32 at
+   4,096 tokens against ``moe_dense_ref``, drop-free and, at the capacity
+   factor 1.25, with the dropped pairs' gates zeroed, and (d) at a
+   drop-free capacity factor the last decode step against a forward whose
+   routing is pinned to the generate's (bf16, full depth) and unpinned
+   (f32, 4 layers); its peak memory is printed;
 6. the admission window (``CapacityEngine.open_window`` /
    ``WindowSession.stream``) at the same scale, n_max 512: a trace of
    arrivals, departures, SLA edits and capacity changes, a burst that grows
@@ -94,7 +100,21 @@ at once), then runs these phases, each of which raises on failure:
    for bit the in-process ones, no rejection, one launch a loop step;
    events per second, admission latency, one flush's idle share, and
    ``repro_torch.launch.allocd.main --conformance`` once;
-10. the ``kernels`` line, whose launch counts add phases 2 and 6-9.
+10. the fleet simulator (``repro_torch.cluster``) at the paper's Sec. 5.3
+   scale, 256 fleets of 100-500 tenants from a numpy seed: (a)
+   ``epoch_batch`` under the default and the sweep configurations equal
+   (chips, h, iterations; totals within 1e-9), one launch a loop step, and
+   the sweep kernel held to its plain version on one epoch's batch as the
+   loop sees it; (b) 8 fleets' ``epoch()`` equal to their lanes; (c)
+   ``epoch_batch`` on a 3-shard lane mesh bit for bit the unsharded one;
+   (d) ``fail_nodes`` / ``restore_nodes`` / ``mark_straggler`` on one
+   fleet, and ``InfeasibleError`` where the reference raises it; (e)
+   ``epoch_stream`` over 16 epochs of the reference's event mix in both
+   configurations, compacting, its last epoch equal to a fresh
+   ``epoch_batch``, and a duplicate tenant refused; walls, epochs/s and
+   one sweep epoch's idle share are printed;
+11. the ``kernels`` line, whose launch counts add phases 2, 5 (per model)
+   and 6-10.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the repository's ``src/`` beside it, the script fails before
@@ -135,7 +155,11 @@ ORDER_LANES = 8  # lanes of a sweep case held bit for bit to emulated_sweep
 ALLOCATOR_KERNELS = ("fused_iter_sweep", "rm_sweep_batched", "rm_sweep")
 
 # the serving path: both configurations at full width and depth
-SERVE_ARCHS = ("qwen3-0.6b", "rwkv6-7b")
+SERVE_ARCHS = ("qwen3-0.6b", "rwkv6-7b", "deepseek-moe-16b")
+# DeepSeekMoE-16B: one full-width MoE layer in f32 at 4 x 1024 tokens
+# against moe_dense_ref, and the f32 decode-vs-forward check at 4 layers (1
+# dense + 3 MoE; 28 f32 layers do not fit the card beside their caches)
+MOE_LAYER_SHAPE, MOE_F32_LAYERS = (4, 1024), 4
 SERVE_B, SERVE_PROMPT, SERVE_NEW = 4, 1024, 16
 # RWKV's decode-vs-forward check runs at a prompt of 1040 (chunk 16): at
 # 1024 the model's chunk rule picks 256, where the reference's chunked form
@@ -145,6 +169,7 @@ RWKV_AGREE_PROMPT = 1040
 # flash attention: the Qwen3-0.6B prefill, then a ragged shape (bf16 runs
 # the tensor-core kernel, f32 the CUDA-core one)
 FLASH_MAIN = (4, 1024, 16, 8, 128)           # B, S, Hq, Hkv, hd
+FLASH_MOE = (4, 1024, 16, 16, 128)           # the DeepSeekMoE-16B prefill
 FLASH_RAGGED = (2, 200, 6, 3, 64)
 # WKV6: (B, T, H, K, chunk, decay shift, with S0); the RWKV6-7B prefill,
 # a 1040-token forward's chunk 16, and a ragged chunk-4 case whose
@@ -162,6 +187,7 @@ WKV_CASES = ((4, 1024, 64, 64, 256, -0.6, False),
 # layers.dot on the card: bf16 (M x D) . (D x N), the Qwen3 MLP's up
 # projection at the serving prefill (4 x 1024 tokens, d 1024, d_ff 3072)
 DOT_SHAPE = (4096, 1024, 3072)
+BMM_SHAPE = (64, 480, 2048, 1408)
 # the admission window: MAIN_B lanes at n_max 512 (grown to 1,024 by a
 # burst), flushes of 8 events, a cold re-solve against every 8th flush, and
 # the fused session compacted after 8 flushes at the grown width
@@ -190,6 +216,20 @@ PLAN_ODD = ((101, 4, (64, 48)), (257, 2, (37,)))   # classes, tiers, chunks
 DAEMON_TENANTS, DAEMON_LANES, DAEMON_EVENTS = 4, 64, 96
 DAEMON_RATE, DAEMON_FLUSH, DAEMON_QUEUE = 400.0, 8, 4096
 DAEMON_FRAME = 1 << 24      # a flush frame at 64 lanes x 512 is ~1.4 MB
+# the fleet simulator: the paper's Sec. 5.3 scale (256 fleets of 100-500
+# tenants), capacity factor 0.95 (Sec. 5.2.1), tenants in the ranges of
+# examples/multi_tenant_cluster.py; 8 fleets held to their own epoch(), a
+# 3-shard mesh, a 20 % node failure, and a stream of 16 epochs with events
+# on a tenth of the fleets each, a fleet arriving and one leaving, opened
+# with twice the widest fleet's headroom (n_max 1,024, occupancy about 0.3)
+# and compacting below 0.6
+FLEET_B, FLEET_N_LO, FLEET_N_HI, FLEET_CF = 256, 100, 500, 0.95
+FLEET_TP = (1, 2, 4, 8, 16)
+FLEET_ARCHS = (("qwen3-8b", "train_4k"), ("qwen3-32b", "prefill_32k"),
+               ("deepseek-moe-16b", "decode_32k"), ("rwkv6-7b", "long_500k"))
+FLEET_SAMPLED, FLEET_SHARDS, FLEET_FAIL = 8, 3, 0.2
+FLEET_EPOCHS, FLEET_ARRIVE_AT, FLEET_DEPART_AT = 16, 5, 10
+FLEET_COMPACT, FLEET_STREAM_N_MAX = 0.6, 1024
 
 
 def card_line() -> str:
@@ -1004,13 +1044,13 @@ def phase_flash(gen):
     from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.kernels.flash_attention.ref import reference
     print("phase 1b: flash_attention against its plain version")
-    errs, row = [], None
+    errs, row, cases_row = [], None, {}
     # bf16: both sides round the same f32 result to bf16 once, and two
     # roundings of nearly equal values differ by at most one bf16 spacing
     # (2^-7 of the value); f32: the same sums in another order, with the
     # online softmax's rescaling, within 1e-4 relative.
     bf16, f32 = (torch.bfloat16, 1e-5, 2.0 ** -7), (torch.float32, 1e-5, 1e-4)
-    cases = [(FLASH_MAIN, True, *bf16)] + [
+    cases = [(FLASH_MAIN, True, *bf16), (FLASH_MOE, True, *bf16)] + [
         (FLASH_RAGGED, c, *f32) for c in (True, False)] + [
         (FLASH_MAIN, False, *bf16)] + [
         (FLASH_RAGGED, c, *bf16) for c in (True, False)]
@@ -1020,7 +1060,7 @@ def phase_flash(gen):
             flash_attention(q, k, v, causal=causal),
             reference(q, k, v, causal=causal), atol, rtol,
             f"flash_attention {shape} {str(dtype)[6:]} causal={causal}"))
-        if shape != FLASH_MAIN:
+        if shape not in (FLASH_MAIN, FLASH_MOE):
             continue
         # the kernel, SDPA and the plain version in turns: k, l, p, l, k
         B, S, Hq, Hkv, hd = shape
@@ -1045,17 +1085,22 @@ def phase_flash(gen):
         b_ms, b_by = bound(nbytes(q, k, v, q), ops, BF16_OPS_PER_S)
         # the kernel's own floor: P V runs twice (P_hi and P_lo)
         split_ms = 1.5 * ops / BF16_OPS_PER_S * 1e3
-        print(f"  flash_attention causal={causal}: ms={t_k!r} "
+        print(f"  flash_attention {shape} causal={causal}: ms={t_k!r} "
               f"plain_ms={t_p!r} library_ms={t_l!r} bound_ms={b_ms!r} "
               f"({b_by}, bf16 tensor-core rate) split_floor_ms={split_ms!r} "
               f"turns={times!r}")
-        if causal:  # the main path's case: Qwen3's prefill is causal
+        if not causal:
+            continue
+        # the main paths' cases: the Qwen3 and DeepSeekMoE prefills
+        cases_row[f"{shape}"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                                     bound_ms=b_ms, bound_by=b_by)
+        if shape == FLASH_MAIN:
             row = dict(name="flash_attention", route="cuda",
                        source="src/repro_torch/csrc/flash_attention.cu",
                        replaces="src/repro/kernels/flash_attention/kernel.py"
                                 ":71",
                        ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=t_l)
+                       library_ms=t_l, cases=cases_row)
     check_tma_refusal(flash_attention)
     row["max_abs_err"] = max(errs)
     return row
@@ -1189,6 +1234,20 @@ def phase_dot(gen):
     if not err <= 1e-5:
         raise AssertionError(f"layers.dot departs from the f32 product by "
                              f"{err} of its largest value")
+    # layers.bmm, the MoE experts' product, at the DeepSeekMoE prefill's
+    # dispatch buffer (64 experts x 480 slots, d 2048, f 1408), same gate
+    E, C, D, N = BMM_SHAPE
+    x = torch.randn((E, C, D), generator=gen, device="cuda").bfloat16()
+    w = (torch.randn((E, D, N), generator=gen, device="cuda")
+         * D ** -0.5).bfloat16()
+    got = layers.bmm(x, w)
+    want = torch.bmm(x.float(), w.float())
+    err = float((got - want).abs().max() / want.abs().max())
+    print(f"phase 1d: layers.bmm bf16 {BMM_SHAPE}: max|bmm - f32 "
+          f"product|/max = {err!r}")
+    if got.dtype != torch.float32 or not err <= 1e-5:
+        raise AssertionError(f"layers.bmm: {got.dtype}, {err} of the f32 "
+                             "product's largest value")
 
 
 # --------------------------------------------------------------------------
@@ -1238,8 +1297,16 @@ def phase_serving(arch, counters):
         raise AssertionError(f"{arch}: non-finite logits")
     if not torch.equal(toks, logits.argmax(-1)):
         raise AssertionError(f"{arch}: greedy tokens are not the argmax")
+    if cfg.moe is not None:
+        torch.cuda.reset_peak_memory_stats()
+        moe = moe_serving_checks(cfg, params, prompt, toks, logits)
     rel = decode_vs_forward(cfg, params, prompt, toks, logits)
-    if not cfg.rwkv:
+    if cfg.moe is not None:
+        print(f"  (not gated: at capacity factor {cfg.moe.capacity_factor} "
+              f"the {S0 + N - 1}-token forward drops "
+              f"{moe['forward_drops']} of its token-expert pairs, which the "
+              "decode step, 4 tokens a step, never drops)")
+    elif not cfg.rwkv:
         # bf16 keeps 8 significant bits (u = 2^-8); each layer rounds the
         # residual stream a few times, and ~6 roundings x 28 layers
         # accumulating as a random walk give sqrt(168) u = 0.051, so the
@@ -1284,11 +1351,202 @@ def phase_serving(arch, counters):
         out["idle_warm"] = 1.0 - busy / warm
         print(f"  device busy over the unprofiled warm generate "
               f"({warm!r} s): idle_share={out['idle_warm']!r}")
+    if cfg.moe is not None:
+        moe["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"  {arch}: peak memory {moe['peak_gb']!r} GB")
     del params
     torch.cuda.empty_cache()
     if cfg.rwkv:
         out["f32_rel"] = rwkv_f32_agreement(cfg)
+    if cfg.moe is not None:
+        moe.update(moe_layer_check(cfg))
+        moe["f32_rel"] = moe_f32_agreement(cfg)
+        out["f32_rel"] = moe["f32_rel"]
+        out["moe"] = moe
     return out
+
+
+def drop_free(cfg):
+    """``cfg`` at a capacity factor of E/k, where every expert has a slot
+    for every token (cap >= T), so nothing drops."""
+    mo = cfg.moe
+    return cfg.replace(moe=dataclasses.replace(
+        mo, capacity_factor=mo.n_experts / mo.top_k))
+
+
+def dropped_pairs(idx, cap):
+    """Which (token, j) pairs overflow their expert's ``cap`` slots, counted
+    independently of the layer's sort: each pair's place in its expert's
+    queue is a cumulative count over the token-major pairs."""
+    flat = idx.reshape(-1)
+    one_hot = torch.nn.functional.one_hot(flat, int(flat.max()) + 1)
+    rank = one_hot.cumsum(0).gather(1, flat[:, None])[:, 0] - 1
+    return (rank >= cap).reshape(idx.shape)
+
+
+@contextlib.contextmanager
+def routing(mode, calls):
+    """Record every MoE layer's routing (``mode="record"``: append the
+    (B, S, k) indices of each ``moe.route`` call to ``calls``) or pin a
+    forward's routing to recorded choices (``mode="pin"``: ``calls`` holds
+    one (B, S, k) index tensor a MoE layer; each layer keeps its own
+    probabilities and renormalised gates at the pinned experts, and the
+    number of choices that differ from its own top-k is added to
+    ``calls``'s ``flips``)."""
+    from repro_torch.models import layers, moe
+    route = moe.route
+    state = {"layer": 0}
+
+    def spy(cfg, p, x):
+        gates, idx, aux = route(cfg, p, x)
+        if mode == "record":
+            calls.append(idx)
+            return gates, idx, aux
+        pinned = calls["idx"][state["layer"]]
+        state["layer"] += 1
+        own = torch.sort(idx, dim=-1).values
+        calls["flips"] += int((own != torch.sort(pinned, dim=-1).values)
+                              .any(-1).sum())
+        probs = torch.softmax(layers.dot(x, p["router"]["wr_router"]), -1)
+        g = probs.gather(-1, pinned)
+        if cfg.moe.renorm_top_k:
+            g = g / g.sum(-1, keepdim=True)
+        return g, pinned, aux
+
+    moe.route = spy
+    try:
+        yield calls
+    finally:
+        moe.route = route
+
+
+def moe_serving_checks(cfg, params, prompt, toks, logits):
+    """Phase 5's DeepSeekMoE gates on the bf16 model at full width and
+    depth: (b) a second generate bit for bit the first; (d) at a drop-free
+    capacity factor, the last decode step against a forward over the prompt
+    and the generated tokens with each MoE layer's routing pinned to the
+    generate's choices, within the 5e-2 that bf16 rounding allows (the
+    Qwen3 bound); the unpinned forward's routing flips are counted.  Also
+    counts the pairs that the 1039-token forward drops at the
+    configuration's capacity factor."""
+    from repro_torch.models import forward, moe
+    from repro_torch.serving import generate
+    B, S0 = prompt.shape
+    N = toks.shape[1]
+    toks2, logits2 = generate(cfg, params, prompt, max_new_tokens=N,
+                              return_logits=True)
+    same = bitwise(toks2, toks) and bitwise(logits2, logits)
+    print(f"  (b) a second generate from the same weights and prompt: "
+          f"tokens and logits bit for bit the first: {same}")
+    if not same:
+        raise AssertionError(f"{cfg.name}: two generates differ")
+
+    full = torch.cat([prompt, toks[:, :-1]], dim=1)
+    calls = []
+    with routing("record", calls), torch.inference_mode():
+        forward(cfg, params, {"tokens": full})
+    cap = moe.capacity(cfg, full.numel())
+    drops = sum(int(dropped_pairs(idx, cap).sum()) for idx in calls)
+    free = drop_free(cfg)
+    n_moe = sum(1 for _, f in cfg.layer_kinds() if f == "moe")
+    calls = []
+    with routing("record", calls):
+        toks_f, logits_f = generate(free, params, prompt, max_new_tokens=N,
+                                    return_logits=True)
+    # calls: the prefill's n_moe layers, then n_moe a decode step
+    steps = [calls[i:i + n_moe] for i in range(0, len(calls), n_moe)]
+    pinned = {"idx": [torch.cat([step[l] for step in steps], dim=1)
+                      for l in range(n_moe)], "flips": 0}
+    full_f = torch.cat([prompt, toks_f[:, :-1]], dim=1)
+    with routing("pin", pinned), torch.inference_mode():
+        ref_logits, _, _ = forward(free, params, {"tokens": full_f})
+    a, b = ref_logits[:, -1], logits_f[:, -1]
+    rel = float((a - b).abs().max() / a.abs().max())
+    n_choices = n_moe * B * (S0 + N - 1)
+    print(f"  (d) drop-free (capacity factor {free.moe.capacity_factor!r}): "
+          f"last decode step vs a forward over {full_f.shape[1]} tokens "
+          f"with the generate's routing pinned: max|diff|/max|logit| = "
+          f"{rel!r}, argmax agreement "
+          f"{float((a.argmax(-1) == b.argmax(-1)).double().mean())!r}; "
+          f"the forward's own top-k differs from the generate's at "
+          f"{pinned['flips']} of {n_choices} token-layer choices")
+    unpinned = decode_vs_forward(free, params, prompt, toks_f, logits_f,
+                                 what="(d) unpinned, not gated: ")
+    if not rel <= 5e-2:
+        raise AssertionError(f"{cfg.name}: drop-free decode disagrees with "
+                             f"the pinned forward ({rel})")
+    return dict(forward_drops=drops, forward_pairs=n_moe * full.numel()
+                * cfg.moe.top_k, pinned_rel=rel, unpinned_rel=unpinned,
+                flips=pinned["flips"], choices=n_choices)
+
+
+def moe_layer_check(cfg):
+    """(c) One full-width MoE layer in f32 at MOE_LAYER_SHAPE tokens of unit
+    RMS (the routed input after its RMS norm) that share one common
+    component, as a residual stream's tokens do, so that the experts' loads
+    are uneven and the configuration's capacity drops pairs: drop-free
+    against
+    ``moe_dense_ref``, and at the configuration's capacity factor against
+    ``moe_dense_ref`` with the gates of the dropped pairs (counted by
+    ``dropped_pairs``) zeroed, each within 1e-4 of the largest output (f32
+    products of 2,048 and 1,408 terms in another order: the worst-case
+    order bound is about n u = 1.2e-4, the typical sqrt(n) u = 3e-6)."""
+    from repro_torch.models import moe
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    p = moe.moe_init(cfg32, gen)
+    x = torch.randn((*MOE_LAYER_SHAPE, cfg.d_model), generator=gen,
+                    device="cuda")
+    common = torch.randn((cfg.d_model,), generator=gen, device="cuda")
+    x = (x + common) * 0.5 ** 0.5
+    T = x.shape[0] * x.shape[1]
+    gates, idx, aux = moe.route(cfg32, p, x)
+    out = {}
+    for label, c in (("drop-free", drop_free(cfg32)), ("dropping", cfg32)):
+        cap = moe.capacity(c, T)
+        dropped = dropped_pairs(idx, cap)
+        kept = torch.where(dropped, torch.zeros_like(gates), gates)
+        got = moe.moe_apply(c, p, x, gates, idx)
+        want = moe.moe_dense_ref(c, p, x, kept, idx)
+        rel = float((got - want).abs().max() / want.abs().max())
+        n = int(dropped.sum())
+        print(f"  (c) one MoE layer, f32, {T} tokens, {label} (capacity "
+              f"factor {c.moe.capacity_factor!r}, cap {cap}): {n} of "
+              f"{idx.numel()} pairs dropped; moe_apply against moe_dense_ref"
+              f"{' with their gates zeroed' if n else ''}: max|diff|/max|ref|"
+              f" = {rel!r} (gate 1e-4)")
+        if (label == "drop-free") == bool(n) or not rel <= 1e-4:
+            raise AssertionError(f"{cfg.name} layer {label}: {n} drops, "
+                                 f"rel {rel}")
+        out[f"layer_{label}"] = dict(rel=rel, dropped=n, pairs=idx.numel())
+    del p
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_f32_agreement(cfg):
+    """(d) in f32 at MOE_F32_LAYERS layers of full width, drop-free: the
+    last decode step against the forward, unpinned, within the JAX test's
+    2e-4 (``tests/test_models.py::_decode_consistency``)."""
+    from repro_torch.models import init_params
+    from repro_torch.serving import generate
+    cfg32 = drop_free(cfg).replace(n_layers=MOE_F32_LAYERS, dtype="float32",
+                                   param_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_params(cfg32, gen, device="cuda")
+    prompt = torch.randint(0, cfg32.vocab, (SERVE_B, SERVE_PROMPT),
+                           generator=gen, device="cuda")
+    toks, logits = generate(cfg32, params, prompt, max_new_tokens=SERVE_NEW,
+                            return_logits=True)
+    rel = decode_vs_forward(cfg32, params, prompt, toks, logits,
+                            what=f"(d) {cfg.name} in f32 at {MOE_F32_LAYERS}"
+                                 " layers, drop-free: ")
+    del params
+    torch.cuda.empty_cache()
+    if not rel <= 2e-4:
+        raise AssertionError(f"{cfg.name} f32: decode disagrees with the "
+                             f"forward pass ({rel})")
+    return rel
 
 
 def rwkv_f32_agreement(cfg):
@@ -2272,37 +2530,46 @@ def plan_against_plain(counters, grid, name, got, chunk):
 
 def plan_chunk_kernels(grid, name, chunk):
     """The kernel against its plain version on the operands of the plan's
-    last chunk of ``chunk`` as the loop sees them: inert-lane padded to the
-    chunk width and widened by ``game._aligned_classes`` (masked tail
-    classes bidding rho_bar), at bids three cold Alg. 4.1 steps in and at
-    bids drawn uniformly in [rho_bar, rho_up] per class (every price
-    distinct).  The fused middle bit for bit; the sweep within (2N + 8)
-    ULPs on every lane and bit for bit to ``emulated_sweep`` on the first
-    and last lanes (real lanes with the masked tail, inert lanes when the
-    chunk is ragged).  Returns the max abs error."""
+    last chunk of ``chunk`` as the loop sees them (``loop_kernel_checks``):
+    inert-lane padded to the chunk width.  Returns the max abs error."""
     from repro_torch import core
-    from repro_torch.core import game, sharding
-    from repro_torch.core.game import _rm_candidates
-    from repro_torch.kernels.gnep_iter.kernel import fused_iter_sweep
-    from repro_torch.kernels.gnep_iter.ref import fused_middle_reference
-    from repro_torch.kernels.gnep_sweep.kernel import rm_sweep_batched
-    from repro_torch.kernels.gnep_sweep.ref import reference_batched
+    from repro_torch.core import sharding
     start = (len(grid) - 1) // chunk * chunk
     n_max = max(c.scenario.n for c in grid)
     batch = core.stack_scenarios([c.scenario for c in grid[start:]],
                                  n_max=n_max)
     batch = sharding.pad_batch_lanes(batch, chunk)
+    label = (f"the plan's last chunk ({len(grid) - start} candidates and "
+             f"{chunk - len(grid) + start} inert lanes, {n_max} classes")
+    return loop_kernel_checks(batch, name, label)
+
+
+def loop_kernel_checks(batch, name, label):
+    """The kernel against its plain version on ``batch`` as the loop sees
+    it: widened by ``game._aligned_classes`` (masked tail classes bidding
+    rho_bar), at bids three cold Alg. 4.1 steps in and at bids drawn
+    uniformly in [rho_bar, rho_up] per class (every price distinct).  The
+    fused middle bit for bit; the sweep within (2N + 8) ULPs on every lane
+    and bit for bit to ``emulated_sweep`` on the first and last lanes (real
+    lanes with the masked tail, inert lanes where the batch is padded).
+    ``label`` names the batch (its text runs on with the widened width).
+    Returns the max abs error."""
+    from repro_torch.core import game
+    from repro_torch.core.game import _rm_candidates
+    from repro_torch.kernels.gnep_iter.kernel import fused_iter_sweep
+    from repro_torch.kernels.gnep_iter.ref import fused_middle_reference
+    from repro_torch.kernels.gnep_sweep.kernel import rm_sweep_batched
+    from repro_torch.kernels.gnep_sweep.ref import reference_batched
     wide, _ = game._aligned_classes(batch, None)
     scns, mask = wide.scenarios, wide.mask
     prep, stepped = trajectory_bids(wide)
     gen = torch.Generator().manual_seed(SEED + 2)
     u = torch.rand(mask.shape, generator=gen, dtype=F64).to(mask.device)
     rb = scns.rho_bar[:, None]
-    label = (f"the plan's last chunk ({len(grid) - start} candidates and "
-             f"{chunk - len(grid) + start} inert lanes, {n_max} classes "
-             f"widened to {wide.n_max})")
+    label = f"{label} widened to {wide.n_max})"
     half = ORDER_LANES // 2
-    lanes = torch.cat([torch.arange(half), torch.arange(chunk - half, chunk)]
+    B = wide.batch_size
+    lanes = torch.cat([torch.arange(half), torch.arange(B - half, B)]
                       ).to(mask.device)
     err = 0.0
     for how, bids in (("three steps in", stepped),
@@ -2708,6 +2975,402 @@ def phase_daemon(counters):
                 "launches": r.launches} for (a, w), r in runs.items()}}
 
 
+# --------------------------------------------------------------------------
+# phase 10: the fleet simulator
+# --------------------------------------------------------------------------
+
+
+def fleet_draw(rng, n, prefix):
+    """(total_chips, tenant fields, profiles) of one fleet of ``n`` tenants
+    in ``examples/multi_tenant_cluster.py``'s ranges, with total_chips =
+    round(0.95 * sum r_up) (r_up from ``derive``'s formula, c^M = c^R = 1,
+    profiled at 256 chips)."""
+    comp = rng.uniform(0.2, 1.8, n)
+    coll = rng.uniform(0.1, 0.9, n)
+    deadline = rng.uniform(15.0, 120.0, n)
+    h_up = rng.integers(8, 21, n)
+    h_low = rng.integers(2, 9, n)
+    penalty = rng.uniform(15000.0, 30000.0, n)
+    tp = rng.choice(FLEET_TP, n)
+    arch = rng.integers(0, len(FLEET_ARCHS), n)
+    K = (np.sqrt(comp * 256.0) + np.sqrt(coll * 256.0)) ** 2 / (deadline
+                                                                - 1.0)
+    R = int(round(FLEET_CF * float(np.sum(K * h_up))))
+    specs = [dict(name=f"{prefix}t{i}", arch_id=FLEET_ARCHS[arch[i]][0],
+                  shape=FLEET_ARCHS[arch[i]][1],
+                  deadline_s=float(deadline[i]), H_up=int(h_up[i]),
+                  H_low=int(h_low[i]), penalty_per_job=float(penalty[i]),
+                  max_bid=20.0, tp_required=int(tp[i])) for i in range(n)]
+    profiles = {s["name"]: (float(comp[i]), float(coll[i]), 1.0)
+                for i, s in enumerate(specs)}
+    return R, specs, profiles
+
+
+def fleet_of(drawn):
+    """A FleetSimulator on the card from drawn numbers, its profiles
+    registered as ``epoch(profiles=...)`` registers them."""
+    from repro_torch.cluster import FleetSimulator, TenantSpec
+    R, specs, profiles = drawn
+    f = FleetSimulator(R, [TenantSpec(**s) for s in specs], device="cuda")
+    f._profiles = dict(profiles)
+    return f
+
+
+def alloc_diff(got, want, rel):
+    """What differs between two allocation lists: chips, h, meshes and
+    iterations exactly, totals within ``rel`` of the larger."""
+    bad = set()
+    if len(got) != len(want):
+        return {"length"}
+    for a, b in zip(got, want):
+        for name in ("chips", "h", "meshes", "iters", "feasible"):
+            if getattr(a, name) != getattr(b, name):
+                bad.add(name)
+        scale = max(abs(a.total_cost), abs(b.total_cost), 1.0)
+        if not abs(a.total_cost - b.total_cost) <= rel * scale:
+            bad.add("total_cost")
+    return sorted(bad)
+
+
+def fleet_stream_epochs(rng, drawn, newcomer):
+    """FLEET_EPOCHS epochs of the reference's event mix: in each epoch after
+    the first, about a tenth of the fleets see an arrival (with its
+    profile), a departure, an SLA edit or a capacity change; a fleet
+    arrives at FLEET_ARRIVE_AT and one leaves at FLEET_DEPART_AT.  Events
+    name fleets by their current index; ``fleet_events`` turns each epoch
+    into the package's events when it is handed out."""
+    names = [[s["name"] for s in d[1]] for d in drawn]
+    epochs, fresh = [[]], 0
+    for e in range(1, FLEET_EPOCHS):
+        events = []
+        for b in rng.choice(len(names), size=len(names) // 10,
+                            replace=False):
+            b = int(b)
+            kind = int(rng.integers(4))
+            if kind == 0:
+                comp, coll = rng.uniform(0.2, 1.8), rng.uniform(0.1, 0.9)
+                spec = dict(name=f"arr{fresh}", arch_id="qwen3-8b",
+                            shape="train_4k",
+                            deadline_s=float(rng.uniform(15.0, 120.0)),
+                            H_up=int(rng.integers(8, 21)),
+                            H_low=int(rng.integers(2, 9)),
+                            penalty_per_job=float(rng.uniform(15000.0,
+                                                              30000.0)),
+                            tp_required=int(rng.choice(FLEET_TP)))
+                fresh += 1
+                names[b].append(spec["name"])
+                events.append(("arrive", b, spec,
+                               (float(comp), float(coll), 1.0)))
+            elif kind == 1 and len(names[b]) > 2:
+                events.append(("depart", b, names[b].pop(
+                    int(rng.integers(len(names[b]))))))
+            elif kind == 2:
+                events.append(("edit", b, names[b][int(rng.integers(
+                    len(names[b])))], {"deadline_s": float(rng.uniform(
+                        20.0, 120.0))}))
+            else:
+                events.append(("capacity", b, float(rng.uniform(0.9, 1.2))))
+        if e == FLEET_ARRIVE_AT:
+            events.append(("fleet-arrive", newcomer))
+            names.append([s["name"] for s in newcomer[1]])
+        if e == FLEET_DEPART_AT:              # one of the first fleets
+            b = int(rng.integers(len(names) - 1))
+            events.append(("fleet-depart", b))
+            del names[b]
+        epochs.append(events)
+    return epochs
+
+
+def fleet_events(epochs, fleets):
+    """The package's epochs of events, tracking the current fleet order in
+    ``fleets``: tenants and fleets are built when their epoch is handed
+    out, and a capacity change scales its fleet's current R."""
+    from repro_torch.cluster import TenantSpec
+    for events in epochs:
+        out = []
+        for ev in events:
+            if ev[0] == "capacity":
+                out.append(("capacity", ev[1],
+                            int(round(fleets[ev[1]].R * ev[2]))))
+            elif ev[0] == "fleet-arrive":
+                f = fleet_of(ev[1])
+                fleets.append(f)
+                out.append(("fleet-arrive", f))
+            elif ev[0] == "fleet-depart":
+                del fleets[ev[1]]
+                out.append(ev)
+            elif ev[0] == "arrive":
+                out.append(("arrive", ev[1], TenantSpec(**ev[2]), ev[3]))
+            else:
+                out.append(ev)
+        yield out
+
+
+def fleet_stream(counters, kernel, tally, drawn, epochs, sweep_fn):
+    """One ``epoch_stream`` over the phase's epochs under one
+    configuration: every epoch timed, compactions recorded from the
+    session's reports, one launch a loop step (the slowest resolved
+    lane's iterations a flush).  Returns the allocations, walls, the
+    post-event fleets and the flushes' numbers."""
+    from repro_torch.cluster import epoch_stream
+    from repro_torch.core import engine as eng
+    fleets = [fleet_of(d) for d in drawn]
+    current = list(fleets)
+    flushes = []
+    flush = eng.WindowSession.flush
+
+    def spy(self):
+        rep = flush(self)
+        res = torch.as_tensor(rep.resolved, device=rep.iters.device)
+        flushes.append((rep.slot_map is not None,
+                        int(rep.iters[res].max()) if rep.resolved.any()
+                        else 0, int(res.sum()), rep.batch_size))
+        return rep
+
+    eng.WindowSession.flush = spy
+    allocs, walls = [], []
+    try:
+        stream = epoch_stream(fleets, fleet_events(epochs, current),
+                              n_max=FLEET_STREAM_N_MAX, sweep_fn=sweep_fn,
+                              compact_below=FLEET_COMPACT)
+        while True:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            before = {fn.__name__: fn.launches for fn in counters}
+            out = next(stream, None)
+            torch.cuda.synchronize()
+            if out is None:
+                break
+            walls.append(time.perf_counter() - t0)
+            moved = {k: fn.launches - before[k] for fn in counters
+                     for k in [fn.__name__] if fn.launches != before[k]}
+            n = moved.pop(kernel.__name__, 0) if kernel is not None else 0
+            if kernel is not None:
+                tally[kernel.__name__] = tally.get(kernel.__name__, 0) + n
+            if moved or (kernel is not None and n != flushes[-1][1]):
+                raise AssertionError(
+                    f"phase 10 stream epoch {len(allocs)}: {n} launches "
+                    f"for {flushes[-1][1]} loop steps; others {moved}")
+            allocs.append(out)
+    finally:
+        eng.WindowSession.flush = flush
+    return allocs, walls, current, flushes
+
+
+def phase_fleet(counters):
+    """Phase 10: the fleet simulator (``repro_torch.cluster``) at the
+    paper's Sec. 5.3 scale: FLEET_B fleets of FLEET_N_LO-FLEET_N_HI tenants
+    each, drawn from a numpy seed.  Gates (a)-(e) of the module docstring;
+    prints (f).  Every count is set to 0 when the phase starts; the kernel
+    checks' launches are not counted."""
+    from repro_torch.cluster import TenantSpec, epoch_batch, epoch_stream
+    from repro_torch.core import InfeasibleError, lane_mesh, sharding
+    from repro_torch.core import stack_scenarios
+    from repro_torch.kernels.gnep_sweep.kernel import rm_sweep_batched
+    from repro_torch.kernels.gnep_sweep.ops import make_batched_sweep_fn
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    ns = rng.integers(FLEET_N_LO, FLEET_N_HI + 1, FLEET_B)
+    drawn = [fleet_draw(rng, int(n), f"f{b}") for b, n in enumerate(ns)]
+    profiles = [d[2] for d in drawn]
+    n_tenants = int(ns.sum())
+    print(f"phase 10: the fleet simulator, {FLEET_B} fleets of "
+          f"{int(ns.min())}-{int(ns.max())} tenants ({n_tenants} in all), "
+          f"total_chips = round({FLEET_CF} * sum r_up), f64")
+    for fn in counters:
+        fn.launches = 0
+    tally = {}
+    sweep = make_batched_sweep_fn()
+    configs = {"default": (None, None),
+               "sweep": (sweep, rm_sweep_batched)}
+
+    def batch_epoch(sweep_fn, kernel, fleets=None, **kw):
+        """epoch_batch of the drawn fleets (built afresh, their profiles
+        passed) or of ``fleets``, counting the kernel's launches."""
+        if fleets is None:
+            fleets = [fleet_of(d) for d in drawn]
+            kw["profiles"] = profiles
+        if kernel is None:
+            before = {fn.__name__: fn.launches for fn in counters}
+            out = epoch_batch(fleets, **kw)
+            if any(fn.launches != before[fn.__name__] for fn in counters):
+                raise AssertionError("phase 10: the default configuration "
+                                     "launched a kernel")
+            return out, 0
+        return counted(tally, kernel, epoch_batch, fleets, sweep_fn=sweep_fn,
+                       **kw)
+
+    # (a) both configurations, one launch a loop step
+    allocs, walls = {}, {}
+    for name, (fn, kernel) in configs.items():
+        allocs[name], n = batch_epoch(fn, kernel)
+        iters = [a.iters for a in allocs[name]]
+        if kernel is not None and n != max(iters):
+            raise AssertionError(f"phase 10 (a) {name}: {n} launches for "
+                                 f"{max(iters)} loop steps")
+        walls[name] = wall_s(lambda: batch_epoch(fn, kernel))
+        print(f"  (a) epoch_batch {name}: iterations {min(iters)}-"
+              f"{max(iters)}, {n} launches, wall (median of 3) "
+              f"{walls[name]!r} s")
+    bad = alloc_diff(allocs["sweep"], allocs["default"], 1e-9)
+    print(f"  (a) sweep against default: differs in {bad or 'nothing'} "
+          "(chips, h, meshes, iterations exact; totals within 1e-9)")
+    if bad:
+        raise AssertionError(f"phase 10 (a): the sweep epoch differs in "
+                             f"{bad}")
+    if not all(a.feasible for a in allocs["default"]):
+        raise AssertionError("phase 10 (a): an infeasible fleet")
+    scns = [fleet_of(d).scenario() for d in drawn]
+    batch = stack_scenarios(scns, device=scns[0].A.device)
+    err = loop_kernel_checks(
+        sharding.pad_batch_lanes(batch, sharding.padded_lane_count(
+            FLEET_B, FLEET_SHARDS)), "sweep",
+        f"(a) one fleet epoch's batch ({FLEET_B} fleets and "
+        f"{sharding.padded_lane_count(FLEET_B, FLEET_SHARDS) - FLEET_B} "
+        f"inert lanes, {batch.n_max} tenants")
+
+    # (b) sampled fleets against their own epoch()
+    sample = [int(b) for b in rng.choice(FLEET_B, FLEET_SAMPLED,
+                                         replace=False)]
+    base = allocs["default"]
+    for b in sample:
+        single = fleet_of(drawn[b]).epoch()
+        single.method = base[b].method
+        bad = alloc_diff([single], [base[b]], 1e-9)
+        if bad and set(bad) != {"iters"}:
+            raise AssertionError(f"phase 10 (b) fleet {b}: epoch() differs "
+                                 f"from epoch_batch in {bad}")
+    print(f"  (b) fleets {sample}: each one's epoch() equals its lane of "
+          "epoch_batch (chips, h, meshes; total within 1e-9)")
+
+    # (c) a 3-shard lane mesh, bit for bit
+    mesh = lane_mesh(devices=["cuda:0"] * FLEET_SHARDS)
+    for name, (fn, kernel) in configs.items():
+        got, n = batch_epoch(fn, kernel, mesh=mesh)
+        steps = shard_steps(torch.tensor([a.iters for a in got]),
+                            FLEET_SHARDS, inert=1)
+        bad = alloc_diff(got, allocs[name], 0.0)
+        print(f"  (c) epoch_batch {name} on {FLEET_SHARDS} shards: "
+              f"{n} launches (the shards' loop steps: "
+              f"{steps if kernel else 0}); differs from the unsharded "
+              f"epoch in {bad or 'nothing'}")
+        if bad or (kernel is not None and n != steps):
+            raise AssertionError(f"phase 10 (c) {name}: {bad}, {n} "
+                                 f"launches for {steps} steps")
+
+    # (d) failure, restore and straggler on one sampled fleet
+    f = fleet_of(drawn[sample[0]])
+    a0 = f.epoch()
+    k = int(FLEET_FAIL * f.R)
+    a1 = f.fail_nodes(k)
+    if not (sum(a1.chips.values()) <= f.R
+            and a1.total_cost >= a0.total_cost - 1e-6):
+        raise AssertionError(f"phase 10 (d): after fail_nodes({k}) chips "
+                             f"{sum(a1.chips.values())} of R={f.R}, cost "
+                             f"{a1.total_cost} from {a0.total_cost}")
+    a2 = f.restore_nodes(k)
+    if a2 != a0:
+        raise AssertionError("phase 10 (d): restore_nodes did not return "
+                             "the first allocation")
+    name = f.tenants[0].name
+    a3 = f.mark_straggler(name, 1.3)
+    twin = fleet_of(drawn[sample[0]])
+    twin.tenants[0].straggler_factor = 1.3
+    (a4,), _ = batch_epoch(None, None, fleets=[twin])
+    a3.method = a4.method
+    bad = alloc_diff([a3], [a4], 1e-9)
+    if bad and set(bad) != {"iters"}:
+        raise AssertionError(f"phase 10 (d): mark_straggler differs from "
+                             f"epoch_batch in {bad}")
+    for call in (lambda g: g.epoch(), lambda g: epoch_batch([g, f])):
+        try:
+            call(fleet_of((1, drawn[0][1], drawn[0][2])))
+        except InfeasibleError:
+            continue
+        raise AssertionError("phase 10 (d): a fleet of 1 chip was solved")
+    print(f"  (d) fleet {sample[0]} (R={f.R}): fail_nodes({k}) chips "
+          f"{sum(a1.chips.values())}, cost {a0.total_cost!r} -> "
+          f"{a1.total_cost!r}; restore_nodes returns the first allocation; "
+          f"mark_straggler({name!r}, 1.3) chips {a0.chips[name]} -> "
+          f"{a3.chips[name]}, equal to epoch_batch; {len(f.history)} epochs "
+          "in its history; a fleet of 1 chip raises InfeasibleError in "
+          "epoch and epoch_batch")
+
+    # (e) the stream, under both configurations
+    newcomer = fleet_draw(rng, int(rng.integers(FLEET_N_LO, FLEET_N_HI + 1)),
+                          "new")
+    epochs = fleet_stream_epochs(rng, drawn, newcomer)
+    kinds = sorted({ev[0] for evs in epochs for ev in evs})
+    stream = {}
+    for name, (fn, kernel) in configs.items():
+        got, ws, current, flushes = fleet_stream(counters, kernel, tally,
+                                                 drawn, epochs, fn)
+        fresh, _ = batch_epoch(fn, kernel, [fleet_copy(f) for f in current])
+        compactions = sum(c for c, *_ in flushes)
+        hist = [len(f.history) for f in current]
+        want_hist = [FLEET_EPOCHS] * len(current)
+        want_hist[-1] = FLEET_EPOCHS - FLEET_ARRIVE_AT
+        bad = alloc_diff(got[-1], fresh, 1e-6)
+        bad = [b for b in bad if b != "iters"]
+        steps = [s for _, s, _, _ in flushes]
+        print(f"  (e) epoch_stream {name}: {len(got)} epochs of {kinds}, "
+              f"{compactions} compactions, lanes {flushes[0][3]} -> "
+              f"{flushes[-1][3]}, resolved lanes a flush "
+              f"{min(r for *_, r, _ in flushes)}-"
+              f"{max(r for *_, r, _ in flushes)}, loop steps {min(steps)}-"
+              f"{max(steps)}; median epoch {statistics.median(ws)!r} s, "
+              f"{len(ws) / sum(ws)!r} epochs/s; the last epoch differs from "
+              f"a fresh epoch_batch in {bad or 'nothing'} (chips, h exact; "
+              "totals within 1e-6)")
+        if (bad or compactions < 1 or hist != want_hist
+                or len(got) != FLEET_EPOCHS):
+            raise AssertionError(f"phase 10 (e) {name}: {bad}, "
+                                 f"{compactions} compactions, histories "
+                                 f"{sorted(set(hist))}")
+        stream[name] = dict(epochs_per_s=len(ws) / sum(ws),
+                            median_epoch_s=statistics.median(ws))
+    fleets = [fleet_of(d) for d in drawn[:2]]
+    dup = TenantSpec(**drawn[0][1][0])
+    try:
+        list(epoch_stream(fleets, [[("arrive", 0, dup)]]))
+    except ValueError as e:
+        if "already has a tenant" not in str(e):
+            raise
+        print(f"  (e) a duplicate tenant name is refused: {e}")
+    else:
+        raise AssertionError("phase 10 (e): a duplicate tenant was admitted")
+    launches = tally.get("rm_sweep_batched", 0)
+    others = {fn.__name__: fn.launches for fn in counters
+              if fn.__name__ != "rm_sweep_batched" and fn.launches}
+    if others:
+        raise AssertionError(f"phase 10: another kernel launched: {others}")
+
+    # (f) one epoch_batch's idle share
+    fleets = [fleet_of(d) for d in drawn]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        counted(tally, rm_sweep_batched, epoch_batch, fleets,
+                profiles=profiles, sweep_fn=sweep)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    idle, busy = report_idle(prof, wall, "one sweep epoch_batch")
+    launches = tally["rm_sweep_batched"]
+    took = time.perf_counter() - t_phase
+    print(f"  phase 10: {launches} rm_sweep_batched launches; {took!r} s")
+    return dict(launches=launches, walls=walls, stream=stream, idle=idle,
+                busy=busy, err=err, tenants=n_tenants,
+                iters=sorted({a.iters for a in allocs["default"]}))
+
+
+def fleet_copy(f):
+    """A fleet with the same tenants, capacity and profiles, no history."""
+    return fleet_of((f.R, [dataclasses.asdict(t) for t in f.tenants],
+                     f._profiles))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs on an "
@@ -2766,8 +3429,10 @@ def main() -> int:
     timed("phase 4", phase_timing, main_batch, configs)
     serving = {arch: timed(f"phase 5 {arch}", phase_serving, arch, counters)
                for arch in SERVE_ARCHS}
-    counts["flash_attention"] = serving["qwen3-0.6b"]["counts"][
-        "flash_attention"]
+    flash = {f"phase 5 {arch}": res["counts"]["flash_attention"]
+             for arch, res in serving.items()
+             if res["counts"]["flash_attention"]}
+    counts["flash_attention"] = sum(flash.values())
     counts["wkv6"] = serving["rwkv6-7b"]["counts"]["wkv6"]
     window = timed("phase 6", phase_window, counters)
     by_path = {name: {"phase 2": n} for name, n in counts.items()
@@ -2776,6 +3441,8 @@ def main() -> int:
                    window, counters)
     plan = timed("phase 8", phase_plan, counters)
     daemon = timed("phase 9", phase_daemon, counters)
+    fleet = timed("phase 10", phase_fleet, counters)
+    by_path["flash_attention"] = flash
     for name, session in (("fused_iter_sweep", "fused"),
                           ("rm_sweep_batched", "sweep")):
         by_path[name]["phase 6"] = window[session]["launches"]
@@ -2786,12 +3453,20 @@ def main() -> int:
                          + plan["launches"][session])
     by_path["fused_iter_sweep"]["phase 9"] = daemon["launches"]
     counts["fused_iter_sweep"] += daemon["launches"]
+    by_path["rm_sweep_batched"]["phase 10"] = fleet["launches"]
+    counts["rm_sweep_batched"] += fleet["launches"]
     for arch, res in serving.items():
         print(f"  serving {arch}: f32 decode-vs-forward "
               f"{res.get('f32_rel')!r} prefill_s={res['prefill_s']!r} "
               f"decode_tok_s={res['decode_tok_s']!r} "
               f"idle_share={res['idle']!r} (profiled), "
               f"{res['idle_warm']!r} (against the unprofiled run)")
+        if "moe" in res:
+            print(f"  serving {arch}: {res['moe']}")
+    print(f"  fleet: {fleet['tenants']} tenants, iterations "
+          f"{fleet['iters']}, epoch_batch walls {fleet['walls']}, stream "
+          f"{fleet['stream']}, sweep epoch_batch idle_share="
+          f"{fleet['idle']!r} busy_s={fleet['busy']!r}")
     print(f"total: {time.perf_counter() - t_start:.2f} s")
 
     for row in rows.values():

@@ -119,9 +119,11 @@ def lm_params_from_numpy(cfg, tree: dict, *, device="cuda", dtype=None):
     """The port's model parameters from a JAX ``init_params`` pytree given
     as nested dicts of numpy arrays.
 
-    The leading ``n_blocks`` axis of ``tree["blocks"]`` is unstacked into
-    ``params["layers"]``, block by block and, inside a block, layer by
-    layer (``l0``, ``l1``, ...).  Floating arrays are cast to ``dtype``
+    ``params["layers"]`` takes the MoE families' ``tree["head_layers"]``
+    (the ``first_k_dense`` layers, a list) first, then the leading
+    ``n_blocks`` axis of ``tree["blocks"]`` unstacked block by block and,
+    inside a block, layer by layer (``l0``, ``l1``, ...).  Expert stacks
+    ``(E, d, f)`` keep their shape.  Floating arrays are cast to ``dtype``
     when given.
     """
     check_supported(cfg)
@@ -137,8 +139,9 @@ def lm_params_from_numpy(cfg, tree: dict, *, device="cuda", dtype=None):
                                          "unembed_w") if k in tree}
     blocks = tree["blocks"]
     n_blocks = len(np.asarray(blocks["l0"]["norm1"]["gamma"]))
-    params["layers"] = [conv(blocks[f"l{p}"], i) for i in range(n_blocks)
-                        for p in range(cfg.block_len)]
+    params["layers"] = [conv(layer) for layer in tree.get("head_layers", [])]
+    params["layers"] += [conv(blocks[f"l{p}"], i) for i in range(n_blocks)
+                         for p in range(cfg.block_len)]
     if len(params["layers"]) != cfg.n_layers:
         raise ValueError(f"{len(params['layers'])} layers in the tree, "
                          f"{cfg.n_layers} in {cfg.name}")

@@ -1,7 +1,7 @@
 """The tenant-side language models (counterpart of ``repro.models``).
 
-The dense and RWKV6 families are ported; ``encode`` (enc-dec) and the
-sharding rules (``LOCAL``, ``Distribution``, ``named_shardings``,
+The dense, MoE and RWKV6 families are ported; ``encode`` (enc-dec) and
+the sharding rules (``LOCAL``, ``Distribution``, ``named_shardings``,
 ``param_specs``) are not.  ``loss_fn`` raises until the training path is
 ported.
 """

@@ -1,8 +1,9 @@
 """Shared layers: norms, rotary embeddings, MLPs, embeddings.
 
 Counterpart of ``repro.models.layers``.  Everything is a function over
-explicit dicts of parameter tensors.  Norms, RoPE and the softmax run in
-f32, as in JAX.  ``apply_mrope`` (Qwen2-VL) waits for the VLM slice.
+explicit dicts of parameter tensors; ``bmm`` is the batched ``dot`` of the
+MoE experts.  Norms, RoPE and the softmax run in f32, as in JAX.
+``apply_mrope`` (Qwen2-VL) waits for the VLM slice.
 """
 from __future__ import annotations
 
@@ -30,6 +31,21 @@ def dot(x, w):
         return torch.matmul(x.to(F32), w.to(F32))
     out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=F32)
     return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def bmm(x, w):
+    """Batched ``x @ w`` with an f32 result, as :func:`dot`: (n, a, b) .
+    (n, b, c) -> (n, a, c), JAX's ``einsum(..., preferred_element_type=
+    float32)`` over a leading batch axis.  On the card 16-bit operands go
+    through ``torch.bmm(..., out_dtype=torch.float32)``; on the CPU both are
+    cast to f32 first."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    x, w = x.to(dt), w.to(dt)
+    if dt not in (torch.bfloat16, torch.float16):
+        return torch.bmm(x, w).to(F32)
+    if x.device.type == "cpu":
+        return torch.bmm(x.to(F32), w.to(F32))
+    return torch.bmm(x, w, out_dtype=F32)
 
 
 # --------------------------------------------------------------------------

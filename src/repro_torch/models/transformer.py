@@ -1,17 +1,19 @@
-"""Decoder-only LM: the dense (GQA + qk-norm + RoPE) and RWKV6 families.
+"""Decoder-only LM: the dense (GQA + qk-norm + RoPE), MoE and RWKV6 families.
 
 Counterpart of the decoder-only subset of ``repro.models.transformer``.
 Parameters are plain dicts of tensors; JAX's ``lax.scan`` over vmapped
-"blocks" becomes a loop over ``params["layers"]``, one dict per layer
-(``repro_torch.convert.lm_params_from_numpy`` unstacks a JAX pytree into
-this form).  There is no ``Distribution``: tensor parallelism and sequence
-sharding wait for ``models/sharding.py`` (ROADMAP Queue 1 item 20).
+"blocks" becomes a loop over ``params["layers"]``, one dict per layer, with
+the MoE families' ``first_k_dense`` head layers first
+(``repro_torch.convert.lm_params_from_numpy`` turns a JAX pytree into this
+form; caches follow the same flat order).  There is no ``Distribution``:
+tensor parallelism, sequence sharding and expert parallelism wait for
+``models/sharding.py`` (ROADMAP Queue 1 item 20).
 
 Families not ported yet raise ``NotImplementedError`` naming their ROADMAP
-Queue 1 item: MoE (15), Mamba and the hybrid interleave (16), enc-dec (17)
-and the VLM's M-RoPE (18).  ``loss_fn`` and activation rematerialisation
-belong to the training path (19); the port runs inference only, where
-``cfg.remat`` changes nothing.
+Queue 1 item: Mamba and the hybrid interleave (16, Jamba included),
+enc-dec (17) and the VLM's M-RoPE (18).  ``loss_fn`` and activation
+rematerialisation belong to the training path (19); the port runs
+inference only, where ``cfg.remat`` changes nothing.
 """
 from __future__ import annotations
 
@@ -22,12 +24,12 @@ import torch
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.utils import resolve_device
 
 _NOT_PORTED = (
-    (lambda c: c.moe is not None, "MoE FFNs", 15),
     (lambda c: c.mamba is not None, "Mamba and hybrid mixers", 16),
     (lambda c: c.is_encdec, "the encoder-decoder family", 17),
     (lambda c: bool(c.mrope_sections), "the VLM's M-RoPE", 18),
@@ -74,6 +76,8 @@ def _layer_init(cfg, gen, mixer_kind, ffn_kind):
         raise ValueError(mixer_kind)
     if ffn_kind == "dense":
         p["ffn"] = layers.mlp_init(cfg, gen)
+    elif ffn_kind == "moe":
+        p["ffn"] = moe_mod.moe_init(cfg, gen)
     elif ffn_kind == "rwkv_cmix":
         p["ffn"] = rwkv_mod.channel_mix_init(cfg, gen)
     else:
@@ -146,8 +150,9 @@ def _attn_mixer(cfg, p, x, positions, *, causal=True, loops="scan",
 
 
 def _apply_layer(cfg, p, h, kinds, ctx, cache=None):
-    """Returns (h, new_cache).  JAX's third output, the MoE balance loss,
-    is zero for every family ported here."""
+    """Returns (h, aux, new_cache); aux is the MoE layer's load-balance
+    loss, None for the other FFNs (JAX's f32 zero, which would cost a
+    kernel launch a layer here)."""
     mixer_kind, ffn_kind = kinds
     new_cache: Dict[str, Any] = {}
     keep = ctx["collect"] or cache is not None
@@ -172,8 +177,12 @@ def _apply_layer(cfg, p, h, kinds, ctx, cache=None):
     h = h + mo
 
     hn = layers.apply_norm(cfg, p["norm2"], h)
+    aux = None
     if ffn_kind == "dense":
         fo = layers.mlp_apply(cfg, p["ffn"], hn)
+    elif ffn_kind == "moe":
+        gates, idx, aux = moe_mod.route(cfg, p["ffn"], hn)
+        fo = moe_mod.moe_apply(cfg, p["ffn"], hn, gates, idx)
     elif ffn_kind == "rwkv_cmix":
         st = None if cache is None else cache["cshift"]
         fo, st2 = rwkv_mod.channel_mix(cfg, p["ffn"], hn, st)
@@ -181,7 +190,7 @@ def _apply_layer(cfg, p, h, kinds, ctx, cache=None):
             new_cache["cshift"] = st2
     else:
         raise ValueError(ffn_kind)
-    return h + fo, new_cache
+    return h + fo, aux, new_cache
 
 
 # ==========================================================================
@@ -202,17 +211,21 @@ def _embed_in(cfg, params, batch):
 def backbone(cfg: ModelConfig, params, batch, *, loops: str = "scan",
              collect: bool = False):
     """Runs everything up to (and incl.) the final norm.
-    Returns (h, aux, caches); caches is ``{"layers": [...]}`` or None."""
+    Returns (h, aux, caches): aux sums the MoE layers' load-balance losses
+    in layer order (f32 zero without MoE layers); caches is
+    ``{"layers": [...]}`` or None."""
     check_supported(cfg)
     h = _embed_in(cfg, params, batch)
     ctx = {"loops": loops, "collect": collect, "causal": True,
            "positions": torch.arange(h.shape[1], device=h.device)[None, :]}
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     caches = []
     for p, kinds in zip(params["layers"], cfg.layer_kinds()):
-        h, c = _apply_layer(cfg, p, h, kinds, ctx)
+        h, a, c = _apply_layer(cfg, p, h, kinds, ctx)
+        if a is not None:
+            aux = aux + a
         caches.append(c)
     h = layers.apply_norm(cfg, params["final_norm"], h)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return h, aux, ({"layers": caches} if collect else None)
 
 
@@ -288,7 +301,7 @@ def decode_step(cfg, params, cache, token, pos):
     new_layers = []
     for p, kinds, c in zip(params["layers"], cfg.layer_kinds(),
                            cache["layers"]):
-        h, nc = _apply_layer(cfg, p, h, kinds, ctx, cache=c)
+        h, _, nc = _apply_layer(cfg, p, h, kinds, ctx, cache=c)
         new_layers.append(nc)
     h = layers.apply_norm(cfg, params["final_norm"], h)
     return _unembed(cfg, params, h), {"layers": new_layers}

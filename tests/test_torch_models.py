@@ -8,6 +8,9 @@ at the reduced configurations, where both compute the same formulas and
 differ only in the order of their sums, so logits are held within 1e-4 of
 the largest logit: two to three layers of f32 sums of at most a few
 hundred terms, RWKV's cumulative decays through exponentials included.
+The MoE families route in f32 on both sides; a near tie in a top-k choice
+would flip one expert and move the logits far past that bound, and none
+occurs at these seeds (their reduced capacity factor, 4.0, drops nothing).
 The layers (norms, RoPE, MLPs) are held within 1e-6 relative.  Lengths are
 picked for the paths the models take: T = 48 runs the chunked attention
 (chunk 16 divides it) and RWKV's chunked WKV (chunk gcd(48, 256) = 16).
@@ -33,7 +36,11 @@ from repro_torch.models.config import ModelConfig as TConfig
 from repro_torch.serving import pad_attn_cache as t_pad
 
 KEY = jax.random.PRNGKey(0)
-PORTED = ("qwen3-0.6b", "rwkv6-7b", "minicpm-2b")
+PORTED = ("qwen3-0.6b", "rwkv6-7b", "minicpm-2b", "deepseek-moe-16b",
+          "kimi-k2-1t-a32b")
+# the MoE load-balance loss: a mean over T*E f32 products of softmax
+# probabilities, summed over the MoE layers, in another order
+AUX_RTOL = 1e-5
 
 
 def model_pair(arch):
@@ -52,10 +59,15 @@ def tokens(seed, B, T, vocab):
 def test_forward_matches_jax(arch):
     jcfg, tcfg, jp, tp = model_pair(arch)
     toks = tokens(1, 2, 48, jcfg.vocab)
-    jl, _, _ = jt.forward(jcfg, jp, {"tokens": jnp.asarray(toks)})
+    jl, jaux, _ = jt.forward(jcfg, jp, {"tokens": jnp.asarray(toks)})
     tl, aux, caches = tt.forward(tcfg, tp, {"tokens": torch.tensor(toks)})
     assert tl.dtype == torch.float32 and tl.shape == jl.shape
-    assert float(aux) == 0.0 and caches is None
+    assert aux.dtype == torch.float32 and caches is None
+    if jcfg.moe is None:
+        assert float(aux) == float(jaux) == 0.0
+    else:
+        assert float(jaux) > 0.0
+        assert float(aux) == pytest.approx(float(jaux), rel=AUX_RTOL)
     assert_rel_close(tl, jl, 1e-4, arch)
 
 
@@ -82,7 +94,7 @@ def test_prefill_and_decode_match_jax_teacher_forced(arch):
 def test_decode_agrees_with_forward_in_the_port():
     """prefill + decode_step == forward at the last position (the JAX
     test's own check, ``tests/test_models.py::_decode_consistency``)."""
-    for arch in ("qwen3-0.6b", "rwkv6-7b"):
+    for arch in ("qwen3-0.6b", "rwkv6-7b", "deepseek-moe-16b"):
         cfg = t_reduced(arch)
         params = tt.init_params(cfg, 3, device="cpu")
         toks = torch.tensor(tokens(4, 2, 40, cfg.vocab))
@@ -164,10 +176,12 @@ def test_dot_keeps_f32_and_mixed_operands_as_before():
         assert torch.equal(got, torch.matmul(a.to(dt), b.to(dt)).float())
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-7b",
+                                  "deepseek-moe-16b"])
 def test_init_params_and_cache_match_jax_structure(arch):
     """The port's own draws have JAX's shapes and dtypes, layer by layer
-    (values match in distribution only), and so do its caches."""
+    (values match in distribution only), and so do its caches, the MoE
+    families' dense head layers first."""
     jcfg, tcfg = j_reduced(arch), t_reduced(arch)
     jp = jax.tree_util.tree_map(np.asarray, jt.init_params(jcfg, KEY))
     tp = tt.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
@@ -178,13 +192,16 @@ def test_init_params_and_cache_match_jax_structure(arch):
                                   tp) == shapes
     jc = jax.tree_util.tree_map(np.asarray, jt.init_cache(jcfg, 2, 24))
     tc = tt.init_cache(tcfg, 2, 24, device="cpu")
+    first = jcfg.moe.first_k_dense if jcfg.moe else 0
+    assert len(jc["head"]) == first
     for i, layer in enumerate(tc["layers"]):
         for path, leaf in jax.tree_util.tree_leaves_with_path(layer):
             keys = [p.key for p in path]
-            jleaf = jc["blocks"]["l0"]
+            jleaf = jc["head"][i] if i < first else jc["blocks"]["l0"]
             for k in keys:
                 jleaf = jleaf[k]
-            assert tuple(leaf.shape) == jleaf.shape[1:], keys
+            want = jleaf.shape if i < first else jleaf.shape[1:]
+            assert tuple(leaf.shape) == want, keys
             assert str(leaf.dtype).split(".")[-1] == str(jleaf.dtype), keys
 
 

@@ -28,6 +28,7 @@ from repro_torch.serving import generate, pad_attn_cache
 
 KEY = jax.random.PRNGKey(0)
 TOL = 1e-4
+ARCHS = ["qwen3-0.6b", "rwkv6-7b", "deepseek-moe-16b", "kimi-k2-1t-a32b"]
 
 
 def setup(arch, B=2, S=36):
@@ -39,7 +40,7 @@ def setup(arch, B=2, S=36):
     return jcfg, tcfg, jp, tp, prompt
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_greedy_generate_matches_jax(arch):
     jcfg, tcfg, jp, tp, prompt = setup(arch)
     n = 6
@@ -98,7 +99,7 @@ def test_sampling_draws_from_the_generator():
     assert stats["prefill_s"] > 0 and stats["decode_s"] > 0
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_serve_cli_on_cpu(arch, capsys):
     out = serve.main(["--arch", arch, "--reduced", "--batch", "2",
                       "--prompt-len", "20", "--new-tokens", "3",
