@@ -15,8 +15,11 @@ at once), then runs these phases, each of which raises on failure:
    with its time, the plain version's time, the card's least time for the
    same work (the fused middle's counting only the distinct prices and
    live classes these inputs need) and, where one PyTorch call computes
-   the same function, that call's time; and ``layers.dot`` and
-   ``layers.bmm`` on bf16 operands against the f32 product;
+   the same function, that call's time (flash attention at every serving
+   model's prefill shape: Qwen3-0.6B, DeepSeekMoE-16B, Jamba's 32 / 8
+   heads, Qwen2-VL's 28 / 4, Whisper's non-causal encoder over 1,500
+   frames and its causal decoder); and ``layers.dot`` and ``layers.bmm``
+   on bf16 operands against the f32 product;
 2. the allocator's main path at the paper's scale (Sec. 5.3: 256 lanes of
    100-500 job classes, capacity factor 0.95, f64): ``CapacityEngine.solve``
    under the fused-kernel, sweep-kernel and default configurations, plus
@@ -30,18 +33,32 @@ at once), then runs these phases, each of which raises on failure:
 4. solve times and the device's idle share in one fused solve;
 5. the tenant LM serving path (``repro_torch.serving.generate``, as
    ``python -m repro_torch.launch.serve`` drives it) for Qwen3-0.6B,
-   RWKV6-7B and DeepSeekMoE-16B at full width and depth, random weights
-   from a seed: batch 4, prompt 1024, 16 new tokens, greedy.  Every
-   kernel's launch count is read around each generate; tokens, logits and
-   the last decode step against a forward pass over the prompt and the
-   generated tokens are checked; prefill seconds, decode tokens/s and the
-   device's idle share are printed.  DeepSeekMoE also gates (b) a second
-   generate bit for bit the first, (c) one full-width MoE layer in f32 at
-   4,096 tokens against ``moe_dense_ref``, drop-free and, at the capacity
-   factor 1.25, with the dropped pairs' gates zeroed, and (d) at a
-   drop-free capacity factor the last decode step against a forward whose
-   routing is pinned to the generate's (bf16, full depth) and unpinned
-   (f32, 4 layers); its peak memory is printed;
+   RWKV6-7B, DeepSeekMoE-16B, Qwen2-VL-7B and Whisper-base at full width
+   and depth and Jamba-v0.1-52B at full width and 8 layers (one
+   super-block), random weights from a seed: batch 4, prompt 1024 (and
+   Whisper's 1,500 encoder frames), 16 new tokens, greedy.  Every kernel's
+   launch count is read around each generate (one flash launch a
+   self-attention layer, the encoder's included); tokens, logits and the
+   last decode step against a forward pass over the prompt and the
+   generated tokens are checked; prefill seconds, decode tokens/s, peak
+   memory and the device's idle share are printed.  The MoE models
+   (DeepSeekMoE, Jamba) also gate (b) a second generate bit for bit the
+   first and (d) at a drop-free capacity factor the last decode step
+   against a forward whose routing is pinned to the generate's (bf16);
+   DeepSeekMoE (c) one full-width MoE layer in f32 at 4,096 tokens against
+   ``moe_dense_ref``, drop-free and, at the capacity factor 1.25, with the
+   dropped pairs' gates zeroed, and (d) unpinned in f32 at 4 layers;
+   Jamba (c) one full-width ``mamba_mixer`` in f32 at 4,096 tokens and a
+   decode step after it against the sequential recurrence, and (d) pinned
+   in f32 at 5 layers (Mamba, MoE and attention).  Qwen2-VL gates (c)
+   ``apply_mrope`` with equal streams bit for bit ``apply_rope`` and an
+   ``embeds`` prefill bit for bit the tokens prefill, and (d) an image
+   prefill (120 text tokens, 28 x 28 patches, 120 text tokens) on its
+   M-RoPE positions, one flash launch a layer, 15 decode steps after it,
+   and ``apply_mrope`` against its f64 evaluation.  Whisper gates (a) its
+   flash launches (6 non-causal over the frames, 6 causal) and (b) a
+   cross cache that ``pad_attn_cache`` does not pad and decode steps do
+   not change;
 6. the admission window (``CapacityEngine.open_window`` /
    ``WindowSession.stream``) at the same scale, n_max 512: a trace of
    arrivals, departures, SLA edits and capacity changes, a burst that grows
@@ -154,8 +171,24 @@ SEED = 0
 ORDER_LANES = 8  # lanes of a sweep case held bit for bit to emulated_sweep
 ALLOCATOR_KERNELS = ("fused_iter_sweep", "rm_sweep_batched", "rm_sweep")
 
-# the serving path: both configurations at full width and depth
-SERVE_ARCHS = ("qwen3-0.6b", "rwkv6-7b", "deepseek-moe-16b")
+# the serving path: every family at full width, and at full depth except
+# Jamba, served at one super-block of 8 layers (26.6 GB in bf16; its 32
+# layers, 104 GB, do not fit the card, and at 8 its f32 scan tensors, 2.1
+# GB each at the prompt, leave room for the forward check)
+SERVE_ARCHS = ("qwen3-0.6b", "rwkv6-7b", "deepseek-moe-16b",
+               "jamba-v0.1-52b", "qwen2-vl-7b", "whisper-base")
+SERVE_DEPTH = {"jamba-v0.1-52b": 8}
+# Whisper's encoder input: 1,500 frames, its 30-second window after the
+# conv stem that the configuration stubs
+WHISPER_FRAMES = 1500
+# Jamba's f32 decode-vs-forward check: 5 layers of full width hold Mamba
+# (0-3), MoE (1, 3) and the attention layer (4); 8 f32 layers (53 GB) do
+# not fit beside the drop-free forward
+JAMBA_F32_LAYERS = 5
+# Qwen2-VL's image prefill: 120 text tokens, a 28 x 28 grid of patch
+# embeddings (a 392 x 392 image after the 2 x 2 merge), 120 text tokens;
+# then 15 decode steps from its cache
+VL_TEXT, VL_GRID, VL_STEPS = 120, 28, 15
 # DeepSeekMoE-16B: one full-width MoE layer in f32 at 4 x 1024 tokens
 # against moe_dense_ref, and the f32 decode-vs-forward check at 4 layers (1
 # dense + 3 MoE; 28 f32 layers do not fit the card beside their caches)
@@ -169,8 +202,15 @@ RWKV_AGREE_PROMPT = 1040
 # flash attention: the Qwen3-0.6B prefill, then a ragged shape (bf16 runs
 # the tensor-core kernel, f32 the CUDA-core one)
 FLASH_MAIN = (4, 1024, 16, 8, 128)           # B, S, Hq, Hkv, hd
-FLASH_MOE = (4, 1024, 16, 16, 128)           # the DeepSeekMoE-16B prefill
 FLASH_RAGGED = (2, 200, 6, 3, 64)
+# every serving model's prefill self-attention (causal, except Whisper's
+# encoder over 1,500 frames, ragged against the 128-row tile), each timed
+FLASH_MODELS = (("qwen3-0.6b", FLASH_MAIN, True),
+                ("deepseek-moe-16b", (4, 1024, 16, 16, 128), True),
+                ("jamba-v0.1-52b", (4, 1024, 32, 8, 128), True),
+                ("qwen2-vl-7b", (4, 1024, 28, 4, 128), True),
+                ("whisper-base encoder", (4, 1500, 8, 8, 64), False),
+                ("whisper-base decoder", (4, 1024, 8, 8, 64), True))
 # WKV6: (B, T, H, K, chunk, decay shift, with S0); the RWKV6-7B prefill,
 # a 1040-token forward's chunk 16, and a ragged chunk-4 case whose
 # cumulative decays pass the +-30 clamp (the per-head kernel); then the
@@ -1044,13 +1084,15 @@ def phase_flash(gen):
     from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.kernels.flash_attention.ref import reference
     print("phase 1b: flash_attention against its plain version")
-    errs, row, cases_row = [], None, {}
+    errs, cases_row = [], {}
     # bf16: both sides round the same f32 result to bf16 once, and two
     # roundings of nearly equal values differ by at most one bf16 spacing
     # (2^-7 of the value); f32: the same sums in another order, with the
     # online softmax's rescaling, within 1e-4 relative.
     bf16, f32 = (torch.bfloat16, 1e-5, 2.0 ** -7), (torch.float32, 1e-5, 1e-4)
-    cases = [(FLASH_MAIN, True, *bf16), (FLASH_MOE, True, *bf16)] + [
+    timed = {(shape, causal): label for label, shape, causal in FLASH_MODELS}
+    timed[(FLASH_MAIN, False)] = None          # timed, not a serving shape
+    cases = [(shape, causal, *bf16) for _, shape, causal in FLASH_MODELS] + [
         (FLASH_RAGGED, c, *f32) for c in (True, False)] + [
         (FLASH_MAIN, False, *bf16)] + [
         (FLASH_RAGGED, c, *bf16) for c in (True, False)]
@@ -1060,7 +1102,7 @@ def phase_flash(gen):
             flash_attention(q, k, v, causal=causal),
             reference(q, k, v, causal=causal), atol, rtol,
             f"flash_attention {shape} {str(dtype)[6:]} causal={causal}"))
-        if shape not in (FLASH_MAIN, FLASH_MOE):
+        if dtype != torch.bfloat16 or (shape, causal) not in timed:
             continue
         # the kernel, SDPA and the plain version in turns: k, l, p, l, k
         B, S, Hq, Hkv, hd = shape
@@ -1089,21 +1131,21 @@ def phase_flash(gen):
               f"plain_ms={t_p!r} library_ms={t_l!r} bound_ms={b_ms!r} "
               f"({b_by}, bf16 tensor-core rate) split_floor_ms={split_ms!r} "
               f"turns={times!r}")
-        if not causal:
-            continue
-        # the main paths' cases: the Qwen3 and DeepSeekMoE prefills
-        cases_row[f"{shape}"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
-                                     bound_ms=b_ms, bound_by=b_by)
-        if shape == FLASH_MAIN:
-            row = dict(name="flash_attention", route="cuda",
-                       source="src/repro_torch/csrc/flash_attention.cu",
-                       replaces="src/repro/kernels/flash_attention/kernel.py"
-                                ":71",
-                       ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=t_l, cases=cases_row)
+        label = timed[(shape, causal)]
+        if label is not None:
+            cases_row[label] = dict(shape=shape, causal=causal, ms=t_k,
+                                    plain_ms=t_p, library_ms=t_l,
+                                    bound_ms=b_ms, bound_by=b_by)
     check_tma_refusal(flash_attention)
-    row["max_abs_err"] = max(errs)
-    return row
+    # the row's own numbers are the first serving shape's, the Qwen3 prefill
+    main = cases_row[FLASH_MODELS[0][0]]
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:71",
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=main["library_ms"], max_abs_err=max(errs),
+                cases=cases_row)
 
 
 def check_tma_refusal(flash_attention):
@@ -1260,8 +1302,12 @@ def phase_serving(arch, counters):
     from repro_torch.models import init_params
     from repro_torch.serving import generate
     cfg = get_config(arch)
+    depth = ""
+    if arch in SERVE_DEPTH:
+        depth = f" of {cfg.n_layers}: depth cut"
+        cfg = cfg.replace(n_layers=SERVE_DEPTH[arch])
     B, S0, N = SERVE_B, SERVE_PROMPT, SERVE_NEW
-    print(f"phase 5: serving {arch} ({cfg.n_layers} layers, d_model "
+    print(f"phase 5: serving {arch} ({cfg.n_layers} layers{depth}, d_model "
           f"{cfg.d_model}, {cfg.dtype}), batch {B}, prompt {S0}, {N} new "
           "tokens, greedy")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1273,15 +1319,25 @@ def phase_serving(arch, counters):
           f"{time.perf_counter() - t0:.2f} s")
     prompt = torch.randint(0, cfg.vocab, (B, S0), generator=gen,
                            device="cuda")
+    extra = {}
+    if cfg.is_encdec:
+        extra["enc_embeds"] = torch.randn((B, WHISPER_FRAMES, cfg.d_model),
+                                          generator=gen, device="cuda")
+        print(f"  encoder input: {B} x {WHISPER_FRAMES} frames")
 
     for fn in counters:
         fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     toks, logits = generate(cfg, params, prompt, max_new_tokens=N,
-                            return_logits=True)
+                            return_logits=True, **extra)
     torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     counts = {fn.__name__: fn.launches for fn in counters}
     print(f"  launches in one generate: {counts}")
-    want = {"flash_attention": cfg.n_layers if not cfg.rwkv else 0,
+    # one flash launch a prefill self-attention layer, the encoder's too
+    n_attn = (sum(1 for mixer, _ in cfg.layer_kinds() if mixer == "attn")
+              + cfg.encoder_layers)
+    want = {"flash_attention": n_attn,
             "wkv6": cfg.n_layers if cfg.rwkv else 0}
     for name, n in counts.items():
         if n != want.get(name, 0):
@@ -1300,7 +1356,7 @@ def phase_serving(arch, counters):
     if cfg.moe is not None:
         torch.cuda.reset_peak_memory_stats()
         moe = moe_serving_checks(cfg, params, prompt, toks, logits)
-    rel = decode_vs_forward(cfg, params, prompt, toks, logits)
+    rel = decode_vs_forward(cfg, params, prompt, toks, logits, extra)
     if cfg.moe is not None:
         print(f"  (not gated: at capacity factor {cfg.moe.capacity_factor} "
               f"the {S0 + N - 1}-token forward drops "
@@ -1327,20 +1383,26 @@ def phase_serving(arch, counters):
         print("  (not checked in bf16: the random-init RWKV's logits drift "
               "under bf16 rounding past any bound derived from it; the same "
               "path in f32, below, is held to the JAX test's 2e-4)")
+    family = {}
+    if cfg.mrope_sections:
+        family = vlm_checks(cfg, params, prompt)
+    if cfg.is_encdec:
+        family = encdec_checks(cfg, params, prompt, extra["enc_embeds"])
 
     stats = {}
-    generate(cfg, params, prompt, max_new_tokens=N, stats=stats)
+    generate(cfg, params, prompt, max_new_tokens=N, stats=stats, **extra)
     dec_tok_s = B * (N - 1) / stats["decode_s"]
     print(f"  generate (warm): prefill_s={stats['prefill_s']!r} "
           f"decode_s={stats['decode_s']!r} decode_tok_s={dec_tok_s!r}")
     out = dict(prefill_s=stats["prefill_s"], decode_tok_s=dec_tok_s,
-               counts=counts, idle=None, idle_warm=None)
+               counts=counts, idle=None, idle_warm=None, peak_gb=peak_gb,
+               layers=cfg.n_layers, **family)
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        generate(cfg, params, prompt, max_new_tokens=N)
+        generate(cfg, params, prompt, max_new_tokens=N, **extra)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     out["idle"], busy = report_idle(prof, wall, f"one {arch} generate",
@@ -1351,17 +1413,23 @@ def phase_serving(arch, counters):
         out["idle_warm"] = 1.0 - busy / warm
         print(f"  device busy over the unprofiled warm generate "
               f"({warm!r} s): idle_share={out['idle_warm']!r}")
+    print(f"  {arch}: peak memory of one generate {peak_gb!r} GB")
     if cfg.moe is not None:
         moe["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        print(f"  {arch}: peak memory {moe['peak_gb']!r} GB")
+        print(f"  {arch}: peak memory over the MoE checks {moe['peak_gb']!r} "
+              "GB")
     del params
     torch.cuda.empty_cache()
     if cfg.rwkv:
         out["f32_rel"] = rwkv_f32_agreement(cfg)
-    if cfg.moe is not None:
+    if cfg.moe is not None and cfg.mamba is None:
         moe.update(moe_layer_check(cfg))
         moe["f32_rel"] = moe_f32_agreement(cfg)
         out["f32_rel"] = moe["f32_rel"]
+    if cfg.mamba is not None:
+        out["mixer_rel"] = mamba_mixer_check(cfg)
+        out["f32_rel"] = jamba_f32_agreement(cfg)
+    if cfg.moe is not None:
         out["moe"] = moe
     return out
 
@@ -1420,9 +1488,43 @@ def routing(mode, calls):
         moe.route = route
 
 
+def pinned_agreement(cfg, params, prompt, N, what=""):
+    """Generate ``N`` tokens at ``cfg`` recording every MoE layer's
+    routing, then a forward over the prompt and the generated tokens with
+    each MoE layer's routing pinned to the generate's choices.  Returns the
+    last decode step's max |difference| over the largest logit, the number
+    of token-layer choices where the forward's own top-k differs, the
+    number of choices, and the generate's tokens and logits."""
+    from repro_torch.models import forward
+    from repro_torch.serving import generate
+    B, S0 = prompt.shape
+    n_moe = sum(1 for _, f in cfg.layer_kinds() if f == "moe")
+    calls = []
+    with routing("record", calls):
+        toks, logits = generate(cfg, params, prompt, max_new_tokens=N,
+                                return_logits=True)
+    # calls: the prefill's n_moe layers, then n_moe a decode step
+    steps = [calls[i:i + n_moe] for i in range(0, len(calls), n_moe)]
+    pinned = {"idx": [torch.cat([step[l] for step in steps], dim=1)
+                      for l in range(n_moe)], "flips": 0}
+    full = torch.cat([prompt, toks[:, :-1]], dim=1)
+    with routing("pin", pinned), torch.inference_mode():
+        ref_logits, _, _ = forward(cfg, params, {"tokens": full})
+    a, b = ref_logits[:, -1], logits[:, -1]
+    rel = float((a - b).abs().max() / a.abs().max())
+    n_choices = n_moe * B * (S0 + N - 1)
+    print(f"  {what}last decode step vs a forward over {full.shape[1]} "
+          f"tokens with the generate's routing pinned: max|diff|/max|logit| "
+          f"= {rel!r}, argmax agreement "
+          f"{float((a.argmax(-1) == b.argmax(-1)).double().mean())!r}; "
+          f"the forward's own top-k differs from the generate's at "
+          f"{pinned['flips']} of {n_choices} token-layer choices")
+    return rel, pinned["flips"], n_choices, toks, logits
+
+
 def moe_serving_checks(cfg, params, prompt, toks, logits):
-    """Phase 5's DeepSeekMoE gates on the bf16 model at full width and
-    depth: (b) a second generate bit for bit the first; (d) at a drop-free
+    """Phase 5's gates of the MoE models (DeepSeekMoE, Jamba) in bf16:
+    (b) a second generate bit for bit the first; (d) at a drop-free
     capacity factor, the last decode step against a forward over the prompt
     and the generated tokens with each MoE layer's routing pinned to the
     generate's choices, within the 5e-2 that bf16 rounding allows (the
@@ -1431,7 +1533,6 @@ def moe_serving_checks(cfg, params, prompt, toks, logits):
     configuration's capacity factor."""
     from repro_torch.models import forward, moe
     from repro_torch.serving import generate
-    B, S0 = prompt.shape
     N = toks.shape[1]
     toks2, logits2 = generate(cfg, params, prompt, max_new_tokens=N,
                               return_logits=True)
@@ -1448,36 +1549,19 @@ def moe_serving_checks(cfg, params, prompt, toks, logits):
     cap = moe.capacity(cfg, full.numel())
     drops = sum(int(dropped_pairs(idx, cap).sum()) for idx in calls)
     free = drop_free(cfg)
-    n_moe = sum(1 for _, f in cfg.layer_kinds() if f == "moe")
-    calls = []
-    with routing("record", calls):
-        toks_f, logits_f = generate(free, params, prompt, max_new_tokens=N,
-                                    return_logits=True)
-    # calls: the prefill's n_moe layers, then n_moe a decode step
-    steps = [calls[i:i + n_moe] for i in range(0, len(calls), n_moe)]
-    pinned = {"idx": [torch.cat([step[l] for step in steps], dim=1)
-                      for l in range(n_moe)], "flips": 0}
-    full_f = torch.cat([prompt, toks_f[:, :-1]], dim=1)
-    with routing("pin", pinned), torch.inference_mode():
-        ref_logits, _, _ = forward(free, params, {"tokens": full_f})
-    a, b = ref_logits[:, -1], logits_f[:, -1]
-    rel = float((a - b).abs().max() / a.abs().max())
-    n_choices = n_moe * B * (S0 + N - 1)
-    print(f"  (d) drop-free (capacity factor {free.moe.capacity_factor!r}): "
-          f"last decode step vs a forward over {full_f.shape[1]} tokens "
-          f"with the generate's routing pinned: max|diff|/max|logit| = "
-          f"{rel!r}, argmax agreement "
-          f"{float((a.argmax(-1) == b.argmax(-1)).double().mean())!r}; "
-          f"the forward's own top-k differs from the generate's at "
-          f"{pinned['flips']} of {n_choices} token-layer choices")
+    rel, flips, n_choices, toks_f, logits_f = pinned_agreement(
+        free, params, prompt, N,
+        what=f"(d) drop-free (capacity factor "
+             f"{free.moe.capacity_factor!r}): ")
     unpinned = decode_vs_forward(free, params, prompt, toks_f, logits_f,
                                  what="(d) unpinned, not gated: ")
     if not rel <= 5e-2:
         raise AssertionError(f"{cfg.name}: drop-free decode disagrees with "
                              f"the pinned forward ({rel})")
+    n_moe = sum(1 for _, f in cfg.layer_kinds() if f == "moe")
     return dict(forward_drops=drops, forward_pairs=n_moe * full.numel()
                 * cfg.moe.top_k, pinned_rel=rel, unpinned_rel=unpinned,
-                flips=pinned["flips"], choices=n_choices)
+                flips=flips, choices=n_choices)
 
 
 def moe_layer_check(cfg):
@@ -1573,13 +1657,16 @@ def rwkv_f32_agreement(cfg):
     return rel
 
 
-def decode_vs_forward(cfg, params, prompt, toks, logits, what=""):
+def decode_vs_forward(cfg, params, prompt, toks, logits, extra=None,
+                      what=""):
     """Max |difference| of the last decode step's logits and a forward over
-    the prompt and the generated tokens, over the largest logit."""
+    the prompt and the generated tokens (and ``extra``'s inputs, the
+    encoder's frames), over the largest logit."""
     from repro_torch.models import forward
     full = torch.cat([prompt, toks[:, :-1]], dim=1)
     with torch.inference_mode():
-        ref_logits, _, _ = forward(cfg, params, {"tokens": full})
+        ref_logits, _, _ = forward(cfg, params,
+                                   {"tokens": full, **(extra or {})})
     a, b = ref_logits[:, -1], logits[:, -1]
     rel = float((a - b).abs().max() / a.abs().max())
     agree = float((a.argmax(-1) == b.argmax(-1)).double().mean())
@@ -1588,6 +1675,258 @@ def decode_vs_forward(cfg, params, prompt, toks, logits, what=""):
           f"max|diff|/max|logit| = "
           f"{rel!r}, argmax agreement {agree!r}")
     return rel
+
+
+@contextlib.contextmanager
+def sequential_scan():
+    """Swap the Mamba mixer's chunked scan for the plain sequential
+    recurrence (``tests/test_models.py``'s naive loop, in torch); the
+    mixer's projections stay as they are."""
+    from repro_torch.models import mamba
+    chunked = mamba._ssm_scan_chunked
+
+    def naive(decay, inc, h0, *, chunk):
+        h, outs = h0, []
+        for t in range(decay.shape[1]):
+            h = decay[:, t] * h + inc[:, t]
+            outs.append(h)
+        return torch.stack(outs, dim=1), h
+
+    mamba._ssm_scan_chunked = naive
+    try:
+        yield
+    finally:
+        mamba._ssm_scan_chunked = chunked
+
+
+def mamba_mixer_check(cfg):
+    """(c) One full-width ``mamba_mixer`` in f32 at SERVE_B x SERVE_PROMPT
+    tokens of unit variance, at the model's chunk rule (64), against the
+    sequential recurrence with the same projections, and one decode step
+    from each one's state: outputs and states within 1e-5 of their largest
+    value (the same f32 recurrence, its products and sums reordered by the
+    doubling scan: a few roundings of h, carried through 8,192-term f32
+    products), the conv tails bit for bit."""
+    from repro_torch.models import mamba
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    p = mamba.mamba_init(cfg32, gen)
+    B, S = SERVE_B, SERVE_PROMPT
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda")
+    x1 = torch.randn((B, 1, cfg.d_model), generator=gen, device="cuda")
+    chunk = math.gcd(S, min(512, max(64, S // 16)))    # the model's rule
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        out, st = mamba.mamba_mixer(cfg32, p, x, None, chunk=chunk)
+        torch.cuda.synchronize()
+        t_mixer = time.perf_counter() - t0
+        step, st1 = mamba.mamba_mixer(cfg32, p, x1, st, chunk=1)
+        with sequential_scan():
+            ref, rst = mamba.mamba_mixer(cfg32, p, x, None, chunk=chunk)
+            ref1, rst1 = mamba.mamba_mixer(cfg32, p, x1, rst, chunk=1)
+    rels = {label: float((got - want).abs().max() / want.abs().max())
+            for label, got, want in (
+                ("prefill out", out, ref), ("prefill h", st["h"], rst["h"]),
+                ("decode out", step, ref1), ("decode h", st1["h"],
+                                             rst1["h"]))}
+    tails = bitwise(st["conv"], rst["conv"]) and bitwise(st1["conv"],
+                                                         rst1["conv"])
+    print(f"  (c) one mamba_mixer, f32, {B} x {S} tokens, chunk {chunk} "
+          f"({t_mixer!r} s), against the sequential recurrence: "
+          f"max|diff|/max|ref| {rels} (gate 1e-5); conv tails bit for bit: "
+          f"{tails}")
+    del p, out, st, ref, rst
+    torch.cuda.empty_cache()
+    if not (tails and all(r <= 1e-5 for r in rels.values())):
+        raise AssertionError(f"{cfg.name}: mamba_mixer departs from the "
+                             f"recurrence ({rels}, tails {tails})")
+    return rels
+
+
+def jamba_f32_agreement(cfg):
+    """(d) in f32 at JAMBA_F32_LAYERS layers of full width (Mamba, MoE and
+    the attention layer), drop-free, with the routing pinned: the last
+    decode step against the forward within the JAX test's 2e-4
+    (``tests/test_models.py::_decode_consistency``).  The prefill's Mamba
+    chunk is 64, the 1,039-token forward's 1: the scan's two forms meet."""
+    from repro_torch.models import init_params
+    cfg32 = drop_free(cfg).replace(n_layers=JAMBA_F32_LAYERS,
+                                   dtype="float32", param_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_params(cfg32, gen, device="cuda")
+    prompt = torch.randint(0, cfg32.vocab, (SERVE_B, SERVE_PROMPT),
+                           generator=gen, device="cuda")
+    rel, flips, _, _, _ = pinned_agreement(
+        cfg32, params, prompt, SERVE_NEW,
+        what=f"(d) {cfg.name} in f32 at {JAMBA_F32_LAYERS} layers "
+             f"({[k for k in cfg32.layer_kinds()]}), drop-free: ")
+    del params
+    torch.cuda.empty_cache()
+    if not rel <= 2e-4:
+        raise AssertionError(f"{cfg.name} f32: decode disagrees with the "
+                             f"forward pass ({rel})")
+    return rel
+
+
+def image_positions(B, n_text, grid, n_after):
+    """Qwen2-VL's (3, B, S) position streams for text, a grid x grid image,
+    then text: text t = h = w = index; image t = start, h = start + row,
+    w = start + col; the text after it resumes at the largest position + 1.
+    """
+    text = torch.arange(n_text, device="cuda")
+    cell = torch.arange(grid * grid, device="cuda")
+    img = torch.stack([torch.full_like(cell, n_text), n_text + cell // grid,
+                       n_text + cell % grid])
+    after = n_text + grid + torch.arange(n_after, device="cuda")
+    pos = torch.cat([text.expand(3, -1), img, after.expand(3, -1)], dim=1)
+    return pos[:, None].expand(3, B, -1)
+
+
+def mrope_f64(x, pos3, theta, sections):
+    """``layers.apply_mrope``'s formula evaluated in f64."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(half, dtype=F64, device=x.device) / half)
+    streams = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.tensor(sections, device=x.device))
+    ang = (pos3.to(F64).movedim(0, -1)[..., streams] * freqs)[..., None, :]
+    x1, x2 = x.to(F64).chunk(2, dim=-1)
+    return torch.cat([x1 * ang.cos() - x2 * ang.sin(),
+                      x1 * ang.sin() + x2 * ang.cos()], dim=-1)
+
+
+def vlm_checks(cfg, params, prompt):
+    """Qwen2-VL's M-RoPE on the card.  (c) ``apply_mrope`` with three equal
+    position streams is ``apply_rope`` bit for bit (bf16, the prefill's q
+    shape), and a prefill from ``embeds = embed[tokens]`` with equal streams
+    is the tokens prefill bit for bit, logits and caches.  (d) an image
+    prefill: VL_TEXT text tokens, a VL_GRID x VL_GRID grid of patch
+    embeddings (seeded normal x 0.02), text to the prompt length, on
+    Qwen2-VL's position streams: one flash launch a layer, finite logits,
+    then VL_STEPS decode steps from its cache with finite logits.  And
+    ``apply_mrope`` in f32 at those positions within 5e-5 of max |x| of an
+    f64 evaluation: angles up to 267 rad carry at most half an f32 ulp
+    (1.5e-5) plus the frequencies' own rounding, and each output sums two
+    such rotated terms."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.models import decode_step, layers, prefill
+    from repro_torch.serving import pad_attn_cache
+    B, S = prompt.shape
+    theta, sections = cfg.rope_theta, cfg.mrope_sections
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    pos = torch.arange(S, device="cuda")
+    x = torch.randn((B, S, cfg.n_heads, cfg.hd), generator=gen,
+                    device="cuda").to(cfg.adtype)
+    rope_same = bitwise(layers.apply_mrope(x, pos.expand(3, B, S), theta,
+                                           sections),
+                        layers.apply_rope(x, pos[None], theta))
+    with torch.inference_mode():
+        lt, ct = prefill(cfg, params, {"tokens": prompt})
+        le, ce = prefill(cfg, params, {"embeds": params["embed"][prompt],
+                                       "mrope_positions":
+                                           pos.expand(3, B, S)})
+    prefill_same = bitwise(lt, le) and all(
+        bitwise(a, b) for a, b in zip(_leaves(ct), _leaves(ce)))
+    print(f"  (c) apply_mrope with equal streams bit for bit apply_rope: "
+          f"{rope_same}; an embeds prefill with equal streams bit for bit "
+          f"the tokens prefill: {prefill_same}")
+    if not (rope_same and prefill_same):
+        raise AssertionError(f"{cfg.name}: equal M-RoPE streams are not "
+                             "1-D RoPE")
+    del lt, ct, le, ce
+
+    n_img = VL_GRID * VL_GRID
+    pos3 = image_positions(B, VL_TEXT, VL_GRID, S - VL_TEXT - n_img)
+    embeds = params["embed"][prompt].clone()
+    embeds[:, VL_TEXT:VL_TEXT + n_img] = (torch.randn(
+        (B, n_img, cfg.d_model), generator=gen, device="cuda")
+        * 0.02).to(embeds.dtype)
+    before = flash_attention.launches
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(cfg, params, {"embeds": embeds,
+                                              "mrope_positions": pos3})
+        torch.cuda.synchronize()
+        t_img = time.perf_counter() - t0
+        n_flash = flash_attention.launches - before
+        finite = bool(torch.isfinite(logits).all())
+        cache = pad_attn_cache(cache, VL_STEPS)
+        tok = logits[:, -1].argmax(-1)
+        for i in range(VL_STEPS):
+            step, cache = decode_step(cfg, params, cache, tok, S + i)
+            finite = finite and bool(torch.isfinite(step).all())
+            tok = step[:, -1].argmax(-1)
+    x32 = torch.randn((B, S, cfg.n_heads, cfg.hd), generator=gen,
+                      device="cuda")
+    rel = float((layers.apply_mrope(x32, pos3, theta, sections).double()
+                 - mrope_f64(x32, pos3, theta, sections)).abs().max()
+                / x32.abs().max())
+    print(f"  (d) image prefill ({VL_TEXT} text + {VL_GRID}x{VL_GRID} "
+          f"patches + {S - VL_TEXT - n_img} text, positions up to "
+          f"{int(pos3.max())}) in {t_img!r} s: {n_flash} flash launches, "
+          f"then {VL_STEPS} decode steps; logits finite: {finite}; "
+          f"apply_mrope f32 vs f64 at these positions: max|diff|/max|x| = "
+          f"{rel!r} (gate 5e-5)")
+    if n_flash != cfg.n_layers or not finite or not rel <= 5e-5:
+        raise AssertionError(f"{cfg.name}: image prefill ({n_flash} "
+                             f"launches, finite {finite}, mrope {rel})")
+    return dict(mrope_rel=rel, image_prefill_s=t_img)
+
+
+def encdec_checks(cfg, params, prompt, enc):
+    """Whisper's encoder-decoder on the card.  (a) the flash launches of a
+    generate, in order: the encoder's, non-causal over WHISPER_FRAMES
+    frames, then the decoder's, causal over the prompt.  (b) the prefill's
+    cross K/V are not padded by ``pad_attn_cache`` (the same tensors,
+    WHISPER_FRAMES long) and decode steps leave them unchanged."""
+    from repro_torch.models import attention, decode_step, prefill
+    from repro_torch.serving import generate, pad_attn_cache
+    B, S = prompt.shape
+    calls, kernel = [], attention._flash
+
+    def spy(q, k, v, *, causal=True):
+        calls.append((q.shape[1], k.shape[1], causal))
+        return kernel.flash_attention(q, k, v, causal=causal)
+
+    # the attention module's handle on the kernel module, not the kernel
+    # module's own name, which the wrapper's launch counter goes through
+    attention._flash = types.SimpleNamespace(flash_attention=spy)
+    try:
+        generate(cfg, params, prompt, max_new_tokens=2, enc_embeds=enc)
+    finally:
+        attention._flash = kernel
+    F = WHISPER_FRAMES
+    want = ([(F, F, False)] * cfg.encoder_layers
+            + [(S, S, True)] * cfg.n_layers)
+    print(f"  (a) flash launches of a generate (Sq, Skv, causal): "
+          f"{calls.count((F, F, False))} x {(F, F, False)}, "
+          f"{calls.count((S, S, True))} x {(S, S, True)}")
+    if calls != want:
+        raise AssertionError(f"{cfg.name}: flash launches {calls}")
+
+    with torch.inference_mode():
+        _, cache = prefill(cfg, params, {"tokens": prompt, "enc_embeds": enc})
+        padded = pad_attn_cache(cache, SERVE_NEW)
+        shared = all(p["cross"] is c["cross"]
+                     and p["cross"]["ck"].shape == (B, F, cfg.n_kv, cfg.hd)
+                     and p["attn"]["k"].shape[1] == S + SERVE_NEW
+                     for p, c in zip(padded["layers"], cache["layers"]))
+        kept = [{k: v.clone() for k, v in c["cross"].items()}
+                for c in padded["layers"]]
+        tok = prompt[:, -1]
+        for i in range(SERVE_NEW - 1):
+            step, padded = decode_step(cfg, params, padded, tok, S + i)
+            tok = step[:, -1].argmax(-1)
+        unchanged = all(bitwise(c["cross"][k], old[k])
+                        for c, old in zip(padded["layers"], kept)
+                        for k in ("ck", "cv"))
+    print(f"  (b) cross K/V unpadded and shared by pad_attn_cache: {shared}; "
+          f"unchanged over {SERVE_NEW - 1} decode steps: {unchanged}")
+    if not (shared and unchanged):
+        raise AssertionError(f"{cfg.name}: the cross cache was padded or "
+                             "changed")
+    return {}
 
 
 def _leaves(tree):
@@ -3456,9 +3795,11 @@ def main() -> int:
     by_path["rm_sweep_batched"]["phase 10"] = fleet["launches"]
     counts["rm_sweep_batched"] += fleet["launches"]
     for arch, res in serving.items():
-        print(f"  serving {arch}: f32 decode-vs-forward "
-              f"{res.get('f32_rel')!r} prefill_s={res['prefill_s']!r} "
+        print(f"  serving {arch} ({res['layers']} layers): f32 "
+              f"decode-vs-forward {res.get('f32_rel')!r} "
+              f"prefill_s={res['prefill_s']!r} "
               f"decode_tok_s={res['decode_tok_s']!r} "
+              f"peak_gb={res['peak_gb']!r} "
               f"idle_share={res['idle']!r} (profiled), "
               f"{res['idle_warm']!r} (against the unprofiled run)")
         if "moe" in res:

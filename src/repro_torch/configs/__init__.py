@@ -2,10 +2,9 @@
 counterpart).
 
 The architecture specs are plain ``ModelConfig`` literals, copied from the
-JAX package.  Models of the dense, MoE and RWKV families can be built and
-served (``repro_torch.models``); building one of a family not yet ported
-(Mamba / hybrid, enc-dec, VLM M-RoPE) raises ``NotImplementedError``.  The
-dry-run input specs (``repro.configs.specs``) are not ported yet.
+JAX package.  Every one of them can be built and served
+(``repro_torch.models``).  The dry-run input specs
+(``repro.configs.specs``) are not ported yet.
 """
 from __future__ import annotations
 

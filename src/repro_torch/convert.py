@@ -19,7 +19,6 @@ from repro_torch.core.game import BatchWarmStart
 from repro_torch.core.types import (CapacityChange, ClassArrival,
                                     ClassDeparture, Scenario, ScenarioBatch,
                                     SLAEdit, StreamEvent, WindowState)
-from repro_torch.models.transformer import check_supported
 from repro_torch.utils import resolve_device
 from repro_torch.utils import to_np as to_numpy  # the other direction
 
@@ -122,11 +121,14 @@ def lm_params_from_numpy(cfg, tree: dict, *, device="cuda", dtype=None):
     ``params["layers"]`` takes the MoE families' ``tree["head_layers"]``
     (the ``first_k_dense`` layers, a list) first, then the leading
     ``n_blocks`` axis of ``tree["blocks"]`` unstacked block by block and,
-    inside a block, layer by layer (``l0``, ``l1``, ...).  Expert stacks
-    ``(E, d, f)`` keep their shape.  Floating arrays are cast to ``dtype``
-    when given.
+    inside a block, layer by layer (``l0``, ``l1``, ...; Jamba's eight).
+    The encoder-decoder's ``tree["enc_blocks"]`` / ``tree["dec_blocks"]``
+    (one layer a block) become ``params["enc_layers"]`` and
+    ``params["layers"]``, and ``enc_final_norm`` crosses as it is.  Expert
+    stacks ``(E, d, f)`` keep their shape.  Floating arrays are cast to
+    ``dtype`` when given; left as None, a bf16 tree keeps its f32 leaves
+    (Mamba's ``A_log``, ``D``, ``dt_bias``) in f32.
     """
-    check_supported(cfg)
     dev = resolve_device(device)
 
     def conv(sub, index=None):
@@ -135,13 +137,21 @@ def lm_params_from_numpy(cfg, tree: dict, *, device="cuda", dtype=None):
         return _tensor(sub if index is None else np.asarray(sub)[index], dev,
                        dtype)
 
+    def unstack(blocks, block_len):
+        n_blocks = len(np.asarray(blocks["l0"]["norm1"]["gamma"]))
+        return [conv(blocks[f"l{p}"], i) for i in range(n_blocks)
+                for p in range(block_len)]
+
     params = {k: conv(tree[k]) for k in ("embed", "pos_embed", "final_norm",
-                                         "unembed_w") if k in tree}
-    blocks = tree["blocks"]
-    n_blocks = len(np.asarray(blocks["l0"]["norm1"]["gamma"]))
-    params["layers"] = [conv(layer) for layer in tree.get("head_layers", [])]
-    params["layers"] += [conv(blocks[f"l{p}"], i) for i in range(n_blocks)
-                         for p in range(cfg.block_len)]
+                                         "enc_final_norm", "unembed_w")
+              if k in tree}
+    if cfg.is_encdec:
+        params["enc_layers"] = unstack(tree["enc_blocks"], 1)
+        params["layers"] = unstack(tree["dec_blocks"], 1)
+    else:
+        params["layers"] = [conv(layer)
+                            for layer in tree.get("head_layers", [])]
+        params["layers"] += unstack(tree["blocks"], cfg.block_len)
     if len(params["layers"]) != cfg.n_layers:
         raise ValueError(f"{len(params['layers'])} layers in the tree, "
                          f"{cfg.n_layers} in {cfg.name}")

@@ -4,7 +4,9 @@
         --batch 4 --prompt-len 1024 --new-tokens 16
 
 Counterpart of ``repro.launch.serve``.  Random weights from ``--seed`` (no
-weights are downloaded); it runs on the card unless ``--device cpu``.
+weights are downloaded); it runs on the card unless ``--device cpu``.  For
+the encoder-decoder (whisper-base) the encoder's input is ``--batch`` x
+``--prompt-len`` standard-normal frame embeddings from the same generator.
 """
 from __future__ import annotations
 
@@ -37,9 +39,15 @@ def main(argv=None):
     params = init_params(cfg, gen, device=dev)
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=gen, device=dev)
+    kw = {}
+    if cfg.is_encdec:
+        kw["enc_embeds"] = torch.randn(
+            (args.batch, args.prompt_len, cfg.d_model), generator=gen,
+            device=dev)
     stats = {}
     out = generate(cfg, params, prompt, max_new_tokens=args.new_tokens,
-                   temperature=args.temperature, generator=gen, stats=stats)
+                   temperature=args.temperature, generator=gen, stats=stats,
+                   **kw)
     n_dec = args.batch * (args.new_tokens - 1)
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else "cpu")

@@ -1,20 +1,22 @@
 """The tenant-side language models (counterpart of ``repro.models``).
 
-The dense, MoE and RWKV6 families are ported; ``encode`` (enc-dec) and
-the sharding rules (``LOCAL``, ``Distribution``, ``named_shardings``,
-``param_specs``) are not.  ``loss_fn`` raises until the training path is
-ported.
+Every family is ported for serving: dense, MoE, RWKV6, Mamba and Jamba's
+hybrid interleave, Qwen2-VL's M-RoPE and the Whisper encoder-decoder
+(``encode``).  The sharding rules (``LOCAL``, ``Distribution``,
+``named_shardings``, ``param_specs``) are not; ``loss_fn`` raises until the
+training path is ported.
 """
 from repro_torch.models.config import (ALL_SHAPES, DECODE_32K, LONG_500K,
                                        PREFILL_32K, SHAPES_BY_NAME, TRAIN_4K,
                                        MambaConfig, ModelConfig, MoEConfig,
                                        ShapeConfig)
-from repro_torch.models.transformer import (decode_step, forward, init_cache,
-                                            init_params, loss_fn, prefill)
+from repro_torch.models.transformer import (decode_step, encode, forward,
+                                            init_cache, init_params, loss_fn,
+                                            prefill)
 
 __all__ = [
     "ALL_SHAPES", "DECODE_32K", "LONG_500K", "PREFILL_32K", "SHAPES_BY_NAME",
     "TRAIN_4K", "MambaConfig", "ModelConfig", "MoEConfig", "ShapeConfig",
-    "decode_step", "forward", "init_cache", "init_params", "loss_fn",
-    "prefill",
+    "decode_step", "encode", "forward", "init_cache", "init_params",
+    "loss_fn", "prefill",
 ]

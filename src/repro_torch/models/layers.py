@@ -2,10 +2,12 @@
 
 Counterpart of ``repro.models.layers``.  Everything is a function over
 explicit dicts of parameter tensors; ``bmm`` is the batched ``dot`` of the
-MoE experts.  Norms, RoPE and the softmax run in f32, as in JAX.
-``apply_mrope`` (Qwen2-VL) waits for the VLM slice.
+MoE experts.  Norms, RoPE (``apply_rope``, and Qwen2-VL's ``apply_mrope``)
+and the softmax run in f32, as in JAX.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -117,16 +119,46 @@ def _rope_freqs(hd_half, theta, device):
                      / hd_half)
 
 
-def apply_rope(x, positions, theta):
-    """x: (..., S, H, hd); positions: broadcastable to (..., S) integers."""
-    hd = x.shape[-1]
-    freqs = _rope_freqs(hd // 2, theta, x.device)
-    angles = positions[..., None].to(F32) * freqs        # (..., S, hd/2)
+def _rotate(x, angles):
+    """Rotate the two halves of x's last axis by ``angles`` (..., S, hd/2),
+    broadcast over the head axis; in f32, returned in x's dtype."""
     angles = angles[..., None, :]                        # head axis
     sin, cos = torch.sin(angles), torch.cos(angles)
     x1, x2 = torch.chunk(x.to(F32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x, positions, theta):
+    """x: (..., S, H, hd); positions: broadcastable to (..., S) integers."""
+    freqs = _rope_freqs(x.shape[-1] // 2, theta, x.device)
+    return _rotate(x, positions[..., None].to(F32) * freqs)
+
+
+@functools.lru_cache(maxsize=None)
+def _mrope_streams(sections, device):
+    """The static band -> position-stream map: half-dim band j rotates by
+    stream ``np.repeat(arange(len(sections)), sections)[j]``."""
+    ids = torch.repeat_interleave(torch.arange(len(sections)),
+                                  torch.tensor(sections))
+    return ids.to(device)
+
+
+def apply_mrope(x, positions3, theta, sections):
+    """Qwen2-VL multimodal RoPE: the half-dim frequency bands are split into
+    (temporal, height, width) sections, each rotated by its own position ids.
+
+    x: (B, S, H, hd); positions3: (3, B, S) integers; sum(sections) ==
+    hd // 2.  With three equal streams it is ``apply_rope`` bit for bit.
+    """
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"mrope sections {sections} must cover hd/2 = "
+                         f"{hd // 2}")
+    freqs = _rope_freqs(hd // 2, theta, x.device)
+    streams = _mrope_streams(tuple(sections), x.device)
+    pos = positions3.to(F32).movedim(0, -1)[..., streams]   # (B,S,hd/2)
+    return _rotate(x, pos * freqs)
 
 
 # --------------------------------------------------------------------------

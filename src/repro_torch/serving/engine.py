@@ -3,7 +3,8 @@
 Counterpart of ``repro.serving.engine``.  The attention KV cache is
 allocated once, at the prompt length plus ``max_new_tokens``, and every
 decode step writes its slot in place (JAX donates the cache to
-``dynamic_update_slice`` instead).
+``dynamic_update_slice`` instead).  The encoder-decoder's cross K/V are
+computed once, at prefill, and read by every decode step.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ from repro_torch.models import decode_step, prefill
 
 def pad_attn_cache(cache, extra: int):
     """Grow every self-attention KV cache by ``extra`` zero positions
-    (axis -3).  Returns a new cache; the other entries are shared."""
+    (axis -3).  Returns a new cache; the other entries (recurrent states,
+    the encoder-decoder's cross K/V) are shared, not grown."""
     def grow(x):
         out = x.new_zeros((*x.shape[:-3], x.shape[-3] + extra,
                            *x.shape[-2:]))
@@ -38,8 +40,11 @@ def _sync(dev):
 def generate(cfg, params, prompt_tokens, *, max_new_tokens: int,
              temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
-             return_logits: bool = False, stats: Optional[dict] = None):
-    """Greedy (or sampled) generation.  prompt_tokens: (B, S_prompt) int.
+             return_logits: bool = False, stats: Optional[dict] = None,
+             enc_embeds=None):
+    """Greedy (or sampled) generation.  prompt_tokens: (B, S_prompt) int;
+    for the encoder-decoder, ``enc_embeds`` (B, T_enc, d) are the encoder's
+    input frames.
 
     Returns the (B, max_new_tokens) int64 tokens; with ``return_logits``
     also the (B, max_new_tokens, V) f32 logits each token was drawn from.
@@ -51,7 +56,10 @@ def generate(cfg, params, prompt_tokens, *, max_new_tokens: int,
     B, S0 = prompt_tokens.shape
     dev = prompt_tokens.device
     t0 = time.perf_counter()
-    logits, cache = prefill(cfg, params, {"tokens": prompt_tokens})
+    batch = {"tokens": prompt_tokens}
+    if enc_embeds is not None:
+        batch["enc_embeds"] = enc_embeds
+    logits, cache = prefill(cfg, params, batch)
     cache = pad_attn_cache(cache, max_new_tokens)
     if stats is not None:
         _sync(dev)

@@ -13,7 +13,11 @@ would flip one expert and move the logits far past that bound, and none
 occurs at these seeds (their reduced capacity factor, 4.0, drops nothing).
 The layers (norms, RoPE, MLPs) are held within 1e-6 relative.  Lengths are
 picked for the paths the models take: T = 48 runs the chunked attention
-(chunk 16 divides it) and RWKV's chunked WKV (chunk gcd(48, 256) = 16).
+(chunk 16 divides it), RWKV's chunked WKV (chunk gcd(48, 256) = 16) and
+Jamba's chunked Mamba scan (chunk gcd(48, 64) = 16).  The encoder-decoder
+also gets numpy-seeded frame embeddings (``enc_embeds``); the VLM runs on
+tokens here, as ``generate`` drives it (``test_torch_mrope.py`` covers its
+M-RoPE positions).
 """
 import jax
 import jax.numpy as jnp
@@ -28,7 +32,7 @@ from repro.models import transformer as jt
 from repro.models.config import ModelConfig as JConfig
 from repro.serving import pad_attn_cache as j_pad
 from repro_torch import convert
-from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs import ARCH_IDS
 from repro_torch.configs import reduced_config as t_reduced
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as tt
@@ -36,8 +40,7 @@ from repro_torch.models.config import ModelConfig as TConfig
 from repro_torch.serving import pad_attn_cache as t_pad
 
 KEY = jax.random.PRNGKey(0)
-PORTED = ("qwen3-0.6b", "rwkv6-7b", "minicpm-2b", "deepseek-moe-16b",
-          "kimi-k2-1t-a32b")
+PORTED = ARCH_IDS
 # the MoE load-balance loss: a mean over T*E f32 products of softmax
 # probabilities, summed over the MoE layers, in another order
 AUX_RTOL = 1e-5
@@ -55,12 +58,24 @@ def tokens(seed, B, T, vocab):
     return np.random.default_rng(seed).integers(0, vocab, (B, T))
 
 
+def batch_pair(cfg, toks, seed=0):
+    """(JAX batch, port batch) over ``toks``; the encoder-decoder's also
+    hold 12 numpy-seeded frames."""
+    jb, tb = {"tokens": jnp.asarray(toks)}, {"tokens": torch.tensor(toks)}
+    if cfg.is_encdec:
+        enc = np.random.default_rng(seed).standard_normal(
+            (toks.shape[0], 12, cfg.d_model)).astype(np.float32)
+        jb["enc_embeds"] = jnp.asarray(enc)
+        tb["enc_embeds"] = torch.tensor(enc)
+    return jb, tb
+
+
 @pytest.mark.parametrize("arch", PORTED)
 def test_forward_matches_jax(arch):
     jcfg, tcfg, jp, tp = model_pair(arch)
-    toks = tokens(1, 2, 48, jcfg.vocab)
-    jl, jaux, _ = jt.forward(jcfg, jp, {"tokens": jnp.asarray(toks)})
-    tl, aux, caches = tt.forward(tcfg, tp, {"tokens": torch.tensor(toks)})
+    jb, tb = batch_pair(jcfg, tokens(1, 2, 48, jcfg.vocab))
+    jl, jaux, _ = jt.forward(jcfg, jp, jb)
+    tl, aux, caches = tt.forward(tcfg, tp, tb)
     assert tl.dtype == torch.float32 and tl.shape == jl.shape
     assert aux.dtype == torch.float32 and caches is None
     if jcfg.moe is None:
@@ -78,8 +93,9 @@ def test_prefill_and_decode_match_jax_teacher_forced(arch):
     jcfg, tcfg, jp, tp = model_pair(arch)
     toks = tokens(2, 2, 24, jcfg.vocab)
     S0, n = 20, 4
-    jl, jc = jt.prefill(jcfg, jp, {"tokens": jnp.asarray(toks[:, :S0])})
-    tl, tc = tt.prefill(tcfg, tp, {"tokens": torch.tensor(toks[:, :S0])})
+    jb, tb = batch_pair(jcfg, toks[:, :S0])
+    jl, jc = jt.prefill(jcfg, jp, jb)
+    tl, tc = tt.prefill(tcfg, tp, tb)
     assert_rel_close(tl, jl, 1e-4, "prefill")
     jc, tc = j_pad(jc, n), t_pad(tc, n)
     for i in range(n):
@@ -177,11 +193,13 @@ def test_dot_keeps_f32_and_mixed_operands_as_before():
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "rwkv6-7b",
-                                  "deepseek-moe-16b"])
+                                  "deepseek-moe-16b", "jamba-v0.1-52b",
+                                  "qwen2-vl-7b"])
 def test_init_params_and_cache_match_jax_structure(arch):
     """The port's own draws have JAX's shapes and dtypes, layer by layer
     (values match in distribution only), and so do its caches, the MoE
-    families' dense head layers first."""
+    families' dense head layers first and Jamba's super-block layer by
+    layer."""
     jcfg, tcfg = j_reduced(arch), t_reduced(arch)
     jp = jax.tree_util.tree_map(np.asarray, jt.init_params(jcfg, KEY))
     tp = tt.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
@@ -197,7 +215,8 @@ def test_init_params_and_cache_match_jax_structure(arch):
     for i, layer in enumerate(tc["layers"]):
         for path, leaf in jax.tree_util.tree_leaves_with_path(layer):
             keys = [p.key for p in path]
-            jleaf = jc["head"][i] if i < first else jc["blocks"]["l0"]
+            jleaf = (jc["head"][i] if i < first else
+                     jc["blocks"][f"l{(i - first) % jcfg.block_len}"])
             for k in keys:
                 jleaf = jleaf[k]
             want = jleaf.shape if i < first else jleaf.shape[1:]
@@ -206,13 +225,13 @@ def test_init_params_and_cache_match_jax_structure(arch):
 
 
 def test_families_not_ported_raise():
+    """Every family is ported: each reduced configuration builds, with one
+    layer a ``layer_kinds()`` entry; only the training path still raises."""
     for arch in ARCH_IDS:
-        cfg = get_config(arch)
-        if arch in PORTED or arch in ("qwen3-8b", "qwen3-32b"):
-            tt.check_supported(cfg)
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-            tt.init_params(t_reduced(arch), 0, device="cpu")
+        cfg = t_reduced(arch)
+        params = tt.init_params(cfg, 0, device="cpu")
+        assert len(params["layers"]) == cfg.n_layers
+        assert len(params.get("enc_layers", [])) == cfg.encoder_layers
     with pytest.raises(NotImplementedError, match="item 19"):
         tt.loss_fn(t_reduced("qwen3-0.6b"), {}, {})
 

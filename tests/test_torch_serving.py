@@ -99,7 +99,8 @@ def test_sampling_draws_from_the_generator():
     assert stats["prefill_s"] > 0 and stats["decode_s"] > 0
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["jamba-v0.1-52b", "qwen2-vl-7b",
+                                          "whisper-base"])
 def test_serve_cli_on_cpu(arch, capsys):
     out = serve.main(["--arch", arch, "--reduced", "--batch", "2",
                       "--prompt-len", "20", "--new-tokens", "3",
