@@ -130,8 +130,23 @@ at once), then runs these phases, each of which raises on failure:
    configurations, compacting, its last epoch equal to a fresh
    ``epoch_batch``, and a duplicate tenant refused; walls, epochs/s and
    one sweep epoch's idle share are printed;
-11. the ``kernels`` line, whose launch counts add phases 2, 5 (per model)
-   and 6-10.
+11. the training path (``repro_torch.models.loss_fn``,
+   ``repro_torch.launch.steps``, ``repro_torch.optim``): (a) the chunked
+   loss of Qwen3-0.6B at full width and depth (bf16, 4 x 1,024 tokens, 8
+   chunks) under no_grad, with and without a mask of a quarter of the
+   positions, within 1e-5 of an unchunked f32 cross entropy over
+   ``forward``'s logits, one flash launch a layer in each pass; (b) a grad
+   step through flash attention (Qwen3-0.6B) and through ``wkv6`` (RWKV6-7B
+   at T = 1,024, chunk 256) refused, naming ROADMAP item 23, before a
+   launch; (c) RWKV6-7B at full width and 2 layers (B 2, T 256: the plain
+   recurrence), ``make_train_step`` with 2 microbatches: remat none / dots
+   / full with the loss bit for bit and the gradients within one bf16 ULP,
+   the accumulated gradient against the microbatches' mean, 8 steps of
+   each state tier (f32, bf16, int8) on one batch with a falling loss and
+   no kernel launch, step ms, tokens/s and peak memory printed; (d) one
+   AdamW update of each tier on the card against the CPU's (layer 0);
+12. the ``kernels`` line, whose launch counts add phases 2, 5 (per model),
+   6-10 and 11 (a).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the repository's ``src/`` beside it, the script fails before
@@ -270,6 +285,19 @@ FLEET_ARCHS = (("qwen3-8b", "train_4k"), ("qwen3-32b", "prefill_32k"),
 FLEET_SAMPLED, FLEET_SHARDS, FLEET_FAIL = 8, 3, 0.2
 FLEET_EPOCHS, FLEET_ARRIVE_AT, FLEET_DEPART_AT = 16, 5, 10
 FLEET_COMPACT, FLEET_STREAM_N_MAX = 0.6, 1024
+# the training path: (a) Qwen3-0.6B at full width and depth, the chunked
+# loss (8 chunks) over B x S tokens against an unchunked f32 cross entropy;
+# (c) RWKV6-7B at full width cut to 2 layers (0.98 B parameters), whose
+# f32-tier state (bf16 weights, f32 gradients and accumulator, f32 m, v
+# and master) and the functional update's second copy fit the card (its
+# 32 layers, 7.6 B parameters, would not): at T = 256 the model's chunk
+# rule gives 256, so every WKV is the plain recurrence and the step
+# reaches no kernel until the kernels have backward passes (ROADMAP item
+# 23); (b) at T = 1,024 (chunk 256 < T) a grad step reaches wkv6 and must
+# be refused
+LOSS_ARCH, LOSS_B, LOSS_S = "qwen3-0.6b", 4, 1024
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_B, TRAIN_T = "rwkv6-7b", 2, 2, 256
+TRAIN_ACCUM, TRAIN_STEPS, GUARD_T = 2, 8, 1024
 
 
 def card_line() -> str:
@@ -1276,6 +1304,7 @@ def phase_dot(gen):
     if not err <= 1e-5:
         raise AssertionError(f"layers.dot departs from the f32 product by "
                              f"{err} of its largest value")
+    dot_grad_check(gen, layers.dot, x, w, f"layers.dot bf16 {DOT_SHAPE}")
     # layers.bmm, the MoE experts' product, at the DeepSeekMoE prefill's
     # dispatch buffer (64 experts x 480 slots, d 2048, f 1408), same gate
     E, C, D, N = BMM_SHAPE
@@ -1290,6 +1319,31 @@ def phase_dot(gen):
     if got.dtype != torch.float32 or not err <= 1e-5:
         raise AssertionError(f"layers.bmm: {got.dtype}, {err} of the f32 "
                              "product's largest value")
+    dot_grad_check(gen, layers.bmm, x, w, f"layers.bmm bf16 {BMM_SHAPE}")
+
+
+def dot_grad_check(gen, fn, x, w, label):
+    """The gradients of ``layers.dot`` / ``bmm`` on bf16 operands (the
+    ``out_dtype`` product has no derivative in torch; ``_F32Product``
+    gives it one) against autograd of the f32 product, under a random f32
+    cotangent: bf16 gradients within one bf16 ULP of the largest |f32
+    gradient| rounded to bf16 (the same f32 products, their sums perhaps
+    in another order, each rounded to bf16 once)."""
+    x, w = (t.detach().requires_grad_(True) for t in (x, w))
+    out = fn(x, w)
+    cot = torch.randn(out.shape, generator=gen, device="cuda")
+    got = torch.autograd.grad(out, (x, w), cot)
+    xf, wf = (t.detach().float().requires_grad_(True) for t in (x, w))
+    want = torch.autograd.grad(torch.matmul(xf, wf), (xf, wf), cot)
+    for name, a, b in zip(("dX", "dW"), got, want):
+        ulps = _ulps_of_scale(a, b.bfloat16())
+        print(f"phase 1d: {label} {name}: {a.dtype}, "
+              f"{'bit for bit' if bitwise(a, b.bfloat16()) else 'not bitwise'}"
+              f" the f32 gradient rounded to bf16, worst {ulps!r} bf16 ULPs "
+              "of its largest |value|")
+        if a.dtype != torch.bfloat16 or not ulps <= 1.0:
+            raise AssertionError(f"{label} {name}: {a.dtype}, {ulps} bf16 "
+                                 "ULPs from autograd of the f32 product")
 
 
 # --------------------------------------------------------------------------
@@ -3710,6 +3764,328 @@ def fleet_copy(f):
                      f._profiles))
 
 
+# --------------------------------------------------------------------------
+# phase 11: the training path
+# --------------------------------------------------------------------------
+
+
+def _pairs(a, b):
+    """Leaves of two trees of one structure, side by side."""
+    return zip(_leaves(a), _leaves(b))
+
+
+def _moments(mu):
+    """The first moments ``m`` of an AdamW state tree, in leaf order."""
+    if isinstance(mu, dict) and "m" in mu:
+        return [mu["m"]]
+    kids = mu.values() if isinstance(mu, dict) else mu
+    return [m for kid in kids for m in _moments(kid)]
+
+
+def _ulps_of_scale(got, want):
+    """max |got - want| in ULPs of want's dtype at the largest |want|."""
+    eps = torch.finfo(want.dtype).eps
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    return err / (max(scale, torch.finfo(want.dtype).tiny) * eps)
+
+
+def expect_refusal(label, counter, fn, *args):
+    """``fn(*args)`` must raise the kernels' missing-backward error naming
+    ROADMAP item 23 before the kernel's counter moves."""
+    n = counter.launches
+    try:
+        fn(*args)
+    except NotImplementedError as e:
+        if "item 23" not in str(e):
+            raise AssertionError(f"{label}: refused without naming item 23: "
+                                 f"{e}") from e
+        print(f"  {label}: refused ({e})")
+    else:
+        raise AssertionError(f"{label}: a CUDA backward through "
+                             f"{counter.__name__} was not refused")
+    if counter.launches != n:
+        raise AssertionError(f"{label}: {counter.__name__} launched "
+                             f"{counter.launches - n} times before refusing")
+
+
+def lm_batch(cfg, gen, B, T, device="cuda"):
+    """Random tokens with their next tokens as targets."""
+    toks = torch.randint(0, cfg.vocab, (B, T + 1), generator=gen,
+                         device=device)
+    return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+
+def train_loss_check(flash, device="cuda"):
+    """(a) ``loss_fn`` at Qwen3-0.6B's full size under no_grad, 8 chunks,
+    with and without a mask zeroing a quarter of the positions, against
+    the unchunked f32 cross entropy over ``forward``'s logits; one flash
+    launch a layer in each pass."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params, loss_fn
+    cfg = get_config(LOSS_ARCH)
+    B, S = LOSS_B, LOSS_S
+    chunks = math.gcd(S, cfg.loss_chunks)
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    params = init_params(cfg, gen, device=device)
+    batch = lm_batch(cfg, gen, B, S, device)
+    keep = torch.rand((B, S), generator=gen, device=device).argsort(-1)
+    mask = keep >= S // 4                    # a quarter of each row zeroed
+    n_attn = sum(1 for mixer, _ in cfg.layer_kinds() if mixer == "attn")
+    print(f"phase 11 (a): loss_fn {LOSS_ARCH} ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}), B {B}, S {S}, "
+          f"{chunks} chunks, against an unchunked f32 cross entropy")
+    launches = {}
+    with torch.no_grad():
+        got = {}
+        for name, b in (("unmasked", batch),
+                        ("masked", {**batch, "loss_mask": mask})):
+            n0 = flash.launches
+            loss, metrics = loss_fn(cfg, params, b)
+            launches[name] = flash.launches - n0
+            got[name] = (loss, metrics)
+        n0 = flash.launches
+        logits, _, _ = forward(cfg, params, batch)
+        launches["forward"] = flash.launches - n0
+        tgt = batch["targets"][..., None]
+        nll = (torch.logsumexp(logits.float(), -1)
+               - logits.float().gather(-1, tgt)[..., 0])
+        del logits
+        want = {"unmasked": nll.mean(),
+                "masked": (nll * mask).sum() / mask.sum()}
+    for name, (loss, metrics) in got.items():
+        rel = float((loss - want[name]).abs() / want[name].abs())
+        print(f"  {name}: loss {float(loss)!r} (nll {float(metrics['nll'])!r},"
+              f" aux {float(metrics['aux'])!r}), unchunked "
+              f"{float(want[name])!r}, rel {rel!r}")
+        if not (torch.isfinite(loss) and rel <= 1e-5):
+            raise AssertionError(f"phase 11 (a) {name}: the chunked loss "
+                                 f"departs from the unchunked one by {rel}")
+    print(f"  flash launches: {launches} (one a layer, {n_attn})")
+    if any(n != n_attn for n in launches.values()):
+        raise AssertionError(f"phase 11 (a): flash launches {launches}, "
+                             f"expected {n_attn} a pass")
+    return cfg, params, batch, sum(launches.values())
+
+
+def train_step_check(counters, device="cuda"):
+    """(b) the guard, (c) the full-width RWKV6-7B train step and (d) AdamW
+    against the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import (_stack_micro, make_grad_step,
+                                          make_train_step)
+    from repro_torch.models import init_params
+    from repro_torch.optim import OptConfig, adamw_init, adamw_update
+    from repro_torch.utils import tree_map
+    flash, wkv = counters
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS,
+                                         grad_accum=TRAIN_ACCUM)
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    params = init_params(cfg, gen, device=device)
+    n_params = sum(t.numel() for t in _leaves(params))
+    B, T = TRAIN_B, TRAIN_T
+    chunk = math.gcd(T, max(256, T // 128))
+    print(f"phase 11 (c): {TRAIN_ARCH} at full width ({TRAIN_LAYERS} of "
+          f"{get_config(TRAIN_ARCH).n_layers} layers: depth cut; d "
+          f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}), "
+          f"{n_params} parameters; B {B}, T {T} (WKV chunk {chunk}: T <= "
+          f"chunk, the plain recurrence), grad_accum {cfg.grad_accum}, "
+          f"remat {cfg.remat}")
+    if T > chunk:
+        raise AssertionError("phase 11 (c): the train step would reach wkv6")
+
+    print("phase 11 (b): the prefill kernels refuse a CUDA backward")
+    long = lm_batch(cfg, gen, 1, GUARD_T, device)
+    guard_chunk = math.gcd(GUARD_T, max(256, GUARD_T // 128))
+    expect_refusal(f"{TRAIN_ARCH} grad step at T {GUARD_T} (chunk "
+                   f"{guard_chunk})", wkv, make_grad_step(cfg), params, long)
+    batch = lm_batch(cfg, gen, B, T, device)
+    micro = _stack_micro(batch, cfg.grad_accum)
+    mbs = [{k: v[i] for k, v in micro.items()}
+           for i in range(cfg.grad_accum)]
+    counts0 = (flash.launches, wkv.launches)
+
+    # remat: the loss bit for bit, the gradients within one bf16 ULP of
+    # each leaf's largest |g| (each gradient is rounded to the parameters'
+    # bf16 once; recomputation reruns the same kernels on the same inputs)
+    grads = {}
+    for remat in ("none", "dots", "full"):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        g, loss, _ = make_grad_step(cfg.replace(remat=remat))(params, mbs[0])
+        torch.cuda.synchronize()
+        grads[remat] = (g, loss)
+        print(f"  grad step remat={remat}: loss {float(loss)!r}, "
+              f"{time.perf_counter() - t0!r} s, peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9!r} GB")
+    for remat in ("dots", "full"):
+        g, loss = grads[remat]
+        if not bitwise(loss, grads["none"][1]):
+            raise AssertionError(f"phase 11 (c): remat={remat} changes the "
+                                 "loss")
+        worst = max(_ulps_of_scale(a, b) for a, b in
+                    _pairs(g, grads["none"][0]))
+        same = sum(bitwise(a, b) for a, b in _pairs(g, grads["none"][0]))
+        print(f"  remat={remat} vs none: loss bit for bit, {same} of "
+              f"{len(list(_leaves(g)))} gradient leaves bit for bit, worst "
+              f"{worst!r} bf16 ULPs of a leaf's largest |g|")
+        if not worst <= 1.0:
+            raise AssertionError(f"phase 11 (c): remat={remat} gradients "
+                                 f"depart by {worst} bf16 ULPs")
+    del grads
+
+    # the accumulated gradient: one f32-tier train step against AdamW on
+    # the mean of the two microbatches' grad steps
+    oc = OptConfig(schedule="const", warmup_steps=1, state_dtype="f32")
+    gstep = make_grad_step(cfg)
+    outs = [gstep(params, mb) for mb in mbs]
+    two = torch.full((), 2.0, device=device)
+    it = iter([(torch.zeros(a.shape, device=device) + a.float() + b.float())
+               / two for a, b in _pairs(outs[0][0], outs[1][0])])
+    mean = tree_map(lambda _: next(it), params)
+    mean_loss = (outs[0][1] + outs[1][1]) / two
+    del outs
+    state0 = adamw_init(params, oc)
+    _, s_a, m_a = make_train_step(cfg, oc)(params, state0, batch)
+    m_step = _moments(s_a["mu"])
+    del s_a
+    _, s_b, m_b = adamw_update(params, mean, state0, oc)
+    m_mean = _moments(s_b["mu"])
+    del s_b, state0
+    worst = max(_ulps_of_scale(a, b) for a, b in zip(m_step, m_mean))
+    same = sum(bitwise(a, b) for a, b in zip(m_step, m_mean))
+    print(f"  accumulated gradient (first moment after one step) against "
+          f"the microbatches' mean: {same} of {len(m_step)} leaves bit for "
+          f"bit, worst {worst!r} f32 ULPs of a leaf's largest; loss "
+          f"{float(m_a['loss'])!r} / {float(mean_loss)!r}, grad norm "
+          f"{float(m_a['grad_norm'])!r} / {float(m_b['grad_norm'])!r}")
+    if not (worst <= 4.0 and _ulps_of_scale(m_a["loss"], mean_loss) <= 4.0):
+        raise AssertionError("phase 11 (c): the accumulated gradient is not "
+                             "the microbatches' mean")
+    del m_step, m_mean
+
+    # 8 steps of each state tier on the one batch
+    steps = {}
+    for tier in ("f32", "bf16", "int8"):
+        oc = OptConfig(schedule="const", warmup_steps=1, state_dtype=tier)
+        step = make_train_step(cfg, oc)
+        torch.cuda.reset_peak_memory_stats()
+        p, s = params, adamw_init(params, oc)
+        losses, walls = [], []
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, s, m = step(p, s, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        step_ms = statistics.median(walls[1:]) * 1e3
+        steps[tier] = dict(losses=losses, step_ms=step_ms, peak_gb=peak,
+                           tok_s=B * T / step_ms * 1e3)
+        print(f"  tier {tier}: losses {losses}; step_ms={step_ms!r} "
+              f"(median of steps 2-{TRAIN_STEPS}; first "
+              f"{walls[0] * 1e3!r}) tokens_s={steps[tier]['tok_s']!r} "
+              f"peak_gb={peak!r}")
+        if not (all(math.isfinite(x) for x in losses)
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"phase 11 (c) {tier}: losses {losses}")
+        del p, s
+    # where a step's time goes: one f32-tier step under the profiler
+    from torch.profiler import ProfilerActivity, profile
+    oc = OptConfig(schedule="const", warmup_steps=1, state_dtype="f32")
+    state, step = adamw_init(params, oc), make_train_step(cfg, oc)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    del state
+    idle, busy = report_idle(prof, wall, "one f32-tier train step", rows=8)
+    idle_warm = None
+    if busy is not None:
+        idle_warm = 1.0 - busy / (steps["f32"]["step_ms"] / 1e3)
+        print(f"  device busy over the unprofiled f32 step "
+              f"({steps['f32']['step_ms']!r} ms): idle_share={idle_warm!r}")
+    if (flash.launches, wkv.launches) != counts0:
+        raise AssertionError("phase 11 (c): a kernel launched in the train "
+                             "step")
+    print("  flash_attention and wkv6 launch counters unchanged")
+    adamw_against_cpu(cfg, params, mean)
+    return dict(params=n_params, steps=steps, idle=idle, idle_warm=idle_warm)
+
+
+def adamw_against_cpu(cfg, params, grads):
+    """(d) one ``adamw_update`` of each tier on the card and on the CPU
+    from (c)'s first parameters and accumulated gradient, copied to numpy
+    in JAX's layout (``convert.lm_params_to_numpy``) and back onto the
+    CPU, restricted to layer 0 (a quarter of the parameters: the CPU
+    update of all of them would take minutes).  Its leaves include ``u``
+    (64 wide) and the token-shift LoRA (160 wide), whose last axes are not
+    multiples of the int8 block of 256."""
+    from repro_torch import convert
+    from repro_torch.optim import OptConfig, adamw_init, adamw_update
+    sub_p = {"layers": [params["layers"][0]]}
+    sub_g = {"layers": [grads["layers"][0]]}
+    cpu_p, cpu_g = (
+        {"layers": [convert.lm_params_from_numpy(
+            cfg, convert.lm_params_to_numpy(cfg, t),
+            device="cpu")["layers"][0]]} for t in (params, grads))
+    ragged = sorted({t.shape[-1] for t in _leaves(sub_p)
+                     if t.shape[-1] % 256})
+    print(f"phase 11 (d): adamw_update on the card and on the CPU, "
+          f"{sum(t.numel() for t in _leaves(sub_p))} parameters (layer 0; "
+          f"last axes {ragged} not multiples of 256)")
+    if not all(bitwise(a.cpu(), b) for a, b in _pairs((sub_p, sub_g),
+                                                      (cpu_p, cpu_g))):
+        raise AssertionError("phase 11 (d): the numpy copies changed a bit")
+    for tier in ("f32", "bf16", "int8"):
+        oc = OptConfig(schedule="const", warmup_steps=1, state_dtype=tier)
+        p1, s1, m1 = adamw_update(sub_p, sub_g, adamw_init(sub_p, oc), oc)
+        p2, s2, m2 = adamw_update(cpu_p, cpu_g, adamw_init(cpu_p, oc), oc)
+        worst, q_diff, q_ties = 0.0, 0, 0
+        for a, b in _pairs((p1, s1["mu"]), (p2, s2["mu"])):
+            a = a.cpu()
+            if a.dtype == torch.int8:
+                d = (a.int() - b.int()).abs()
+                q_diff = max(q_diff, int(d.max()))
+                q_ties += int((d > 0).sum())
+            else:
+                worst = max(worst, _ulps_of_scale(a, b))
+        print(f"  tier {tier}: worst {worst!r} ULPs (of each leaf's dtype) "
+              f"of a leaf's largest |value|; grad norm card "
+              f"{float(m1['grad_norm'])!r} cpu {float(m2['grad_norm'])!r}; "
+              f"lr {float(m1['lr'])!r} / {float(m2['lr'])!r}"
+              + (f"; int8 q: {q_ties} values differ, by at most {q_diff}"
+                 if tier == "int8" else ""))
+        # the norm's sum order differs, so the clip factor can differ by
+        # an ULP or two, and every update with it
+        if not (worst <= 8.0 and q_diff <= 1):
+            raise AssertionError(f"phase 11 (d) {tier}: the card's AdamW "
+                                 "departs from the CPU's")
+        del p1, s1, p2, s2
+
+
+def phase_train(counters):
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.rwkv6.kernel import wkv6
+    for fn in counters:
+        fn.launches = 0
+    cfg, params, batch, flash_n = train_loss_check(flash_attention)
+    print("phase 11 (b): the prefill kernels refuse a CUDA backward")
+    from repro_torch.launch.steps import make_grad_step
+    expect_refusal(f"{LOSS_ARCH} grad step", flash_attention,
+                   make_grad_step(cfg), params, batch)
+    del params
+    torch.cuda.empty_cache()
+    out = train_step_check((flash_attention, wkv6))
+    out["flash_launches"] = flash_n
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs on an "
@@ -3781,6 +4157,9 @@ def main() -> int:
     plan = timed("phase 8", phase_plan, counters)
     daemon = timed("phase 9", phase_daemon, counters)
     fleet = timed("phase 10", phase_fleet, counters)
+    train = timed("phase 11", phase_train, counters)
+    flash["phase 11 (a)"] = train["flash_launches"]
+    counts["flash_attention"] += train["flash_launches"]
     by_path["flash_attention"] = flash
     for name, session in (("fused_iter_sweep", "fused"),
                           ("rm_sweep_batched", "sweep")):
@@ -3808,6 +4187,14 @@ def main() -> int:
           f"{fleet['iters']}, epoch_batch walls {fleet['walls']}, stream "
           f"{fleet['stream']}, sweep epoch_batch idle_share="
           f"{fleet['idle']!r} busy_s={fleet['busy']!r}")
+    for tier, res in train["steps"].items():
+        print(f"  train {TRAIN_ARCH} ({TRAIN_LAYERS} layers, "
+              f"{train['params']} parameters), tier {tier}: "
+              f"step_ms={res['step_ms']!r} tokens_s={res['tok_s']!r} "
+              f"peak_gb={res['peak_gb']!r} loss {res['losses'][0]!r} -> "
+              f"{res['losses'][-1]!r}")
+    print(f"  train f32 step idle_share={train['idle']!r} (profiled), "
+          f"{train['idle_warm']!r} (against the unprofiled steps)")
     print(f"total: {time.perf_counter() - t_start:.2f} s")
 
     for row in rows.values():

@@ -6,3 +6,5 @@ on the card (``device="cuda"``) unless the caller passes ``device="cpu"``;
 solvers run where their tensors lie.  The CUDA kernels live in ``csrc/``
 and are built by ``nvcc`` at first use (``kernels/_build.py``).
 """
+
+__version__ = "1.0.0"

@@ -6,7 +6,10 @@ model: the tests turn a JAX ``Scenario`` / ``ScenarioBatch`` /
 counterpart from them with these functions, so that both packages solve the
 same instance.  Stream events cross as plain records of Python scalars
 (``event_from_record``).  ``lm_params_from_numpy`` does the same for the
-language models' weights.
+language models' weights, and ``lm_params_to_numpy`` turns the port's
+parameters, or a gradient tree of their shape, back into JAX's layout;
+``opt_state_from_numpy`` / ``opt_state_to_numpy`` do both for AdamW's
+state.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ from repro_torch.utils import to_np as to_numpy  # the other direction
 
 __all__ = ["scenario_from_numpy", "batch_from_numpy", "warm_start_from_numpy",
            "window_state_from_numpy", "event_from_record",
-           "lm_params_from_numpy", "to_numpy"]
+           "lm_params_from_numpy", "lm_params_to_numpy",
+           "opt_state_from_numpy", "opt_state_to_numpy", "to_numpy"]
 
 
 def _tensor(x, dev, dtype):
@@ -114,6 +118,93 @@ def event_from_record(record: dict) -> StreamEvent:
     return _EVENTS[kind](**fields)
 
 
+def _converter(dev, dtype):
+    """``conv(sub, index=None)``: a numpy subtree as tensors on ``dev``,
+    indexed at ``index`` along its leading axis when that is not None."""
+    def conv(sub, index=None):
+        if isinstance(sub, dict):
+            return {k: conv(v, index) for k, v in sub.items()}
+        return _tensor(sub if index is None else np.asarray(sub)[index], dev,
+                       dtype)
+    return conv
+
+
+def _first_array(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return np.asarray(tree)
+
+
+def _from_jax_layout(cfg, tree: dict, conv):
+    """The port's layer lists from JAX's stacked layout, each subtree
+    converted by ``conv`` (:func:`_converter`).  A leaf may be a dict
+    (AdamW's per-parameter state)."""
+    def unstack(blocks, block_len):
+        n_blocks = len(_first_array(blocks["l0"]))
+        return [conv(blocks[f"l{p}"], i) for i in range(n_blocks)
+                for p in range(block_len)]
+
+    out = {k: conv(tree[k]) for k in ("embed", "pos_embed", "final_norm",
+                                      "enc_final_norm", "unembed_w")
+           if k in tree}
+    if cfg.is_encdec:
+        out["enc_layers"] = unstack(tree["enc_blocks"], 1)
+        out["layers"] = unstack(tree["dec_blocks"], 1)
+    else:
+        out["layers"] = [conv(layer) for layer in tree.get("head_layers", [])]
+        out["layers"] += unstack(tree["blocks"], cfg.block_len)
+    if len(out["layers"]) != cfg.n_layers:
+        raise ValueError(f"{len(out['layers'])} layers in the tree, "
+                         f"{cfg.n_layers} in {cfg.name}")
+    return out
+
+
+def _to_jax_layout(cfg, tree: dict, leaf):
+    """Inverse of :func:`_from_jax_layout`: ``leaf`` turns each tensor into
+    a numpy array, and each block's layers are stacked along a new leading
+    axis (``head_layers`` stay a list)."""
+    def conv(sub):
+        if isinstance(sub, dict):
+            return {k: conv(v) for k, v in sub.items()}
+        return leaf(sub)
+
+    def stack(layer_list):
+        if isinstance(layer_list[0], dict):
+            return {k: stack([x[k] for x in layer_list])
+                    for k in layer_list[0]}
+        return np.stack(layer_list)
+
+    def blocks(layer_list, block_len):
+        return {f"l{p}": stack([conv(x) for x in layer_list[p::block_len]])
+                for p in range(block_len)}
+
+    if len(tree["layers"]) != cfg.n_layers:
+        raise ValueError(f"{len(tree['layers'])} layers in the tree, "
+                         f"{cfg.n_layers} in {cfg.name}")
+    out = {k: conv(tree[k]) for k in ("embed", "pos_embed", "final_norm",
+                                      "enc_final_norm", "unembed_w")
+           if k in tree}
+    if cfg.is_encdec:
+        out["enc_blocks"] = blocks(tree["enc_layers"], 1)
+        out["dec_blocks"] = blocks(tree["layers"], 1)
+    else:
+        first = cfg.moe.first_k_dense if cfg.moe else 0
+        if first:
+            out["head_layers"] = [conv(x) for x in tree["layers"][:first]]
+        out["blocks"] = blocks(tree["layers"][first:], cfg.block_len)
+    return out
+
+
+def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array; bfloat16 as ml_dtypes' ``bfloat16``, the
+    type JAX's bfloat16 arrays convert to (numpy has none), bit for bit."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
 def lm_params_from_numpy(cfg, tree: dict, *, device="cuda", dtype=None):
     """The port's model parameters from a JAX ``init_params`` pytree given
     as nested dicts of numpy arrays.
@@ -129,30 +220,36 @@ def lm_params_from_numpy(cfg, tree: dict, *, device="cuda", dtype=None):
     ``dtype`` when given; left as None, a bf16 tree keeps its f32 leaves
     (Mamba's ``A_log``, ``D``, ``dt_bias``) in f32.
     """
+    return _from_jax_layout(cfg, tree,
+                            _converter(resolve_device(device), dtype))
+
+
+def lm_params_to_numpy(cfg, params: dict) -> dict:
+    """JAX's ``init_params`` layout, as nested dicts of numpy arrays, of the
+    port's parameters or of any tree of their shape (a gradient): the
+    inverse of :func:`lm_params_from_numpy`.  ``layers`` is restacked into
+    ``head_layers`` plus ``blocks`` (``l0`` ... ``l{block_len-1}``), or
+    ``enc_blocks`` / ``dec_blocks``; bfloat16 leaves come out as ml_dtypes'
+    ``bfloat16``."""
+    return _to_jax_layout(cfg, params, _leaf_to_numpy)
+
+
+def opt_state_from_numpy(cfg, tree: dict, *, device="cuda") -> dict:
+    """The port's AdamW state (``repro_torch.optim.adamw_init``'s layout)
+    from JAX's ``adamw_init`` state as nested dicts of numpy arrays.
+
+    ``tree["mu"]`` has the parameters' layout with a dict a leaf (``m``,
+    ``v`` and ``master``, or int8 ``m`` / ``v`` of ``q`` and ``scale``);
+    it is unstacked as :func:`lm_params_from_numpy` unstacks parameters,
+    every dtype kept.  ``step`` becomes an int32 scalar tensor."""
     dev = resolve_device(device)
+    return {"mu": _from_jax_layout(cfg, tree["mu"], _converter(dev, None)),
+            "step": _tensor(np.asarray(tree["step"], dtype=np.int32), dev,
+                            None)}
 
-    def conv(sub, index=None):
-        if isinstance(sub, dict):
-            return {k: conv(v, index) for k, v in sub.items()}
-        return _tensor(sub if index is None else np.asarray(sub)[index], dev,
-                       dtype)
 
-    def unstack(blocks, block_len):
-        n_blocks = len(np.asarray(blocks["l0"]["norm1"]["gamma"]))
-        return [conv(blocks[f"l{p}"], i) for i in range(n_blocks)
-                for p in range(block_len)]
-
-    params = {k: conv(tree[k]) for k in ("embed", "pos_embed", "final_norm",
-                                         "enc_final_norm", "unembed_w")
-              if k in tree}
-    if cfg.is_encdec:
-        params["enc_layers"] = unstack(tree["enc_blocks"], 1)
-        params["layers"] = unstack(tree["dec_blocks"], 1)
-    else:
-        params["layers"] = [conv(layer)
-                            for layer in tree.get("head_layers", [])]
-        params["layers"] += unstack(tree["blocks"], cfg.block_len)
-    if len(params["layers"]) != cfg.n_layers:
-        raise ValueError(f"{len(params['layers'])} layers in the tree, "
-                         f"{cfg.n_layers} in {cfg.name}")
-    return params
+def opt_state_to_numpy(cfg, state: dict) -> dict:
+    """JAX's ``adamw_init`` layout of the port's AdamW state: the inverse of
+    :func:`opt_state_from_numpy`."""
+    return {"mu": _to_jax_layout(cfg, state["mu"], _leaf_to_numpy),
+            "step": _leaf_to_numpy(state["step"])}

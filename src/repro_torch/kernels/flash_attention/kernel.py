@@ -2,12 +2,15 @@
 (``csrc/flash_attention.cu``).
 
 Counterpart of ``repro.kernels.flash_attention.kernel``.  Given CPU tensors
-it returns the plain version (``ref.reference``, the dense oracle); given
-CUDA tensors it launches the kernel on PyTorch's current stream or raises,
-and counts the launch in ``flash_attention.launches``.  The TPU kernel's
-``block_q`` / ``block_k`` tiling has no counterpart here: the CUDA kernel
-uses its own tiles and masks ragged edges itself, so it takes any Sq and
-Skv.  It takes bfloat16 or float32 with head width 32, 64 or 128, reads
+it returns the plain version (``ref.reference``, the dense oracle), whose
+autograd works; given CUDA tensors it launches the kernel on PyTorch's
+current stream or raises, and counts the launch in
+``flash_attention.launches``.  The kernel has no backward yet (ROADMAP
+Queue 1 item 23): under grad, an operand that requires grad is refused
+before anything is built or launched (``_build.refuse_grad``).  The TPU
+kernel's ``block_q`` / ``block_k`` tiling has no counterpart here: the CUDA
+kernel uses its own tiles and masks ragged edges itself, so it takes any
+Sq and Skv.  It takes bfloat16 or float32 with head width 32, 64 or 128, reads
 q / k / v through their strides (the last axis contiguous) and writes a
 contiguous output in q's dtype.  bfloat16 at head width 64 or 128 runs the
 tensor-core kernel, which reads q / k / v by TMA and so also needs what
@@ -48,6 +51,7 @@ def flash_attention(q, k, v, *, causal=True):
         return ref.reference(q, k, v, causal=causal)
     what = "flash_attention"
     args = (q, k, v)
+    _build.refuse_grad(what, *args)
     if not all(t.is_cuda and t.device == q.device for t in args):
         raise ValueError(f"{what}: operands must all be CPU tensors (plain "
                          "version) or all on one CUDA device (kernel), got "

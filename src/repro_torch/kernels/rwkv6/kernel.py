@@ -1,8 +1,11 @@
 """Wrapper of the hand-written CUDA chunked WKV6 (``csrc/wkv6.cu``).
 
 Counterpart of ``repro.kernels.rwkv6.kernel``.  Given CPU tensors it
-returns the plain chunked version (``ref.chunked_reference``); given CUDA
-tensors it launches the kernel on PyTorch's current stream or raises.
+returns the plain chunked version (``ref.chunked_reference``), whose
+autograd works; given CUDA tensors it launches the kernel on PyTorch's
+current stream or raises.  The kernel has no backward yet (ROADMAP Queue 1
+item 23): under grad, an operand that requires grad is refused before
+anything is built or launched (``_build.refuse_grad``).
 Beyond the TPU kernel it takes an optional initial state ``S0`` (zeros by
 default, the TPU kernel's function), so that every chunked ``time_mix``
 runs through it, a carried state included.  The kernel takes float32
@@ -110,6 +113,7 @@ def wkv6(r, k, v, w_log, u, *, chunk=64, S0=None):
         if S0 is None:
             S0 = torch.zeros((B, H, K, V), dtype=torch.float32)
         return ref.chunked_reference(r, k, v, w_log, u, S0, chunk=chunk)
+    _build.refuse_grad("wkv6", r, k, v, w_log, u, S0)
     _check(r, k, v, w_log, u, S0)
     y, S, lib, launch = _launcher(r, k, v, w_log, u, S0, chunk)
     _build.check(lib, launch(), "wkv6")
@@ -125,6 +129,7 @@ def pass_launchers(r, k, v, w_log, u, *, chunk, S0=None) -> dict:
     chunk-parallel route alone on this call's buffers, to time it (it counts
     no launch; the prefix pass rewrites its scratch in place, so only the
     first full call's values mean anything)."""
+    _build.refuse_grad("wkv6", r, k, v, w_log, u, S0)
     _check(r, k, v, w_log, u, S0)
     if route(r, k, v, w_log, chunk) != "chunk-parallel":
         raise ValueError("wkv6: the per-head route has one kernel")

@@ -1,1 +1,2 @@
-"""Command-line entry points of the port."""
+"""Command-line entry points of the port, and the step builders of its
+training and serving paths (``steps``)."""

@@ -15,15 +15,42 @@ import torch.nn.functional as F
 F32 = torch.float32
 
 
+class _F32Product(torch.autograd.Function):
+    """``torch.mm`` / ``torch.bmm`` of 16-bit card operands with an f32
+    result (``out_dtype=torch.float32``), made differentiable: torch has no
+    derivative for those overloads.  The cotangent stays f32: dA = dY . B^T
+    and dB = A^T . dY are f32 products of it and the other operand cast to
+    f32, returned in the operands' dtypes.  That is JAX's transpose of a
+    dot with an f32 ``preferred_element_type``, and what autograd gives the
+    CPU branch's f32 casts."""
+
+    @staticmethod
+    def forward(ctx, a, b, op):
+        ctx.save_for_backward(a, b)
+        ctx.op = op
+        return op(a, b, out_dtype=F32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = ctx.op(g, b.to(F32).transpose(-2, -1)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = ctx.op(a.to(F32).transpose(-2, -1), g).to(b.dtype)
+        return da, db, None
+
+
 def dot(x, w):
     """``x @ w`` with an f32 result, as JAX's ``dot`` asks the matrix unit
     for one (``preferred_element_type``); mixed operand dtypes promote
     first, as ``jnp.matmul`` does.
 
     For 16-bit floats the product is never rounded to 16 bits: on the card
-    ``torch.mm(..., out_dtype=torch.float32)`` sums in f32 and writes f32;
-    on the CPU, which lacks that overload, both operands are cast to f32
-    first, which is what JAX's CPU backend computes.  ``w`` is 2-D.
+    ``torch.mm(..., out_dtype=torch.float32)`` sums in f32 and writes f32
+    (differentiable through ``_F32Product``); on the CPU, which lacks that
+    overload, both operands are cast to f32 first, which is what JAX's CPU
+    backend computes.  ``w`` is 2-D.
     """
     dt = torch.promote_types(x.dtype, w.dtype)
     x, w = x.to(dt), w.to(dt)
@@ -31,7 +58,7 @@ def dot(x, w):
         return torch.matmul(x, w).to(F32)
     if x.device.type == "cpu":
         return torch.matmul(x.to(F32), w.to(F32))
-    out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=F32)
+    out = _F32Product.apply(x.reshape(-1, x.shape[-1]), w, torch.mm)
     return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
@@ -39,15 +66,15 @@ def bmm(x, w):
     """Batched ``x @ w`` with an f32 result, as :func:`dot`: (n, a, b) .
     (n, b, c) -> (n, a, c), JAX's ``einsum(..., preferred_element_type=
     float32)`` over a leading batch axis.  On the card 16-bit operands go
-    through ``torch.bmm(..., out_dtype=torch.float32)``; on the CPU both are
-    cast to f32 first."""
+    through ``torch.bmm(..., out_dtype=torch.float32)`` (differentiable
+    through ``_F32Product``); on the CPU both are cast to f32 first."""
     dt = torch.promote_types(x.dtype, w.dtype)
     x, w = x.to(dt), w.to(dt)
     if dt not in (torch.bfloat16, torch.float16):
         return torch.bmm(x, w).to(F32)
     if x.device.type == "cpu":
         return torch.bmm(x.to(F32), w.to(F32))
-    return torch.bmm(x, w, out_dtype=F32)
+    return _F32Product.apply(x, w, torch.bmm)
 
 
 # --------------------------------------------------------------------------

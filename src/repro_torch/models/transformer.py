@@ -16,16 +16,29 @@ form; caches follow the same flat order.  There is no ``Distribution``:
 tensor parallelism, sequence sharding and expert parallelism wait for
 ``models/sharding.py`` (ROADMAP Queue 1 item 20).
 
-``loss_fn`` and activation rematerialisation belong to the training path
-(ROADMAP Queue 1 item 19); the port runs inference only, where
-``cfg.remat`` changes nothing.
+Training: ``loss_fn`` is JAX's token-chunked cross entropy, each chunk
+recomputed in the backward (``torch.utils.checkpoint``).  ``cfg.remat``
+wraps what JAX's ``_remat_wrap`` wraps: each block of ``cfg.block_len``
+layers after the MoE head layers, and each encoder and decoder layer of
+the encoder-decoder (``none``: no wrapper; ``full``: nothing saved inside;
+``dots``: the matrix products' outputs saved, the rest recomputed).  It
+changes memory, not values, and does nothing under ``torch.no_grad()``.
+JAX's ``_grad_transparent_barrier`` between loss chunks only orders XLA's
+schedule and has an identity gradient; eager PyTorch runs the chunks in
+program order, so it has no counterpart.  On the card a backward through
+the prefill kernels (``flash_attention``, and ``wkv6`` where ``T >
+chunk``) raises until they have backward passes (ROADMAP Queue 1 item 23).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
@@ -237,6 +250,47 @@ def _apply_layer(cfg, p, h, kinds, ctx, cache=None):
 
 
 # ==========================================================================
+# activation rematerialisation
+# ==========================================================================
+
+# The matrix products that ``remat="dots"`` saves (JAX's ``checkpoint_dots``
+# saves every dot): ``layers.dot`` / ``bmm`` on the card (the ``out_dtype``
+# overloads) and the CPU's f32 products and einsums, matched by packet so
+# that every overload counts.
+_PRODUCTS = frozenset({torch.ops.aten.mm, torch.ops.aten.bmm,
+                       torch.ops.aten.addmm, torch.ops.aten.baddbmm})
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    if getattr(op, "overloadpacket", None) in _PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(fn, context_fn=noop_context_fn):
+    """``fn`` recomputed in the backward (``torch.utils.checkpoint``, non
+    reentrant) when autograd records, called as it is otherwise."""
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=context_fn)
+    return run
+
+
+def _remat_wrap(cfg, fn):
+    """JAX's ``_remat_wrap``: ``none`` keeps ``fn``; ``dots`` saves the
+    matrix products' outputs and recomputes the rest; anything else
+    (``full``) saves nothing inside ``fn``."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        return _checkpointed(fn, functools.partial(
+            create_selective_checkpoint_contexts, _save_products))
+    return _checkpointed(fn)
+
+
+# ==========================================================================
 # forward / prefill / decode
 # ==========================================================================
 
@@ -262,22 +316,43 @@ def backbone(cfg: ModelConfig, params, batch, *, loops: str = "scan",
     ``cfg.mrope_sections``, optionally ``mrope_positions`` (3, B, S); for
     the encoder-decoder, ``tokens`` and ``enc_embeds`` (B, T_enc, d): each
     decoder layer cross-attends to the encoded frames, and its cache also
-    holds their K/V."""
+    holds their K/V.  Under grad each block runs through ``_remat_wrap``."""
     enc = (encode(cfg, params, batch["enc_embeds"], loops=loops)
            if cfg.is_encdec else None)
     h = _embed_in(cfg, params, batch)
     ctx = {"loops": loops, "collect": collect, "causal": True,
            "positions": torch.arange(h.shape[1], device=h.device)[None, :],
            "mrope_positions": batch.get("mrope_positions")}
+    kinds = cfg.layer_kinds()
+
+    def run(h, aux, lo, hi):
+        caches = []
+        for i in range(lo, hi):
+            p = params["layers"][i]
+            lctx = ctx if enc is None else {
+                **ctx, "cross_kv": _cross_kv(cfg, p["cross"], enc)}
+            h, a, c = _apply_layer(cfg, p, h, kinds[i], lctx)
+            if a is not None:
+                aux = aux + a
+            caches.append(c)
+        return h, aux, caches
+
+    # the MoE head layers run alone and unwrapped, as JAX keeps them out
+    # of its scan; then JAX's scan bodies of cfg.block_len layers (one a
+    # body for the encoder-decoder's decoder), each through _remat_wrap; a
+    # depth cut inside a block (Jamba served at 5 layers) ends with a
+    # shorter one, where JAX would refuse the depth
+    first = cfg.moe.first_k_dense if cfg.moe else 0
+    bl = 1 if cfg.is_encdec else cfg.block_len
+    n = cfg.n_layers
+    block = _remat_wrap(cfg, run)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     caches = []
-    for p, kinds in zip(params["layers"], cfg.layer_kinds()):
-        if enc is not None:
-            ctx["cross_kv"] = _cross_kv(cfg, p["cross"], enc)
-        h, a, c = _apply_layer(cfg, p, h, kinds, ctx)
-        if a is not None:
-            aux = aux + a
-        caches.append(c)
+    for lo, hi, fn in ([(i, i + 1, run) for i in range(first)]
+                       + [(lo, min(lo + bl, n), block)
+                          for lo in range(first, n, bl)]):
+        h, aux, c = fn(h, aux, lo, hi)
+        caches += c
     h = layers.apply_norm(cfg, params["final_norm"], h)
     return h, aux, ({"layers": caches} if collect else None)
 
@@ -285,12 +360,18 @@ def backbone(cfg: ModelConfig, params, batch, *, loops: str = "scan",
 def encode(cfg, params, enc_embeds, *, loops: str = "scan"):
     """The encoder: non-causal self-attention layers over the (B, T, d)
     frame embeddings (the stubbed audio front end's output; no positional
-    embedding is added), then ``enc_final_norm``."""
+    embedding is added), then ``enc_final_norm``.  Under grad each layer
+    runs through ``_remat_wrap``."""
     h = enc_embeds.to(cfg.adtype)
     ctx = {"loops": loops, "collect": False, "causal": False,
            "positions": torch.arange(h.shape[1], device=h.device)[None, :]}
+
+    def run(h, p):
+        return _apply_layer(cfg, p, h, ("attn", "dense"), ctx)[0]
+
+    layer = _remat_wrap(cfg, run)
     for p in params["enc_layers"]:
-        h, _, _ = _apply_layer(cfg, p, h, ("attn", "dense"), ctx)
+        h = layer(h, p)
     return layers.apply_norm(cfg, params["enc_final_norm"], h)
 
 
@@ -310,11 +391,58 @@ def forward(cfg: ModelConfig, params, batch, *, loops: str = "scan",
     return _unembed(cfg, params, h), aux, caches
 
 
-def loss_fn(cfg, params, batch, *, loops: str = "scan", aux_coef=0.01):
-    raise NotImplementedError("loss_fn and the training path are not ported "
-                              "to repro_torch yet (ROADMAP.md Queue 1 item "
-                              "19)")
+# ==========================================================================
+# loss
+# ==========================================================================
 
+def _nll_chunk(cfg, params, h_chunk, tgt_chunk):
+    """Per-token negative log-likelihood (B, S_c) of one chunk, in f32."""
+    logits = _unembed(cfg, params, h_chunk).to(torch.float32)
+    m = torch.amax(logits, dim=-1, keepdim=True)
+    lse = m[..., 0] + torch.log(torch.sum(torch.exp(logits - m), dim=-1))
+    # JAX picks the target logit by an iota mask and a sum (a
+    # vocab-sharding-friendly gather); a gather picks the same value
+    tgt = torch.gather(logits, -1, tgt_chunk[..., None].long())[..., 0]
+    return lse - tgt
+
+
+def loss_fn(cfg, params, batch, *, loops: str = "scan",
+            aux_coef: float = 0.01):
+    """Token-chunked cross entropy: the (tokens, vocab) logits matrix is
+    never formed in full.  ``gcd(S, cfg.loss_chunks)`` chunks run in a
+    Python loop, each recomputed in the backward, so no f32 logits block is
+    kept for it.  ``batch["targets"]`` (B, S) are the next tokens; an
+    optional ``batch["loss_mask"]`` (B, S) weights them (bool or float; the
+    mean is over its sum, at least 1).  Returns ``(loss + aux_coef * aux,
+    {"nll": loss, "aux": aux})``, ``aux`` being the MoE load-balance
+    loss."""
+    h, aux, _ = backbone(cfg, params, batch, loops=loops)
+    B, S, d = h.shape
+    tg = batch["targets"]
+    mask = batch.get("loss_mask")
+    n_chunks = math.gcd(S, max(1, cfg.loss_chunks))
+    csz = S // n_chunks
+    chunk_fn = _checkpointed(
+        lambda hc, tc: _nll_chunk(cfg, params, hc, tc))
+    nll_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    den = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n_chunks):
+        sl = slice(i * csz, (i + 1) * csz)
+        nll = chunk_fn(h[:, sl], tg[:, sl])
+        if mask is not None:
+            mc = mask[:, sl]
+            nll_sum = nll_sum + torch.sum(nll * mc)
+            den = den + torch.sum(mc)
+        else:
+            nll_sum = nll_sum + torch.sum(nll)
+            den = den + nll.numel()
+    loss = nll_sum / torch.clamp(den, min=1.0)
+    return loss + aux_coef * aux, {"nll": loss, "aux": aux}
+
+
+# ==========================================================================
+# caches: init / prefill / decode
+# ==========================================================================
 
 def _layer_cache_init(cfg, kinds, B, max_len, dtype, dev):
     mixer_kind, ffn_kind = kinds

@@ -225,15 +225,23 @@ def test_init_params_and_cache_match_jax_structure(arch):
 
 
 def test_families_not_ported_raise():
-    """Every family is ported: each reduced configuration builds, with one
-    layer a ``layer_kinds()`` entry; only the training path still raises."""
+    """Every family is ported, the training loss included: each reduced
+    configuration builds, with one layer a ``layer_kinds()`` entry, and
+    ``loss_fn`` gives a finite f32 loss for it (nothing raises any more;
+    ``test_torch_loss.py`` holds the loss and its gradients to JAX's)."""
     for arch in ARCH_IDS:
         cfg = t_reduced(arch)
         params = tt.init_params(cfg, 0, device="cpu")
         assert len(params["layers"]) == cfg.n_layers
         assert len(params.get("enc_layers", [])) == cfg.encoder_layers
-    with pytest.raises(NotImplementedError, match="item 19"):
-        tt.loss_fn(t_reduced("qwen3-0.6b"), {}, {})
+        toks = torch.tensor(tokens(6, 2, 16, cfg.vocab))
+        batch = {"tokens": toks, "targets": toks.roll(-1, 1)}
+        if cfg.is_encdec:
+            batch["enc_embeds"] = torch.zeros((2, 12, cfg.d_model))
+        with torch.no_grad():
+            loss, metrics = tt.loss_fn(cfg, params, batch)
+        assert loss.dtype == torch.float32 and bool(torch.isfinite(loss))
+        assert set(metrics) == {"nll", "aux"}
 
 
 def test_bf16_weights_cross_unchanged():
