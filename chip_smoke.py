@@ -135,18 +135,35 @@ at once), then runs these phases, each of which raises on failure:
    loss of Qwen3-0.6B at full width and depth (bf16, 4 x 1,024 tokens, 8
    chunks) under no_grad, with and without a mask of a quarter of the
    positions, within 1e-5 of an unchunked f32 cross entropy over
-   ``forward``'s logits, one flash launch a layer in each pass; (b) a grad
-   step through flash attention (Qwen3-0.6B) and through ``wkv6`` (RWKV6-7B
-   at T = 1,024, chunk 256) refused, naming ROADMAP item 23, before a
-   launch; (c) RWKV6-7B at full width and 2 layers (B 2, T 256: the plain
-   recurrence), ``make_train_step`` with 2 microbatches: remat none / dots
-   / full with the loss bit for bit and the gradients within one bf16 ULP,
-   the accumulated gradient against the microbatches' mean, 8 steps of
-   each state tier (f32, bf16, int8) on one batch with a falling loss and
-   no kernel launch, step ms, tokens/s and peak memory printed; (d) one
-   AdamW update of each tier on the card against the CPU's (layer 0);
+   ``forward``'s logits, one flash launch a layer in each pass; (b) the
+   backward kernels against their plain versions: flash's dq, dk, dv at
+   every serving prefill shape (bf16), the Qwen3 shape in f32 and a ragged
+   head-width-32 shape in both dtypes, against autograd of
+   ``ref.reference`` and against ``ref.backward`` fed the kernel's own
+   logsumexp (itself held to ``ref.forward_lse``); ``wkv6``'s six
+   gradients against autograd of ``wkv_chunked`` at the RWKV6-7B prefill
+   and train shapes (chunk 256), the per-head route's chunk 16 at T =
+   1,040 and 4 at T = 300, from a state, with a final-state cotangent and
+   at decays that saturate the clips; each backward twice bit for bit, one
+   backward launch a call, and its ms, bound, autograd's of the plain
+   version and (flash) autograd's of SDPA; (c) RWKV6-7B at full width and
+   2 layers (B 2, T 256: the plain recurrence), ``make_train_step`` with 2
+   microbatches: remat none / dots / full with the loss bit for bit and
+   the gradients within one bf16 ULP, the accumulated gradient against the
+   microbatches' mean, 8 steps of each state tier (f32, bf16, int8) on one
+   batch with a falling loss and no kernel launch, step ms, tokens/s and
+   peak memory printed; (d) one AdamW update of each tier on the card
+   against the CPU's (layer 0); (e) train steps through both directions
+   of the kernels (2 microbatches, remat full, the f32 tier, 4 steps on
+   one batch): Qwen3-0.6B at full width and depth (B 4 x T 1,024) and
+   RWKV6-7B at full width and 2 layers (B 2 x T 1,024, chunk 256), each
+   with exact forward and backward launch counts, a falling loss, remat
+   none and full bit for bit on one microbatch, step ms, tokens/s, peak
+   memory and one step's idle share; and the reduced f32 configurations
+   of both (head widths 32 and 16) at B 2 x T 512, a grad step on the
+   card within 1e-4 of each leaf's largest |g| of the CPU's;
 12. the ``kernels`` line, whose launch counts add phases 2, 5 (per model),
-   6-10 and 11 (a).
+   6-10 and 11 (a) and (e) (the backward kernels: phase 11 (e)).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the repository's ``src/`` beside it, the script fails before
@@ -291,13 +308,32 @@ FLEET_COMPACT, FLEET_STREAM_N_MAX = 0.6, 1024
 # f32-tier state (bf16 weights, f32 gradients and accumulator, f32 m, v
 # and master) and the functional update's second copy fit the card (its
 # 32 layers, 7.6 B parameters, would not): at T = 256 the model's chunk
-# rule gives 256, so every WKV is the plain recurrence and the step
-# reaches no kernel until the kernels have backward passes (ROADMAP item
-# 23); (b) at T = 1,024 (chunk 256 < T) a grad step reaches wkv6 and must
-# be refused
+# rule gives 256, so every WKV is the plain recurrence and no kernel runs
 LOSS_ARCH, LOSS_B, LOSS_S = "qwen3-0.6b", 4, 1024
 TRAIN_ARCH, TRAIN_LAYERS, TRAIN_B, TRAIN_T = "rwkv6-7b", 2, 2, 256
-TRAIN_ACCUM, TRAIN_STEPS, GUARD_T = 2, 8, 1024
+TRAIN_ACCUM, TRAIN_STEPS = 2, 8
+# (b) the backward kernels: flash at every serving prefill shape (bf16, as
+# the models run) and the Qwen3 shape in f32, and a ragged shape at head
+# width 32 in both dtypes; wkv6 (B, T, H, K, chunk, decay shift, S0, a
+# cotangent on the final state): the RWKV6-7B prefill and train shapes at
+# chunk 256 (the chunk-parallel forward), the per-head route's chunk 16 at
+# T = 1,040, and decays that saturate the clips (shift 2.0)
+FLASH_BWD_RAGGED = (1, 1000, 4, 2, 32)
+WKV_BWD_CASES = ((4, 1024, 64, 64, 256, -0.6, False, False),
+                 (2, 1024, 64, 64, 256, -0.6, True, True),
+                 (2, 1040, 64, 64, 16, -0.6, False, True),
+                 (2, 512, 8, 64, 256, 2.0, True, True),
+                 (2, 300, 4, 64, 4, 2.0, True, True))
+WKV_BWD_MAIN = (2, 1024, 64, 64, 256)
+# (e) train steps through both directions of the kernels, 2 microbatches,
+# remat full, the f32 state tier, on one batch: Qwen3-0.6B at full width
+# and depth, B 4 x T 1,024; RWKV6-7B at full width and TRAIN_LAYERS layers
+# (the cut of (c)), B 2 x T 1,024 (chunk 256 < T: the chunk-parallel
+# forward and the backward kernels); then the two reduced configurations
+# (f32) at B 2 x T 512, a grad step on the card against the CPU's
+KERNEL_TRAIN = (("qwen3-0.6b", None, 4, 1024), ("rwkv6-7b", TRAIN_LAYERS, 2,
+                                                1024))
+KERNEL_TRAIN_STEPS, REDUCED_B, REDUCED_T = 4, 2, 512
 
 
 def card_line() -> str:
@@ -3790,25 +3826,6 @@ def _ulps_of_scale(got, want):
     return err / (max(scale, torch.finfo(want.dtype).tiny) * eps)
 
 
-def expect_refusal(label, counter, fn, *args):
-    """``fn(*args)`` must raise the kernels' missing-backward error naming
-    ROADMAP item 23 before the kernel's counter moves."""
-    n = counter.launches
-    try:
-        fn(*args)
-    except NotImplementedError as e:
-        if "item 23" not in str(e):
-            raise AssertionError(f"{label}: refused without naming item 23: "
-                                 f"{e}") from e
-        print(f"  {label}: refused ({e})")
-    else:
-        raise AssertionError(f"{label}: a CUDA backward through "
-                             f"{counter.__name__} was not refused")
-    if counter.launches != n:
-        raise AssertionError(f"{label}: {counter.__name__} launched "
-                             f"{counter.launches - n} times before refusing")
-
-
 def lm_batch(cfg, gen, B, T, device="cuda"):
     """Random tokens with their next tokens as targets."""
     toks = torch.randint(0, cfg.vocab, (B, T + 1), generator=gen,
@@ -3869,15 +3886,14 @@ def train_loss_check(flash, device="cuda"):
 
 
 def train_step_check(counters, device="cuda"):
-    """(b) the guard, (c) the full-width RWKV6-7B train step and (d) AdamW
-    against the CPU."""
+    """(c) the full-width RWKV6-7B train step at T 256, where no kernel
+    runs, and (d) AdamW against the CPU."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import (_stack_micro, make_grad_step,
                                           make_train_step)
     from repro_torch.models import init_params
     from repro_torch.optim import OptConfig, adamw_init, adamw_update
     from repro_torch.utils import tree_map
-    flash, wkv = counters
     cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS,
                                          grad_accum=TRAIN_ACCUM)
     gen = torch.Generator(device=device).manual_seed(SEED + 12)
@@ -3893,17 +3909,11 @@ def train_step_check(counters, device="cuda"):
           f"remat {cfg.remat}")
     if T > chunk:
         raise AssertionError("phase 11 (c): the train step would reach wkv6")
-
-    print("phase 11 (b): the prefill kernels refuse a CUDA backward")
-    long = lm_batch(cfg, gen, 1, GUARD_T, device)
-    guard_chunk = math.gcd(GUARD_T, max(256, GUARD_T // 128))
-    expect_refusal(f"{TRAIN_ARCH} grad step at T {GUARD_T} (chunk "
-                   f"{guard_chunk})", wkv, make_grad_step(cfg), params, long)
     batch = lm_batch(cfg, gen, B, T, device)
     micro = _stack_micro(batch, cfg.grad_accum)
     mbs = [{k: v[i] for k, v in micro.items()}
            for i in range(cfg.grad_accum)]
-    counts0 = (flash.launches, wkv.launches)
+    counts0 = [fn.launches for fn in counters]
 
     # remat: the loss bit for bit, the gradients within one bf16 ULP of
     # each leaf's largest |g| (each gradient is rounded to the parameters'
@@ -4009,10 +4019,11 @@ def train_step_check(counters, device="cuda"):
         idle_warm = 1.0 - busy / (steps["f32"]["step_ms"] / 1e3)
         print(f"  device busy over the unprofiled f32 step "
               f"({steps['f32']['step_ms']!r} ms): idle_share={idle_warm!r}")
-    if (flash.launches, wkv.launches) != counts0:
+    if [fn.launches for fn in counters] != counts0:
         raise AssertionError("phase 11 (c): a kernel launched in the train "
                              "step")
-    print("  flash_attention and wkv6 launch counters unchanged")
+    print("  the model kernels' launch counters unchanged, forward and "
+          "backward")
     adamw_against_cpu(cfg, params, mean)
     return dict(params=n_params, steps=steps, idle=idle, idle_warm=idle_warm)
 
@@ -4068,21 +4079,394 @@ def adamw_against_cpu(cfg, params, grads):
         del p1, s1, p2, s2
 
 
+def grad_ms(out, inputs, cot, reps):
+    """Mean ms of one backward through a recorded graph (kept)."""
+    return cuda_ms(lambda: torch.autograd.grad(out, inputs, cot,
+                                               retain_graph=True), reps)
+
+
+def flash_bwd_check(gen):
+    """(b) flash: the backward kernels' dq, dk, dv against autograd of
+    ``ref.reference`` and against ``ref.backward`` fed the kernel's own
+    output and logsumexp; the logsumexp against ``ref.forward_lse``; two
+    calls bit for bit; one backward launch a call; at each shape the
+    kernels' ms, the plain version's (autograd) and SDPA's backward (the
+    row's own numbers are the Qwen3-0.6B shape's, in bf16)."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fr
+    print("phase 11 (b): flash_attention's backward kernels against the "
+          "plain versions")
+    cases = [(shape, causal, torch.bfloat16) for _, shape, causal
+             in FLASH_MODELS] + [(FLASH_MAIN, True, torch.float32)] + [
+        (FLASH_BWD_RAGGED, c, dt) for c in (True, False)
+        for dt in (torch.float32, torch.bfloat16)]
+    errs, timed = [], {}
+    for shape, causal, dtype in cases:
+        B, S, Hq, Hkv, hd = shape
+        q, k, v = flash_inputs(gen, *shape, dtype)
+        do = torch.randn((B, S, Hq, hd), generator=gen,
+                         device="cuda").to(dtype)
+        label = f"flash bwd {shape} {str(dtype)[6:]} causal={causal}"
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        n_fwd, n_bwd = fk.flash_attention.launches, \
+            fk.flash_attention_bwd.launches
+        o = fk.flash_attention(*leaves, causal=causal)
+        got = torch.autograd.grad(o, leaves, do)
+        if (fk.flash_attention.launches - n_fwd,
+                fk.flash_attention_bwd.launches - n_bwd) != (1, 1):
+            raise AssertionError(f"{label}: forward / backward launches "
+                                 "did not move by one each")
+        again = torch.autograd.grad(fk.flash_attention(*leaves,
+                                                       causal=causal),
+                                    leaves, do)
+        if not all(bitwise(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{label}: two backward calls differ")
+        lse = torch.empty((B, Hq, S), device="cuda")
+        o_k = fk._forward(q, k, v, causal, lse)
+        o_p, lse_p = fr.forward_lse(q, k, v, causal=causal)
+        check_close(lse, lse_p, 1e-5 * float(lse_p.abs().max()), 0.0,
+                    label + " lse")
+        # the same formula in the same dtype, D from the same rounded o:
+        # f32 sums in another order, then one rounding to the dtype
+        own = fr.backward(q, k, v, o_k, lse, do.contiguous(), causal=causal)
+        rt = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-4
+        for name, a, b in zip(("dq", "dk", "dv"), got, own):
+            check_close(a, b, 1e-5 * float(b.float().abs().max()), rt,
+                        f"{label} {name} vs ref.backward")
+        # autograd of the dense oracle: in bf16 it forms D from the f32
+        # output, where the kernel takes the bf16 one (about 2^-8 of dq's
+        # and dk's scale), and rounds each gradient to bf16 once
+        plain_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out_p = fr.reference(*plain_leaves, causal=causal)
+        want = torch.autograd.grad(out_p, plain_leaves, do,
+                                   retain_graph=True)
+        at = 2.0 ** -5 if dtype == torch.bfloat16 else 1e-4
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            errs.append(check_close(a, b, at * float(b.float().abs().max()),
+                                    0.0, f"{label} {name} vs autograd"))
+        # the backward kernels, autograd of the plain version and of SDPA
+        # (a yardstick, never on the path)
+        t_k = cuda_ms(lambda: fk.flash_attention_bwd(
+            q, k, v, o_k, lse, do.contiguous(), causal=causal), 10)
+        t_p = grad_ms(out_p, plain_leaves, do, 3)
+        lib_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out_l = sdpa(*lib_leaves, causal)
+        t_l = grad_ms(out_l, lib_leaves, do, 10)
+        pairs = S * (S + 1) // 2 if causal else S * S
+        ops = 5 * 2 * hd * B * Hq * pairs
+        moved = nbytes(q, k, v, o_k, do, lse) + nbytes(*got)
+        # bf16: the bf16 tensor-core rate; f32: each product as three TF32
+        # products, as the f32 bounds of phase 1c count them
+        rate = (BF16_OPS_PER_S if dtype == torch.bfloat16
+                else TF32_OPS_PER_S / 3)
+        b_ms, b_by = bound(moved, ops, rate)
+        f32_ms = ops / FP32_OPS_PER_S * 1e3
+        print(f"  flash_attention_bwd {shape} {str(dtype)[6:]} causal="
+              f"{causal}: ms={t_k!r} plain_ms={t_p!r} (autograd) library_ms="
+              f"{t_l!r} (autograd of SDPA) bound_ms={b_ms!r} ({b_by}, 5 "
+              f"products) f32_cuda_core_floor_ms={f32_ms!r}")
+        timed[f"{shape} {str(dtype)[6:]} causal={causal}"] = dict(
+            ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bound_by=b_by)
+    # the row's own numbers are the first serving shape's, the Qwen3 prefill
+    main = timed[f"{FLASH_MODELS[0][1]} bfloat16 causal=True"]
+    return dict(name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                replaces="src/repro/kernels/flash_attention/kernel.py:71",
+                backward_of="flash_attention", max_abs_err=max(errs),
+                **main, cases=timed)
+
+
+def wkv_bwd_ops(B, T, H, K, L):
+    """Operations of the backward at chunk L: per chunk, five strictly
+    lower intra-chunk products (A, dA, dQ, dKf, A^T dy) and five of the
+    chunk's rows with the state (dR, dK2, K2 dS', R^T dy and the forward
+    sweep's K2^T v), 2 per multiply-add, and about 30 per (row, channel)
+    for the exponentials and the elementwise terms."""
+    pairs = L * (L - 1) // 2
+    per_chunk = 2 * (5 * pairs * K + 5 * L * K * K) + 30 * L * K
+    return B * H * (T // L) * per_chunk
+
+
+def wkv_bwd_check(gen):
+    """(b) wkv6: the six gradients against autograd of ``wkv_chunked``;
+    two calls bit for bit; one backward launch a call; at each shape the
+    kernels' ms and autograd's of the plain version (the row's own numbers
+    are the train shape's)."""
+    from repro_torch.kernels.rwkv6 import kernel as wk
+    from repro_torch.kernels.rwkv6.ref import chunked_reference
+    print("phase 11 (b): wkv6's backward kernels against autograd of the "
+          "chunked form")
+    errs, timed = [], {}
+    for B, T, H, K, L, shift, with_state, final in WKV_BWD_CASES:
+        r, k, v, w, u, S0 = wkv_inputs(gen, B, T, H, K, shift, True)
+        if not with_state:
+            S0 = torch.zeros_like(S0)
+        dy = torch.randn_like(v)
+        dS = torch.randn_like(S0) if final else None
+        label = (f"wkv6 bwd B={B} T={T} H={H} K={K} chunk={L} shift={shift}"
+                 f"{' S0' if with_state else ''}"
+                 f"{' dS' if final else ''} route="
+                 f"{wk.route(r, k, v, w, L)}")
+
+        def run():
+            leaves = [t.clone().requires_grad_(True)
+                      for t in (r, k, v, w, u, S0)]
+            y, S = wk.wkv6(*leaves[:5], chunk=L, S0=leaves[5])
+            outs, cots = ((y, S), (dy, dS)) if final else ((y,), (dy,))
+            return torch.autograd.grad(outs, leaves, cots)
+        n = (wk.wkv6.launches, wk.wkv6_bwd.launches)
+        got = run()
+        if (wk.wkv6.launches - n[0], wk.wkv6_bwd.launches - n[1]) != (1, 1):
+            raise AssertionError(f"{label}: forward / backward launches "
+                                 "did not move by one each")
+        if not all(bitwise(a, b) for a, b in zip(got, run())):
+            raise AssertionError(f"{label}: two backward calls differ")
+        leaves = [t.clone().requires_grad_(True) for t in (r, k, v, w, u, S0)]
+        y_p, S_p = chunked_reference(*leaves, chunk=L)
+        outs, cots = ((y_p, S_p), (dy, dS)) if final else ((y_p,), (dy,))
+        want = torch.autograd.grad(outs, leaves, cots, retain_graph=True)
+        # the same f32 formulas summed in another order: within 1e-4 of
+        # each gradient's largest magnitude, as phase 1c holds y and S
+        for name, a, b in zip(("dr", "dk", "dv", "dw", "du", "dS0"), got,
+                              want):
+            errs.append(check_close(a, b, 1e-4 * float(b.abs().max()), 0.0,
+                                    f"{label} {name}"))
+        t_k = cuda_ms(lambda: wk.wkv6_bwd(r, k, v, w, u, S0, dy, dS,
+                                          chunk=L), 10)
+        t_p = grad_ms(outs, leaves, cots, 3)
+        n_c = T // L
+        # read r, k, v, w, dy (and u, S0, dS) once, write dr, dk, dv, dw
+        # (and du, dS0); the state scratch written and read once
+        moved = (nbytes(*(t for t in (r, k, v, w, u, S0, dy, dS)
+                          if t is not None)) + nbytes(*got)
+                 + 2 * B * H * n_c * K * K * 4)
+        ops = wkv_bwd_ops(B, T, H, K, L)
+        elem = 30 * B * T * H * K
+        t_ops = (3 * (ops - elem) / TF32_OPS_PER_S
+                 + elem / FP32_OPS_PER_S) * 1e3
+        b_ms, b_by = max((moved / HBM_BYTES_PER_S * 1e3, "bytes"),
+                         (t_ops, "operations"))
+        f32_ms, _ = bound(moved, ops, FP32_OPS_PER_S)
+        print(f"  wkv6_bwd {(B, T, H, K)} chunk {L}: ms={t_k!r} "
+              f"plain_ms={t_p!r} (autograd) bound_ms={b_ms!r} ({b_by}; "
+              f"products as split TF32) f32_rate_bound_ms={f32_ms!r}")
+        timed[label] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms,
+                            bound_by=b_by)
+        if (B, T, H, K, L) == WKV_BWD_MAIN:
+            main = timed[label]
+    return dict(name="wkv6_bwd", route="cuda",
+                source="src/repro_torch/csrc/wkv6_bwd.cu",
+                replaces="src/repro/kernels/rwkv6/kernel.py:73",
+                backward_of="wkv6", max_abs_err=max(errs), library_ms=None,
+                **main, cases=timed)
+
+
+def _grads_bitwise(label, a, b):
+    """Loss and every gradient leaf bit for bit."""
+    (ga, la), (gb, lb) = a, b
+    same = sum(bitwise(x, y) for x, y in _pairs(ga, gb))
+    total = len(list(_leaves(ga)))
+    print(f"  {label}: loss {'bit for bit' if bitwise(la, lb) else 'DIFFERS'}"
+          f", {same} of {total} gradient leaves bit for bit")
+    if not (bitwise(la, lb) and same == total):
+        raise AssertionError(f"phase 11 (e) {label}: not bit for bit")
+
+
+def kernel_train(arch, layers, B, T, kernels):
+    """(e) one model's train steps through both directions of the
+    kernels: exact forward and backward launch counts, a falling loss over
+    KERNEL_TRAIN_STEPS steps on one batch, remat none against full bit for
+    bit on one microbatch; step ms, tokens/s, peak GB, one step's idle
+    share."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import (_stack_micro, make_grad_step,
+                                          make_train_step)
+    from repro_torch.models import init_params
+    from repro_torch.optim import OptConfig, adamw_init
+    fwd, bwd = kernels
+    full = get_config(arch)
+    cfg = full.replace(grad_accum=TRAIN_ACCUM, remat="full",
+                       **({} if layers is None else {"n_layers": layers}))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    params = init_params(cfg, gen, device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    batch = lm_batch(cfg, gen, B, T)
+    M = cfg.grad_accum
+    if cfg.rwkv:
+        chunk = math.gcd(T, max(256, T // 128))
+        per = cfg.n_layers
+        how = (f"{per} wkv6 layers, chunk {chunk} < T: per microbatch "
+               f"{per} forwards + {per} recomputed (remat full) and {per} "
+               "backwards")
+    else:
+        per = sum(1 for mixer, _ in cfg.layer_kinds() if mixer == "attn")
+        how = (f"{per} attention layers: per microbatch {per} forwards + "
+               f"{per} recomputed (remat full) and {per} backwards")
+    want = (KERNEL_TRAIN_STEPS * M * 2 * per, KERNEL_TRAIN_STEPS * M * per)
+    depth = "" if layers is None else f" of {full.n_layers}: depth cut"
+    print(f"phase 11 (e): {arch} ({cfg.n_layers} layers{depth}, d "
+          f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}), {n_params} "
+          f"parameters; B {B} x T {T} in {M} microbatches, remat full, f32 "
+          f"state tier; expected launches {KERNEL_TRAIN_STEPS} steps x {M} "
+          f"microbatches x ({how}) = {want[0]} forward, {want[1]} backward")
+    oc = OptConfig(schedule="const", warmup_steps=1, state_dtype="f32")
+    step = make_train_step(cfg, oc)
+    p, st = params, adamw_init(params, oc)
+    n0 = (fwd.launches, bwd.launches)
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for _ in range(KERNEL_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, st, m = step(p, st, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    got = (fwd.launches - n0[0], bwd.launches - n0[1])
+    step_ms = statistics.median(walls[1:]) * 1e3
+    tok_s = B * T / step_ms * 1e3
+    print(f"  losses {losses}; launches {got[0]} forward, {got[1]} backward"
+          f"; step_ms={step_ms!r} (median of steps 2-{KERNEL_TRAIN_STEPS}; "
+          f"first {walls[0] * 1e3!r}) tokens_s={tok_s!r} peak_gb={peak!r}")
+    if got != want:
+        raise AssertionError(f"phase 11 (e) {arch}: launches {got}, "
+                             f"expected {want}")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"phase 11 (e) {arch}: losses {losses}")
+    # one step under the profiler: where its time goes
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(p, st, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    del p, st
+    idle, busy = report_idle(prof, wall, f"one {arch} train step", rows=8)
+    idle_warm = None if busy is None else 1.0 - busy / (step_ms / 1e3)
+    print(f"  device busy over the unprofiled step: idle_share={idle_warm!r}")
+    # remat none against full on one microbatch
+    mb = {k: v[0] for k, v in _stack_micro(batch, M).items()}
+    outs = {}
+    for remat in ("none", "full"):
+        g, loss, _ = make_grad_step(cfg.replace(remat=remat))(params, mb)
+        outs[remat] = (g, loss)
+    _grads_bitwise(f"{arch} remat none vs full", outs["none"], outs["full"])
+    del outs, params
+    torch.cuda.empty_cache()
+    return dict(arch=arch, layers=cfg.n_layers, params=n_params, B=B, T=T,
+                losses=losses, step_ms=step_ms, tok_s=tok_s, peak_gb=peak,
+                idle=idle, idle_warm=idle_warm, launches=got)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The model kernels' wrappers swapped for their plain versions, so
+    that a step on the card runs with no kernel."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ref as fr
+    from repro_torch.kernels.rwkv6 import kernel as wk
+    from repro_torch.kernels.rwkv6 import ref as wr
+
+    def wkv(r, k, v, w, u, *, chunk=64, S0=None):
+        return wr.chunked_reference(r, k, v, w, u, S0, chunk=chunk)
+    saved = fk.flash_attention, wk.wkv6
+    fk.flash_attention, wk.wkv6 = fr.reference, wkv
+    try:
+        yield
+    finally:
+        fk.flash_attention, wk.wkv6 = saved
+
+
+def _worst_leaf(a, b):
+    """(max over leaves of max |a - b| / max |b|, that leaf's index)."""
+    errs = [(float((x.cpu() - y.cpu()).abs().max()
+                   / y.abs().max().clamp_min(1e-30)), i)
+            for i, (x, y) in enumerate(_pairs(a, b))]
+    return max(errs)
+
+
+def reduced_against_cpu(arch):
+    """(e) the reduced f32 configuration: one grad step on the card
+    (through the kernels) against the same step on the CPU (the plain
+    versions) and on the card with the kernels swapped for their plain
+    versions, on the same weights and batch."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.steps import make_grad_step
+    from repro_torch.models import init_params
+    from repro_torch.utils import tree_map
+    cfg = reduced_config(arch)
+    params = init_params(cfg, SEED + 14, device="cpu")
+    gen = torch.Generator().manual_seed(SEED + 14)
+    batch = lm_batch(cfg, gen, REDUCED_B, REDUCED_T, device="cpu")
+    step = make_grad_step(cfg)
+    g_cpu, l_cpu, _ = step(params, batch)
+    on_card = lambda tree: tree_map(lambda t: t.to("cuda"), tree)
+    g_card, l_card, _ = step(on_card(params), on_card(batch))
+    with plain_kernels():
+        g_plain, _, _ = step(on_card(params), on_card(batch))
+    rel = float((l_card.cpu() - l_cpu).abs() / l_cpu.abs())
+    cpu_err, cpu_leaf = _worst_leaf(g_card, g_cpu)
+    floor, floor_leaf = _worst_leaf(g_plain, g_cpu)
+    own, own_leaf = _worst_leaf(g_card, g_plain)
+    print(f"  {arch} reduced ({cfg.n_layers} layers, d {cfg.d_model}, head "
+          f"width {cfg.rwkv_head_dim if cfg.rwkv else cfg.hd}, {cfg.dtype}),"
+          f" B {REDUCED_B} x T {REDUCED_T}: card loss {float(l_card)!r} cpu "
+          f"{float(l_cpu)!r} rel {rel!r}; worst gradient leaf, of its "
+          f"largest |g|: card against the CPU {cpu_err!r} (leaf "
+          f"{cpu_leaf}), the card's plain versions against the CPU "
+          f"{floor!r} (leaf {floor_leaf}), card against its plain versions "
+          f"{own!r} (leaf {own_leaf})")
+    # f32 throughout.  Against the card's own plain step only the kernels'
+    # sums and exponentials differ: within 1e-4 of each leaf's largest |g|,
+    # as the CPU parity tests hold the port to JAX.  Against the CPU, torch's
+    # CUDA and CPU sums differ too, and the RWKV blocks (a group norm over
+    # 16 channels, u's gradient a sum over every token) amplify them: the
+    # plain versions on the card depart from the CPU by up to 1.6e-4 there,
+    # so the card is held within 1e-3 of the CPU
+    if not (rel <= 1e-5 and own <= 1e-4 and cpu_err <= 1e-3):
+        raise AssertionError(f"phase 11 (e) {arch} reduced: the card's grad "
+                             "step departs from the CPU's or from its own "
+                             "plain versions'")
+
+
 def phase_train(counters):
-    from repro_torch.kernels.flash_attention.kernel import flash_attention
-    from repro_torch.kernels.rwkv6.kernel import wkv6
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.rwkv6 import kernel as wk
     for fn in counters:
         fn.launches = 0
-    cfg, params, batch, flash_n = train_loss_check(flash_attention)
-    print("phase 11 (b): the prefill kernels refuse a CUDA backward")
-    from repro_torch.launch.steps import make_grad_step
-    expect_refusal(f"{LOSS_ARCH} grad step", flash_attention,
-                   make_grad_step(cfg), params, batch)
-    del params
+    walls = {}
+    t0 = time.perf_counter()
+    cfg, params, batch, flash_n = train_loss_check(fk.flash_attention)
+    del cfg, params, batch
     torch.cuda.empty_cache()
-    out = train_step_check((flash_attention, wkv6))
-    out["flash_launches"] = flash_n
+    walls["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    bwd_rows = {"flash_attention_bwd": flash_bwd_check(gen),
+                "wkv6_bwd": wkv_bwd_check(gen)}
     torch.cuda.empty_cache()
+    walls["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = train_step_check(counters)
+    torch.cuda.empty_cache()
+    walls["c, d"] = time.perf_counter() - t0
+    # (e): the main path of this phase, every count set to 0 just before
+    t0 = time.perf_counter()
+    for fn in counters:
+        fn.launches = 0
+    kernels = {"qwen3-0.6b": (fk.flash_attention, fk.flash_attention_bwd),
+               "rwkv6-7b": (wk.wkv6, wk.wkv6_bwd)}
+    out["kernel_train"] = [kernel_train(arch, layers, B, T, kernels[arch])
+                           for arch, layers, B, T in KERNEL_TRAIN]
+    e_counts = {fn.__name__: fn.launches for fn in counters}
+    for arch in ("qwen3-0.6b", "rwkv6-7b"):
+        reduced_against_cpu(arch)
+    walls["e"] = time.perf_counter() - t0
+    print(f"  phase 11 walls (s): {walls}")
+    out.update(flash_launches=flash_n, bwd_rows=bwd_rows, e_counts=e_counts)
     return out
 
 
@@ -4109,17 +4493,20 @@ def main() -> int:
     from repro_torch.kernels.gnep_iter.kernel import fused_iter_sweep
     from repro_torch.kernels.gnep_sweep.kernel import (rm_sweep,
                                                        rm_sweep_batched)
-    from repro_torch.kernels.rwkv6.kernel import wkv6
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd
+    from repro_torch.kernels.rwkv6.kernel import wkv6, wkv6_bwd
     t_start = t0 = time.perf_counter()
     logs = _build.build(["gnep_sweep", "gnep_iter", "flash_attention",
-                         "wkv6"])
+                         "flash_attention_bwd", "wkv6", "wkv6_bwd"])
     print(f"build: {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         for ln in log.splitlines():
+            if "entry function" in ln:
+                print(f"  {name}: {ln.strip()}")
             if "registers" in ln or "spill" in ln:
                 print(f"  {name}: {ln.strip()}")
     counters = (fused_iter_sweep, rm_sweep_batched, rm_sweep,
-                flash_attention, wkv6)
+                flash_attention, wkv6, flash_attention_bwd, wkv6_bwd)
 
     def timed(label, fn, *args, **kw):
         t0 = time.perf_counter()
@@ -4160,7 +4547,23 @@ def main() -> int:
     train = timed("phase 11", phase_train, counters)
     flash["phase 11 (a)"] = train["flash_launches"]
     counts["flash_attention"] += train["flash_launches"]
+    # phase 11 (e), the training path's main run, for all four model kernels
+    e_counts = train["e_counts"]
+    flash["phase 11 (e)"] = e_counts["flash_attention"]
+    counts["flash_attention"] += e_counts["flash_attention"]
     by_path["flash_attention"] = flash
+    by_path["wkv6"] = {"phase 5 rwkv6-7b": counts["wkv6"],
+                       "phase 11 (e)": e_counts["wkv6"]}
+    counts["wkv6"] += e_counts["wkv6"]
+    for name, row in train["bwd_rows"].items():
+        rows[name] = row
+        counts[name] = e_counts[name]
+        by_path[name] = {"phase 11 (e)": e_counts[name]}
+    for name in ("flash_attention", "wkv6", "flash_attention_bwd",
+                 "wkv6_bwd"):
+        if e_counts[name] == 0:
+            raise AssertionError(f"phase 11 (e): {name} was not launched on "
+                                 "the training path")
     for name, session in (("fused_iter_sweep", "fused"),
                           ("rm_sweep_batched", "sweep")):
         by_path[name]["phase 6"] = window[session]["launches"]
@@ -4195,6 +4598,15 @@ def main() -> int:
               f"{res['losses'][-1]!r}")
     print(f"  train f32 step idle_share={train['idle']!r} (profiled), "
           f"{train['idle_warm']!r} (against the unprofiled steps)")
+    for res in train["kernel_train"]:
+        print(f"  train through the kernels {res['arch']} ({res['layers']} "
+              f"layers, {res['params']} parameters), B {res['B']} x T "
+              f"{res['T']}, f32 tier: step_ms={res['step_ms']!r} "
+              f"tokens_s={res['tok_s']!r} peak_gb={res['peak_gb']!r} "
+              f"idle_share={res['idle']!r} (profiled), {res['idle_warm']!r} "
+              f"(against the unprofiled steps) loss {res['losses'][0]!r} -> "
+              f"{res['losses'][-1]!r}, launches {res['launches']}")
+    print(f"  phase 11 (e) launches: {e_counts}")
     print(f"total: {time.perf_counter() - t_start:.2f} s")
 
     for row in rows.values():

@@ -7,7 +7,10 @@
 //                                    past the ragged edge, so they weigh 0)
 //   o_i  = sum_j exp(s_ij - m_i) v_j / max(l_i, 1e-30)
 // with the running max m_i and sum l_i of the online softmax kept in f32
-// (l summed from the f32 weights), and writes o in q's dtype.
+// (l summed from the f32 weights), and writes o in q's dtype.  Given an
+// lse pointer, (B, Hq, Sq) f32, both kernels also write each row's
+// logsumexp m_i + log l_i (natural log) for the backward kernels
+// (csrc/flash_attention_bwd.cu); a null pointer writes nothing.
 //
 // What bounds it: operations.  At the Qwen3-0.6B prefill (B 4, S 1024,
 // 16 query heads of 128, 8 kv heads, causal, bf16) the two products are
@@ -111,8 +114,9 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
-                 int Hq, int G, long long qsb, long long qss, long long qsh,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int Sq, int Skv, int Hq, int G,
+                 long long qsb, long long qss, long long qsh,
                  long long ksb, long long kss, long long ksh, long long vsb,
                  long long vss, long long vsh, int causal, float scale) {
   constexpr int LD = HD + 1;
@@ -227,6 +231,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int s = q0 + ty * 4 + i;
     if (s >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * Hq + h) * Sq + s] = m[i] + logf(l[i]);
     T* orow = o + (((long long)b * Sq + s) * Hq + h) * HD;
 #pragma unroll
     for (int cc = 0; cc < CPT; ++cc)
@@ -235,8 +241,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Skv, int Hq, int Hkv, long long qsb, long long qss,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Skv, int Hq, int Hkv, long long qsb,
+           long long qss,
            long long qsh, long long ksb, long long kss, long long ksh,
            long long vsb, long long vss, long long vsh, int causal,
            float scale, cudaStream_t stream) {
@@ -247,7 +254,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, Hq, Hq / Hkv,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Skv, Hq,
+      Hq / Hkv,
       qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, causal, scale);
   return (int)cudaGetLastError();
 }
@@ -268,6 +276,7 @@ constexpr uint32_t kQColBlock = kBM * kRowBytes;   // a 64-column block of Q
 constexpr uint32_t kColBlock = kBN * kRowBytes;    // ... of a K or V tile
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int HD>
 struct Tiles {
@@ -556,8 +565,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
-                __nv_bfloat16* __restrict__ o, int Sq, int Skv, int Hq, int G,
-                int causal, float scale_log2) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                int Sq, int Skv, int Hq, int G, int causal,
+                float scale_log2) {
   constexpr uint32_t TB = Tiles<HD>::kBytes;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -694,6 +704,12 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     mbar_arrive(v_empty + 8 * ls);
 
     const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+    if (lse != nullptr && quad == 0) {
+      // m is in the log2 domain of the scaled scores
+      float* lrow = lse + ((long long)b * Hq + h) * Sq;
+      if (qpos0 < Sq) lrow[qpos0] = (m0 + log2f(l0)) * kLn2;
+      if (qpos1 < Sq) lrow[qpos1] = (m1 + log2f(l1)) * kLn2;
+    }
     __nv_bfloat16* o0 =
         o + (((long long)b * Sq + qpos0) * Hq + h) * HD + 2 * quad;
     __nv_bfloat16* o1 = o0 + 8LL * Hq * HD;
@@ -762,8 +778,9 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int hd, int S, int H,
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Skv, int Hq, int Hkv, long long qsb, long long qss,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Skv, int Hq, int Hkv, long long qsb,
+           long long qss,
            long long qsh, long long ksb, long long kss, long long ksh,
            long long vsb, long long vss, long long vsh, int causal,
            float scale, cudaStream_t stream) {
@@ -778,8 +795,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
                        smem);
   dim3 grid((Sq + kBM - 1) / kBM, Hq, B);
   kern<<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Skv, Hq, Hq / Hkv,
-      causal, scale * kLog2e);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Sq, Skv, Hq,
+      Hq / Hkv, causal, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -788,38 +805,32 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // bf16 at head width 64 or 128 goes to the tensor-core kernel; float32, and
 // bf16 at head width 32, to the CUDA-core one
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int Sq, int Skv, int Hq, int Hkv, int hd, long long qsb,
-             long long qss, long long qsh, long long ksb, long long kss,
-             long long ksh, long long vsb, long long vss, long long vsh,
-             int causal, float scale, cudaStream_t stream) {
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int hd,
+             long long qsb, long long qss, long long qsh, long long ksb,
+             long long kss, long long ksh, long long vsb, long long vss,
+             long long vsh, int causal, float scale, cudaStream_t stream) {
   constexpr bool tensor_cores = std::is_same<T, __nv_bfloat16>::value;
+#define FLASH_ARGS                                                         \
+  q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, qsb, qss, qsh, ksb, kss, ksh, vsb, \
+      vss, vsh, causal, scale, stream
   switch (hd) {
     case 32:
-      return launch<T, 32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qsb, qss, qsh,
-                           ksb, kss, ksh, vsb, vss, vsh, causal, scale,
-                           stream);
+      return launch<T, 32>(FLASH_ARGS);
     case 64:
       if constexpr (tensor_cores)
-        return hopper::launch<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qsb, qss,
-                                  qsh, ksb, kss, ksh, vsb, vss, vsh, causal,
-                                  scale, stream);
+        return hopper::launch<64>(FLASH_ARGS);
       else
-        return launch<T, 64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qsb, qss, qsh,
-                             ksb, kss, ksh, vsb, vss, vsh, causal, scale,
-                             stream);
+        return launch<T, 64>(FLASH_ARGS);
     case 128:
       if constexpr (tensor_cores)
-        return hopper::launch<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qsb, qss,
-                                   qsh, ksb, kss, ksh, vsb, vss, vsh, causal,
-                                   scale, stream);
+        return hopper::launch<128>(FLASH_ARGS);
       else
-        return launch<T, 128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, qsb, qss, qsh,
-                              ksb, kss, ksh, vsb, vss, vsh, causal, scale,
-                              stream);
+        return launch<T, 128>(FLASH_ARGS);
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef FLASH_ARGS
 }
 
 }  // namespace
@@ -827,13 +838,14 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" {
 
 #define FLASH_ENTRY(NAME, T)                                                  \
-  int NAME(const void* q, const void* k, const void* v, void* o, int B,       \
-           int Sq, int Skv, int Hq, int Hkv, int hd, long long qsb,           \
+  int NAME(const void* q, const void* k, const void* v, void* o, float* lse, \
+           int B, int Sq, int Skv, int Hq, int Hkv, int hd, long long qsb,    \
            long long qss, long long qsh, long long ksb, long long kss,        \
            long long ksh, long long vsb, long long vss, long long vsh,        \
            int causal, float scale, cudaStream_t stream) {                    \
-    return dispatch<T>(q, k, v, o, B, Sq, Skv, Hq, Hkv, hd, qsb, qss, qsh,    \
-                       ksb, kss, ksh, vsb, vss, vsh, causal, scale, stream);  \
+    return dispatch<T>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, hd, qsb, qss,    \
+                       qsh, ksb, kss, ksh, vsb, vss, vsh, causal, scale,      \
+                       stream);                                               \
   }
 
 FLASH_ENTRY(flash_attention_f32, float)

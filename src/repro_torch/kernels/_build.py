@@ -120,19 +120,3 @@ def stream_of(t: torch.Tensor) -> int:
     """The raw ``cudaStream_t`` of PyTorch's current stream on ``t``'s card."""
     return torch.cuda.current_stream(t.device).cuda_stream
 
-
-def refuse_grad(what: str, *tensors) -> None:
-    """Raise if autograd would record a launch of ``what`` on these operands.
-
-    The kernels write their outputs through raw pointers, so autograd sees
-    no operation and a backward would leave the operands without the
-    kernel's share of their gradient.  Until the kernels have backward
-    passes, a launch under grad on an operand that requires grad is
-    refused before anything is built or launched.
-    """
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in tensors):
-        raise NotImplementedError(
-            f"{what}: the CUDA kernel has no backward yet (ROADMAP.md Queue 1 "
-            "item 23); run it under torch.no_grad() or "
-            "torch.inference_mode(), or on CPU tensors for the plain version")

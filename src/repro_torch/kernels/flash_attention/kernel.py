@@ -1,21 +1,26 @@
-"""Wrapper of the hand-written CUDA flash attention
-(``csrc/flash_attention.cu``).
+"""Wrappers of the hand-written CUDA flash attention
+(``csrc/flash_attention.cu``, forward; ``csrc/flash_attention_bwd.cu``,
+backward).
 
 Counterpart of ``repro.kernels.flash_attention.kernel``.  Given CPU tensors
-it returns the plain version (``ref.reference``, the dense oracle), whose
-autograd works; given CUDA tensors it launches the kernel on PyTorch's
-current stream or raises, and counts the launch in
-``flash_attention.launches``.  The kernel has no backward yet (ROADMAP
-Queue 1 item 23): under grad, an operand that requires grad is refused
-before anything is built or launched (``_build.refuse_grad``).  The TPU
-kernel's ``block_q`` / ``block_k`` tiling has no counterpart here: the CUDA
-kernel uses its own tiles and masks ragged edges itself, so it takes any
-Sq and Skv.  It takes bfloat16 or float32 with head width 32, 64 or 128, reads
-q / k / v through their strides (the last axis contiguous) and writes a
-contiguous output in q's dtype.  bfloat16 at head width 64 or 128 runs the
-tensor-core kernel, which reads q / k / v by TMA and so also needs what
-``_tma_ok`` checks; float32, and bfloat16 at head width 32, run the
-CUDA-core kernel.
+``flash_attention`` returns the plain version (``ref.reference``, the dense
+oracle), whose autograd works; given CUDA tensors it launches the kernel on
+PyTorch's current stream or raises, and counts the launch in
+``flash_attention.launches``.  Under grad, with an operand that requires
+grad, it runs ``_FlashFunction``: the forward launches the kernel with its
+per-row logsumexp and saves q, k, v, the output and the logsumexp; the
+backward launches the backward kernels (``flash_attention_bwd``, counted in
+``flash_attention_bwd.launches``) on the output's cotangent.  Under
+``no_grad`` / ``inference_mode`` the forward runs alone, with no
+logsumexp.  The TPU kernel's ``block_q`` / ``block_k`` tiling has no
+counterpart here: the CUDA kernels use their own tiles and mask ragged
+edges themselves, so they take any Sq and Skv.  They take bfloat16 or
+float32 with head width 32, 64 or 128, read q / k / v through their
+strides (the last axis contiguous) and write contiguous results in q's
+dtype.  bfloat16 at head width 64 or 128 runs the tensor-core forward,
+which reads q / k / v by TMA and so also needs what ``_tma_ok`` checks;
+float32, and bfloat16 at head width 32, run the CUDA-core forward.  The
+backward runs on the CUDA cores in f32 at every dtype and width.
 """
 from __future__ import annotations
 
@@ -27,8 +32,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {f"flash_attention_{t}": [_P] * 4 + [_I] * 6 + [_L] * 9
+_SIGNATURES = {f"flash_attention_{t}": [_P] * 5 + [_I] * 6 + [_L] * 9
                + [_I, ctypes.c_float, _P] for t in ("f32", "bf16")}
+_BWD_SIGNATURES = {f"flash_attention_bwd_{t}": [_P] * 10 + [_I] * 6
+                   + [_L] * 9 + [_I, ctypes.c_float, _P]
+                   for t in ("f32", "bf16")}
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _HEAD_DIMS = (32, 64, 128)
 _TMA_HEAD_DIMS = (64, 128)
@@ -45,13 +53,9 @@ def _tma_ok(t) -> bool:
         for n, st in zip(t.shape[:3], t.stride()[:3]))
 
 
-def flash_attention(q, k, v, *, causal=True):
-    """q: (B, Sq, Hq, hd); k/v: (B, Skv, Hkv, hd) -> (B, Sq, Hq, hd)."""
-    if q.device.type == "cpu":
-        return ref.reference(q, k, v, causal=causal)
+def _check(q, k, v):
     what = "flash_attention"
     args = (q, k, v)
-    _build.refuse_grad(what, *args)
     if not all(t.is_cuda and t.device == q.device for t in args):
         raise ValueError(f"{what}: operands must all be CPU tensors (plain "
                          "version) or all on one CUDA device (kernel), got "
@@ -76,16 +80,92 @@ def flash_attention(q, k, v, *, causal=True):
             raise ValueError(f"{what}: TMA needs a 16-byte aligned base and "
                              "batch, row and head strides of multiples of 16 "
                              f"bytes, which {', '.join(bad)} lack")
+
+
+def _strides(q, k, v):
+    return [s for t in (q, k, v) for s in t.stride()[:3]]
+
+
+def _forward(q, k, v, causal, lse=None):
+    """Launch the forward kernel; write each row's logsumexp into ``lse``
+    (B, Hq, Sq) f32 where one is given."""
+    B, Sq, Hq, hd = q.shape
+    _, Skv, Hkv, _ = k.shape
     o = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
     lib = _build.load("flash_attention", _SIGNATURES)
-    fn = getattr(lib, f"{what}_{_SUFFIX[q.dtype]}")
-    strides = [s for t in args for s in t.stride()[:3]]
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq,
-             Skv, Hq, Hkv, hd, *strides, int(causal), hd ** -0.5,
-             _build.stream_of(q))
-    _build.check(lib, err, what)
+    fn = getattr(lib, f"flash_attention_{_SUFFIX[q.dtype]}")
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             None if lse is None else lse.data_ptr(), B, Sq, Skv, Hq, Hkv, hd,
+             *_strides(q, k, v), int(causal), hd ** -0.5, _build.stream_of(q))
+    _build.check(lib, err, "flash_attention")
     flash_attention.launches += 1
     return o
 
 
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True):
+    """(dq, dk, dv) in q's dtype from the forward's output ``o``, its
+    logsumexp ``lse`` (B, Hq, Sq) f32 and the output's cotangent ``do``:
+    the backward kernels on CUDA tensors (q / k / v as the forward takes
+    them; o and do contiguous, in q's dtype), counted in
+    ``flash_attention_bwd.launches``."""
+    what = "flash_attention_bwd"
+    _check(q, k, v)
+    B, Sq, Hq, hd = q.shape
+    _, Skv, Hkv, _ = k.shape
+    for name, t, shape, dtype in (("o", o, q.shape, q.dtype),
+                                  ("do", do, q.shape, q.dtype),
+                                  ("lse", lse, (B, Hq, Sq), torch.float32)):
+        if (t.device != q.device or tuple(t.shape) != tuple(shape)
+                or t.dtype != dtype or not t.is_contiguous()):
+            raise ValueError(f"{what}: {name} must be a contiguous {dtype} "
+                             f"tensor of shape {tuple(shape)} on {q.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    dq = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Skv, Hkv, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    dsum = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
+    fn = getattr(lib, f"{what}_{_SUFFIX[q.dtype]}")
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, Hq, Hkv, hd,
+             *_strides(q, k, v), int(causal), hd ** -0.5, _build.stream_of(q))
+    _build.check(lib, err, what)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _FlashFunction(torch.autograd.Function):
+    """The forward kernel with its logsumexp; the backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        B, Sq, Hq, _ = q.shape
+        lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+        o = _forward(q, k, v, causal, lse)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        grads = flash_attention_bwd(q, k, v, o, lse,
+                                    do.to(q.dtype).contiguous(),
+                                    causal=ctx.causal)
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad)), None)
+
+
+def flash_attention(q, k, v, *, causal=True):
+    """q: (B, Sq, Hq, hd); k/v: (B, Skv, Hkv, hd) -> (B, Sq, Hq, hd)."""
+    if q.device.type == "cpu":
+        return ref.reference(q, k, v, causal=causal)
+    _check(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashFunction.apply(q, k, v, causal)
+    return _forward(q, k, v, causal)
+
+
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

@@ -1,21 +1,25 @@
-"""Wrapper of the hand-written CUDA chunked WKV6 (``csrc/wkv6.cu``).
+"""Wrappers of the hand-written CUDA chunked WKV6 (``csrc/wkv6.cu``,
+forward; ``csrc/wkv6_bwd.cu``, backward).
 
-Counterpart of ``repro.kernels.rwkv6.kernel``.  Given CPU tensors it
+Counterpart of ``repro.kernels.rwkv6.kernel``.  Given CPU tensors ``wkv6``
 returns the plain chunked version (``ref.chunked_reference``), whose
 autograd works; given CUDA tensors it launches the kernel on PyTorch's
-current stream or raises.  The kernel has no backward yet (ROADMAP Queue 1
-item 23): under grad, an operand that requires grad is refused before
-anything is built or launched (``_build.refuse_grad``).
+current stream or raises.  Under grad, with an operand that requires grad,
+it runs ``_WKV6Function``: the forward launches the kernel and saves its
+operands; the backward launches the backward kernels (``wkv6_bwd``, counted
+in ``wkv6_bwd.launches``) on the cotangents of y and of the final state,
+and returns dS0 where S0 requires grad.
 Beyond the TPU kernel it takes an optional initial state ``S0`` (zeros by
 default, the TPU kernel's function), so that every chunked ``time_mix``
-runs through it, a carried state included.  The kernel takes float32
+runs through it, a carried state included.  The kernels take float32
 operands with K, V <= 64.
 
-Two routes (``route``): a chunk that is a multiple of 64, with K == V a
-multiple of 4 and 16-byte aligned operands, runs the chunk-parallel
+Two forward routes (``route``): a chunk that is a multiple of 64, with K ==
+V a multiple of 4 and 16-byte aligned operands, runs the chunk-parallel
 kernels on the tensor cores (state, prefix and output passes: three CUDA
 kernels); any other chunk runs the per-head kernel.  ``wkv6.launches``
-counts wrapper calls that launched, one per call whatever the route.
+counts wrapper calls that launched, one per call whatever the route.  The
+backward has one route for every chunk.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from repro_torch.kernels.rwkv6 import ref
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"wkv6_f32": [_P] * 8 + [_I] * 6 + [_P],
                "wkv6_chunked_f32": [_P] * 12 + [_I] * 6 + [_P]}
+_BWD_SIGNATURES = {"wkv6_bwd_f32": [_P] * 15 + [_I] * 6 + [_P]}
 _MAX_KV = 64
 _SUB = 64        # rows of the chunk-parallel route's sub-tile
 PASSES = {"state": 1, "prefix": 2, "output": 4}
@@ -100,6 +105,73 @@ def _launcher(r, k, v, w_log, u, S0, chunk):
     return y, S, lib, launch
 
 
+def _forward(r, k, v, w_log, u, S0, chunk):
+    y, S, lib, launch = _launcher(r, k, v, w_log, u, S0, chunk)
+    _build.check(lib, launch(), "wkv6")
+    wkv6.launches += 1
+    return y, S
+
+
+def wkv6_bwd(r, k, v, w_log, u, S0, dy, dS, *, chunk):
+    """(dr, dk, dv, dw_log, du, dS0) of ``wkv6`` at ``chunk`` for the
+    cotangents ``dy`` of y and ``dS`` of the final state (None: zeros):
+    the backward kernels on CUDA tensors, counted in ``wkv6_bwd.launches``.
+    S0 None is the zero state, and then dS0 is None."""
+    what = "wkv6_bwd"
+    _check(r, k, v, w_log, u, S0)
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    if T % chunk:
+        raise ValueError(f"T={T} must be divisible by chunk={chunk}")
+    for name, t, shape in (("dy", dy, v.shape), ("dS", dS, (B, H, K, V))):
+        if t is not None and (t.device != r.device or t.dtype != torch.float32
+                              or tuple(t.shape) != tuple(shape)
+                              or not t.is_contiguous()):
+            raise ValueError(f"{what}: {name} must be a contiguous float32 "
+                             f"tensor of shape {tuple(shape)} on {r.device}")
+    f32 = dict(dtype=torch.float32, device=r.device)
+    scratch = torch.empty((B, H, T // chunk, K, V), **f32)   # chunk starts
+    dr, dk, dw = (torch.empty_like(r) for _ in range(3))
+    dv = torch.empty_like(v)
+    du = torch.empty((B, H, K), **f32)                       # per (b, h)
+    dS0 = None if S0 is None else torch.empty((B, H, K, V), **f32)
+    lib = _build.load("wkv6_bwd", _BWD_SIGNATURES)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = lib.wkv6_bwd_f32(*(ptr(t) for t in (
+        r, k, v, w_log, u, S0, dy, dS, scratch, dr, dk, dv, dw, du, dS0)),
+        B, T, H, K, V, chunk, _build.stream_of(r))
+    _build.check(lib, err, what)
+    wkv6_bwd.launches += 1
+    # the batches' partials of du, added in order
+    du_sum = du[0]
+    for i in range(1, B):
+        du_sum = du_sum + du[i]
+    return dr, dk, dv, dw, du_sum, dS0
+
+
+class _WKV6Function(torch.autograd.Function):
+    """The forward kernels; the backward kernels."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w_log, u, S0, chunk):
+        y, S = _forward(r, k, v, w_log, u, S0, chunk)
+        ctx.save_for_backward(r, k, v, w_log, u, S0)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, S
+
+    @staticmethod
+    def backward(ctx, dy, dS):
+        r, k, v, w_log, u, S0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(v)
+        grads = wkv6_bwd(r, k, v, w_log, u, S0, dy.contiguous(),
+                         None if dS is None else dS.contiguous(),
+                         chunk=ctx.chunk)
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad)), None)
+
+
 def wkv6(r, k, v, w_log, u, *, chunk=64, S0=None):
     """r/k/w_log: (B,T,H,K); v: (B,T,H,V); u: (H,K); S0: (B,H,K,V) or None.
 
@@ -113,15 +185,16 @@ def wkv6(r, k, v, w_log, u, *, chunk=64, S0=None):
         if S0 is None:
             S0 = torch.zeros((B, H, K, V), dtype=torch.float32)
         return ref.chunked_reference(r, k, v, w_log, u, S0, chunk=chunk)
-    _build.refuse_grad("wkv6", r, k, v, w_log, u, S0)
     _check(r, k, v, w_log, u, S0)
-    y, S, lib, launch = _launcher(r, k, v, w_log, u, S0, chunk)
-    _build.check(lib, launch(), "wkv6")
-    wkv6.launches += 1
-    return y, S
+    args = (r, k, v, w_log, u, S0)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in args):
+        return _WKV6Function.apply(*args, chunk)
+    return _forward(*args, chunk)
 
 
 wkv6.launches = 0
+wkv6_bwd.launches = 0
 
 
 def pass_launchers(r, k, v, w_log, u, *, chunk, S0=None) -> dict:
@@ -129,7 +202,6 @@ def pass_launchers(r, k, v, w_log, u, *, chunk, S0=None) -> dict:
     chunk-parallel route alone on this call's buffers, to time it (it counts
     no launch; the prefix pass rewrites its scratch in place, so only the
     first full call's values mean anything)."""
-    _build.refuse_grad("wkv6", r, k, v, w_log, u, S0)
     _check(r, k, v, w_log, u, S0)
     if route(r, k, v, w_log, chunk) != "chunk-parallel":
         raise ValueError("wkv6: the per-head route has one kernel")

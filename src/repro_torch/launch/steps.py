@@ -6,9 +6,10 @@ gradients summed in f32 and averaged, then one AdamW update.  Steps are
 functional, as in JAX: a grad step never changes the caller's parameters
 (gradients are taken with respect to detached aliases of them), and the
 update returns new parameter and state trees.  Everything runs on the
-device the tensors lie on.  On the card, a backward through the prefill
-kernels (flash attention; ``wkv6`` where ``T > chunk``) raises until they
-have backward passes (ROADMAP Queue 1 item 23).
+device the tensors lie on.  On the card, a step runs through both
+directions of the prefill kernels (flash attention; ``wkv6`` where ``T >
+chunk``): their wrappers are autograd Functions whose backward passes are
+CUDA kernels.
 
 There is no ``Distribution`` argument and no sharding spec or ``jit_*``
 function: PyTorch runs eagerly, and distribution is ROADMAP Queue 1 item

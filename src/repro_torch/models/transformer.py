@@ -25,9 +25,11 @@ the encoder-decoder (``none``: no wrapper; ``full``: nothing saved inside;
 changes memory, not values, and does nothing under ``torch.no_grad()``.
 JAX's ``_grad_transparent_barrier`` between loss chunks only orders XLA's
 schedule and has an identity gradient; eager PyTorch runs the chunks in
-program order, so it has no counterpart.  On the card a backward through
-the prefill kernels (``flash_attention``, and ``wkv6`` where ``T >
-chunk``) raises until they have backward passes (ROADMAP Queue 1 item 23).
+program order, so it has no counterpart.  On the card the prefill kernels
+(``flash_attention``, and ``wkv6`` where ``T > chunk``) run under grad as
+``torch.autograd.Function``s whose backward passes are CUDA kernels too
+(``csrc/flash_attention_bwd.cu``, ``csrc/wkv6_bwd.cu``); remat reruns
+their forward kernels.
 """
 from __future__ import annotations
 

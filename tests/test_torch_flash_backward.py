@@ -1,0 +1,109 @@
+"""Parity of the plain versions of the flash-attention backward kernels
+(``repro_torch.kernels.flash_attention.ref.forward_lse`` and ``backward``)
+with JAX's gradients of ``repro.models.attention``.
+
+The same numpy-seeded q, k, v and output cotangent go to ``jax.vjp`` of the
+JAX oracle ``reference`` and of ``attention(..., loops="scan")`` (the
+chunked online softmax where the shape divides into chunks, the dense
+oracle where it does not), and to the port's ``forward_lse`` + ``backward``,
+which are written out as the CUDA kernels compute them.  Tolerances, each
+relative to the largest magnitude of the leaf: f32 1e-4 (the same f32
+formulas, summed in another order; measured about 1e-6); bf16 3e-2, as the
+forward's bf16 gate in ``test_torch_flash_attention.py``: the backward
+forms D = rowsum(dO o) from the bf16-rounded output, as the kernels do,
+where autograd uses the f32 one, so dQ and dK move by about 2^-8 of
+their scale (measured 4e-3), and each gradient is rounded to bf16 once.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import assert_rel_close
+from repro.models import attention as jattn
+from repro_torch.kernels.flash_attention import ref as tref
+from repro_torch.models import attention as tattn
+
+DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
+# (B, S, Hq, Hkv, hd): GQA groups 1, 2 and 4, head widths 32 / 64 / 128,
+# ragged lengths (70, 100, 130: no multiple of 64) and one that divides
+# into the JAX scan's 32-row chunks (96)
+SHAPES = [(2, 70, 4, 4, 32), (1, 100, 4, 2, 64), (1, 130, 8, 2, 128),
+          (2, 96, 8, 2, 32)]
+CHUNK = 32
+
+
+def inputs(seed, B, S, Hq, Hkv, hd, dtype):
+    """q, k, v and dO for both packages, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((B, S, H, hd)).astype(np.float32)
+            for H in (Hq, Hkv, Hkv, Hq)]
+    jdt, tdt, tol = DTYPES[dtype]
+    return ([jnp.asarray(a, dtype=jdt) for a in arrs],
+            [torch.tensor(a).to(tdt) for a in arrs], tol)
+
+
+def jax_grads(fn, q, k, v, do):
+    out, vjp = jax.vjp(fn, q, k, v)
+    return out, vjp(do)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd", SHAPES)
+def test_plain_backward_matches_jax_vjp(B, S, Hq, Hkv, hd, causal, dtype):
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo), tol = inputs(
+        S * Hq + hd, B, S, Hq, Hkv, hd, dtype)
+    o, lse = tref.forward_lse(tq, tk, tv, causal=causal)
+    assert lse.shape == (B, Hq, S) and lse.dtype == torch.float32
+    grads = tref.backward(tq, tk, tv, o, lse, tdo, causal=causal)
+    assert [g.dtype for g in grads] == [tq.dtype] * 3
+    for label, fn in (
+            ("reference", lambda q, k, v: jattn.reference(
+                q, k, v, causal=causal)),
+            ("scan", lambda q, k, v: jattn.attention(
+                q, k, v, causal=causal, q_chunk=CHUNK, kv_chunk=CHUNK,
+                loops="scan"))):
+        jo, jg = jax_grads(fn, jq, jk, jv, jdo)
+        assert_rel_close(o, jo, tol, f"{label} o")
+        for name, got, want in zip(("dq", "dk", "dv"), grads, jg):
+            assert_rel_close(got, want, tol, f"{label} {name}")
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd", SHAPES)
+def test_forward_lse_matches_jax_logsumexp(B, S, Hq, Hkv, hd, causal):
+    """The logsumexp of each row's scaled, masked f32 scores, as JAX's
+    oracle forms them, within 1e-5 relative (f32; about |lse| <= 10)."""
+    (jq, jk, _, _), (tq, tk, tv, _), _ = inputs(
+        S + Hkv, B, S, Hq, Hkv, hd, "float32")
+    G = Hq // Hkv
+    s = jnp.einsum("bqhgd,bkhd->bhgqk", jq.reshape(B, S, Hkv, G, hd),
+                   jk) * hd ** -0.5
+    if causal:
+        keep = jnp.arange(S)[None, :] <= jnp.arange(S)[:, None]
+        s = jnp.where(keep, s, jattn.NEG_INF)
+    want = jax.nn.logsumexp(s, axis=-1).reshape(B, Hq, S)
+    _, lse = tref.forward_lse(tq, tk, tv, causal=causal)
+    assert_rel_close(lse, want, 1e-5, "lse")
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd", SHAPES[:3])
+def test_plain_backward_matches_torch_autograd(B, S, Hq, Hkv, hd, causal,
+                                               dtype):
+    """Against autograd of the port's own dense ``attention.reference``,
+    at the same tolerances (the forward half too: ``forward_lse`` weighs
+    v by exp(s - lse), the oracle by softmax)."""
+    _, (tq, tk, tv, tdo), tol = inputs(S + hd, B, S, Hq, Hkv, hd, dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    out = tattn.reference(*leaves, causal=causal)
+    want = torch.autograd.grad(out, leaves, tdo)
+    o, lse = tref.forward_lse(tq, tk, tv, causal=causal)
+    assert_rel_close(o, out.detach().float(), tol, "o")
+    grads = tref.backward(tq, tk, tv, o, lse, tdo, causal=causal)
+    for name, got, w in zip(("dq", "dk", "dv"), grads, want):
+        assert_rel_close(got, w.float(), tol, name)

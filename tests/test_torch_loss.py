@@ -1,6 +1,7 @@
 """Parity of the port's training loss (``repro_torch.models.transformer.
 loss_fn``) and its gradients with JAX's ``jax.value_and_grad(loss_fn)``,
-the prefill kernels' gradient guard, and activation rematerialisation.
+the prefill kernels' autograd wrappers off the CPU, and activation
+rematerialisation.
 
 Both packages run the reduced f32 configurations on the same weights and
 numpy-seeded batches (``_torch_lm``).  The loss is held within 1e-5
@@ -22,7 +23,6 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from _torch_lm import MOE_ARCHS, check_loss_and_grads, lm_batch
 from repro_torch.configs import ARCH_IDS
 from repro_torch.configs import reduced_config as t_reduced
-from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import kernel as flash
 from repro_torch.kernels.rwkv6 import kernel as wkv
 from repro_torch.launch.steps import make_grad_step
@@ -213,47 +213,34 @@ def test_remat_is_inert_without_grad():
 
 
 # --------------------------------------------------------------------------
-# the prefill kernels' gradient guard
+# the prefill kernels' autograd wrappers
 # --------------------------------------------------------------------------
-
-def test_refuse_grad():
-    """The guard fires under grad on an operand that requires grad, and not
-    under no_grad / inference_mode or without such an operand."""
-    a = torch.zeros(2, requires_grad=True)
-    b = torch.zeros(2)
-    with pytest.raises(NotImplementedError, match="item 23"):
-        _build.refuse_grad("k", b, a, None)
-    _build.refuse_grad("k", b, None)
-    with torch.no_grad():
-        _build.refuse_grad("k", a)
-    with torch.inference_mode():
-        _build.refuse_grad("k", a)
-
 
 def test_kernel_wrappers_refuse_grad_before_anything():
     """Operands off the CPU (meta tensors stand in for the card's here)
-    that require grad are refused before the device check, the build and
-    the launch, and the launch counters do not move; without grad the same
-    call reaches the device check, which rejects a meta tensor."""
+    that require grad, under grad, reach each wrapper's device check, which
+    rejects a meta tensor before the autograd Function, the build and the
+    launch; no forward or backward counter moves.  ``pass_launchers``
+    stays a timing helper with the same check."""
     meta = dict(device="meta", dtype=torch.float32)
     q = torch.empty((1, 8, 2, 32), **meta, requires_grad=True)
     k = torch.empty((1, 8, 2, 32), **meta)
-    n = flash.flash_attention.launches
-    with pytest.raises(NotImplementedError, match="item 23"):
+    counters = (flash.flash_attention, flash.flash_attention_bwd,
+                wkv.wkv6, wkv.wkv6_bwd)
+    n = [fn.launches for fn in counters]
+    with pytest.raises(ValueError, match="CUDA device"):
         flash.flash_attention(q, k, k)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA device"):
         flash.flash_attention(q, k, k)
-    assert flash.flash_attention.launches == n
     r = torch.empty((1, 8, 2, 16), **meta)
     u = torch.empty((2, 16), **meta, requires_grad=True)
-    n = wkv.wkv6.launches
-    with pytest.raises(NotImplementedError, match="item 23"):
+    with pytest.raises(ValueError, match="CUDA device"):
         wkv.wkv6(r, r, r, r, u, chunk=4)
-    with pytest.raises(NotImplementedError, match="item 23"):
+    with pytest.raises(ValueError, match="CUDA device"):
         wkv.pass_launchers(r, r, r, r, u, chunk=4)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA device"):
         wkv.wkv6(r, r, r, r, u, chunk=4)
-    assert wkv.wkv6.launches == n
+    assert [fn.launches for fn in counters] == n
 
 
 def test_cpu_operands_keep_the_plain_versions_autograd():
