@@ -162,8 +162,20 @@ at once), then runs these phases, each of which raises on failure:
    memory and one step's idle share; and the reduced f32 configurations
    of both (head widths 32 and 16) at B 2 x T 512, a grad step on the
    card within 1e-4 of each leaf's largest |g| of the CPU's;
-12. the ``kernels`` line, whose launch counts add phases 2, 5 (per model),
-   6-10 and 11 (a) and (e) (the backward kernels: phase 11 (e)).
+12. the training launcher (``repro_torch.launch.train.main``, as ``python
+   -m repro_torch.launch.train`` drives it) at Qwen3-0.6B's full width and
+   depth, B 4 x T 1,024 in 2 microbatches, remat full, the f32 state tier:
+   run A trains 4 steps with a checkpoint every 2 (``save_async``, then
+   the final ``save``), run B resumes from a directory that holds only A's
+   step 2 (A's step 4 hashed and deleted first: at most two checkpoints of
+   8.3 GB on disk).  Gates: B's losses A's last two bit for bit, B's step
+   4 files (manifest and every leaf) A's by sha1, and exact flash forward
+   and backward launches over the six steps.  Free disk, the checkpoint's
+   bytes, each host layout, snapshot, writer-thread save, restore and step
+   in seconds, and each run's peak memory are printed;
+13. the ``kernels`` line, whose launch counts add phases 2, 5 (per model),
+   6-10, 11 (a) and (e) and 12 (the backward kernels: phases 11 (e) and
+   12).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the repository's ``src/`` beside it, the script fails before
@@ -171,6 +183,7 @@ printing any result.
 """
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import statistics
@@ -334,6 +347,18 @@ WKV_BWD_MAIN = (2, 1024, 64, 64, 256)
 KERNEL_TRAIN = (("qwen3-0.6b", None, 4, 1024), ("rwkv6-7b", TRAIN_LAYERS, 2,
                                                 1024))
 KERNEL_TRAIN_STEPS, REDUCED_B, REDUCED_T = 4, 2, 512
+# the training launcher (phase 12): ``repro_torch.launch.train.main`` on
+# Qwen3-0.6B at full width and depth (remat full, f32 state tier), B 4 x T
+# 1,024 in 2 microbatches, 4 steps with a checkpoint every 2; then a run
+# resumed from the first run's step 2.  A checkpoint is about 8.3 GB (596 M
+# parameters x 2 bytes of bf16 weight and 12 of f32 m, v and master); a
+# final save writes its temporary beside two kept steps, so the phase needs
+# room for three
+LAUNCH_ARCH, LAUNCH_STEPS, LAUNCH_RESUME = "qwen3-0.6b", 4, 2
+LAUNCH_ARGS = ["--arch", LAUNCH_ARCH, "--steps", str(LAUNCH_STEPS),
+               "--global-batch", "4", "--seq", "1024", "--grad-accum", "2",
+               "--ckpt-every", "2", "--log-every", "1", "--device", "cuda"]
+LAUNCH_FREE_GB = 30
 
 
 def card_line() -> str:
@@ -4470,6 +4495,178 @@ def phase_train(counters):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 12: the training launcher, run, checkpointed and resumed
+# --------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def timed_calls(log, targets):
+    """Wrap each ``(module, attribute)`` of ``targets`` so that every call
+    appends ``(attribute, in the main thread, seconds)`` to ``log``; a
+    wrapped ``make_train_step`` times each step it builds between two
+    synchronizes.  The attributes are restored on exit."""
+    import threading
+
+    def wrap(name, fn):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            log.append((name, threading.current_thread()
+                        is threading.main_thread(),
+                        time.perf_counter() - t0))
+            return out
+        return timed
+
+    def wrap_steps(fn):
+        def make(*args, **kw):
+            return wrap("step", _synchronized(fn(*args, **kw)))
+        return make
+
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+    try:
+        for mod, name, fn in saved:
+            setattr(mod, name, wrap_steps(fn) if name == "make_train_step"
+                    else wrap(name, fn))
+        yield log
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _synchronized(step):
+    def run(*args):
+        torch.cuda.synchronize()
+        out = step(*args)
+        torch.cuda.synchronize()
+        return out
+    return run
+
+
+def step_digests(step_dir):
+    """sha1 of every file of a checkpoint step (manifest included), read
+    in parallel threads; and the step's bytes."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(path):
+        h = hashlib.sha1()
+        with open(path, "rb") as f:
+            while chunk := f.read(1 << 24):
+                h.update(chunk)
+        return path.name, h.hexdigest()
+    files = sorted(Path(step_dir).iterdir())
+    with ThreadPoolExecutor(8) as pool:
+        digests = dict(pool.map(one, files))
+    return digests, sum(p.stat().st_size for p in files)
+
+
+def launch_run(label, ckpt_dir, log, flash_fns):
+    """One ``launch.train.main`` run: its losses, peak GB and the calls
+    ``timed_calls`` logged in it."""
+    from repro_torch import checkpoint, convert
+    from repro_torch.checkpoint import store
+    from repro_torch.launch import train
+    start = len(log)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with timed_calls(log, [(train, "host_state"), (train, "make_train_step"),
+                           (checkpoint, "save_async"), (checkpoint, "save"),
+                           (store, "save"), (checkpoint, "wait_pending"),
+                           (checkpoint, "restore"),
+                           (convert, "lm_params_from_host"),
+                           (convert, "opt_state_from_host")]):
+        losses = train.main(LAUNCH_ARGS + ["--ckpt-dir", str(ckpt_dir)])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    calls = log[start:]
+    print(f"  run {label}: wall_s={wall!r} losses {losses} peak_gb={peak!r}"
+          f"; flash launches so far {[f.launches for f in flash_fns]}")
+    for name, main_thread, sec in calls:
+        where = "" if main_thread else " (writer thread)"
+        print(f"    {name}{where}: {sec!r} s")
+    return dict(losses=losses, peak_gb=peak, wall=wall, calls=calls)
+
+
+def phase_launch(counters):
+    """``repro_torch.launch.train.main`` at Qwen3-0.6B's full size: run A
+    (4 steps, checkpoints at 2 and 4), then run B from a directory that
+    holds only A's step 2.  Gates: B prints its resume, its losses are A's
+    last two bit for bit, its step 4 files A's by sha1, and the flash
+    forward and backward launches are exact for the six steps."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    card = card_line()
+    cfg = get_config(LAUNCH_ARCH)
+    per = sum(1 for mixer, _ in cfg.layer_kinds() if mixer == "attn")
+    M, n_steps = 2, LAUNCH_STEPS + (LAUNCH_STEPS - LAUNCH_RESUME)
+    want = (n_steps * M * 2 * per, n_steps * M * per)
+    root = Path(__file__).resolve().parent / "build" / "launch_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free_gb = shutil.disk_usage(root).free / 1e9
+    print(f"phase 12: launch.train.main, {LAUNCH_ARCH} ({cfg.n_layers} "
+          f"layers, d {cfg.d_model}) {' '.join(LAUNCH_ARGS)}; run A "
+          f"uninterrupted, run B resumed from A's step {LAUNCH_RESUME}; "
+          f"expected flash launches {n_steps} steps x {M} microbatches x "
+          f"({per} forwards + {per} recomputed, {per} backwards) = "
+          f"{want[0]} forward, {want[1]} backward; free disk at {root}: "
+          f"{free_gb!r} GB [{card}]")
+    if free_gb < LAUNCH_FREE_GB:
+        raise AssertionError(f"phase 12: {free_gb} GB free at {root}, "
+                             f"{LAUNCH_FREE_GB} needed")
+    for fn in counters:
+        fn.launches = 0
+    flash_fns = (fk.flash_attention, fk.flash_attention_bwd)
+    log, runs = [], {}
+    try:
+        runs["A"] = launch_run("A", root / "A", log, flash_fns)
+        t0 = time.perf_counter()
+        want_files, ckpt_bytes = step_digests(root / "A" / "step_4")
+        hash_s = time.perf_counter() - t0
+        shutil.rmtree(root / "A" / "step_4")
+        (root / "B").mkdir()
+        (root / "A" / f"step_{LAUNCH_RESUME}").rename(
+            root / "B" / f"step_{LAUNCH_RESUME}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            runs["B"] = launch_run("B", root / "B", log, flash_fns)
+        print(out.getvalue(), end="")
+        got_files, _ = step_digests(root / "B" / "step_4")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    got = (fk.flash_attention.launches, fk.flash_attention_bwd.launches)
+    a, b = runs["A"]["losses"], runs["B"]["losses"]
+    resumed = f"[train] resumed from step {LAUNCH_RESUME}" in out.getvalue()
+    same_files = sum(got_files.get(k) == v for k, v in want_files.items())
+    print(f"  checkpoint: {len(want_files)} files, ckpt_bytes={ckpt_bytes!r}"
+          f", hashed in {hash_s!r} s; run B resumed: {resumed}; losses B "
+          f"{b} against A's last {a[LAUNCH_RESUME:]}; step 4 files equal: "
+          f"{same_files} of {len(want_files)}; flash launches {got}, "
+          f"expected {want} [{card}]")
+    if not resumed:
+        raise AssertionError("phase 12: run B did not resume")
+    if not all(math.isfinite(x) for x in a + b):
+        raise AssertionError(f"phase 12: losses {a}, {b}")
+    if b != a[LAUNCH_RESUME:]:
+        raise AssertionError("phase 12: the resumed losses are not the "
+                             "uninterrupted run's bit for bit")
+    if not (same_files == len(want_files) == len(got_files)):
+        raise AssertionError("phase 12: the resumed run's step 4 is not the "
+                             "uninterrupted run's byte for byte")
+    if got != want:
+        raise AssertionError(f"phase 12: flash launches {got}, expected "
+                             f"{want}")
+    steps = [sec for name, _, sec in log if name == "step"]
+    step_ms = statistics.median(steps) * 1e3
+    return dict(launches=dict(zip(("flash_attention", "flash_attention_bwd"),
+                                  got)),
+                step_ms=step_ms, steps_ms=[x * 1e3 for x in steps],
+                tok_s=4 * 1024 / step_ms * 1e3, ckpt_bytes=ckpt_bytes,
+                free_gb=free_gb, runs=runs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check runs on an "
@@ -4545,6 +4742,7 @@ def main() -> int:
     daemon = timed("phase 9", phase_daemon, counters)
     fleet = timed("phase 10", phase_fleet, counters)
     train = timed("phase 11", phase_train, counters)
+    launch = timed("phase 12", phase_launch, counters)
     flash["phase 11 (a)"] = train["flash_launches"]
     counts["flash_attention"] += train["flash_launches"]
     # phase 11 (e), the training path's main run, for all four model kernels
@@ -4559,6 +4757,10 @@ def main() -> int:
         rows[name] = row
         counts[name] = e_counts[name]
         by_path[name] = {"phase 11 (e)": e_counts[name]}
+    # phase 12, the training launcher's run and resumed run
+    for name, n in launch["launches"].items():
+        by_path[name]["phase 12"] = n
+        counts[name] += n
     for name in ("flash_attention", "wkv6", "flash_attention_bwd",
                  "wkv6_bwd"):
         if e_counts[name] == 0:
@@ -4607,6 +4809,11 @@ def main() -> int:
               f"(against the unprofiled steps) loss {res['losses'][0]!r} -> "
               f"{res['losses'][-1]!r}, launches {res['launches']}")
     print(f"  phase 11 (e) launches: {e_counts}")
+    print(f"  launch.train {LAUNCH_ARCH}: step_ms={launch['step_ms']!r} "
+          f"(median of {launch['steps_ms']}) tokens_s={launch['tok_s']!r} "
+          f"peak_gb={[r['peak_gb'] for r in launch['runs'].values()]} "
+          f"ckpt_bytes={launch['ckpt_bytes']!r} free_gb="
+          f"{launch['free_gb']!r}, launches {launch['launches']}")
     print(f"total: {time.perf_counter() - t_start:.2f} s")
 
     for row in rows.values():

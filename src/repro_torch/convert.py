@@ -9,7 +9,9 @@ same instance.  Stream events cross as plain records of Python scalars
 language models' weights, and ``lm_params_to_numpy`` turns the port's
 parameters, or a gradient tree of their shape, back into JAX's layout;
 ``opt_state_from_numpy`` / ``opt_state_to_numpy`` do both for AdamW's
-state.
+state.  ``lm_params_{to,from}_host`` and ``opt_state_{to,from}_host`` lay
+out the same trees as CPU tensors, every dtype kept, for the checkpoints
+of ``repro_torch.launch.train``: the stacking runs on the host.
 """
 from __future__ import annotations
 
@@ -28,7 +30,9 @@ from repro_torch.utils import to_np as to_numpy  # the other direction
 __all__ = ["scenario_from_numpy", "batch_from_numpy", "warm_start_from_numpy",
            "window_state_from_numpy", "event_from_record",
            "lm_params_from_numpy", "lm_params_to_numpy",
-           "opt_state_from_numpy", "opt_state_to_numpy", "to_numpy"]
+           "opt_state_from_numpy", "opt_state_to_numpy",
+           "lm_params_to_host", "lm_params_from_host", "opt_state_to_host",
+           "opt_state_from_host", "to_numpy"]
 
 
 def _tensor(x, dev, dtype):
@@ -129,10 +133,10 @@ def _converter(dev, dtype):
     return conv
 
 
-def _first_array(tree):
+def _first_leaf(tree):
     while isinstance(tree, dict):
         tree = next(iter(tree.values()))
-    return np.asarray(tree)
+    return tree
 
 
 def _from_jax_layout(cfg, tree: dict, conv):
@@ -140,13 +144,13 @@ def _from_jax_layout(cfg, tree: dict, conv):
     converted by ``conv`` (:func:`_converter`).  A leaf may be a dict
     (AdamW's per-parameter state)."""
     def unstack(blocks, block_len):
-        n_blocks = len(_first_array(blocks["l0"]))
+        n_blocks = len(_first_leaf(blocks["l0"]))
         return [conv(blocks[f"l{p}"], i) for i in range(n_blocks)
                 for p in range(block_len)]
 
-    out = {k: conv(tree[k]) for k in ("embed", "pos_embed", "final_norm",
-                                      "enc_final_norm", "unembed_w")
-           if k in tree}
+    # the keys in ``init_params``' order, which sets the order of the
+    # optimizer's sums over leaves (``global_norm``)
+    out = {k: conv(tree[k]) for k in ("embed", "pos_embed") if k in tree}
     if cfg.is_encdec:
         out["enc_layers"] = unstack(tree["enc_blocks"], 1)
         out["layers"] = unstack(tree["dec_blocks"], 1)
@@ -156,26 +160,32 @@ def _from_jax_layout(cfg, tree: dict, conv):
     if len(out["layers"]) != cfg.n_layers:
         raise ValueError(f"{len(out['layers'])} layers in the tree, "
                          f"{cfg.n_layers} in {cfg.name}")
+    out.update({k: conv(tree[k]) for k in ("enc_final_norm", "final_norm",
+                                           "unembed_w") if k in tree})
     return out
 
 
-def _to_jax_layout(cfg, tree: dict, leaf):
-    """Inverse of :func:`_from_jax_layout`: ``leaf`` turns each tensor into
-    a numpy array, and each block's layers are stacked along a new leading
-    axis (``head_layers`` stay a list)."""
+def _to_jax_layout(cfg, tree: dict, leaf, stack=None):
+    """Inverse of :func:`_from_jax_layout`: ``leaf`` converts each tensor
+    outside the blocks, and ``stack`` each list of one block position's
+    tensors into one array along a new leading axis (by default
+    ``np.stack`` of their ``leaf``; ``head_layers`` stay a list)."""
+    if stack is None:
+        stack = lambda ts: np.stack([leaf(t) for t in ts])  # noqa: E731
+
     def conv(sub):
         if isinstance(sub, dict):
             return {k: conv(v) for k, v in sub.items()}
         return leaf(sub)
 
-    def stack(layer_list):
+    def restack(layer_list):
         if isinstance(layer_list[0], dict):
-            return {k: stack([x[k] for x in layer_list])
+            return {k: restack([x[k] for x in layer_list])
                     for k in layer_list[0]}
-        return np.stack(layer_list)
+        return stack(layer_list)
 
     def blocks(layer_list, block_len):
-        return {f"l{p}": stack([conv(x) for x in layer_list[p::block_len]])
+        return {f"l{p}": restack(layer_list[p::block_len])
                 for p in range(block_len)}
 
     if len(tree["layers"]) != cfg.n_layers:
@@ -203,6 +213,31 @@ def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
         import ml_dtypes
         return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
     return t.numpy()
+
+
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu", copy=True)
+
+
+def _stack_on_host(ts) -> torch.Tensor:
+    """One CPU tensor of ``ts`` stacked along a new leading axis, each
+    copied straight from its device into its slice: nothing is stacked on
+    the card."""
+    out = torch.empty((len(ts), *ts[0].shape), dtype=ts[0].dtype)
+    for dst, t in zip(out, ts):
+        dst.copy_(t.detach())
+    return out
+
+
+def _host_converter(dev):
+    """:func:`_converter`'s counterpart for a tree of CPU tensors: a leaf,
+    or its slice at ``index`` along the leading axis, moved to ``dev``
+    with its dtype kept."""
+    def conv(sub, index=None):
+        if isinstance(sub, dict):
+            return {k: conv(v, index) for k, v in sub.items()}
+        return (sub if index is None else sub[index]).to(dev)
+    return conv
 
 
 def lm_params_from_numpy(cfg, tree: dict, *, device="cuda", dtype=None):
@@ -253,3 +288,33 @@ def opt_state_to_numpy(cfg, state: dict) -> dict:
     :func:`opt_state_from_numpy`."""
     return {"mu": _to_jax_layout(cfg, state["mu"], _leaf_to_numpy),
             "step": _leaf_to_numpy(state["step"])}
+
+
+def lm_params_to_host(cfg, params: dict) -> dict:
+    """JAX's ``init_params`` layout of the port's parameters, as CPU
+    tensors that share no memory with them (each block position's layers
+    copied into one stacked tensor on the host); dtypes kept.  The tree
+    ``repro_torch.checkpoint`` saves, as ``repro.launch.train`` does."""
+    return _to_jax_layout(cfg, params, _host_copy, _stack_on_host)
+
+
+def lm_params_from_host(cfg, tree: dict, *, device="cuda") -> dict:
+    """The inverse of :func:`lm_params_to_host`: the port's layer lists on
+    ``device``, unstacked on the host, every dtype kept."""
+    return _from_jax_layout(cfg, tree,
+                            _host_converter(resolve_device(device)))
+
+
+def opt_state_to_host(cfg, state: dict) -> dict:
+    """JAX's ``adamw_init`` layout of the port's AdamW state as CPU
+    tensors, as :func:`lm_params_to_host` lays out parameters."""
+    return {"mu": _to_jax_layout(cfg, state["mu"], _host_copy,
+                                 _stack_on_host),
+            "step": _host_copy(state["step"])}
+
+
+def opt_state_from_host(cfg, tree: dict, *, device="cuda") -> dict:
+    """The inverse of :func:`opt_state_to_host`, on ``device``."""
+    conv = _host_converter(resolve_device(device))
+    return {"mu": _from_jax_layout(cfg, tree["mu"], conv),
+            "step": conv(tree["step"])}
