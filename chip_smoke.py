@@ -326,12 +326,15 @@ LOSS_ARCH, LOSS_B, LOSS_S = "qwen3-0.6b", 4, 1024
 TRAIN_ARCH, TRAIN_LAYERS, TRAIN_B, TRAIN_T = "rwkv6-7b", 2, 2, 256
 TRAIN_ACCUM, TRAIN_STEPS = 2, 8
 # (b) the backward kernels: flash at every serving prefill shape (bf16, as
-# the models run) and the Qwen3 shape in f32, and a ragged shape at head
-# width 32 in both dtypes; wkv6 (B, T, H, K, chunk, decay shift, S0, a
+# the models run: the tensor-core route) and the Qwen3 shape in f32, a
+# ragged shape at head width 32 in both dtypes (the CUDA-core route), and
+# ragged bf16 shapes at head widths 128 and 64 (the tensor-core route,
+# 1,000 rows: no multiple of its 64- or 128-row tiles); wkv6 (B, T, H, K, chunk, decay shift, S0, a
 # cotangent on the final state): the RWKV6-7B prefill and train shapes at
 # chunk 256 (the chunk-parallel forward), the per-head route's chunk 16 at
 # T = 1,040, and decays that saturate the clips (shift 2.0)
 FLASH_BWD_RAGGED = (1, 1000, 4, 2, 32)
+FLASH_BWD_TC_RAGGED = ((1, 1000, 4, 2, 128), (1, 1000, 4, 4, 64))
 WKV_BWD_CASES = ((4, 1024, 64, 64, 256, -0.6, False, False),
                  (2, 1024, 64, 64, 256, -0.6, True, True),
                  (2, 1040, 64, 64, 16, -0.6, False, True),
@@ -4110,13 +4113,48 @@ def grad_ms(out, inputs, cot, reps):
                                                retain_graph=True), reps)
 
 
+def sdpa_bwd_graph_ms(q, k, v, cot, causal, reps):
+    """Device ms of SDPA's backward (a yardstick the port never calls):
+    forward and backward in a CUDA graph, less the forward alone in one,
+    so the host's time between kernels counts in neither."""
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    both = graph_ms(lambda: torch.autograd.grad(sdpa(*leaves, causal),
+                                                leaves, cot), reps)
+    return both - graph_ms(lambda: sdpa(*leaves, causal), reps)
+
+
+def report_kernels(prof, words):
+    """Print the profiled kernels whose names hold one of ``words``."""
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0 and any(w in e.key for w in words):
+            print(f"  kernel {e.key[:100]}: calls={e.count} "
+                  f"device_ms={e.self_device_time_total / 1e3!r}")
+
+
+def ptxas_usage(log, word):
+    """{entry function: its ptxas line of registers and spills} for the
+    entries in a build log whose mangled names hold ``word``."""
+    out, entry = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            entry = name if word in name else None
+        elif entry and ("spill" in ln or "registers" in ln):
+            out[entry] = (out.get(entry, "") + " " + ln.split(":", 1)[-1]
+                          .strip()).strip()
+    return out
+
+
 def flash_bwd_check(gen):
     """(b) flash: the backward kernels' dq, dk, dv against autograd of
     ``ref.reference`` and against ``ref.backward`` fed the kernel's own
     output and logsumexp; the logsumexp against ``ref.forward_lse``; two
     calls bit for bit; one backward launch a call; at each shape the
-    kernels' ms, the plain version's (autograd) and SDPA's backward (the
-    row's own numbers are the Qwen3-0.6B shape's, in bf16)."""
+    route (``kernel.route``), the kernels' ms, the plain version's
+    (autograd) and SDPA's backward by CUDA events around the calls (host
+    time between kernels included), and the kernels' and SDPA's backward
+    in CUDA graphs (``graph_ms``, ``library_graph_ms``: device time alone);
+    the row's own numbers are the Qwen3-0.6B shape's, in bf16."""
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import ref as fr
     print("phase 11 (b): flash_attention's backward kernels against the "
@@ -4124,14 +4162,18 @@ def flash_bwd_check(gen):
     cases = [(shape, causal, torch.bfloat16) for _, shape, causal
              in FLASH_MODELS] + [(FLASH_MAIN, True, torch.float32)] + [
         (FLASH_BWD_RAGGED, c, dt) for c in (True, False)
-        for dt in (torch.float32, torch.bfloat16)]
+        for dt in (torch.float32, torch.bfloat16)] + [
+        (shape, c, torch.bfloat16) for shape in FLASH_BWD_TC_RAGGED
+        for c in (True, False)]
     errs, timed = [], {}
     for shape, causal, dtype in cases:
         B, S, Hq, Hkv, hd = shape
         q, k, v = flash_inputs(gen, *shape, dtype)
         do = torch.randn((B, S, Hq, hd), generator=gen,
                          device="cuda").to(dtype)
-        label = f"flash bwd {shape} {str(dtype)[6:]} causal={causal}"
+        route = fk.route(q)
+        label = (f"flash bwd {shape} {str(dtype)[6:]} causal={causal} "
+                 f"route={route}")
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
         n_fwd, n_bwd = fk.flash_attention.launches, \
             fk.flash_attention_bwd.launches
@@ -4177,6 +4219,9 @@ def flash_bwd_check(gen):
         lib_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
         out_l = sdpa(*lib_leaves, causal)
         t_l = grad_ms(out_l, lib_leaves, do, 10)
+        t_kg = graph_ms(lambda: fk.flash_attention_bwd(
+            q, k, v, o_k, lse, do.contiguous(), causal=causal), 10)
+        t_lg = sdpa_bwd_graph_ms(q, k, v, do, causal, 10)
         pairs = S * (S + 1) // 2 if causal else S * S
         ops = 5 * 2 * hd * B * Hq * pairs
         moved = nbytes(q, k, v, o_k, do, lse) + nbytes(*got)
@@ -4186,12 +4231,21 @@ def flash_bwd_check(gen):
                 else TF32_OPS_PER_S / 3)
         b_ms, b_by = bound(moved, ops, rate)
         f32_ms = ops / FP32_OPS_PER_S * 1e3
+        # the tensor-core route multiplies P and dS as two bf16 halves and
+        # forms S and dP in both kernels: ten bf16 products
+        split_ms = 2 * ops / BF16_OPS_PER_S * 1e3
         print(f"  flash_attention_bwd {shape} {str(dtype)[6:]} causal="
-              f"{causal}: ms={t_k!r} plain_ms={t_p!r} (autograd) library_ms="
-              f"{t_l!r} (autograd of SDPA) bound_ms={b_ms!r} ({b_by}, 5 "
-              f"products) f32_cuda_core_floor_ms={f32_ms!r}")
+              f"{causal} route={route}: ms={t_k!r} plain_ms={t_p!r} "
+              f"(autograd) library_ms={t_l!r} (autograd of SDPA) "
+              f"graph_ms={t_kg!r} library_graph_ms={t_lg!r} (in CUDA "
+              f"graphs) "
+              f"bound_ms={b_ms!r} ({b_by}, 5 products) "
+              f"f32_cuda_core_floor_ms={f32_ms!r} "
+              f"ten_bf16_products_ms={split_ms!r}")
         timed[f"{shape} {str(dtype)[6:]} causal={causal}"] = dict(
-            ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms, bound_by=b_by)
+            kernels=route, ms=t_k, plain_ms=t_p, library_ms=t_l,
+            graph_ms=t_kg, library_graph_ms=t_lg, bound_ms=b_ms,
+            bound_by=b_by)
     # the row's own numbers are the first serving shape's, the Qwen3 prefill
     main = timed[f"{FLASH_MODELS[0][1]} bfloat16 causal=True"]
     return dict(name="flash_attention_bwd", route="cuda",
@@ -4370,6 +4424,7 @@ def kernel_train(arch, layers, B, T, kernels):
         wall = time.perf_counter() - t0
     del p, st
     idle, busy = report_idle(prof, wall, f"one {arch} train step", rows=8)
+    report_kernels(prof, ("flash_", "wkv6"))
     idle_warm = None if busy is None else 1.0 - busy / (step_ms / 1e3)
     print(f"  device busy over the unprofiled step: idle_share={idle_warm!r}")
     # remat none against full on one microbatch
@@ -4702,6 +4757,10 @@ def main() -> int:
                 print(f"  {name}: {ln.strip()}")
             if "registers" in ln or "spill" in ln:
                 print(f"  {name}: {ln.strip()}")
+    # the tensor-core backward's entries: registers and spills
+    for entry, usage in ptxas_usage(logs.get("flash_attention_bwd", ""),
+                                    "wgmma").items():
+        print(f"  flash_attention_bwd wgmma entry {entry}: {usage}")
     counters = (fused_iter_sweep, rm_sweep_batched, rm_sweep,
                 flash_attention, wkv6, flash_attention_bwd, wkv6_bwd)
 

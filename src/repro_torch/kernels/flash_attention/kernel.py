@@ -17,10 +17,13 @@ counterpart here: the CUDA kernels use their own tiles and mask ragged
 edges themselves, so they take any Sq and Skv.  They take bfloat16 or
 float32 with head width 32, 64 or 128, read q / k / v through their
 strides (the last axis contiguous) and write contiguous results in q's
-dtype.  bfloat16 at head width 64 or 128 runs the tensor-core forward,
-which reads q / k / v by TMA and so also needs what ``_tma_ok`` checks;
-float32, and bfloat16 at head width 32, run the CUDA-core forward.  The
-backward runs on the CUDA cores in f32 at every dtype and width.
+dtype.  ``route`` names the kernels a call runs: bfloat16 at head width
+64 or 128 runs the tensor-core forward and backward (``flash_fwd_wgmma``;
+``flash_bwd_dq_wgmma`` then ``flash_bwd_dkdv_wgmma``), which read their
+operands by TMA and so also need what ``_tma_ok`` checks (the backward of
+o and do too); float32, and bfloat16 at head width 32, run the CUDA-core
+kernels, the backward in f32 FMAs (``flash_bwd_dq`` then
+``flash_bwd_dkdv``).
 """
 from __future__ import annotations
 
@@ -53,6 +56,21 @@ def _tma_ok(t) -> bool:
         for n, st in zip(t.shape[:3], t.stride()[:3]))
 
 
+def route(q) -> str:
+    """``"tensor_cores"`` where ``q`` (B, S, H, hd) takes the wgmma kernels
+    (bfloat16 at head width 64 or 128), else ``"cuda_cores"``."""
+    return ("tensor_cores" if q.dtype == torch.bfloat16
+            and q.shape[-1] in _TMA_HEAD_DIMS else "cuda_cores")
+
+
+def _need_tma(what, operands):
+    bad = [name for name, t in operands.items() if not _tma_ok(t)]
+    if bad:
+        raise ValueError(f"{what}: TMA needs a 16-byte aligned base and "
+                         "batch, row and head strides of multiples of 16 "
+                         f"bytes, which {', '.join(bad)} lack")
+
+
 def _check(q, k, v):
     what = "flash_attention"
     args = (q, k, v)
@@ -74,12 +92,8 @@ def _check(q, k, v):
                          f"got {hd}")
     if any(t.stride(-1) != 1 for t in args):
         raise ValueError(f"{what}: the head axis must be contiguous")
-    if q.dtype == torch.bfloat16 and hd in _TMA_HEAD_DIMS:
-        bad = [n for n, t in zip("qkv", args) if not _tma_ok(t)]
-        if bad:
-            raise ValueError(f"{what}: TMA needs a 16-byte aligned base and "
-                             "batch, row and head strides of multiples of 16 "
-                             f"bytes, which {', '.join(bad)} lack")
+    if route(q) == "tensor_cores":
+        _need_tma(what, {"q": q, "k": k, "v": v})
 
 
 def _strides(q, k, v):
@@ -106,8 +120,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True):
     """(dq, dk, dv) in q's dtype from the forward's output ``o``, its
     logsumexp ``lse`` (B, Hq, Sq) f32 and the output's cotangent ``do``:
     the backward kernels on CUDA tensors (q / k / v as the forward takes
-    them; o and do contiguous, in q's dtype), counted in
-    ``flash_attention_bwd.launches``."""
+    them; o and do contiguous, in q's dtype), one launch of the route's two
+    kernels, counted in ``flash_attention_bwd.launches``."""
     what = "flash_attention_bwd"
     _check(q, k, v)
     B, Sq, Hq, hd = q.shape
@@ -123,7 +137,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True):
     dq = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Skv, Hkv, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    dsum = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    if route(q) == "tensor_cores":
+        _need_tma(what, {"o": o, "do": do})
+        # each 64-row query tile's lse log2 e and D, 512 bytes a tile
+        dsum = torch.empty((B, Hq, -(-Sq // 64), 2, 64),
+                           dtype=torch.float32, device=q.device)
+    else:
+        dsum = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
     fn = getattr(lib, f"{what}_{_SUFFIX[q.dtype]}")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

@@ -107,3 +107,66 @@ def test_plain_backward_matches_torch_autograd(B, S, Hq, Hkv, hd, causal,
     grads = tref.backward(tq, tk, tv, o, lse, tdo, causal=causal)
     for name, got, w in zip(("dq", "dk", "dv"), grads, want):
         assert_rel_close(got, w.float(), tol, name)
+
+
+LOG2E = 1.4426950408889634
+
+
+def split_backward(q, k, v, o, lse, do, *, causal, split=True):
+    """The tensor-core backward kernels' rounding, emulated in f32 (a test
+    helper, not a plain version of the kernels): bf16 q, k, v, o and dO, so
+    S, dP and D are exact products with f32 sums; P = exp2(S scale log2 e -
+    lse log2 e), 0 where the forward masked; dS = P (dP - D); then every
+    product of P or dS takes it as two bf16 halves, hi = bf16(x) and lo =
+    bf16(x - hi), each multiplied with f32 sums (``split=False``: hi
+    alone)."""
+    B, Sq, Hq, hd = q.shape
+    _, Skv, Hkv, _ = k.shape
+    f32 = torch.float32
+    grp = lambda x: x.to(f32).reshape(B, Sq, Hkv, Hq // Hkv, hd)
+    qf, of, dof = grp(q), grp(o), grp(do)
+    kf, vf = k.to(f32), v.to(f32)
+    scale = hd ** -0.5
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf)
+    lse2 = (lse * torch.tensor(LOG2E)).reshape(B, Hkv, -1, Sq)
+    p = torch.exp2(s * torch.tensor(scale * LOG2E) - lse2[..., None])
+    if causal:
+        keep = torch.arange(Skv)[None, :] <= torch.arange(Sq)[:, None]
+        p = torch.where(keep, p, torch.zeros(()))
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
+    D = torch.einsum("bqhgd,bqhgd->bhgq", dof, of)
+    ds = p * (dp - D[..., None])
+
+    def halves(x):
+        hi = x.to(torch.bfloat16).to(f32)
+        return (hi, (x - hi).to(torch.bfloat16).to(f32)) if split else (hi,)
+
+    dv = sum(torch.einsum("bhgqk,bqhgd->bkhd", x, dof) for x in halves(p))
+    dk = sum(torch.einsum("bhgqk,bqhgd->bkhd", x, qf) for x in halves(ds))
+    dq = sum(torch.einsum("bhgqk,bkhd->bqhgd", x, kf) for x in halves(ds))
+    return dq.reshape(B, Sq, Hq, hd) * scale, dk * scale, dv
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd",
+                         [s for s in SHAPES if s[-1] in (64, 128)])
+def test_split_products_meet_the_bf16_gate(B, S, Hq, Hkv, hd, causal):
+    """The tensor-core route's arithmetic (``split_backward``) against
+    ``ref.backward`` in f32 on the same bf16 inputs, per element within
+    ``chip_smoke.py`` phase 11 (b)'s bf16 gate, 1e-5 max + 2^-7 |ref|,
+    before the gradients are rounded to bf16.  Measured here: the split
+    form at most 0.13 of the gate; the unsplit form (P and dS rounded to
+    bf16 once) 31 to 73 times it, moving gradients near 0 by about 2^-9 of
+    their scale, which is why the kernels split."""
+    _, (tq, tk, tv, tdo), _ = inputs(S * Hq + hd, B, S, Hq, Hkv, hd,
+                                     "bfloat16")
+    o, lse = tref.forward_lse(tq, tk, tv, causal=causal)
+    want = tref.backward(*(t.float() for t in (tq, tk, tv, o)), lse,
+                         tdo.float(), causal=causal)
+    got = split_backward(tq, tk, tv, o, lse, tdo, causal=causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        w = w.double()
+        err = (g.double() - w).abs()
+        tol = 1e-5 * w.abs().max() + 2.0 ** -7 * w.abs()
+        assert bool((err <= tol).all()), (
+            f"{name}: worst {float((err / tol).max())} of the gate")
