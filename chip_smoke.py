@@ -144,12 +144,16 @@ at once), then runs these phases, each of which raises on failure:
    gradients against autograd of ``wkv_chunked`` at the RWKV6-7B prefill
    and train shapes (chunk 256), the per-head route's chunk 16 at T =
    1,040 and 4 at T = 300, from a state, with a final-state cotangent and
-   at decays that saturate the clips; each backward twice bit for bit, one
-   backward launch a call, and its ms, bound, autograd's of the plain
-   version and (flash) autograd's of SDPA; (c) RWKV6-7B at full width and
-   2 layers (B 2, T 256: the plain recurrence), ``make_train_step`` with 2
-   microbatches: remat none / dots / full with the loss bit for bit and
-   the gradients within one bf16 ULP, the accumulated gradient against the
+   at decays that saturate the clips, each case's backward route (chunk
+   256 on the chunk-parallel kernels, 16 and 4 on the per-head ones) and
+   at the train shape the backward from the forward's saved scratch and
+   each pass alone; each backward twice bit for bit, one backward launch a
+   call, and its ms (CUDA events and a CUDA graph), bound, autograd's of
+   the plain version and (flash) autograd's of SDPA; (c) RWKV6-7B at
+   full width and 2 layers (B 2, T 256: the plain recurrence),
+   ``make_train_step`` with 2 microbatches: remat none / dots / full with
+   the loss bit for bit and the gradients within one bf16 ULP, the
+   accumulated gradient against the
    microbatches' mean, 8 steps of each state tier (f32, bf16, int8) on one
    batch with a falling loss and no kernel launch, step ms, tokens/s and
    peak memory printed; (d) one AdamW update of each tier on the card
@@ -331,8 +335,8 @@ TRAIN_ACCUM, TRAIN_STEPS = 2, 8
 # ragged bf16 shapes at head widths 128 and 64 (the tensor-core route,
 # 1,000 rows: no multiple of its 64- or 128-row tiles); wkv6 (B, T, H, K, chunk, decay shift, S0, a
 # cotangent on the final state): the RWKV6-7B prefill and train shapes at
-# chunk 256 (the chunk-parallel forward), the per-head route's chunk 16 at
-# T = 1,040, and decays that saturate the clips (shift 2.0)
+# chunk 256 (the chunk-parallel forward and backward), the per-head routes'
+# chunk 16 at T = 1,040, and decays that saturate the clips (shift 2.0)
 FLASH_BWD_RAGGED = (1, 1000, 4, 2, 32)
 FLASH_BWD_TC_RAGGED = ((1, 1000, 4, 2, 128), (1, 1000, 4, 4, 64))
 WKV_BWD_CASES = ((4, 1024, 64, 64, 256, -0.6, False, False),
@@ -4268,9 +4272,14 @@ def wkv_bwd_ops(B, T, H, K, L):
 
 def wkv_bwd_check(gen):
     """(b) wkv6: the six gradients against autograd of ``wkv_chunked``;
-    two calls bit for bit; one backward launch a call; at each shape the
-    kernels' ms and autograd's of the plain version (the row's own numbers
-    are the train shape's)."""
+    two calls bit for bit; one backward launch a call; each case's backward
+    route (``kernel.bwd_route``: chunk 256 chunk-parallel, chunks 16 and 4
+    per-head); at each shape the kernels' ms by CUDA events and in a CUDA
+    graph, and autograd's of the plain version; at the train shape also the
+    backward given the forward's saved scratch (as a train step runs it)
+    and each pass alone (the forward's state and prefix passes, which a call
+    without that scratch relaunches, then ``bwd_pass_launchers``).  The
+    row's own numbers are the train shape's."""
     from repro_torch.kernels.rwkv6 import kernel as wk
     from repro_torch.kernels.rwkv6.ref import chunked_reference
     print("phase 11 (b): wkv6's backward kernels against autograd of the "
@@ -4282,10 +4291,13 @@ def wkv_bwd_check(gen):
             S0 = torch.zeros_like(S0)
         dy = torch.randn_like(v)
         dS = torch.randn_like(S0) if final else None
+        how = wk.bwd_route(r, k, v, w, dy, dS, L)
         label = (f"wkv6 bwd B={B} T={T} H={H} K={K} chunk={L} shift={shift}"
                  f"{' S0' if with_state else ''}"
-                 f"{' dS' if final else ''} route="
-                 f"{wk.route(r, k, v, w, L)}")
+                 f"{' dS' if final else ''} route={how}")
+        if (L % 64 == 0) != (how == "chunk-parallel"):
+            raise AssertionError(f"{label}: chunk {L} took the {how} "
+                                 "backward route")
 
         def run():
             leaves = [t.clone().requires_grad_(True)
@@ -4312,6 +4324,8 @@ def wkv_bwd_check(gen):
                                     f"{label} {name}"))
         t_k = cuda_ms(lambda: wk.wkv6_bwd(r, k, v, w, u, S0, dy, dS,
                                           chunk=L), 10)
+        t_kg = graph_ms(lambda: wk.wkv6_bwd(r, k, v, w, u, S0, dy, dS,
+                                            chunk=L), 10)
         t_p = grad_ms(outs, leaves, cots, 3)
         n_c = T // L
         # read r, k, v, w, dy (and u, S0, dS) once, write dr, dk, dv, dw
@@ -4326,13 +4340,32 @@ def wkv_bwd_check(gen):
         b_ms, b_by = max((moved / HBM_BYTES_PER_S * 1e3, "bytes"),
                          (t_ops, "operations"))
         f32_ms, _ = bound(moved, ops, FP32_OPS_PER_S)
-        print(f"  wkv6_bwd {(B, T, H, K)} chunk {L}: ms={t_k!r} "
-              f"plain_ms={t_p!r} (autograd) bound_ms={b_ms!r} ({b_by}; "
-              f"products as split TF32) f32_rate_bound_ms={f32_ms!r}")
-        timed[label] = dict(ms=t_k, plain_ms=t_p, bound_ms=b_ms,
-                            bound_by=b_by)
+        print(f"  wkv6_bwd {(B, T, H, K)} chunk {L} route={how}: ms={t_k!r} "
+              f"graph_ms={t_kg!r} plain_ms={t_p!r} (autograd) "
+              f"bound_ms={b_ms!r} ({b_by}; products as split TF32) "
+              f"f32_rate_bound_ms={f32_ms!r}")
+        timed[label] = dict(kernels=how, ms=t_k, graph_ms=t_kg,
+                            plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
         if (B, T, H, K, L) == WKV_BWD_MAIN:
             main = timed[label]
+            # the backward as a train step runs it, from the forward's
+            # saved scratch; and each pass alone
+            _, _, saved = wk._forward(r, k, v, w, u, S0, L)
+            main["saved_ms"] = cuda_ms(lambda: wk.wkv6_bwd(
+                r, k, v, w, u, S0, dy, dS, chunk=L, saved=saved), 10)
+            main["saved_graph_ms"] = graph_ms(lambda: wk.wkv6_bwd(
+                r, k, v, w, u, S0, dy, dS, chunk=L, saved=saved), 10)
+            fwd = wk.pass_launchers(r, k, v, w, u, chunk=L, S0=S0)
+            passes = {f"forward {name}": cuda_ms(fwd[name], 10)
+                      for name in ("state", "prefix")}
+            passes.update({name: cuda_ms(fn, 10) for name, fn in
+                           wk.bwd_pass_launchers(r, k, v, w, u, dy, dS,
+                                                 chunk=L, S0=S0).items()})
+            main["passes_ms"] = passes
+            print(f"  wkv6_bwd {(B, T, H, K)} chunk {L} from the forward's "
+                  f"saved scratch: ms={main['saved_ms']!r} graph_ms="
+                  f"{main['saved_graph_ms']!r}; each pass alone (ms): "
+                  f"{passes!r}")
     return dict(name="wkv6_bwd", route="cuda",
                 source="src/repro_torch/csrc/wkv6_bwd.cu",
                 replaces="src/repro/kernels/rwkv6/kernel.py:73",
@@ -4757,10 +4790,13 @@ def main() -> int:
                 print(f"  {name}: {ln.strip()}")
             if "registers" in ln or "spill" in ln:
                 print(f"  {name}: {ln.strip()}")
-    # the tensor-core backward's entries: registers and spills
+    # the tensor-core backwards' entries: registers and spills
     for entry, usage in ptxas_usage(logs.get("flash_attention_bwd", ""),
                                     "wgmma").items():
         print(f"  flash_attention_bwd wgmma entry {entry}: {usage}")
+    for entry, usage in ptxas_usage(logs.get("wkv6_bwd", ""),
+                                    "wkv6_bwd").items():
+        print(f"  wkv6_bwd entry {entry}: {usage}")
     counters = (fused_iter_sweep, rm_sweep_batched, rm_sweep,
                 flash_attention, wkv6, flash_attention_bwd, wkv6_bwd)
 

@@ -18,18 +18,75 @@
 //   dLW_end = sum_t dK2 K2 + sum_v dS' S e^{LW_end},
 //   dw_t = sum_{s >= t} (dLWp_s + E_s) - dLWp_t + dLW_end + [t <= L/2] dZ
 // (LW = cumsum(w), LWp = LW - w, Z = LW[L / 2], LW_end = LW[L - 1]).
-// du sums ddiag r k over the rows: each block writes its (batch, head)
-// partial, and the wrapper adds the batches in order.  All of it in f32.
+// du sums ddiag r k over the rows: the kernels write its (batch, head)
+// partials, and the wrapper adds the batches in order.  All of it in f32.
+// Every sum runs in a fixed order, nothing is added atomically, so two
+// calls give the same bits.
 //
-// Two kernels, launched in this order on one stream, one block per (batch,
-// head) each, 256 threads:
+// What bounds it.  At the RWKV6-7B train shape (B 2, T 1024, 64 heads of
+// 64, chunk 256, with S0 and dS) the function does ten products a chunk
+// (five strictly lower intra-chunk ones, five of the rows with a K x V
+// state): 0.10 ms at the tensor cores' TF32 rate with each product split
+// in three, against 0.097 ms for its bytes (operands, gradients and the
+// state scratch at 3.35 TB/s), and about 0.75 ms in f32 FMAs on the CUDA
+// cores.  So the products go to the tensor cores, and the chunks, which
+// the TPU kernel walks in order, run in parallel: the one sequential carry
+// left is a K x V reverse prefix over the chunks, as the forward's prefix.
+// This design's own floors: each pair of sub-tiles' dA is formed twice (by
+// the sub-tile that takes dQ and by the one that takes dKf: six products a
+// pair against the function's five), and mma.sync issues TF32 at about half
+// the dense rate.
+//
+// Two routes; the wrapper (kernels/rwkv6/kernel.py: bwd_route) picks one.
+//
+// Chunk-parallel (L a multiple of 64, K == V a multiple of 4, operands and
+// cotangents 16-byte aligned: the RWKV6 train and prefill chunk of 256).
+// It starts from the forward's scratch (csrc/wkv6.cu's passes 1 and 2: the
+// chunk-start states S_c, the carries, Z and D = e^{LW_end}), which the
+// autograd Function keeps from its forward; a call without it relaunches
+// those two passes.  Then four kernels on the stream, the products on the
+// tensor cores as the forward's (split, mma3 in wkv6.cuh):
+//   1. wkv6_bwd_g, one block per (batch, head, chunk): G_c = R_c^T dy_c
+//      summed by sub-tile, its r and dy double-buffered, R = r e^{LWp} with
+//      LW rebuilt by scan_rows from the forward's carries (a row's LW has
+//      the forward's bits); then the chunk's LW summed in the plain
+//      version's order (one running sum a channel): the carry before each
+//      sub-tile, Z and LW_end, on which the main pass takes the clips'
+//      gradient masks (a row at |x| = 30 within rounding would otherwise
+//      count in one version's dw and not in the other's).
+//   2. wkv6_bwd_prefix, one thread per (batch, head, state element): the
+//      chunks in reverse from dS (or 0), storing dS'_c over G_c and carrying
+//      dS' <- D_c dS'_c + G_c; the last value is dS0.
+//   3. wkv6_bwd_main, one block of 16 warps per (batch, head, chunk, 64-row
+//      sub-tile i), a chunk's sub-tiles adjacent in blockIdx, the heaviest
+//      (i = 0) first.  dQ_i = sum_{j <= i} dA_ij Kf_j, the warps splitting
+//      the key rows in quarters that are added at the end; then dv_i =
+//      sum_{j >= i} A_ji^T dy_j on warps 0-7 and dKf_i = sum_{j >= i}
+//      dA_ji^T Q_j on warps 8-15, each group splitting sub-tile j's rows in
+//      halves; the pair's own sub-tile masked m < t.  The other sub-tiles'
+//      operands (k, v, w, then r, dy, w) stream in by cp.async,
+//      double-buffered, and each masked A or dA goes from the accumulator
+//      to the next product's A operand in registers.  Then the sub-tile's
+//      LW in the plain version's order from pass 1's
+//      carry, dR_i = dy_i S_c^T, dK2_i = v_i dS'_c^T and dv_i += K2_i dS'_c,
+//      and the elementwise terms: dr, dk and dv in full, dw's reversed sum
+//      within the sub-tile, and the sub-tile's per-channel totals of dLWp +
+//      E, gK - gQ, dK2 K2 and ddiag r k to a (B, H, n, L / 64, 4, K)
+//      scratch.  Twelve 64 x 68 tiles (207 KB): one block an SM, so the
+//      block has 16 warps (at most 128 registers a thread) to hide each
+//      product's latency; with 8 it ran slower.
+//   4. wkv6_bwd_fixup, one block per (batch, head, chunk): dLW_end and dZ
+//      from the totals and sum_v dS'_c S_c, then dw += the later sub-tiles'
+//      totals + dLW_end + [t <= L / 2] dZ; the chunk-0 block also sums du's
+//      (batch, head) partial over the chunks and sub-tiles in reverse.
+//
+// Per-head (any other L, as the 1040- and 300-token prompts' chunks 16 and
+// 4): the CUDA-core kernels of the first port, launched in this order on
+// one stream, one block per (batch, head) each, 256 threads:
 //   1. wkv6_bwd_states walks the chunks in order, as the forward does, and
 //      writes the state at each chunk's start to a (B, H, n, K, V) scratch
-//      that the wrapper allocates.  The forward's routes keep no such
-//      states (the per-head kernel holds its state in shared memory; the
-//      chunk-parallel route's S_c live in a scratch freed with the call),
-//      and recomputing them costs one K2^T v product a chunk, against the
-//      backward's eight, so the forward is left as serving runs it.
+//      that the wrapper allocates (the per-head forward holds its state in
+//      shared memory and keeps none).
 //   2. wkv6_bwd walks the chunks in reverse with dS' in shared memory.  A
 //      chunk is cut into sub-tiles of 64 rows, as the per-head forward cuts
 //      it (any L that divides T, down to 1; a ragged last sub-tile is
@@ -43,22 +100,23 @@
 //      over the chunk), and dw's reversed sum by one thread a channel.  dZ
 //      and dLW_end are known only at the chunk's end; the same threads then
 //      add them to the chunk's dw.
-// Every sum runs in a fixed order, nothing is added atomically, so two
-// calls give the same bits.  This first version runs the products in f32
-// FMAs from shared memory (each 64 x 64 x 64, every pair of sub-tiles
-// taken twice); the tensor cores and a chunk-parallel walk are later work.
+//   Both in f32 FMAs from shared memory (each 64 x 64 x 64 product, every
+//   pair of sub-tiles taken twice).
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
 
+#include "wkv6.cuh"
+
 namespace {
 
-constexpr int kTS = 64;        // rows per sub-tile; also the most K and V
-constexpr int kThreads = 256;  // 16 x 16: 4 rows x 4 columns of a tile each
+// --------------------------------------------------------------------------
+// the per-head route: wkv6_bwd_states, wkv6_bwd
+// --------------------------------------------------------------------------
+
 constexpr int kLD = kTS + 1;   // padded row of every shared tile
-constexpr int kTile = kTS * kLD;
-constexpr float kClamp = 30.0f;
+constexpr int kPTile = kTS * kLD;
 constexpr int kMaxSmem = 227 * 1024;
 
 __device__ __forceinline__ float clampf(float x) {
@@ -183,9 +241,9 @@ wkv6_bwd_states(const float* __restrict__ k, const float* __restrict__ v,
                 float* __restrict__ Sc, int T, int H, int K, int V, int L) {
   extern __shared__ float smem[];
   float* Ss = smem;              // K x V, row kLD
-  float* LWt = Ss + kTile;       // LW, then K2, of a sub-tile
-  float* Vt = LWt + kTile;       // v of a sub-tile
-  float* LWe = Vt + kTile;
+  float* LWt = Ss + kPTile;       // LW, then K2, of a sub-tile
+  float* Vt = LWt + kPTile;       // v of a sub-tile
+  float* LWe = Vt + kPTile;
   float* Zs = LWe + kTS;
   float* carry = Zs + kTS;       // nsub x kTS
 
@@ -256,18 +314,18 @@ wkv6_bwd(const float* __restrict__ r, const float* __restrict__ k,
          Out out, int T, int H, int K, int V, int L) {
   extern __shared__ float smem[];
   float* Ss = smem;              // the state at the chunk's start
-  float* dSs = Ss + kTile;       // dS': the cotangent of its end state
-  float* Li = dSs + kTile;       // LW of sub-tile i, then ddiag r k
-  float* Qi = Li + kTile;        // Q_i, then gK - gQ
-  float* Kfi = Qi + kTile;       // Kf_i, then dK2 K2
-  float* Vi = Kfi + kTile;       // v_i
-  float* DYi = Vi + kTile;       // dy_i
-  float* X = DYi + kTile;        // Kf_j or Q_j, then R
-  float* Y = X + kTile;          // v_j or dy_j, then K2
-  float* P1 = Y + kTile;         // dA_ij or A_ji, then dLWp
-  float* P2 = P1 + kTile;        // dA_ji, then E
-  float* Lt = P2 + kTile;        // LW of sub-tile j
-  float* Zs = Lt + kTile;
+  float* dSs = Ss + kPTile;       // dS': the cotangent of its end state
+  float* Li = dSs + kPTile;       // LW of sub-tile i, then ddiag r k
+  float* Qi = Li + kPTile;        // Q_i, then gK - gQ
+  float* Kfi = Qi + kPTile;       // Kf_i, then dK2 K2
+  float* Vi = Kfi + kPTile;       // v_i
+  float* DYi = Vi + kPTile;       // dy_i
+  float* X = DYi + kPTile;        // Kf_j or Q_j, then R
+  float* Y = X + kPTile;          // v_j or dy_j, then K2
+  float* P1 = Y + kPTile;         // dA_ij or A_ji, then dLWp
+  float* P2 = P1 + kPTile;        // dA_ji, then E
+  float* Lt = P2 + kPTile;        // LW of sub-tile j
+  float* Zs = Lt + kPTile;
   float* LWe = Zs + kTS;
   float* us = LWe + kTS;
   float* dZa = us + kTS;         // sum_t (gK - gQ) over the chunk
@@ -539,14 +597,682 @@ wkv6_bwd(const float* __restrict__ r, const float* __restrict__ k,
       out.dS0[sbh * K * V + idx] = dSs[(idx / V) * kLD + idx % V];
 }
 
+
+// --------------------------------------------------------------------------
+// the chunk-parallel route: wkv6_bwd_g, wkv6_bwd_prefix, wkv6_bwd_main,
+// wkv6_bwd_fixup
+// --------------------------------------------------------------------------
+
+// Pass 1: one block per (batch, head, chunk).  Sub-tile by sub-tile (r and
+// dy double-buffered, w straight to registers): LW from the forward's
+// carry, R = r e^{LWp} in place, G += R^T dy.  Warp wp owns G's rows 16 (wp
+// % 4) .. + 15 and columns 32 (wp / 4) .. + 31.  Then one thread a channel
+// sums the chunk's w as the plain version does (Seq).
+//
+// Seq: the chunk's LW summed as the plain version sums it (torch.cumsum on
+// the card: one running f32 sum a channel, from 0): the carry before each
+// sub-tile, Z = LW[L / 2] and LW_end.  The clips' gradient jumps at |x| =
+// 30, so the elementwise step takes each row's clip decision on these bits,
+// as autograd of the plain version does; the products keep the forward's
+// blocked scan, since the clipped values themselves are continuous.
+struct Seq {
+  float *carry, *Z, *LWE;
+};
+
+__global__ void __launch_bounds__(kThreads, 2)
+wkv6_bwd_g(const float* __restrict__ r, const float* __restrict__ w,
+           const float* __restrict__ dy, const float* __restrict__ carry_in,
+           float* __restrict__ G, Seq seq, int T, int H, int K, int L) {
+  extern __shared__ float smem[];
+  float* seg_sum = smem + 4 * kTile;    // 4 x 64
+  // r (then R) in buffer 2x, dy in 2x + 1
+  auto buf = [&](int x) { return smem + x * kTile; };
+
+  const int n = T / L, nsub = L / kTS;
+  const int c = blockIdx.x % n, bh = blockIdx.x / n;
+  const int h = bh % H, b = bh / H;
+  const int tid = threadIdx.x, seg = tid >> 6, ch = tid & 63;
+  const long long row = (long long)H * K;
+  const long long base = ((long long)b * T + (long long)c * L) * row
+                         + (long long)h * K;
+  const long long chunk = (long long)bh * n + c;
+  const float* carry = carry_in + chunk * nsub * K;
+
+  if (K < kTS) zero_smem(smem, 4 * kTile);
+  __syncthreads();
+  load_tile(buf(0), r + base, row, kTS, K);
+  load_tile(buf(1), dy + base, row, kTS, K);
+  cp_commit();
+  float wv[kSeg], wn[kSeg], lw[kSeg];
+  load_w(wv, w + base, row, K);
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
+  const int m0 = 16 * (warp & 3), n0 = 32 * (warp >> 2);
+  float acc[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[nt][x] = 0.0f;
+  for (int s = 0; s < nsub; ++s) {
+    const int bs = s & 1;
+    __syncthreads();                           // the other buffers are free
+    if (s + 1 < nsub) {
+      const long long off = base + (long long)(s + 1) * kTS * row;
+      load_tile(buf(2 - 2 * bs), r + off, row, kTS, K);
+      load_tile(buf(3 - 2 * bs), dy + off, row, kTS, K);
+      load_w(wn, w + off, row, K);
+    }
+    cp_commit();
+    scan_rows(wv, seg_sum, ch < K ? carry[s * K + ch] : 0.0f, lw);
+    cp_wait<1>();
+    __syncthreads();
+    float* Rs = buf(2 * bs);
+    const float* Ds = buf(2 * bs + 1);
+    if (ch < K) {
+#pragma unroll
+      for (int t = 0; t < kSeg; ++t) {
+        float* p = Rs + (seg * kSeg + t) * kLDT + ch;
+        *p = *p * __expf(lw[t] - wv[t]);
+      }
+    }
+    __syncthreads();
+    if (s + 1 < nsub) {
+#pragma unroll
+      for (int t = 0; t < kSeg; ++t) wv[t] = wn[t];
+    }
+#pragma unroll
+    for (int ks = 0; ks < kTS / 8; ++ks) {
+      const float* kr = Rs + (8 * ks + q) * kLDT + m0 + g;   // A = R^T
+      const float a[4] = {kr[0], kr[8], kr[4 * kLDT], kr[4 * kLDT + 8]};
+      uint32_t ah[4], al[4];
+      split4(a, ah, al);
+      const float* vr = Ds + (8 * ks + q) * kLDT + n0 + g;
+      float bb[4][2];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        bb[nt][0] = vr[8 * nt];
+        bb[nt][1] = vr[4 * kLDT + 8 * nt];
+      }
+      mma3<4>(acc, ah, al, bb);
+    }
+  }
+  float* Gb = G + chunk * K * K;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int col = n0 + 8 * nt + 2 * q;
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int kk = m0 + g + 8 * (x >> 1), vv = col + (x & 1);
+      if (kk < K && vv < K) Gb[kk * K + vv] = acc[nt][x];
+    }
+  }
+  if (tid < K) {                 // a sub-tile's 64 loads, then 64 adds
+    float run = 0.0f;
+    for (int s = 0; s < nsub; ++s) {
+      const float* wc = w + base + (long long)s * kTS * row + tid;
+      float x[kTS];
+#pragma unroll
+      for (int t = 0; t < kTS; ++t) x[t] = wc[(long long)t * row];
+      seq.carry[(chunk * nsub + s) * K + tid] = run;
+#pragma unroll
+      for (int t = 0; t < kTS; ++t) {
+        run += x[t];
+        if (s * kTS + t == L / 2) seq.Z[chunk * K + tid] = run;
+      }
+    }
+    seq.LWE[chunk * K + tid] = run;
+  }
+}
+
+// Pass 2: one thread per (batch, head, state element), the chunks in
+// reverse.
+__global__ void __launch_bounds__(kThreads)
+wkv6_bwd_prefix(float* __restrict__ G, const float* __restrict__ D,
+                const float* __restrict__ dS, float* __restrict__ dS0, int BH,
+                int n, int K) {
+  const long long KV = (long long)K * K;
+  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= BH * KV) return;
+  const long long bh = idx / KV, e = idx % KV;
+  const int kk = (int)(e / K);
+  float s = dS ? dS[idx] : 0.0f;
+  for (int c = n - 1; c >= 0; --c) {
+    const long long chunk = bh * n + c;
+    float* p = G + chunk * KV + e;
+    const float gc = *p;
+    *p = s;                        // the cotangent of the chunk's end state
+    s = D[chunk * K + kk] * s + gc;
+  }
+  if (dS0) dS0[idx] = s;
+}
+
+enum { kFull = 0, kLower = 1, kUpper = 2 };
+
+// The main pass runs 16 warps a block: with its twelve tiles one block fits
+// an SM, and 16 warps keep the tensor cores fed where 8 waited on each
+// product's latency.
+constexpr int kMainThreads = 512;
+
+// load_tile and zero_smem for the main pass's 512 threads
+__device__ __forceinline__ void load_tile2(float* dst, const float* src,
+                                           long long row_stride, int rows,
+                                           int n) {
+  const int per_row = n >> 2;
+  for (int idx = threadIdx.x; idx < rows * per_row; idx += kMainThreads) {
+    const int t = idx / per_row, c = (idx % per_row) * 4;
+    cp_async16(dst + t * kLDT + c, src + (long long)t * row_stride + c);
+  }
+}
+
+// scan_rows for the main pass: threads tid and tid + 256 take the same
+// (segment, channel) and get the same LW; the lower half writes seg_sum
+__device__ __forceinline__ void scan_rows2(const float* wv, float* seg_sum,
+                                           float carry, float* lw) {
+  const int sc = threadIdx.x & (kThreads - 1), seg = sc >> 6, ch = sc & 63;
+  float run = 0.0f;
+#pragma unroll
+  for (int t = 0; t < kSeg; ++t) {
+    run += wv[t];
+    lw[t] = run;
+  }
+  if (threadIdx.x < kThreads) seg_sum[seg * kTS + ch] = run;
+  __syncthreads();
+  float base = carry;
+  for (int s = 0; s < seg; ++s) base += seg_sum[s * kTS + ch];
+#pragma unroll
+  for (int t = 0; t < kSeg; ++t) lw[t] = base + lw[t];
+}
+
+// a[nt] (16 x 8 NT) = A B^T for rows row0 .. + 15 of A and rows col0 .. +
+// 8 NT - 1 of B, over the 64 channels of both tiles; kLower keeps column <
+// row, kUpper row < column.  Fragments as mma3's (g = lane / 4, q = lane %
+// 4).
+template <int MASK, int NT>
+__device__ __forceinline__ void prod_abt(const float* A, const float* B,
+                                         float (*a)[4], int row0, int col0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) a[nt][x] = 0.0f;
+#pragma unroll
+  for (int ks = 0; ks < kTS / 8; ++ks) {
+    const float* ar = A + (row0 + g) * kLDT + 8 * ks + q;
+    const float af[4] = {ar[0], ar[8 * kLDT], ar[4], ar[8 * kLDT + 4]};
+    uint32_t ah[4], al[4];
+    split4(af, ah, al);
+    const float* br = B + (col0 + g) * kLDT + 8 * ks + q;
+    float bb[NT][2];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      bb[nt][0] = br[8 * nt * kLDT];
+      bb[nt][1] = br[8 * nt * kLDT + 4];
+    }
+    mma3<NT>(a, ah, al, bb);
+  }
+  if (MASK != kFull) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int rr = row0 + g + 8 * (x >> 1);
+        const int cc = col0 + 8 * nt + 2 * q + (x & 1);
+        if (MASK == kLower ? !(cc < rr) : !(rr < cc)) a[nt][x] = 0.0f;
+      }
+  }
+}
+
+// acc (16 x 64) += P C with P = A B^T (prod_abt, 8 NT columns) and C's rows
+// col0 .. + 8 NT - 1: P goes from the accumulator to the A operand in
+// registers (k index q <-> P's column 2q, q + 4 <-> 2q + 1, so C's rows are
+// read in that order)
+template <int MASK, int NT>
+__device__ __forceinline__ void chain(const float* A, const float* B,
+                                      const float* C, float (*acc)[4],
+                                      int row0, int col0) {
+  // every column >= every row, or every row >= every column: P = 0
+  if (MASK == kLower && row0 + 15 <= col0) return;
+  if (MASK == kUpper && row0 >= col0 + 8 * NT - 1) return;
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  float a[NT][4];
+  prod_abt<MASK, NT>(A, B, a, row0, col0);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const float fa[4] = {a[nt][0], a[nt][2], a[nt][1], a[nt][3]};
+    uint32_t ah[4], al[4];
+    split4(fa, ah, al);
+    const float* cr = C + (col0 + 8 * nt + 2 * q) * kLDT + g;
+    float bb[kTS / 8][2];
+#pragma unroll
+    for (int vt = 0; vt < kTS / 8; ++vt) {
+      bb[vt][0] = cr[8 * vt];
+      bb[vt][1] = cr[kLDT + 8 * vt];
+    }
+    mma3<kTS / 8>(acc, ah, al, bb);
+  }
+}
+
+// acc (16 x 64) += A B for rows row0 .. + 15 of A, B a K x V tile
+__device__ __forceinline__ void prod_ab(const float* A, const float* B,
+                                        float (*acc)[4], int row0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < kTS / 8; ++ks) {
+    const float* ar = A + (row0 + g) * kLDT + 8 * ks + q;
+    const float af[4] = {ar[0], ar[8 * kLDT], ar[4], ar[8 * kLDT + 4]};
+    uint32_t ah[4], al[4];
+    split4(af, ah, al);
+    const float* br = B + (8 * ks + q) * kLDT + g;
+    float bb[kTS / 8][2];
+#pragma unroll
+    for (int vt = 0; vt < kTS / 8; ++vt) {
+      bb[vt][0] = br[8 * vt];
+      bb[vt][1] = br[4 * kLDT + 8 * vt];
+    }
+    mma3<kTS / 8>(acc, ah, al, bb);
+  }
+}
+
+// an accumulator of NT 8-column tiles (rows row0 .. + 15, columns col0 ..)
+// and a shared tile: stored to it, added to what is there, or taken back
+enum { kStore = 0, kAdd = 1, kTake = 2 };
+template <int NT, int HOW>
+__device__ __forceinline__ void put(float* T, float (*acc)[4], int row0,
+                                    int col0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    float* o = T + (row0 + g) * kLDT + col0 + 8 * nt + 2 * q;
+    float* p[4] = {o, o + 1, o + 8 * kLDT, o + 8 * kLDT + 1};
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      if (HOW == kStore) *p[x] = acc[nt][x];
+      if (HOW == kAdd) *p[x] += acc[nt][x];
+      if (HOW == kTake) acc[nt][x] += *p[x];
+    }
+  }
+}
+
+struct Grads {
+  float *dr, *dk, *dv, *dw, *tot;
+};
+
+// Pass 3: one block per (batch, head, chunk, 64-row sub-tile i), 16 warps.
+// The scans run on 256 threads' (segment, channel) layout, mirrored in the
+// upper 256 (scan_rows2), and the lower half scales the tiles in place.
+__global__ void __launch_bounds__(kMainThreads, 1)
+wkv6_bwd_main(const float* __restrict__ r, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ w,
+              const float* __restrict__ u, const float* __restrict__ dy,
+              const float* __restrict__ Sc, const float* __restrict__ dSc,
+              const float* __restrict__ carry_in,
+              const float* __restrict__ Z_in, Seq seq, Grads out, int T,
+              int H, int K, int L) {
+  extern __shared__ float smem[];
+  auto tile = [&](int x) { return smem + x * kTile; };
+  float* DY = tile(0);      // dy_i
+  float* VI = tile(1);      // v_i
+  float* KF = tile(2);      // k_i, then Kf_i; LW_i at the end
+  float* QI = tile(3);      // r_i, then Q_i; k_i, then K2_i at the end
+  float* DQ = tile(4);      // dQ_i
+  // the streamed sub-tiles' pairs: k_j (then Kf_j) and v_j, or r_j (then
+  // Q_j) and dy_j; at the end dKf_i, dR_i, dK2_i, dv's other half and the
+  // totals
+  auto X = [&](int p) { return tile(5 + 2 * p); };
+  auto Y = [&](int p) { return tile(6 + 2 * p); };
+  float* WS = tile(9);      // w of the sub-tile being scanned
+  float* SS = tile(10);     // S_c
+  float* DSS = tile(11);    // dS'_c
+  float* seg_sum = smem + 12 * kTile;
+  float* us = seg_sum + 4 * kTS;
+  float* lwe = us + kTS;
+  float* diag = lwe + kTS;    // sum_k r u k of sub-tile i's rows
+  float* ddiag = diag + kTS;  // dy . v of sub-tile i's rows
+
+  const int n = T / L, nsub = L / kTS;
+  const int i = (int)(blockIdx.x % nsub);
+  const int c = (blockIdx.x / nsub) % n, bh = blockIdx.x / nsub / n;
+  const int h = bh % H, b = bh / H;
+  const int tid = threadIdx.x, sc = tid & (kThreads - 1);
+  const int seg = sc >> 6, ch = sc & 63;
+  const bool lower = tid < kThreads;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
+  const int t0w = 16 * (warp & 3);
+  const long long row = (long long)H * K;
+  const long long base = ((long long)b * T + (long long)c * L) * row
+                         + (long long)h * K;
+  const long long chunk = (long long)bh * n + c;
+  const float* carry = carry_in + chunk * nsub * K;
+  const long long off_i = base + (long long)i * kTS * row;
+  const float zc = ch < K ? Z_in[chunk * K + ch] : 0.0f;
+
+  if (K < kTS)
+    for (int idx = tid; idx < 12 * kTile; idx += kMainThreads) smem[idx] = 0;
+  if (tid < kTS) {
+    us[tid] = tid < K ? u[(long long)h * K + tid] : 0.0f;
+    lwe[tid] = tid < K ? seq.LWE[chunk * K + tid] : 0.0f;
+  }
+  __syncthreads();
+  load_tile2(QI, r + off_i, row, kTS, K);     // group 1: the sub-tile
+  load_tile2(KF, k + off_i, row, kTS, K);
+  load_tile2(WS, w + off_i, row, kTS, K);
+  load_tile2(VI, v + off_i, row, kTS, K);
+  load_tile2(DY, dy + off_i, row, kTS, K);
+  cp_commit();
+  load_tile2(SS, Sc + chunk * K * K, K, K, K);  // group 2: the states
+  load_tile2(DSS, dSc + chunk * K * K, K, K, K);
+  cp_commit();
+  cp_wait<1>();
+  __syncthreads();
+
+  float wv[kSeg], lw[kSeg];
+#pragma unroll
+  for (int t = 0; t < kSeg; ++t) wv[t] = WS[(seg * kSeg + t) * kLDT + ch];
+  scan_rows2(wv, seg_sum, ch < K ? carry[i * K + ch] : 0.0f, lw);
+  for (int t = warp * 4; t < warp * 4 + 4; ++t) {   // sum r u k, dy . v
+    float p = 0.0f, pd = 0.0f;
+    for (int kk = lane; kk < K; kk += 32) {
+      p += QI[t * kLDT + kk] * us[kk] * KF[t * kLDT + kk];
+      pd += DY[t * kLDT + kk] * VI[t * kLDT + kk];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      p += __shfl_xor_sync(0xffffffffu, p, o);
+      pd += __shfl_xor_sync(0xffffffffu, pd, o);
+    }
+    if (lane == 0) {
+      diag[t] = p;
+      ddiag[t] = pd;
+    }
+  }
+  __syncthreads();
+  if (lower && ch < K) {
+#pragma unroll
+    for (int t = 0; t < kSeg; ++t) {
+      const int e = (seg * kSeg + t) * kLDT + ch;
+      QI[e] = QI[e] * fast_clamp_exp(lw[t] - wv[t] - zc);
+      KF[e] = KF[e] * fast_clamp_exp(zc - lw[t]);
+    }
+  }
+  __syncthreads();            // Q_i and Kf_i ready; WS and the pairs free
+
+  // the streamed sub-tiles, s = 0 .. nsub - 2: j = s < i for dQ (k, v, w),
+  // then j = s + 1 > i for dKf and dv (r, dy, w); pair s % 2
+  const int ns = nsub - 1;
+  auto issue = [&](int s) {
+    const int p = s & 1, j = s < i ? s : s + 1;
+    const long long off = base + (long long)j * kTS * row;
+    load_tile2(X(p), (s < i ? k : r) + off, row, kTS, K);
+    load_tile2(Y(p), (s < i ? v : dy) + off, row, kTS, K);
+    load_tile2(WS, w + off, row, kTS, K);
+    cp_commit();
+  };
+  // wait for streamed sub-tile s, scan its w and scale X(s % 2) in place
+  // (Kf_j, or Q_j), then start the next one's loads
+  auto take = [&](int s) {
+    const int p = s & 1, j = s < i ? s : s + 1;
+    cp_wait<0>();
+    __syncthreads();
+    float ws[kSeg], ls[kSeg];
+#pragma unroll
+    for (int t = 0; t < kSeg; ++t) ws[t] = WS[(seg * kSeg + t) * kLDT + ch];
+    scan_rows2(ws, seg_sum, ch < K ? carry[j * K + ch] : 0.0f, ls);
+    if (lower && ch < K) {
+#pragma unroll
+      for (int t = 0; t < kSeg; ++t) {
+        float* e = X(p) + (seg * kSeg + t) * kLDT + ch;
+        *e = *e * fast_clamp_exp(s < i ? zc - ls[t] : ls[t] - ws[t] - zc);
+      }
+    }
+    __syncthreads();          // ready; WS and the other pair free
+    if (s + 1 < ns) issue(s + 1);
+  };
+  if (ns > 0) issue(0);
+
+  // dQ_i = sum_{j <= i} dA_ij Kf_j, dA = dy_i v_j^T: warp wp takes rows 16
+  // (wp % 4) .. + 15 and key rows 16 (wp / 4) .. + 15; the quarters are
+  // added in DQ, last first
+  const int kq = 16 * (warp >> 2);
+  float acc[kTS / 8][4];
+#pragma unroll
+  for (int vt = 0; vt < kTS / 8; ++vt)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[vt][x] = 0.0f;
+  chain<kLower, 2>(DY, VI, KF, acc, t0w, kq);
+  for (int s = 0; s < i; ++s) {
+    take(s);
+    chain<kFull, 2>(DY, Y(s & 1), X(s & 1), acc, t0w, kq);
+  }
+  if (kq == 48) put<kTS / 8, kStore>(DQ, acc, t0w, 0);
+  for (int qq = 32; qq >= 0; qq -= 16) {
+    __syncthreads();
+    if (kq == qq) put<kTS / 8, kAdd>(DQ, acc, t0w, 0);
+  }
+
+  // dv_i = sum_{j >= i} A_ji^T dy_j on warps 0-7, A^T = Kf_i Q_j^T; dKf_i =
+  // sum_{j >= i} dA_ji^T Q_j on warps 8-15, dA^T = v_i dy_j^T; each warp
+  // rows 16 (wp % 4) .. + 15 and half (wp / 4) % 2 of sub-tile j's rows
+  const bool dv_warp = warp < 8;
+  const int jh = 32 * ((warp >> 2) & 1);
+#pragma unroll
+  for (int vt = 0; vt < kTS / 8; ++vt)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[vt][x] = 0.0f;
+  if (dv_warp) chain<kUpper, 4>(KF, QI, DY, acc, t0w, jh);
+  else chain<kUpper, 4>(VI, DY, QI, acc, t0w, jh);
+  for (int s = i; s < ns; ++s) {
+    take(s);
+    const float* Qj = X(s & 1);
+    const float* DYj = Y(s & 1);
+    if (dv_warp) chain<kFull, 4>(KF, Qj, DYj, acc, t0w, jh);
+    else chain<kFull, 4>(VI, DYj, Qj, acc, t0w, jh);
+  }
+
+  // the second halves out (dKf_i to X(0), dv_i's to Y(1)); LW_i summed as
+  // the plain version sums it (Seq), and K2_i
+  __syncthreads();            // every product is done with the tiles
+  if (jh) put<kTS / 8, kStore>(dv_warp ? Y(1) : X(0), acc, t0w, 0);
+  load_tile2(QI, k + off_i, row, kTS, K);
+  load_tile2(WS, w + off_i, row, kTS, K);
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+  if (!dv_warp && !jh) put<kTS / 8, kAdd>(X(0), acc, t0w, 0);   // dKf_i
+  if (tid < K) {
+    const float le = lwe[tid];
+    float run = seq.carry[(chunk * nsub + i) * K + tid];
+#pragma unroll 8
+    for (int t = 0; t < kTS; ++t) {
+      const int e = t * kLDT + tid;
+      run += WS[e];
+      KF[e] = run;
+      QI[e] = QI[e] * __expf(le - run);
+    }
+  }
+  __syncthreads();
+
+  // dv_i += K2_i dS'_c, then dv_i + diag dy_i out (warps 0-3); dR_i = dy_i
+  // S_c^T (warps 4-7) and dK2_i = v_i dS'_c^T (warps 12-15)
+  if (dv_warp && !jh) {
+    put<kTS / 8, kTake>(Y(1), acc, t0w, 0);
+    prod_ab(QI, DSS, acc, t0w);
+#pragma unroll
+    for (int vt = 0; vt < kTS / 8; ++vt) {
+      const int col = 8 * vt + 2 * q;
+      if (col >= K) continue;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int m = t0w + g + 8 * hr;
+        const float* d = DY + m * kLDT + col;
+        *reinterpret_cast<float2*>(out.dv + off_i + (long long)m * row
+                                   + col) =
+            make_float2(acc[vt][2 * hr] + diag[m] * d[0],
+                        acc[vt][2 * hr + 1] + diag[m] * d[1]);
+      }
+    }
+  } else if (jh) {
+    const float* A = dv_warp ? DY : VI;
+    const float* B = dv_warp ? SS : DSS;
+    float* O = dv_warp ? Y(0) : X(1);
+    float a[4][4];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      prod_abt<kFull, 4>(A, B, a, t0w, 32 * half);
+      put<4, kStore>(O, a, t0w, 32 * half);
+    }
+  }
+  __syncthreads();
+
+  // the elementwise terms, thread (segment e8, ch): its 8 rows last first
+  float* part = Y(1);         // 4 quantities x 8 segments x 64 channels
+  const int e8 = tid >> 6;
+  float dwv[8];
+  if (ch < K) {
+    const float le = lwe[ch], uu = us[ch], zs = seq.Z[chunk * K + ch];
+    const float* dKf = X(0);
+    const float* dR = Y(0);
+    const float* dK2 = X(1);
+    float run = 0.0f, gz = 0.0f, k2s = 0.0f, dus = 0.0f;
+#pragma unroll
+    for (int t = 7; t >= 0; --t) {
+      const int rr = e8 * 8 + t, e = rr * kLDT + ch;
+      const long long gi = off_i + (long long)rr * row + ch;
+      const float lwt = KF[e], rv = r[gi], kv = k[gi];
+      const float lwp = lwt - w[gi], xq = lwp - zs, xk = zs - lwt;
+      const float eQ = fast_clamp_exp(xq), eK = fast_clamp_exp(xk);
+      const float eP = __expf(lwp), e2 = __expf(le - lwt);
+      const float dq = DQ[e], dkf = dKf[e], drr = dR[e], dk2 = dK2[e];
+      const float bonus = ddiag[rr] * uu;
+      out.dr[gi] = dq * eQ + drr * eP + bonus * kv;
+      out.dk[gi] = dkf * eK + dk2 * e2 + bonus * rv;
+      const float gQ = fabsf(xq) <= kClamp ? dq * (rv * eQ) : 0.0f;
+      const float gK = fabsf(xk) <= kClamp ? dkf * (kv * eK) : 0.0f;
+      const float k2k2 = dk2 * (kv * e2);
+      const float E = -gK - k2k2;
+      dwv[t] = run + E;
+      run += gQ + drr * (rv * eP) + E;     // dLWp + E
+      gz += gK - gQ;
+      k2s += k2k2;
+      dus += ddiag[rr] * rv * kv;
+    }
+    part[(0 * 8 + e8) * kTS + ch] = run;
+    part[(1 * 8 + e8) * kTS + ch] = gz;
+    part[(2 * 8 + e8) * kTS + ch] = k2s;
+    part[(3 * 8 + e8) * kTS + ch] = dus;
+  }
+  __syncthreads();
+  if (ch < K) {
+    float later = 0.0f;                  // the later segments' dLWp + E
+    for (int s = 7; s > e8; --s) later += part[s * kTS + ch];
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      out.dw[off_i + (long long)(e8 * 8 + t) * row + ch] = later + dwv[t];
+    if (e8 == 0) {
+      float* tt = out.tot + (chunk * nsub + i) * 4 * K;
+      tt[ch] = later + part[ch];
+      for (int x = 1; x < 4; ++x) {
+        float sum = 0.0f;
+        for (int s = 0; s < 8; ++s) sum += part[(x * 8 + s) * kTS + ch];
+        tt[x * K + ch] = sum;
+      }
+    }
+  }
+}
+
+// Pass 4: one block per (batch, head, chunk).  A warp a state row sums
+// dS'_c S_c along it; one thread a channel forms what each sub-tile's rows of
+// dw still lack (before and after row L / 2); then the block adds it over the
+// chunk, 16 bytes a thread.
+__global__ void __launch_bounds__(kThreads)
+wkv6_bwd_fixup(const float* __restrict__ Sc, const float* __restrict__ dSc,
+               const float* __restrict__ D, const float* __restrict__ tot,
+               float* __restrict__ dw, float* __restrict__ du, int T, int H,
+               int K, int L) {
+  // sum_v dS' S a state row, then nsub x 64 past row L / 2, then up to it
+  extern __shared__ float add[];
+  float* svs = add + 2 * (L / kTS) * kTS;
+  const int n = T / L, nsub = L / kTS;
+  const int c = blockIdx.x % n, bh = blockIdx.x / n;
+  const int h = bh % H, b = bh / H;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long row = (long long)H * K;
+  const long long base = ((long long)b * T + (long long)c * L) * row
+                         + (long long)h * K;
+  const long long chunk = (long long)bh * n + c;
+  for (int kk = warp; kk < K; kk += kThreads / 32) {
+    const float* s = Sc + (chunk * K + kk) * K;
+    const float* ds = dSc + (chunk * K + kk) * K;
+    float p = 0.0f;
+    for (int vv = lane; vv < K; vv += 32) p += ds[vv] * s[vv];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
+    if (lane == 0) svs[kk] = p;
+  }
+  __syncthreads();
+  if (tid < K) {
+    const float* tc = tot + chunk * nsub * 4 * K + tid;
+    const float sv = svs[tid];
+    float k2 = 0.0f, dz = 0.0f;
+    for (int i = 0; i < nsub; ++i) {
+      k2 += tc[(i * 4 + 2) * K];
+      dz += tc[(i * 4 + 1) * K];
+    }
+    const float dlwe = k2 + sv * D[chunk * K + tid];
+    float later = 0.0f;              // the later sub-tiles' dLWp + E
+    for (int i = nsub - 1; i >= 0; --i) {
+      const float a = later + dlwe;
+      add[i * kTS + tid] = a;
+      add[(nsub + i) * kTS + tid] = a + dz;
+      later += tc[i * 4 * K];
+    }
+    if (c == 0) {
+      float sum = 0.0f;
+      for (int cc = n - 1; cc >= 0; --cc)
+        for (int i = nsub - 1; i >= 0; --i)
+          sum += tot[(((long long)bh * n + cc) * nsub * 4 + i * 4 + 3) * K
+                     + tid];
+      du[(long long)bh * K + tid] = sum;
+    }
+  }
+  __syncthreads();
+  const int per_row = K >> 2, items = L * per_row;
+  for (int i0 = tid; i0 < items; i0 += 4 * kThreads) {   // 4 loads in flight
+    float4 x[4];
+#pragma unroll
+    for (int y = 0; y < 4; ++y) {
+      const int idx = i0 + y * kThreads, t = idx / per_row;
+      if (idx < items)
+        x[y] = *reinterpret_cast<const float4*>(
+            dw + base + (long long)t * row + (idx % per_row) * 4);
+    }
+#pragma unroll
+    for (int y = 0; y < 4; ++y) {
+      const int idx = i0 + y * kThreads, t = idx / per_row;
+      if (idx >= items) continue;
+      const int cc = (idx % per_row) * 4;
+      const float* a = add + ((t <= L / 2 ? nsub : 0) + t / kTS) * kTS + cc;
+      x[y].x += a[0];
+      x[y].y += a[1];
+      x[y].z += a[2];
+      x[y].w += a[3];
+      *reinterpret_cast<float4*>(dw + base + (long long)t * row + cc) = x[y];
+    }
+  }
+}
+
+constexpr size_t kGSmem = sizeof(float) * (4 * kTile + 4 * kTS);
+constexpr size_t kMainSmem = sizeof(float) * (12 * kTile + 8 * kTS);
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
 }  // namespace
 
 extern "C" {
 
-// r, k, w, dr, dk, dw: (B, T, H, K); v, dy, dv: (B, T, H, V); u: (H, K);
-// S0 (nullable), dS (nullable), dS0 (nullable): (B, H, K, V); Sc: a
-// (B, H, T / L, K, V) scratch; du: (B, H, K) per-(batch, head) partials.
-// All f32 and contiguous.
+// The per-head route.  r, k, w, dr, dk, dw: (B, T, H, K); v, dy, dv:
+// (B, T, H, V); u: (H, K); S0 (nullable), dS (nullable), dS0 (nullable):
+// (B, H, K, V); Sc: a (B, H, T / L, K, V) scratch; du: (B, H, K)
+// per-(batch, head) partials.  All f32 and contiguous.
 int wkv6_bwd_f32(const float* r, const float* k, const float* v,
                  const float* w, const float* u, const float* S0,
                  const float* dy, const float* dS, float* Sc, float* dr,
@@ -556,8 +1282,8 @@ int wkv6_bwd_f32(const float* r, const float* k, const float* v,
   if (K < 1 || V < 1 || K > kTS || V > kTS || L < 1 || T % L)
     return (int)cudaErrorInvalidValue;
   const int nsub = (L + kTS - 1) / kTS;
-  const size_t smem1 = sizeof(float) * (3 * kTile + 2 * kTS + nsub * kTS);
-  const size_t smem2 = sizeof(float) * (12 * kTile + 7 * kTS + nsub * kTS);
+  const size_t smem1 = sizeof(float) * (3 * kPTile + 2 * kTS + nsub * kTS);
+  const size_t smem2 = sizeof(float) * (12 * kPTile + 7 * kTS + nsub * kTS);
   if (smem2 > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaFuncSetAttribute(wkv6_bwd_states,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -571,6 +1297,62 @@ int wkv6_bwd_f32(const float* r, const float* k, const float* v,
   wkv6_bwd<<<B * H, kThreads, smem2, stream>>>(
       r, k, v, w, u, dy, dS, Sc, Out{dr, dk, dv, dw, du, dS0}, T, H, K, V,
       L);
+  return (int)cudaGetLastError();
+}
+
+// The chunk-parallel route (K == V).  Sc (B, H, n, K, K), carry (B, H, n,
+// L / 64, K), Z and D (B, H, n, K): the forward's scratch after its passes
+// 1 and 2 (csrc/wkv6.cu, wkv6_chunked_f32), n = T / L.  G (B, H, n, K, K),
+// seq_carry (B, H, n, L / 64, K), seq_Z and LWE (B, H, n, K) and tot (B, H,
+// n, L / 64, 4, K): this route's scratch.
+// passes is a mask of the kernels to launch (1 G, 2 prefix, 4 main, 8
+// fix-up): 15 for a call, one bit to time one kernel alone.
+int wkv6_bwd_chunked_f32(const float* r, const float* k, const float* v,
+                         const float* w, const float* u, const float* dy,
+                         const float* dS, const float* Sc,
+                         const float* carry, const float* Z, const float* D,
+                         float* G, float* seq_carry, float* seq_Z,
+                         float* LWE, float* tot, float* dr,
+                         float* dk, float* dv, float* dw, float* du,
+                         float* dS0, int B, int T, int H, int K, int L,
+                         int passes, cudaStream_t stream) {
+  if (K < 4 || K > kTS || K % 4 != 0 || L < kTS || L % kTS != 0 ||
+      T % L != 0 || !aligned16(r) || !aligned16(k) || !aligned16(v) ||
+      !aligned16(w) || !aligned16(dy) || !aligned16(Sc) || !aligned16(G) ||
+      !aligned16(dv) || !aligned16(dw))
+    return (int)cudaErrorInvalidValue;
+  const int n = T / L, nsub = L / kTS, BH = B * H;
+  cudaError_t err;
+  if (passes & 1) {
+    err = cudaFuncSetAttribute(wkv6_bwd_g,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kGSmem);
+    if (err != cudaSuccess) return (int)err;
+    wkv6_bwd_g<<<BH * n, kThreads, kGSmem, stream>>>(
+        r, w, dy, carry, G, Seq{seq_carry, seq_Z, LWE}, T, H, K, L);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if (passes & 2) {
+    const long long total = (long long)BH * K * K;
+    wkv6_bwd_prefix<<<(int)((total + kThreads - 1) / kThreads), kThreads, 0,
+                      stream>>>(G, D, dS, dS0, BH, n, K);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if (passes & 4) {
+    err = cudaFuncSetAttribute(wkv6_bwd_main,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kMainSmem);
+    if (err != cudaSuccess) return (int)err;
+    wkv6_bwd_main<<<BH * n * nsub, kMainThreads, kMainSmem, stream>>>(
+        r, k, v, w, u, dy, Sc, G, carry, Z, Seq{seq_carry, seq_Z, LWE},
+        Grads{dr, dk, dv, dw, tot}, T, H, K, L);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if (passes & 8) {
+    wkv6_bwd_fixup<<<BH * n, kThreads,
+                     sizeof(float) * (2 * nsub + 1) * kTS, stream>>>(
+        Sc, G, D, tot, dw, du, T, H, K, L);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -18,8 +18,16 @@ Two forward routes (``route``): a chunk that is a multiple of 64, with K ==
 V a multiple of 4 and 16-byte aligned operands, runs the chunk-parallel
 kernels on the tensor cores (state, prefix and output passes: three CUDA
 kernels); any other chunk runs the per-head kernel.  ``wkv6.launches``
-counts wrapper calls that launched, one per call whatever the route.  The
-backward has one route for every chunk.
+counts wrapper calls that launched, one per call whatever the route.
+
+The backward has two routes too (``bwd_route``).  Where the forward's is
+chunk-parallel and dy (and dS) are 16-byte aligned, four kernels on the
+tensor cores (G, reverse prefix, main and fix-up passes) start from the
+forward's chunk-start states: ``_WKV6Function`` keeps the forward's scratch
+for its backward, and a call without it relaunches the forward's state and
+prefix passes.  Any other call runs the two per-head kernels of the first
+port, which recompute the states themselves.  ``wkv6_bwd.launches`` counts
+wrapper calls, one per call whatever the route.
 """
 from __future__ import annotations
 
@@ -33,10 +41,12 @@ from repro_torch.kernels.rwkv6 import ref
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"wkv6_f32": [_P] * 8 + [_I] * 6 + [_P],
                "wkv6_chunked_f32": [_P] * 12 + [_I] * 6 + [_P]}
-_BWD_SIGNATURES = {"wkv6_bwd_f32": [_P] * 15 + [_I] * 6 + [_P]}
+_BWD_SIGNATURES = {"wkv6_bwd_f32": [_P] * 15 + [_I] * 6 + [_P],
+                   "wkv6_bwd_chunked_f32": [_P] * 22 + [_I] * 6 + [_P]}
 _MAX_KV = 64
 _SUB = 64        # rows of the chunk-parallel route's sub-tile
 PASSES = {"state": 1, "prefix": 2, "output": 4}
+BWD_PASSES = {"g": 1, "prefix": 2, "main": 4, "fixup": 8}
 
 
 def route(r, k, v, w_log, chunk) -> str:
@@ -45,6 +55,17 @@ def route(r, k, v, w_log, chunk) -> str:
     K, V = r.shape[-1], v.shape[-1]
     if (chunk % _SUB == 0 and K == V and K % 4 == 0
             and all(t.data_ptr() % 16 == 0 for t in (r, k, v, w_log))):
+        return "chunk-parallel"
+    return "per-head"
+
+
+def bwd_route(r, k, v, w_log, dy, dS, chunk) -> str:
+    """``"chunk-parallel"`` or ``"per-head"``: the backward kernels a call
+    with these operands, cotangents (``dS`` None: zeros) and chunk runs on
+    the card."""
+    if (route(r, k, v, w_log, chunk) == "chunk-parallel"
+            and all(t.data_ptr() % 16 == 0 for t in (dy, dS)
+                    if t is not None)):
         return "chunk-parallel"
     return "per-head"
 
@@ -75,10 +96,11 @@ def _check(r, k, v, w_log, u, S0):
 
 
 def _launcher(r, k, v, w_log, u, S0, chunk):
-    """(y, S, lib, launch): ``launch(passes)`` runs the kernels of the
-    call's route into y and S and returns the C entry's error code;
+    """(y, S, lib, launch, scratch): ``launch(passes)`` runs the kernels of
+    the call's route into y and S and returns the C entry's error code;
     ``passes`` (a mask of ``PASSES``) picks kernels of the chunk-parallel
-    route."""
+    route, whose scratch (the chunk-start states S_c, the carries, Z and
+    e^{LW_end}) ``scratch`` is; None on the per-head route."""
     B, T, H, K = r.shape
     V = v.shape[-1]
     y = torch.empty_like(v)
@@ -90,7 +112,7 @@ def _launcher(r, k, v, w_log, u, S0, chunk):
     if route(r, k, v, w_log, chunk) == "per-head":
         def launch(passes=7):
             return lib.wkv6_f32(*ptrs, B, T, H, K, V, chunk, stream)
-        return y, S, lib, launch
+        return y, S, lib, launch, None
     n = T // chunk
     f32 = dict(dtype=torch.float32, device=r.device)
     scratch = (torch.empty((B, H, n, K, K), **f32),          # U, then S_c
@@ -102,21 +124,25 @@ def _launcher(r, k, v, w_log, u, S0, chunk):
     def launch(passes=7):
         return lib.wkv6_chunked_f32(*ptrs, *scratch_ptrs, B, T, H, K, chunk,
                                     passes, stream)
-    return y, S, lib, launch
+    return y, S, lib, launch, scratch
 
 
 def _forward(r, k, v, w_log, u, S0, chunk):
-    y, S, lib, launch = _launcher(r, k, v, w_log, u, S0, chunk)
+    """(y, S, scratch): the forward kernels' outputs and the chunk-parallel
+    route's scratch (None on the per-head route)."""
+    y, S, lib, launch, scratch = _launcher(r, k, v, w_log, u, S0, chunk)
     _build.check(lib, launch(), "wkv6")
     wkv6.launches += 1
-    return y, S
+    return y, S, scratch
 
 
-def wkv6_bwd(r, k, v, w_log, u, S0, dy, dS, *, chunk):
-    """(dr, dk, dv, dw_log, du, dS0) of ``wkv6`` at ``chunk`` for the
-    cotangents ``dy`` of y and ``dS`` of the final state (None: zeros):
-    the backward kernels on CUDA tensors, counted in ``wkv6_bwd.launches``.
-    S0 None is the zero state, and then dS0 is None."""
+def _bwd_launcher(r, k, v, w_log, u, S0, dy, dS, chunk, saved):
+    """(grads, lib, launch): ``launch(passes)`` runs the backward kernels
+    of the call's route into ``grads`` (dr, dk, dv, dw_log, du's (batch,
+    head) partials, dS0) and returns the C entry's error code; ``passes``
+    (a mask of ``BWD_PASSES``) picks kernels of the chunk-parallel route,
+    which starts from the forward's scratch ``saved`` and, where it is
+    None, first relaunches the forward's state and prefix passes."""
     what = "wkv6_bwd"
     _check(r, k, v, w_log, u, S0)
     B, T, H, K = r.shape
@@ -130,21 +156,56 @@ def wkv6_bwd(r, k, v, w_log, u, S0, dy, dS, *, chunk):
             raise ValueError(f"{what}: {name} must be a contiguous float32 "
                              f"tensor of shape {tuple(shape)} on {r.device}")
     f32 = dict(dtype=torch.float32, device=r.device)
-    scratch = torch.empty((B, H, T // chunk, K, V), **f32)   # chunk starts
     dr, dk, dw = (torch.empty_like(r) for _ in range(3))
     dv = torch.empty_like(v)
     du = torch.empty((B, H, K), **f32)                       # per (b, h)
     dS0 = None if S0 is None else torch.empty((B, H, K, V), **f32)
-    lib = _build.load("wkv6_bwd", _BWD_SIGNATURES)
+    grads = (dr, dk, dv, dw, du, dS0)
+    lib = _build.load(what, _BWD_SIGNATURES)
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = lib.wkv6_bwd_f32(*(ptr(t) for t in (
-        r, k, v, w_log, u, S0, dy, dS, scratch, dr, dk, dv, dw, du, dS0)),
-        B, T, H, K, V, chunk, _build.stream_of(r))
-    _build.check(lib, err, what)
+    stream = _build.stream_of(r)
+    n = T // chunk
+    if bwd_route(r, k, v, w_log, dy, dS, chunk) == "per-head":
+        scratch = torch.empty((B, H, n, K, V), **f32)       # chunk starts
+
+        def launch(passes=15):
+            return lib.wkv6_bwd_f32(*(ptr(t) for t in (
+                r, k, v, w_log, u, S0, dy, dS, scratch, dr, dk, dv, dw, du,
+                dS0)), B, T, H, K, V, chunk, stream)
+        return grads, lib, launch
+    if saved is None:
+        _, _, flib, flaunch, saved = _launcher(r, k, v, w_log, u, S0, chunk)
+        _build.check(flib, flaunch(PASSES["state"] | PASSES["prefix"]),
+                     what)
+    nsub = chunk // _SUB
+    own = (torch.empty((B, H, n, K, K), **f32),              # G, then dS'
+           torch.empty((B, H, n, nsub, K), **f32),           # LW's carries,
+           torch.empty((B, H, n, K), **f32),                 # Z and LW_end
+           torch.empty((B, H, n, K), **f32),                 # as cumsum's
+           torch.empty((B, H, n, nsub, 4, K), **f32))        # totals
+
+    def launch(passes=15):
+        return lib.wkv6_bwd_chunked_f32(*(ptr(t) for t in (
+            r, k, v, w_log, u, dy, dS, *saved, *own, dr, dk, dv, dw, du,
+            dS0)), B, T, H, K, chunk, passes, stream)
+    return grads, lib, launch
+
+
+def wkv6_bwd(r, k, v, w_log, u, S0, dy, dS, *, chunk, saved=None):
+    """(dr, dk, dv, dw_log, du, dS0) of ``wkv6`` at ``chunk`` for the
+    cotangents ``dy`` of y and ``dS`` of the final state (None: zeros):
+    the backward kernels on CUDA tensors, counted in ``wkv6_bwd.launches``.
+    S0 None is the zero state, and then dS0 is None.  ``saved`` is the
+    forward's chunk-parallel scratch (``_forward``'s third output), which
+    spares the chunk-parallel route its recomputation of the states."""
+    grads, lib, launch = _bwd_launcher(r, k, v, w_log, u, S0, dy, dS, chunk,
+                                       saved)
+    _build.check(lib, launch(), "wkv6_bwd")
     wkv6_bwd.launches += 1
+    dr, dk, dv, dw, du, dS0 = grads
     # the batches' partials of du, added in order
     du_sum = du[0]
-    for i in range(1, B):
+    for i in range(1, du.shape[0]):
         du_sum = du_sum + du[i]
     return dr, dk, dv, dw, du_sum, dS0
 
@@ -154,20 +215,21 @@ class _WKV6Function(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, r, k, v, w_log, u, S0, chunk):
-        y, S = _forward(r, k, v, w_log, u, S0, chunk)
-        ctx.save_for_backward(r, k, v, w_log, u, S0)
+        y, S, scratch = _forward(r, k, v, w_log, u, S0, chunk)
+        # the chunk-parallel route's scratch, for its backward
+        ctx.save_for_backward(r, k, v, w_log, u, S0, *(scratch or ()))
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)
         return y, S
 
     @staticmethod
     def backward(ctx, dy, dS):
-        r, k, v, w_log, u, S0 = ctx.saved_tensors
+        r, k, v, w_log, u, S0, *saved = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(v)
         grads = wkv6_bwd(r, k, v, w_log, u, S0, dy.contiguous(),
                          None if dS is None else dS.contiguous(),
-                         chunk=ctx.chunk)
+                         chunk=ctx.chunk, saved=saved or None)
         return (*(g if need else None
                   for g, need in zip(grads, ctx.needs_input_grad)), None)
 
@@ -190,7 +252,7 @@ def wkv6(r, k, v, w_log, u, *, chunk=64, S0=None):
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in args):
         return _WKV6Function.apply(*args, chunk)
-    return _forward(*args, chunk)
+    return _forward(*args, chunk)[:2]
 
 
 wkv6.launches = 0
@@ -205,6 +267,22 @@ def pass_launchers(r, k, v, w_log, u, *, chunk, S0=None) -> dict:
     _check(r, k, v, w_log, u, S0)
     if route(r, k, v, w_log, chunk) != "chunk-parallel":
         raise ValueError("wkv6: the per-head route has one kernel")
-    _, _, lib, launch = _launcher(r, k, v, w_log, u, S0, chunk)
+    _, _, lib, launch, _ = _launcher(r, k, v, w_log, u, S0, chunk)
     return {name: (lambda bit=bit: _build.check(lib, launch(bit), "wkv6"))
             for name, bit in PASSES.items()}
+
+
+def bwd_pass_launchers(r, k, v, w_log, u, dy, dS=None, *, chunk,
+                       S0=None) -> dict:
+    """Pass name -> a callable that launches that kernel of the
+    chunk-parallel backward alone on this call's buffers, to time it, after
+    the forward's state and prefix passes once (it counts no launch; the
+    prefix pass rewrites its scratch in place, so only the first full call's
+    values mean anything)."""
+    if bwd_route(r, k, v, w_log, dy, dS, chunk) != "chunk-parallel":
+        raise ValueError("wkv6_bwd: the per-head route is timed whole")
+    _, lib, launch = _bwd_launcher(r, k, v, w_log, u, S0, dy, dS, chunk,
+                                   None)
+    return {name: (lambda bit=bit: _build.check(lib, launch(bit),
+                                                "wkv6_bwd"))
+            for name, bit in BWD_PASSES.items()}

@@ -224,3 +224,222 @@ def test_reverse_walk_emulation_matches_jax(B, T, H, K, chunk, shift):
     arrs = operands(T * K + chunk, B, T, H, K, decay_shift=shift)
     got = reverse_walk(*(torch.tensor(a) for a in arrs), chunk)
     check(got, jax_vjp(arrs, chunk), f"reverse walk chunk {chunk}")
+
+
+# --------------------------------------------------------------------------
+# the chunk-parallel route of csrc/wkv6_bwd.cu, emulated in plain torch
+# --------------------------------------------------------------------------
+
+SEG = 16          # the blocked scan's segment rows
+
+
+def blocked_lw(w_, chunk):
+    """LW of (B, H, n, L, K) decays by the forward's blocked scan: 16-row
+    segments summed in order, then the carry and the earlier segments'
+    totals."""
+    B, H, n, L, K = w_.shape
+    local = w_.reshape(B, H, n, L // SEG, SEG, K).cumsum(4)
+    base = torch.zeros(B, H, n, L // SEG, K, dtype=w_.dtype)
+    carry = torch.zeros(B, H, n, K, dtype=w_.dtype)
+    for sg in range(L // SEG):
+        base[:, :, :, sg] = carry
+        carry = carry + local[:, :, :, sg, -1]
+    return (base[:, :, :, :, None] + local).reshape(B, H, n, L, K)
+
+
+def running_lw(w_):
+    """LW of (B, H, n, L, K) decays as one running sum a channel from 0, the
+    order of ``torch.cumsum`` on the card."""
+    out, run = torch.empty_like(w_), torch.zeros_like(w_[:, :, :, 0])
+    for t in range(w_.shape[3]):
+        run = run + w_[:, :, :, t]
+        out[:, :, :, t] = run
+    return out
+
+
+def chunk_parallel_walk(r, k, v, w, u, S0, dy, dS, chunk, mm=torch.matmul):
+    """The chunk-parallel backward's passes over (B, H) and all chunks at
+    once, every product through ``mm``: the forward's chunk-start states
+    S_c and D = e^{LW_end}; the G pass (G_c = R_c^T dy_c by 64-row
+    sub-tile); the reverse prefix of dS (dS'_c, the cotangent of chunk c's
+    end state, and dS0); the main pass by sub-tile i (dQ_i over j <= i, dKf_i
+    and dv_i over j >= i, the pair's own sub-tile masked m < t, dR_i, dK2_i
+    and K2_i dS'_c, the elementwise terms, dw's within-tile reversed sum and
+    the sub-tile's per-channel totals); and the fix-up (the later sub-tiles'
+    totals, dLW_end and dZ into dw; du's partials in a fixed order).  The
+    forward's passes, G and the products take LW by the blocked scan; the
+    elementwise terms take it as the plain version sums it (``running_lw``),
+    on which the clips' gradient masks are decided."""
+    B, T, H, K = r.shape
+    L, n, nsub = chunk, T // chunk, chunk // SUB
+    f = lambda x: x.reshape(B, n, L, H, -1).permute(0, 3, 1, 2, 4)
+    r_, k_, v_, w_, dy_ = (f(x) for x in (r, k, v, w, dy))    # (B,H,n,L,.)
+    tile = lambda x, i: x[:, :, :, i * SUB:(i + 1) * SUB]
+    tr = lambda x: x.transpose(-1, -2)
+    LW = blocked_lw(w_, L)
+    LWp = LW - w_
+    Z = LW[:, :, :, L // 2][:, :, :, None]
+    LWe = LW[:, :, :, -1]
+    D = torch.exp(LWe)                                           # (B,H,n,K)
+    # the forward's passes 1 and 2: the chunk-start states
+    K2 = k_ * torch.exp(LWe[:, :, :, None] - LW)
+    U = sum(mm(tr(tile(K2, s)), tile(v_, s)) for s in range(nsub))
+    Sc, S = [], S0
+    for c in range(n):
+        Sc.append(S)
+        S = D[:, :, c, :, None] * S + U[:, :, c]
+    Sc = torch.stack(Sc, 2)
+    # the G pass and the reverse prefix
+    R = r_ * torch.exp(LWp)
+    G = sum(mm(tr(tile(R, s)), tile(dy_, s)) for s in range(nsub))
+    dSc, dSp = [None] * n, torch.zeros_like(S0) if dS is None else dS
+    for c in reversed(range(n)):
+        dSc[c] = dSp
+        dSp = D[:, :, c, :, None] * dSp + G[:, :, c]
+    dSc = torch.stack(dSc, 2)
+    # the main pass, one sub-tile i at a time over every chunk
+    clip = lambda x: torch.exp(x.clamp(-CLAMP, CLAMP))
+    Q, Kf = r_ * clip(LWp - Z), k_ * clip(Z - LW)
+    # the elementwise terms' LW, Z and LW_end, in the plain version's order
+    LW = running_lw(w_)
+    LWp, Z, LWe = LW - w_, LW[:, :, :, L // 2][:, :, :, None], LW[:, :, :, -1]
+    xq, xk = LWp - Z, Z - LW
+    eQ, eK = clip(xq), clip(xk)
+    K2, R = k_ * torch.exp(LWe[:, :, :, None] - LW), r_ * torch.exp(LWp)
+    diag = (r_ * u[None, :, None, None] * k_).sum(-1, keepdim=True)
+    ddiag = (dy_ * v_).sum(-1, keepdim=True)
+    lower = torch.ones(SUB, SUB, dtype=torch.bool).tril(-1)     # m < t
+    dr, dk, dv, dw = (torch.empty_like(x) for x in (r_, k_, v_, w_))
+    tots = torch.zeros(B, H, n, nsub, 4, K, dtype=r.dtype)
+    for i in range(nsub):
+        dQ = 0
+        for j in range(i + 1):
+            dA = mm(tile(dy_, i), tr(tile(v_, j)))
+            dQ = dQ + mm(dA.masked_fill(~lower, 0) if j == i else dA,
+                         tile(Kf, j))
+        dKf = dvi = 0
+        for j in range(i, nsub):
+            AT = mm(tile(Kf, i), tr(tile(Q, j)))
+            dAT = mm(tile(v_, i), tr(tile(dy_, j)))
+            if j == i:
+                AT, dAT = AT.masked_fill(~lower.T, 0), dAT.masked_fill(
+                    ~lower.T, 0)
+            dvi = dvi + mm(AT, tile(dy_, j))
+            dKf = dKf + mm(dAT, tile(Q, j))
+        dR = mm(tile(dy_, i), tr(Sc))
+        dK2 = mm(tile(v_, i), tr(dSc))
+        dv[:, :, :, i * SUB:(i + 1) * SUB] = (
+            dvi + mm(tile(K2, i), dSc) + tile(diag, i) * tile(dy_, i))
+        ri, ki = tile(r_, i), tile(k_, i)
+        bonus = tile(ddiag, i) * u[None, :, None, None]
+        eP, e2 = torch.exp(tile(LWp, i)), torch.exp(LWe[:, :, :, None]
+                                                     - tile(LW, i))
+        dr[:, :, :, i * SUB:(i + 1) * SUB] = (dQ * tile(eQ, i) + dR * eP
+                                              + bonus * ki)
+        dk[:, :, :, i * SUB:(i + 1) * SUB] = (dKf * tile(eK, i) + dK2 * e2
+                                              + bonus * ri)
+        gQ = torch.where(tile(xq, i).abs() <= CLAMP, dQ * ri * tile(eQ, i),
+                         0.0)
+        gK = torch.where(tile(xk, i).abs() <= CLAMP, dKf * ki * tile(eK, i),
+                         0.0)
+        E = -gK - dK2 * tile(K2, i)
+        fr = gQ + dR * tile(R, i) + E                    # dLWp + E
+        after = fr.flip(3).cumsum(3).flip(3) - fr        # sum over s > t
+        dw[:, :, :, i * SUB:(i + 1) * SUB] = after + E
+        tots[:, :, :, i] = torch.stack(
+            [fr.sum(3), (gK - gQ).sum(3), (dK2 * tile(K2, i)).sum(3),
+             (tile(ddiag, i) * ri * ki).sum(3)], 3)
+    # the fix-up
+    dLWe = tots[:, :, :, :, 2].sum(3) + (dSc * Sc).sum(-1) * D
+    dZ = tots[:, :, :, :, 1].sum(3)
+    for i in range(nsub):
+        later = tots[:, :, :, i + 1:, 0].sum(3)
+        rows = torch.arange(i * SUB, (i + 1) * SUB)
+        half = (rows <= L // 2).to(r.dtype)[:, None]
+        dw[:, :, :, i * SUB:(i + 1) * SUB] += ((later + dLWe)[:, :, :, None]
+                                               + half * dZ[:, :, :, None])
+    du = tots[:, :, :, :, 3].sum((2, 3))
+    du_sum = du[0]
+    for b in range(1, B):
+        du_sum = du_sum + du[b]
+    back = lambda x: x.permute(0, 2, 3, 1, 4).reshape(B, T, H, -1)
+    return (*(back(x) for x in (dr, dk, dv, dw)), du_sum, dSp)
+
+
+@pytest.mark.parametrize("B,T,H,K,chunk,shift,state,final", [
+    (2, 512, 2, 32, 256, -0.6, True, True),     # 4 sub-tiles a chunk
+    (1, 768, 2, 16, 256, -0.6, False, False),   # S0 and dS both zero
+    (1, 384, 2, 16, 192, -0.6, True, True),     # L / 2 in the second sub-tile
+    (2, 256, 2, 16, 64, -0.6, True, True),      # one sub-tile a chunk
+    (1, 512, 2, 16, 128, 2.0, True, True),      # decays past the clips
+    (2, 256, 2, 8, 64, 2.0, False, False),
+])
+def test_chunk_parallel_walk_matches_jax(B, T, H, K, chunk, shift, state,
+                                         final):
+    """The chunk-parallel backward's decomposition computes the gradients of
+    JAX's chunked form at the chunk it is given, within 1e-4 of each
+    gradient's largest magnitude."""
+    arrs = operands(T * K + chunk + 1, B, T, H, K, decay_shift=shift,
+                    state=state, final_cotangent=final)
+    if shift > 0:
+        assert float(np.cumsum(arrs[3][:, :chunk], axis=1).min()) < -CLAMP
+    targs = [torch.tensor(a) for a in arrs]
+    got = chunk_parallel_walk(*targs[:7], targs[7] if final else None, chunk)
+    check(got, jax_vjp(arrs, chunk), f"chunk-parallel walk chunk {chunk}")
+
+
+def test_chunk_parallel_walk_at_the_model_decays():
+    """The RWKV6 train and prefill chunk of 256 with the model's decays,
+    whose clips pass half a chunk's gradients and zero the rest."""
+    arrs = operands(1025, 1, 1024, 2, 64)
+    got = chunk_parallel_walk(*(torch.tensor(a) for a in arrs), 256)
+    check(got, jax_vjp(arrs, 256), "chunk-parallel walk, model decays")
+
+
+def test_bwd_tf32_split_keeps_the_gate_where_one_tf32_product_breaks_it():
+    """Why the backward splits every product in three, as the forward does.
+    Through the chunk-parallel walk in f64 at chunk 256 with the model's
+    decays, against the same walk with exact products: one TF32 product per
+    product departs by more than 1e-4 of some gradient's largest magnitude
+    (the gate), while the split stays within 1e-5 of each, rounded to
+    nearest or truncated (the kernel's masks) alike."""
+    from test_torch_wkv6 import tf32_mm
+    arrs = [torch.tensor(a).double()
+            for a in operands(3, 1, 512, 2, 64)]
+    want = chunk_parallel_walk(*arrs, 256)
+
+    def worst(mm):
+        got = chunk_parallel_walk(*arrs, 256, mm=mm)
+        return max(float((g - w).abs().max() / w.abs().max())
+                   for g, w in zip(got, want))
+
+    assert worst(tf32_mm(1, "rna")) > 1e-4
+    for rounding in ("rna", "trunc"):
+        assert worst(tf32_mm(3, rounding)) <= 1e-5, rounding
+
+
+def test_bwd_route_by_chunk_and_alignment():
+    """The chunk-parallel backward takes what the chunk-parallel forward
+    takes (a chunk that is a multiple of 64, K == V a multiple of 4, 16-byte
+    aligned operands) with dy and dS 16-byte aligned; the per-head kernels
+    take the rest (the 1040- and 300-token prompts' chunks 16 and 4)."""
+    from repro_torch.kernels.rwkv6 import kernel as tk
+    r, k, v, w, u, S0, dy, dS = (torch.tensor(a)
+                                 for a in operands(7, 1, 256, 2, 32))
+    assert tk.bwd_route(r, k, v, w, dy, dS, 256) == "chunk-parallel"
+    assert tk.bwd_route(r, k, v, w, dy, None, 64) == "chunk-parallel"
+    for chunk in (16, 4, 32, 128 + 64):
+        want = "chunk-parallel" if chunk % 64 == 0 else "per-head"
+        assert tk.bwd_route(r, k, v, w, dy, dS, chunk) == want, chunk
+    v28, dy28 = (x[..., :28].contiguous() for x in (v, dy))
+    assert tk.bwd_route(r, k, v28, w, dy28, None, 64) == "per-head"
+    r30, k30, v30, w30, dy30 = (x[..., :30].contiguous()
+                                for x in (r, k, v, w, dy))
+    assert tk.bwd_route(r30, k30, v30, w30, dy30, None, 64) == "per-head"
+
+    def shifted(x):
+        flat = torch.zeros(x.numel() + 1)
+        return flat[1:].view(x.shape)
+    assert tk.bwd_route(r, k, v, w, shifted(dy), dS, 64) == "per-head"
+    assert tk.bwd_route(r, k, v, w, dy, shifted(dS), 64) == "per-head"
+    assert tk.bwd_route(shifted(r), k, v, w, dy, dS, 64) == "per-head"
