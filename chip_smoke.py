@@ -178,8 +178,26 @@ at once), then runs these phases, each of which raises on failure:
    bytes, each host layout, snapshot, writer-thread save, restore and step
    in seconds, and each run's peak memory are printed;
 13. the ``kernels`` line, whose launch counts add phases 2, 5 (per model),
-   6-10, 11 (a) and (e) and 12 (the backward kernels: phases 11 (e) and
-   12).
+   6-10, 11 (a) and (e), 12 and 14 (the backward kernels: phases 11 (e),
+   12 and 14);
+14. distribution on the port's mesh layout (``repro_torch.models.sharding``:
+   a mesh repeats the card, every tensor lies whole on it), run after
+   phase 12: (a) ``launch.train.main --mesh 1,1 --device cuda`` resumed
+   from phase 12's step 2 through ``restore(shardings=...)``: its losses
+   and step 4 files bit for bit phase 12's run B, exact flash launches,
+   step ms beside run B's; (b) Qwen3-0.6B on a (1, 16) mesh, whose tp of
+   16 above its 8 kv heads runs the GQA repeat and the sequence-sharded
+   decode: ``forward`` with one flash launch a layer at 16 kv heads
+   against ``LOCAL``'s logits (bit for bit, or within phase 5's 5e-2),
+   ``generate(dist=...)`` against phase 5's generate (logits within 5e-2
+   up to the first differing token, which must be a near tie), and one
+   ``jit_train_step`` on a (2, 2) mesh bit for bit a ``LOCAL`` step; (c)
+   DeepSeekMoE-16B at full width and 4 layers on a (2, 4) mesh: one f32
+   MoE layer drop-free against ``moe_dense_ref`` and, at capacity factor
+   1.25, bit for bit the data-parallel ranks' ``LOCAL`` bodies and within
+   1e-4 of the oracle with each rank's overflow zeroed; a bf16 forward, a
+   train step (bf16 tier) and a generate bit for bit the (2, 1) mesh's.
+   Peak memory of each case is printed.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the repository's ``src/`` beside it, the script fails before
@@ -366,6 +384,21 @@ LAUNCH_ARGS = ["--arch", LAUNCH_ARCH, "--steps", str(LAUNCH_STEPS),
                "--global-batch", "4", "--seq", "1024", "--grad-accum", "2",
                "--ckpt-every", "2", "--log-every", "1", "--device", "cuda"]
 LAUNCH_FREE_GB = 30
+# the distribution phase (14): (a) the launcher under --mesh 1,1, resumed
+# from phase 12's step 2; (b) Qwen3-0.6B on a (1, 16) mesh of the repeated
+# card, whose tp of 16 above its 8 kv heads runs the GQA repeat (flash at
+# Hkv 16) and the sequence-sharded decode, and a train step on a (2, 2)
+# mesh; (c) DeepSeekMoE-16B at full width cut to 4 layers (1 dense + 3 MoE;
+# its 28 layers serve in phase 5) on a (2, 4) mesh against (2, 1), its
+# train step at B 2 x T 512 in the bf16 state tier (2.3 B parameters: the
+# f32 tier's state and the update's second copy would not fit beside a
+# second step's)
+AXES = ("data", "model")
+DIST_DENSE_ARCH, DIST_DENSE_MESH = "qwen3-0.6b", (1, 16)
+DIST_TRAIN_MESH = (2, 2)
+DIST_MOE_ARCH, DIST_MOE_LAYERS = "deepseek-moe-16b", 4
+DIST_MOE_MESH, DIST_MOE_TP1, DIST_MOE_TRAIN = (2, 4), (2, 1), (2, 512)
+STEP_BUILDERS = ("make_train_step", "jit_train_step")
 
 
 def card_line() -> str:
@@ -1519,6 +1552,8 @@ def phase_serving(arch, counters):
     out = dict(prefill_s=stats["prefill_s"], decode_tok_s=dec_tok_s,
                counts=counts, idle=None, idle_warm=None, peak_gb=peak_gb,
                layers=cfg.n_layers, **family)
+    if arch == DIST_DENSE_ARCH:     # phase 14 (b) generates again on a mesh
+        out["generated"] = (toks, logits)
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3923,6 +3958,7 @@ def train_step_check(counters, device="cuda"):
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import (_stack_micro, make_grad_step,
                                           make_train_step)
+    from repro_torch.models import LOCAL
     from repro_torch.models import init_params
     from repro_torch.optim import OptConfig, adamw_init, adamw_update
     from repro_torch.utils import tree_map
@@ -3954,7 +3990,8 @@ def train_step_check(counters, device="cuda"):
     for remat in ("none", "dots", "full"):
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        g, loss, _ = make_grad_step(cfg.replace(remat=remat))(params, mbs[0])
+        g, loss, _ = make_grad_step(cfg.replace(remat=remat),
+                                    LOCAL)(params, mbs[0])
         torch.cuda.synchronize()
         grads[remat] = (g, loss)
         print(f"  grad step remat={remat}: loss {float(loss)!r}, "
@@ -3979,7 +4016,7 @@ def train_step_check(counters, device="cuda"):
     # the accumulated gradient: one f32-tier train step against AdamW on
     # the mean of the two microbatches' grad steps
     oc = OptConfig(schedule="const", warmup_steps=1, state_dtype="f32")
-    gstep = make_grad_step(cfg)
+    gstep = make_grad_step(cfg, LOCAL)
     outs = [gstep(params, mb) for mb in mbs]
     two = torch.full((), 2.0, device=device)
     it = iter([(torch.zeros(a.shape, device=device) + a.float() + b.float())
@@ -3988,7 +4025,7 @@ def train_step_check(counters, device="cuda"):
     mean_loss = (outs[0][1] + outs[1][1]) / two
     del outs
     state0 = adamw_init(params, oc)
-    _, s_a, m_a = make_train_step(cfg, oc)(params, state0, batch)
+    _, s_a, m_a = make_train_step(cfg, LOCAL, oc)(params, state0, batch)
     m_step = _moments(s_a["mu"])
     del s_a
     _, s_b, m_b = adamw_update(params, mean, state0, oc)
@@ -4010,7 +4047,7 @@ def train_step_check(counters, device="cuda"):
     steps = {}
     for tier in ("f32", "bf16", "int8"):
         oc = OptConfig(schedule="const", warmup_steps=1, state_dtype=tier)
-        step = make_train_step(cfg, oc)
+        step = make_train_step(cfg, LOCAL, oc)
         torch.cuda.reset_peak_memory_stats()
         p, s = params, adamw_init(params, oc)
         losses, walls = [], []
@@ -4036,7 +4073,7 @@ def train_step_check(counters, device="cuda"):
     # where a step's time goes: one f32-tier step under the profiler
     from torch.profiler import ProfilerActivity, profile
     oc = OptConfig(schedule="const", warmup_steps=1, state_dtype="f32")
-    state, step = adamw_init(params, oc), make_train_step(cfg, oc)
+    state, step = adamw_init(params, oc), make_train_step(cfg, LOCAL, oc)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -4393,6 +4430,7 @@ def kernel_train(arch, layers, B, T, kernels):
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import (_stack_micro, make_grad_step,
                                           make_train_step)
+    from repro_torch.models import LOCAL
     from repro_torch.models import init_params
     from repro_torch.optim import OptConfig, adamw_init
     fwd, bwd = kernels
@@ -4422,7 +4460,7 @@ def kernel_train(arch, layers, B, T, kernels):
           f"state tier; expected launches {KERNEL_TRAIN_STEPS} steps x {M} "
           f"microbatches x ({how}) = {want[0]} forward, {want[1]} backward")
     oc = OptConfig(schedule="const", warmup_steps=1, state_dtype="f32")
-    step = make_train_step(cfg, oc)
+    step = make_train_step(cfg, LOCAL, oc)
     p, st = params, adamw_init(params, oc)
     n0 = (fwd.launches, bwd.launches)
     torch.cuda.reset_peak_memory_stats()
@@ -4464,7 +4502,8 @@ def kernel_train(arch, layers, B, T, kernels):
     mb = {k: v[0] for k, v in _stack_micro(batch, M).items()}
     outs = {}
     for remat in ("none", "full"):
-        g, loss, _ = make_grad_step(cfg.replace(remat=remat))(params, mb)
+        g, loss, _ = make_grad_step(cfg.replace(remat=remat),
+                                    LOCAL)(params, mb)
         outs[remat] = (g, loss)
     _grads_bitwise(f"{arch} remat none vs full", outs["none"], outs["full"])
     del outs, params
@@ -4508,13 +4547,14 @@ def reduced_against_cpu(arch):
     versions, on the same weights and batch."""
     from repro_torch.configs import reduced_config
     from repro_torch.launch.steps import make_grad_step
+    from repro_torch.models import LOCAL
     from repro_torch.models import init_params
     from repro_torch.utils import tree_map
     cfg = reduced_config(arch)
     params = init_params(cfg, SEED + 14, device="cpu")
     gen = torch.Generator().manual_seed(SEED + 14)
     batch = lm_batch(cfg, gen, REDUCED_B, REDUCED_T, device="cpu")
-    step = make_grad_step(cfg)
+    step = make_grad_step(cfg, LOCAL)
     g_cpu, l_cpu, _ = step(params, batch)
     on_card = lambda tree: tree_map(lambda t: t.to("cuda"), tree)
     g_card, l_card, _ = step(on_card(params), on_card(batch))
@@ -4592,8 +4632,9 @@ def phase_train(counters):
 def timed_calls(log, targets):
     """Wrap each ``(module, attribute)`` of ``targets`` so that every call
     appends ``(attribute, in the main thread, seconds)`` to ``log``; a
-    wrapped ``make_train_step`` times each step it builds between two
-    synchronizes.  The attributes are restored on exit."""
+    wrapped ``make_train_step`` or ``jit_train_step`` times each step it
+    builds between two synchronizes.  The attributes are restored on
+    exit."""
     import threading
 
     def wrap(name, fn):
@@ -4614,7 +4655,7 @@ def timed_calls(log, targets):
     saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
     try:
         for mod, name, fn in saved:
-            setattr(mod, name, wrap_steps(fn) if name == "make_train_step"
+            setattr(mod, name, wrap_steps(fn) if name in STEP_BUILDERS
                     else wrap(name, fn))
         yield log
     finally:
@@ -4649,9 +4690,9 @@ def step_digests(step_dir):
     return digests, sum(p.stat().st_size for p in files)
 
 
-def launch_run(label, ckpt_dir, log, flash_fns):
-    """One ``launch.train.main`` run: its losses, peak GB and the calls
-    ``timed_calls`` logged in it."""
+def launch_run(label, ckpt_dir, log, flash_fns, extra=()):
+    """One ``launch.train.main`` run (``extra`` flags added): its losses,
+    peak GB and the calls ``timed_calls`` logged in it."""
     from repro_torch import checkpoint, convert
     from repro_torch.checkpoint import store
     from repro_torch.launch import train
@@ -4659,12 +4700,14 @@ def launch_run(label, ckpt_dir, log, flash_fns):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with timed_calls(log, [(train, "host_state"), (train, "make_train_step"),
+                           (train, "jit_train_step"),
                            (checkpoint, "save_async"), (checkpoint, "save"),
                            (store, "save"), (checkpoint, "wait_pending"),
                            (checkpoint, "restore"),
                            (convert, "lm_params_from_host"),
                            (convert, "opt_state_from_host")]):
-        losses = train.main(LAUNCH_ARGS + ["--ckpt-dir", str(ckpt_dir)])
+        losses = train.main(LAUNCH_ARGS + list(extra)
+                            + ["--ckpt-dir", str(ckpt_dir)])
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 1e9
     calls = log[start:]
@@ -4723,7 +4766,10 @@ def phase_launch(counters):
         print(out.getvalue(), end="")
         got_files, _ = step_digests(root / "B" / "step_4")
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        # phase 14 resumes from B's step 2 and removes it; B's step 4 is
+        # hashed: at most two checkpoints on disk
+        for d in (root / "A", root / "B" / "step_4"):
+            shutil.rmtree(d, ignore_errors=True)
     got = (fk.flash_attention.launches, fk.flash_attention_bwd.launches)
     a, b = runs["A"]["losses"], runs["B"]["losses"]
     resumed = f"[train] resumed from step {LAUNCH_RESUME}" in out.getvalue()
@@ -4752,7 +4798,375 @@ def phase_launch(counters):
                                   got)),
                 step_ms=step_ms, steps_ms=[x * 1e3 for x in steps],
                 tok_s=4 * 1024 / step_ms * 1e3, ckpt_bytes=ckpt_bytes,
-                free_gb=free_gb, runs=runs)
+                free_gb=free_gb, runs=runs, root=root, b_files=got_files)
+
+
+# --------------------------------------------------------------------------
+# phase 14: distribution on the one card
+# --------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def flash_heads():
+    """Record the kv-head count of every flash-attention call that the
+    models make (``models.attention`` reaches the kernel through its
+    ``_flash`` module, swapped here for a stand-in that records and calls
+    the kernel's own wrapper, launch count and all)."""
+    from repro_torch.models import attention
+    orig, heads = attention._flash, []
+
+    def spy(q, k, v, **kw):
+        heads.append(k.shape[2])
+        return orig.flash_attention(q, k, v, **kw)
+    attention._flash = types.SimpleNamespace(flash_attention=spy)
+    try:
+        yield heads
+    finally:
+        attention._flash = orig
+
+
+def card_mesh(shape):
+    """A ``Distribution`` over ``shape`` positions, each the one card."""
+    from repro_torch.launch.mesh import dist_for, make_mesh
+    mesh = make_mesh(shape, AXES, devices=["cuda:0"] * math.prod(shape))
+    return dist_for(mesh, fsdp=False)
+
+
+def same_trees(a, b) -> bool:
+    """Two trees of one structure bit for bit, leaf by leaf."""
+    return (len(list(_leaves(a))) == len(list(_leaves(b)))
+            and all(bitwise(x, y) for x, y in _pairs(a, b)))
+
+
+def dist_launch(launch):
+    """(a) ``launch.train.main --mesh 1,1 --device cuda`` resumed from
+    phase 12's step 2, restored onto the 1 x 1 mesh's shardings: its losses
+    and step 4 files bit for bit phase 12's run B, exact flash launches."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    root = launch["root"]
+    cfg = get_config(LAUNCH_ARCH)
+    per = sum(1 for mixer, _ in cfg.layer_kinds() if mixer == "attn")
+    M, n_steps = 2, LAUNCH_STEPS - LAUNCH_RESUME
+    want = (n_steps * M * 2 * per, n_steps * M * per)
+    flash_fns = (fk.flash_attention, fk.flash_attention_bwd)
+    n0 = tuple(f.launches for f in flash_fns)
+    log = []
+    try:
+        (root / "C").mkdir()
+        (root / "B" / f"step_{LAUNCH_RESUME}").rename(
+            root / "C" / f"step_{LAUNCH_RESUME}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            run = launch_run("C (--mesh 1,1)", root / "C", log, flash_fns,
+                             extra=["--mesh", "1,1"])
+        print(out.getvalue(), end="")
+        got_files, _ = step_digests(root / "C" / "step_4")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    got = tuple(f.launches - n for f, n in zip(flash_fns, n0))
+    resumed = f"[train] resumed from step {LAUNCH_RESUME}" in out.getvalue()
+    b = launch["runs"]["B"]["losses"]
+    same_files = got_files == launch["b_files"]
+    steps = [sec for name, _, sec in log if name == "step"]
+    step_ms = statistics.median(steps) * 1e3
+    print(f"  (a) --mesh 1,1: resumed {resumed}; losses {run['losses']} "
+          f"against phase 12's run B {b}; step 4 files equal: {same_files} "
+          f"({len(got_files)} files); flash launches {got}, expected {want}"
+          f"; step_ms={step_ms!r} (median of {[x * 1e3 for x in steps]}) "
+          f"beside phase 12's run B {launch['steps_ms'][-n_steps:]} (all six"
+          f" {launch['step_ms']!r}); peak_gb={run['peak_gb']!r}, phase 12's "
+          f"run B {launch['runs']['B']['peak_gb']!r} [{card_line()}]")
+    if not resumed or run["losses"] != b or not same_files:
+        raise AssertionError("phase 14 (a): the --mesh 1,1 run is not "
+                             "phase 12's run B bit for bit")
+    if got != want:
+        raise AssertionError(f"phase 14 (a): flash launches {got}, "
+                             f"expected {want}")
+    return dict(step_ms=step_ms, steps_ms=[x * 1e3 for x in steps],
+                peak_gb=run["peak_gb"], launches=got)
+
+
+def generate_agreement(toks, logits, want_toks, want_logits, bound):
+    """A generate against another of the same prompt: the logits of every
+    step up to the first where a token differs (whose inputs are still the
+    same) within ``bound`` of the largest, and each differing token at that
+    step a near tie (its top-2 gap within twice the step's largest
+    |difference|): greedy tokens equal wherever the margin is clear."""
+    N = toks.shape[1]
+    diff = toks != want_toks
+    bad = diff.any(0).nonzero()
+    first = int(bad[0]) if bad.numel() else N
+    upto = min(first + 1, N)
+    d = (logits[:, :upto] - want_logits[:, :upto]).abs()
+    rel = float(d.max() / want_logits[:, :upto].abs().max())
+    unclear = True
+    if first < N:
+        top2 = want_logits[:, first].topk(2, -1).values
+        gap = top2[:, 0] - top2[:, 1]
+        rows = diff[:, first]
+        unclear = bool((gap[rows] <= 2 * d[:, first].amax(-1)[rows]).all())
+    ok = rel <= bound and unclear
+    return ok, dict(rel=rel, first_diff=first, same_tokens=first == N,
+                    bitwise=bitwise(toks, want_toks)
+                    and bitwise(logits, want_logits))
+
+
+def dist_dense(served):
+    """(b) Qwen3-0.6B on a (1, 16) mesh of the card: ``forward`` with one
+    flash launch a layer at Hkv 16 against ``LOCAL``'s, ``generate(dist=
+    ...)`` against phase 5's generate (tokens) and, step by step, against
+    ``LOCAL``'s ``decode_step`` teacher-forced on its tokens (logits), and
+    one ``jit_train_step`` on a (2, 2) mesh bit for bit a ``LOCAL``
+    step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch.steps import jit_train_step, make_train_step
+    from repro_torch.models import (LOCAL, decode_step, forward, init_params,
+                                    prefill)
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.serving import generate
+    from repro_torch.serving.engine import pad_attn_cache
+    cfg = get_config(DIST_DENSE_ARCH)
+    B, S0, N = SERVE_B, SERVE_PROMPT, SERVE_NEW
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_params(cfg, gen, device="cuda")        # phase 5's draws
+    prompt = torch.randint(0, cfg.vocab, (B, S0), generator=gen,
+                           device="cuda")
+    dist = card_mesh(DIST_DENSE_MESH)
+    per = sum(1 for mixer, _ in cfg.layer_kinds() if mixer == "attn")
+    tp = dist.tp_size()
+    flash = fk.flash_attention
+    print(f"phase 14 (b): {DIST_DENSE_ARCH} on a {DIST_DENSE_MESH} mesh of "
+          f"the card: tp {tp} over {cfg.n_kv} kv heads (GQA repeat x "
+          f"{tp // cfg.n_kv} before flash, sequence-sharded decode)")
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    with flash_heads() as heads, torch.inference_mode():
+        n0 = flash.launches
+        got = forward(cfg, params, {"tokens": prompt}, dist)[0]
+        n_fwd, fwd_heads = flash.launches - n0, list(heads)
+    with torch.inference_mode():
+        ref = forward(cfg, params, {"tokens": prompt})[0]
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    same = bitwise(got, ref)
+    del got, ref
+    print(f"  forward: {n_fwd} flash launches at kv heads "
+          f"{sorted(set(fwd_heads))}; logits against LOCAL's: bit for bit "
+          f"{same}, max|diff|/max|logit| = {rel!r} (gate 5e-2, phase 5's)")
+    if n_fwd != per or set(fwd_heads) != {tp}:
+        raise AssertionError(f"phase 14 (b): forward flash launches {n_fwd}"
+                             f" at kv heads {fwd_heads}, expected {per} at "
+                             f"{tp}")
+    if not (same or rel <= 5e-2):
+        raise AssertionError(f"phase 14 (b): forward departs by {rel}")
+    with flash_heads() as heads:
+        n0 = flash.launches
+        toks, logits = generate(cfg, params, prompt, max_new_tokens=N,
+                                dist=dist, return_logits=True)
+        n_gen, gen_heads = flash.launches - n0, list(heads)
+    ok, agree = generate_agreement(toks, logits, *served["generated"], 5e-2)
+    print(f"  generate(dist=...) {N} tokens against phase 5's generate: "
+          f"{agree}; prefill flash launches {n_gen} at kv heads "
+          f"{sorted(set(gen_heads))}")
+    if not ok or n_gen != per or set(gen_heads) != {tp}:
+        raise AssertionError(f"phase 14 (b): generate under the mesh: "
+                             f"{agree}, {n_gen} launches at {gen_heads}")
+    # every decode step of that generate against LOCAL's decode_step,
+    # teacher-forced on the mesh run's own tokens from the mesh's prefill
+    # cache: the sequence-sharded form held at each of the N - 1 steps
+    with torch.inference_mode():
+        lg, cache = prefill(cfg, params, {"tokens": prompt}, dist)
+        cache = pad_attn_cache(cache, N)
+        want = [lg[:, -1].float()]
+        for i in range(N - 1):
+            lg, cache = decode_step(cfg, params, cache, toks[:, i], S0 + i)
+            want.append(lg[:, -1].float())
+        want = torch.stack(want, 1)
+    step_rel = ((logits - want).abs().amax((0, 2))
+                / want.abs().amax((0, 2))).tolist()
+    del cache, lg, want
+    print(f"  the same {N - 1} decode steps against LOCAL's decode_step "
+          f"teacher-forced on its tokens (max|diff|/max|logit| a step, "
+          f"gate 5e-2, phase 5's): {step_rel!r}")
+    if not all(r <= 5e-2 for r in step_rel[1:]) or step_rel[0] != 0:
+        raise AssertionError(f"phase 14 (b): the sequence-sharded decode "
+                             f"departs from LOCAL's: {step_rel}")
+    agree["teacher_forced_rel"] = step_rel
+    out["forward"] = dict(bitwise=same, rel=rel, launches=n_fwd)
+    out["generate"] = agree
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del toks, logits
+
+    # one train step on a (2, 2) mesh of the card against LOCAL's
+    tcfg = cfg.replace(grad_accum=2, remat="full")
+    oc = OptConfig(schedule="const", warmup_steps=1, state_dtype="f32")
+    batch = lm_batch(tcfg, gen, 4, 1024)
+    opt = adamw_init(params, oc)
+    d22 = card_mesh(DIST_TRAIN_MESH)
+    torch.cuda.reset_peak_memory_stats()
+    n0 = (fk.flash_attention.launches, fk.flash_attention_bwd.launches)
+    p_m, o_m, m_m = jit_train_step(tcfg, d22, oc, params, opt, batch)(
+        params, opt, batch)
+    torch.cuda.synchronize()
+    step_launches = (fk.flash_attention.launches - n0[0],
+                     fk.flash_attention_bwd.launches - n0[1])
+    p_l, o_l, m_l = make_train_step(tcfg, LOCAL, oc)(params, opt, batch)
+    same = (bitwise(m_m["loss"], m_l["loss"]) and same_trees(p_m, p_l)
+            and same_trees(o_m, o_l))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  jit_train_step on a {DIST_TRAIN_MESH} mesh (B 4 x T 1024, 2 "
+          f"microbatches, f32 tier): loss {float(m_m['loss'])!r}, LOCAL "
+          f"{float(m_l['loss'])!r}; loss, parameters and state bit for bit "
+          f"LOCAL's: {same}; flash launches {step_launches}; peak_gb="
+          f"{peak!r} [{card_line()}]")
+    if not same:
+        raise AssertionError("phase 14 (b): the (2, 2) train step is not "
+                             "LOCAL's bit for bit")
+    out["train"] = dict(loss=float(m_m["loss"]), peak_gb=peak,
+                        launches=step_launches)
+    del params, opt, p_m, o_m, p_l, o_l
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_moe_layer(cfg):
+    """(c) one full-width MoE layer in f32 at MOE_LAYER_SHAPE tokens (phase
+    5's skewed activations) under the (2, 4) mesh: drop-free against
+    ``moe_dense_ref``; at the configuration's capacity factor bit for bit
+    the ``LOCAL`` body of each data-parallel slice, and against the oracle
+    with the pairs that overflow a rank's queue zeroed."""
+    from repro_torch.models import layers, moe
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    p = moe.moe_init(cfg32, gen)
+    x = torch.randn((*MOE_LAYER_SHAPE, cfg.d_model), generator=gen,
+                    device="cuda")
+    common = torch.randn((cfg.d_model,), generator=gen, device="cuda")
+    x = (x + common) * 0.5 ** 0.5
+    gates, idx, _ = moe.route(cfg32, p, x)
+    dist = card_mesh(DIST_MOE_MESH)
+    dp = DIST_MOE_MESH[0]
+    T, Bs = x.shape[0] * x.shape[1], x.shape[0] // dp
+    free = drop_free(cfg32)
+    got = moe.moe_apply(free, p, x, gates, idx, dist)
+    want = moe.moe_dense_ref(free, p, x, gates, idx)
+    rel_free = float((got - want).abs().max() / want.abs().max())
+    got = moe.moe_apply(cfg32, p, x, gates, idx, dist)
+    # each rank's LOCAL body on its slice, then the shared experts as
+    # moe_apply adds them, over all the tokens at once
+    d, n = cfg.d_model, T // dp
+    xf, gf, idf = x.reshape(T, d), gates.reshape(T, -1), idx.reshape(T, -1)
+    slices = torch.cat([moe._moe_body(cfg32, p["experts"],
+                                      xf[r * n:(r + 1) * n],
+                                      gf[r * n:(r + 1) * n],
+                                      idf[r * n:(r + 1) * n])
+                        for r in range(dp)]).reshape(x.shape)
+    slices = slices + layers.mlp_apply(cfg32, p["shared"], x)
+    cap_rank, cap_all = moe.capacity(cfg32, T // dp), moe.capacity(cfg32, T)
+    per_rank = torch.cat([dropped_pairs(idx[r * Bs:(r + 1) * Bs], cap_rank)
+                          for r in range(dp)])
+    local = dropped_pairs(idx, cap_all)
+    kept = torch.where(per_rank, torch.zeros_like(gates), gates)
+    ref = moe.moe_dense_ref(cfg32, p, x, kept, idx)
+    rel_drop = float((got - ref).abs().max() / ref.abs().max())
+    same = bitwise(got, slices)
+    print(f"  (c) one MoE layer, f32, {T} tokens on a {DIST_MOE_MESH} mesh: "
+          f"drop-free against moe_dense_ref {rel_free!r} (gate 1e-4); at "
+          f"capacity factor {cfg.moe.capacity_factor!r} each rank's "
+          f"{T // dp} tokens get cap {cap_rank} (LOCAL's {T}: {cap_all}): "
+          f"{int(per_rank.sum())} pairs dropped over the ranks, LOCAL "
+          f"{int(local.sum())}, {int((per_rank & ~local).sum())} of the "
+          f"ranks' kept by LOCAL; bit for bit the ranks' LOCAL bodies: "
+          f"{same}; against the oracle with the ranks' drops zeroed "
+          f"{rel_drop!r} (gate 1e-4)")
+    if not (rel_free <= 1e-4 and rel_drop <= 1e-4 and same):
+        raise AssertionError("phase 14 (c): the expert-parallel layer "
+                             f"departs ({rel_free}, {rel_drop}, {same})")
+    del p
+    torch.cuda.empty_cache()
+    return dict(rel_free=rel_free, rel_drop=rel_drop,
+                dropped=int(per_rank.sum()), local_dropped=int(local.sum()),
+                only_ranks=int((per_rank & ~local).sum()))
+
+
+def dist_moe():
+    """(c) DeepSeekMoE-16B at full width and DIST_MOE_LAYERS layers: the
+    layer checks, then a bf16 forward, one train step and a generate on the
+    (2, 4) mesh, each bit for bit the same on (2, 1): tp changes no bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import jit_train_step
+    from repro_torch.models import forward, init_params
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.serving import generate
+    cfg = get_config(DIST_MOE_ARCH).replace(n_layers=DIST_MOE_LAYERS)
+    print(f"phase 14 (c): {DIST_MOE_ARCH} ({cfg.n_layers} layers of "
+          f"{get_config(DIST_MOE_ARCH).n_layers}: depth cut, d "
+          f"{cfg.d_model}, {cfg.moe.n_experts} experts) on a {DIST_MOE_MESH}"
+          f" mesh of the card against {DIST_MOE_TP1}")
+    out = dist_moe_layer(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_params(cfg, gen, device="cuda")
+    prompt = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_PROMPT),
+                           generator=gen, device="cuda")
+    d_tp, d_1 = card_mesh(DIST_MOE_MESH), card_mesh(DIST_MOE_TP1)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        a = forward(cfg, params, {"tokens": prompt}, d_tp)[0]
+        b = forward(cfg, params, {"tokens": prompt}, d_1)[0]
+    fwd_same = bitwise(a, b) and bool(torch.isfinite(a).all())
+    del a, b
+    ta, la = generate(cfg, params, prompt, max_new_tokens=SERVE_NEW,
+                      dist=d_tp, return_logits=True)
+    tb, lb = generate(cfg, params, prompt, max_new_tokens=SERVE_NEW,
+                      dist=d_1, return_logits=True)
+    gen_same = bitwise(ta, tb) and bitwise(la, lb)
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    tcfg = cfg.replace(grad_accum=1, remat="full")
+    oc = OptConfig(schedule="const", warmup_steps=1, state_dtype="bf16")
+    batch = lm_batch(tcfg, gen, *DIST_MOE_TRAIN)
+    opt = adamw_init(params, oc)
+    torch.cuda.reset_peak_memory_stats()
+    p_a, o_a, m_a = jit_train_step(tcfg, d_tp, oc, params, opt, batch)(
+        params, opt, batch)
+    p_b, o_b, m_b = jit_train_step(tcfg, d_1, oc, params, opt, batch)(
+        params, opt, batch)
+    step_same = (bitwise(m_a["loss"], m_b["loss"]) and same_trees(p_a, p_b)
+                 and same_trees(o_a, o_b))
+    train_peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  bf16 forward at {SERVE_B} x {SERVE_PROMPT}: bit for bit "
+          f"{fwd_same}; generate {SERVE_NEW} tokens: tokens and logits bit "
+          f"for bit {gen_same}; peak_gb={serve_peak!r}; one train step (B "
+          f"{DIST_MOE_TRAIN[0]} x T {DIST_MOE_TRAIN[1]}, bf16 tier): loss "
+          f"{float(m_a['loss'])!r}, loss, parameters and state bit for bit "
+          f"{step_same}; peak_gb={train_peak!r} [{card_line()}]")
+    del params, opt, p_a, o_a, p_b, o_b
+    torch.cuda.empty_cache()
+    if not (fwd_same and gen_same and step_same):
+        raise AssertionError(f"phase 14 (c): tp changed bits (forward "
+                             f"{fwd_same}, generate {gen_same}, train step "
+                             f"{step_same})")
+    return dict(out, serve_peak_gb=serve_peak, train_peak_gb=train_peak,
+                loss=float(m_a["loss"]))
+
+
+def phase_distribution(counters, launch, served):
+    """Phase 14: (a) the launcher under ``--mesh 1,1``, (b) the GQA repeat
+    and the sequence-sharded decode at tp 16, a (2, 2) train step, (c)
+    DeepSeekMoE's expert parallelism.  Returns the flash launches of the
+    phase's model runs."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    print(f"phase 14: distribution on the card's mesh layout [{card_line()}]")
+    for fn in counters:
+        fn.launches = 0
+    res = {"a": dist_launch(launch), "b": dist_dense(served),
+           "c": dist_moe()}
+    res["launches"] = {"flash_attention": fk.flash_attention.launches,
+                       "flash_attention_bwd":
+                       fk.flash_attention_bwd.launches}
+    print(f"  phase 14 launches: {res['launches']}")
+    return res
 
 
 def main() -> int:
@@ -4838,6 +5252,8 @@ def main() -> int:
     fleet = timed("phase 10", phase_fleet, counters)
     train = timed("phase 11", phase_train, counters)
     launch = timed("phase 12", phase_launch, counters)
+    dist = timed("phase 14", phase_distribution, counters, launch,
+                 serving[DIST_DENSE_ARCH])
     flash["phase 11 (a)"] = train["flash_launches"]
     counts["flash_attention"] += train["flash_launches"]
     # phase 11 (e), the training path's main run, for all four model kernels
@@ -4852,9 +5268,12 @@ def main() -> int:
         rows[name] = row
         counts[name] = e_counts[name]
         by_path[name] = {"phase 11 (e)": e_counts[name]}
-    # phase 12, the training launcher's run and resumed run
+    # phase 12, the training launcher's run and resumed run; phase 14
     for name, n in launch["launches"].items():
         by_path[name]["phase 12"] = n
+        counts[name] += n
+    for name, n in dist["launches"].items():
+        by_path[name]["phase 14"] = n
         counts[name] += n
     for name in ("flash_attention", "wkv6", "flash_attention_bwd",
                  "wkv6_bwd"):
@@ -4909,6 +5328,9 @@ def main() -> int:
           f"peak_gb={[r['peak_gb'] for r in launch['runs'].values()]} "
           f"ckpt_bytes={launch['ckpt_bytes']!r} free_gb="
           f"{launch['free_gb']!r}, launches {launch['launches']}")
+    print(f"  distribution: (a) --mesh 1,1 step_ms={dist['a']['step_ms']!r}"
+          f" beside phase 12's {launch['step_ms']!r}, peak_gb="
+          f"{dist['a']['peak_gb']!r}; (b) {dist['b']}; (c) {dist['c']}")
     print(f"total: {time.perf_counter() - t_start:.2f} s")
 
     for row in rows.values():

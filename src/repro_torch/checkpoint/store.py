@@ -10,7 +10,10 @@ are (``"stored": "native"``); bfloat16, which numpy lacks, as its raw bytes
 other writes.  Writes go to a temp dir and are atomically renamed, so a
 crash mid-save never corrupts the latest checkpoint.
 
-``restore`` takes no shardings: distribution is ROADMAP Queue 1 item 20.
+``restore(..., shardings=...)`` places each leaf that has a sharding on its
+mesh's first device, where the port's mesh layout keeps a sharded tensor
+whole (``repro_torch.models.sharding``): re-meshing a run is a restore
+onto another mesh's shardings.
 """
 from __future__ import annotations
 
@@ -162,17 +165,41 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(tree_like: Any, step: int, ckpt_dir: str):
+def _sharding_paths(tree, prefix=()):
+    """{path: sharding} of a tree of shardings (dicts, lists and tuples;
+    a None subtree gives no path), in :func:`_paths`' path form."""
+    if tree is None:
+        return {}
+    if isinstance(tree, dict):
+        items = ((str(k), v) for k, v in tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        return {"/".join(prefix): tree}
+    return {path: sh for key, sub in items
+            for path, sh in _sharding_paths(sub, prefix + (key,)).items()}
+
+
+def restore(tree_like: Any, step: int, ckpt_dir: str, *, shardings=None):
     """Restore into the structure of ``tree_like``: each leaf in its stored
-    dtype, on the device of the matching leaf of ``tree_like`` (only the
-    structure and the devices are read).  Returns ``(tree, manifest)``."""
+    dtype, on its sharding's device where ``shardings`` (a tree of
+    ``NamedSharding``s of the same structure, or of None subtrees) gives
+    one, else on the device of the matching leaf of ``tree_like`` (only the
+    structure and the devices are read).  Under the port's mesh layout a
+    sharding names only its mesh's first device; the argument is kept for
+    the reference's signature, and where ``tree_like`` already lies on
+    that device (as the launcher's does) it changes nothing.  Returns
+    ``(tree, manifest)``."""
     d = Path(ckpt_dir) / f"step_{step}"
     manifest = json.loads((d / "manifest.json").read_text())
+    sh_map = _sharding_paths(shardings)
     leaves = []
     for ps, like in _paths(tree_like):
         info = manifest["leaves"][ps]
         arr = np.load(d / info["file"])
-        leaves.append(_from_numpy(arr, info).to(like.device))
+        sh = sh_map.get(ps)
+        leaves.append(_from_numpy(arr, info).to(
+            like.device if sh is None else sh.device))
     return _unflatten(tree_like, iter(leaves)), manifest
 
 

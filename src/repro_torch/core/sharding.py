@@ -43,7 +43,7 @@ import torch
 from repro_torch.core import game
 from repro_torch.core.types import (Scenario, ScenarioBatch, Solution,
                                     WindowState, neutral_class_values)
-from repro_torch.utils import resolve_device, tree_map
+from repro_torch.utils import indexed_device, resolve_device, tree_map
 
 #: Default name of the single mesh axis the lane dimension is split over.
 LANE_AXIS = "lanes"
@@ -72,14 +72,6 @@ class LaneMesh:
 
     def __hash__(self):
         return hash(self._key())
-
-
-def _device(dev) -> torch.device:
-    """``dev`` as a ``torch.device`` with its CUDA index filled in."""
-    dev = resolve_device(dev)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 def lane_mesh(n_devices: Optional[int] = None, *,
@@ -116,7 +108,7 @@ def lane_mesh(n_devices: Optional[int] = None, *,
             raise ValueError(f"n_devices={n} out of range [1, {avail}] (pass "
                              "devices=[...] to repeat a device)")
         devices = [f"cuda:{i}" for i in range(n)]
-    devs = [_device(d) for d in devices]
+    devs = [indexed_device(d) for d in devices]
     if not devs:
         raise ValueError("a lane mesh needs at least one device")
     arr = np.empty(len(devs), dtype=object)

@@ -1,5 +1,5 @@
-"""Step builders of the training and serving paths (counterpart of the step
-builders of ``repro.launch.steps``).
+"""Step functions and their sharding specs for every cell kind
+(counterpart of ``repro.launch.steps``).
 
 A train step is ``cfg.grad_accum`` microbatches of fwd + bwd, their
 gradients summed in f32 and averaged, then one AdamW update.  Steps are
@@ -11,19 +11,146 @@ directions of the prefill kernels (flash attention; ``wkv6`` where ``T >
 chunk``): their wrappers are autograd Functions whose backward passes are
 CUDA kernels.
 
-There is no ``Distribution`` argument and no sharding spec or ``jit_*``
-function: PyTorch runs eagerly, and distribution is ROADMAP Queue 1 item
-20.
+Every step builder takes a ``Distribution`` as the reference's do.  The
+specs (``batch_specs``, ``cache_specs``, ``opt_specs``,
+``param_shardings``, ``sanitize``) are the reference's rules on the port's
+layouts (``repro_torch.models.sharding``).  ``jit_train_step`` keeps its
+name so a reader finds the counterpart, and is eager: it sanitises the
+three sharding trees and returns a step that places each input on its
+sharding's device, then runs ``make_train_step``.  ``jax.jit``'s compile
+and its buffer donation have no counterpart (the step returns new trees).
+The dry run's ``jit_*`` steps are not ported here.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models import decode_step, loss_fn, prefill
+from repro_torch.models import decode_step, loss_fn, param_specs, prefill
+from repro_torch.models.sharding import (P, Distribution, NamedSharding,
+                                         map_with_path)
 from repro_torch.optim import OptConfig, adamw_update
 from repro_torch.utils import tree_leaves, tree_map
 
 F32 = torch.float32
+
+
+# --------------------------------------------------------------------------
+# sharding specs
+# --------------------------------------------------------------------------
+
+def _ns(dist, spec):
+    return NamedSharding(dist.mesh, spec)
+
+
+def _axis_size(mesh, entry):
+    if entry is None:
+        return 1
+    axes = entry if isinstance(entry, tuple) else (entry,)
+    n = 1
+    for a in axes:
+        n *= mesh.shape[a]
+    return n
+
+
+def _zip_map(fn, shardings, tree):
+    """``fn(sharding, leaf)`` over two trees of one structure."""
+    if isinstance(shardings, dict):
+        return {k: _zip_map(fn, v, tree[k]) for k, v in shardings.items()}
+    if isinstance(shardings, (list, tuple)):
+        return type(shardings)(_zip_map(fn, a, b)
+                               for a, b in zip(shardings, tree))
+    return fn(shardings, tree)
+
+
+def sanitize(shardings, tree, mesh):
+    """Drop spec axes that do not divide the corresponding dim (e.g. odd
+    vocab 122753 on 16-way TP, int8 optimizer scale tails): the reference's
+    ``jit`` in_shardings require exact divisibility, and the dropped dims
+    are replicated.  ``tree`` gives only shapes (tensors, meta ones too)."""
+    def one(sh, x):
+        spec = tuple(sh.spec)
+        spec = spec + (None,) * (x.ndim - len(spec))
+        new = tuple(e if x.shape[i] % _axis_size(mesh, e) == 0 else None
+                    for i, e in enumerate(spec))
+        return NamedSharding(mesh, P(*new))
+    return _zip_map(one, shardings, tree)
+
+
+def _div(n, dist):
+    ts = dist.tp_size()
+    return dist.tp if (ts > 1 and n % ts == 0) else None
+
+
+def batch_specs(cfg, batch_tree, dist: Distribution):
+    dp = dist.dp_axes
+
+    def one(path, x):
+        name = path.split("/")[-1]
+        if name == "mrope_positions":
+            return _ns(dist, P(None, dp, None))
+        if x.ndim >= 3:                      # embeds / enc_embeds
+            return _ns(dist, P(dp, None, None))
+        return _ns(dist, P(dp, None))        # tokens / targets
+    return map_with_path(one, batch_tree)
+
+
+def cache_specs(cfg, cache_tree, dist: Distribution):
+    """KV caches: batch on dp + kv-heads on tp (when divisible); with
+    cfg.kv_cache_seq_shard the sequence dim is sharded over the whole mesh
+    instead (context-parallel decode).  The port's per-layer cache
+    (``layers/<i>/...``) gets the reference's specs without the leading
+    None of its stacked ``blocks``."""
+    dp = dist.dp_axes
+
+    def one(path, x):
+        keys = path.split("/")
+        leaf, parent = keys[-1], keys[-2] if len(keys) > 1 else ""
+        stacked = keys[0] == "blocks"
+        lead = (None,) if stacked else ()
+        if parent in ("attn", "cross") or leaf in ("ck", "cv"):
+            # (B, S, kv, hd)
+            if cfg.kv_cache_seq_shard:
+                all_axes = tuple(dp) + ((dist.tp,) if dist.tp else ())
+                return _ns(dist, P(*lead, None, all_axes, None, None))
+            kv_ax = _div(cfg.n_kv, dist)
+            if kv_ax is None and dist.tp is not None:
+                # kv heads don't divide TP: shard the sequence over 'model'
+                # instead of replicating the cache (context-parallel decode)
+                return _ns(dist, P(*lead, dp, dist.tp, None, None))
+            return _ns(dist, P(*lead, dp, None, kv_ax, None))
+        if leaf == "S":                        # rwkv state (B,H,k,v)
+            H = cfg.d_model // cfg.rwkv_head_dim
+            return _ns(dist, P(*lead, dp, _div(H, dist), None, None))
+        if leaf == "h" and parent == "mamba":  # (B, d_in, N)
+            return _ns(dist, P(*lead, dp, _div(cfg.mamba.expand *
+                                               cfg.d_model, dist), None))
+        if leaf == "conv":                     # (B, dc-1, d_in)
+            return _ns(dist, P(*lead, dp, None,
+                               _div(cfg.mamba.expand * cfg.d_model, dist)))
+        if leaf in ("shift", "cshift"):        # (B, d)
+            return _ns(dist, P(*lead, dp, None))
+        return _ns(dist, P(*([None] * x.ndim)))
+    return map_with_path(one, cache_tree)
+
+
+def opt_specs(pspecs, oc: OptConfig, dist: Distribution):
+    def one(_, s):
+        if oc.state_dtype == "f32":
+            return {"m": s, "v": s, "master": s}
+        if oc.state_dtype == "bf16":
+            return {"m": s, "v": s}
+        return {"m": {"q": s, "scale": s}, "v": {"q": s, "scale": s}}
+    return {"mu": map_with_path(one, pspecs), "step": P()}
+
+
+def param_shardings(cfg, params_tree, dist: Distribution):
+    specs = param_specs(cfg, params_tree, dist)
+    return map_with_path(lambda _, s: _ns(dist, s), specs)
+
+
+# --------------------------------------------------------------------------
+# step builders
+# --------------------------------------------------------------------------
 
 
 def _stack_micro(batch, n):
@@ -38,7 +165,7 @@ def _stack_micro(batch, n):
     return {name: one(name, x) for name, x in batch.items()}
 
 
-def make_grad_step(cfg, *, loops: str = "scan"):
+def make_grad_step(cfg, dist: Distribution, *, loops: str = "scan"):
     """fwd + bwd of one microbatch: ``step(params, mb) -> (grads, loss,
     metrics)``, the gradients in the parameters' structure and dtypes (an
     unused parameter gets zeros, as ``jax.grad`` gives it)."""
@@ -47,7 +174,7 @@ def make_grad_step(cfg, *, loops: str = "scan"):
         aliases = iter([x.detach().requires_grad_(True) for x in leaves])
         p = tree_map(lambda _: next(aliases), params)
         with torch.enable_grad():
-            loss, metrics = loss_fn(cfg, p, mb, loops=loops)
+            loss, metrics = loss_fn(cfg, p, mb, dist, loops=loops)
             grads = torch.autograd.grad(loss, tree_leaves(p),
                                         allow_unused=True,
                                         materialize_grads=True)
@@ -63,7 +190,8 @@ def make_opt_step(cfg, oc: OptConfig):
     return step
 
 
-def make_train_step(cfg, oc: OptConfig, *, loops: str = "scan"):
+def make_train_step(cfg, dist: Distribution, oc: OptConfig, *,
+                    loops: str = "scan"):
     """One optimizer step: ``step(params, opt_state, batch) -> (params,
     opt_state, metrics)``.
 
@@ -73,7 +201,7 @@ def make_train_step(cfg, oc: OptConfig, *, loops: str = "scan"):
     the step's own accumulator, and divided by M, and the loss is their
     mean.  With M = 1 the gradients are cast to f32.  Then AdamW."""
     M = max(1, cfg.grad_accum)
-    gstep = make_grad_step(cfg, loops=loops)
+    gstep = make_grad_step(cfg, dist, loops=loops)
     ostep = make_opt_step(cfg, oc)
 
     def step(params, opt_state, batch):
@@ -104,13 +232,41 @@ def make_train_step(cfg, oc: OptConfig, *, loops: str = "scan"):
     return step
 
 
-def make_prefill_step(cfg, *, loops: str = "scan"):
+def make_prefill_step(cfg, dist: Distribution, *, loops: str = "scan"):
     def step(params, batch):
-        return prefill(cfg, params, batch, loops=loops)
+        return prefill(cfg, params, batch, dist, loops=loops)
     return step
 
 
-def make_decode_step(cfg):
+def make_decode_step(cfg, dist: Distribution):
     def step(params, cache, token, pos):
-        return decode_step(cfg, params, cache, token, pos)
+        return decode_step(cfg, params, cache, token, pos, dist)
+    return step
+
+
+def jit_train_step(cfg, dist, oc, params_tree, opt_tree, batch_tree, *,
+                   loops="scan", donate=True):
+    """The train step under ``dist``'s mesh: the three sharding trees
+    sanitised against ``params_tree``, ``opt_tree`` and ``batch_tree``
+    (tensors of the inputs' shapes, meta ones too), and a step that moves
+    each input to its sharding's device (a no-op where it lies there) and
+    runs ``make_train_step``.  ``donate`` is accepted for the reference's
+    signature only and changes nothing: the step never writes its
+    inputs."""
+    psh = param_shardings(cfg, params_tree, dist)
+    osh = map_with_path(lambda _, s: _ns(dist, s),
+                        opt_specs(param_specs(cfg, params_tree, dist), oc,
+                                  dist))
+    bsh = batch_specs(cfg, batch_tree, dist)
+    psh = sanitize(psh, params_tree, dist.mesh)
+    osh = sanitize(osh, opt_tree, dist.mesh)
+    bsh = sanitize(bsh, batch_tree, dist.mesh)
+    fn = make_train_step(cfg, dist, oc, loops=loops)
+
+    def place(shardings, tree):
+        return _zip_map(lambda sh, x: x.to(sh.device), shardings, tree)
+
+    def step(params, opt_state, batch):
+        return fn(place(psh, params), place(osh, opt_state),
+                  place(bsh, batch))
     return step

@@ -12,8 +12,11 @@
   are one computation here: PyTorch runs eagerly, and ``triangle`` skips
   the kv chunks that are fully masked).
 
-``decode_attention`` is the unsharded branch of the JAX function: the dense
-``reference`` over the cache, masked at ``kv_len``.  No TPU kernel exists
+``decode_attention`` is the JAX function: the dense ``reference`` over the
+cache, masked at ``kv_len``, or, with ``seq_sharded`` under a mesh, the
+sequence-sharded form (f32 scores, masked max / exp / sum, then the
+product with V): the same function, rounded differently.  Its sharding
+constraints change no value (``models/sharding.py``).  No TPU kernel exists
 for it.
 """
 from __future__ import annotations
@@ -119,7 +122,31 @@ def attention(q, k, v, *, causal=True, q_offset=0, kv_len=None,
     return out.reshape(B, Sq, Hq, dh).to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, kv_len):
-    """Single-token decode: q (B,1,Hq,dh) vs cache (B,Smax,Hkv,dh), dense
-    over the cache and masked at ``kv_len`` (the unsharded JAX branch)."""
-    return reference(q, k_cache, v_cache, causal=False, kv_len=kv_len)
+def decode_attention(q, k_cache, v_cache, kv_len, dist=None,
+                     seq_sharded=False):
+    """Single-token decode: q (B,1,Hq,dh) vs cache (B,Smax,Hkv,dh).
+
+    Dense over the cache, masked at ``kv_len``.  With ``seq_sharded`` (the
+    cache sharded on S over the TP axis) under a mesh, the reference's
+    distributed-flash form: its constraints pin XLA's schedule and change
+    no value here, and its max / sum in f32 round as its own.
+    """
+    if not seq_sharded or dist is None or dist.tp is None:
+        return reference(q, k_cache, v_cache, causal=False, kv_len=kv_len)
+    B, Sq, Hq, dh = q.shape
+    _, Skv, Hkv, _ = k_cache.shape
+    G = Hq // Hkv
+    qf = q.to(F32).reshape(B, Sq, Hkv, G, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf,
+                     k_cache.to(F32)) * dh ** -0.5
+    s = dist.constrain(s, dist.dp_axes, None, None, None, dist.tp)
+    kpos = torch.arange(Skv, device=q.device)
+    s = torch.where((kpos < kv_len)[None, None, None, None], s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    p = dist.constrain(p / l, dist.dp_axes, None, None, None, dist.tp)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v_cache.to(F32))
+    o = dist.constrain(o.reshape(B, Sq, Hq, dh),
+                       dist.dp_axes, None, None, None)
+    return o.to(q.dtype)

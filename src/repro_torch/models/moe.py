@@ -1,6 +1,6 @@
 """Mixture-of-Experts FFNs: top-k routing, capacity-bounded expert dispatch.
 
-Counterpart of ``repro.models.moe`` on one device (its ``n_shards=1`` body):
+Counterpart of ``repro.models.moe``:
 
 * routing is an f32 router (``layers.dot``), a softmax, top-k and, for
   DeepSeek-style configurations, renormalised gates; the Switch-style
@@ -25,18 +25,46 @@ its zero gate).
 probabilities towards the lower index, as ``lax.top_k`` does; with f32
 probabilities of real-valued activations an exact tie is not expected.
 
-The expert-parallel ``shard_map`` branch of the reference's ``moe_apply``
-and its FSDP all-gathers wait for ``models/sharding.py`` (ROADMAP Queue 1
-item 20); the port's ``moe_apply`` takes no ``Distribution``.
+Expert parallelism (the reference's ``shard_map`` branch of ``moe_apply``)
+under a mesh with a ``model`` axis of ``tp`` positions, laid out as
+``models/sharding.py`` describes:
+
+* the tokens are split over the data-parallel ranks when their count
+  divides; otherwise every rank routes all of them, and one rank's result
+  stands for all (they are the same);
+* each rank's slice is dispatched with the capacity of its own token count
+  and the global E, so pairs drop exactly as the reference drops them on
+  that rank;
+* each of the ``tp`` shards owns ``E / tp`` experts (``shard_id *
+  E_loc`` on), the expert half of the reference's per-device
+  ``_moe_body(n_shards, shard_id)``.  Under the layout every tensor lies
+  whole on the tokens' device, so a rank's shards run there as one
+  batched product over all its experts.  One product is what keeps
+  ``tp`` from changing bits: cuBLAS picks its kernels by batch count (on
+  an H100 the backward of four products of 16 experts at a capacity of 64
+  does not round as that of one of 64), and the slot gather's backward
+  adds a token's pairs within one call.  Running shards on other cards
+  waits for collectives across cards (ROADMAP item 26);
+* the shards' outputs fill the one slot buffer, and the combine above runs
+  on it, so ``tp`` changes no bit and only the data-parallel split changes
+  which pairs drop.  The reference instead ``psum``s per-shard partials in
+  the activation dtype, so the port holds to it within that rounding.
+
+The reference's FSDP all-gathers of the expert weights change no value and
+have no counterpart: the weights are whole tensors.  ``LOCAL`` and a 1 x 1
+mesh run the same computation, bit for bit.
 
 ``moe_dense_ref`` is the no-drop oracle used by the tests.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.models.sharding import LOCAL, Distribution
 
 F32 = torch.float32
 
@@ -100,17 +128,18 @@ def capacity(cfg, T: int) -> int:
 # dispatch / compute / combine
 # --------------------------------------------------------------------------
 
-def _moe_body(cfg, experts, x, gates, idx):
-    """Routed experts over tokens x: (T, d); gates / idx: (T, k)."""
-    mo = cfg.moe
-    E, k = mo.n_experts, mo.top_k
-    T, d = x.shape
-    dev = x.device
+def _dispatch(cfg, idx, T):
+    """Slots of T tokens' (T, k) expert choices: ``(tok_for_slot,
+    slot_of_pair, cap)``; ``tok_for_slot`` (E*cap + 1,) holds each slot's
+    token (0 for an empty slot, never gathered back; the last entry is the
+    trash row), ``slot_of_pair`` (T*k,) each pair's slot in token-major
+    order (``E*cap`` for a dropped pair)."""
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    dev = idx.device
     cap = capacity(cfg, T)
     trash = E * cap
 
     e_flat = idx.reshape(-1)                           # (T*k,) token-major
-    g_flat = gates.reshape(-1).to(F32)
     tok_flat = torch.arange(T, device=dev).repeat_interleave(k)
 
     # position of each (token, expert) pair within its expert's queue
@@ -122,23 +151,40 @@ def _moe_body(cfg, experts, x, gates, idx):
     slot = torch.where(pos < cap, e_sorted * cap + pos,
                        torch.full_like(pos, trash))
 
-    # slot -> token (empty slots read token 0, never gathered back), and
-    # pair -> slot in token-major order (dropped pairs -> the trash row)
     tok_for_slot = torch.zeros(trash + 1, dtype=torch.long, device=dev)
     tok_for_slot[slot] = tok_flat[sort_ix]
     slot_of_pair = torch.empty_like(slot)
     slot_of_pair[sort_ix] = slot
+    return tok_for_slot, slot_of_pair, cap
 
-    x_g = x[tok_for_slot[:trash]].reshape(E, cap, d)
+
+def _experts(cfg, experts, x, tok_for_slot, cap):
+    """All E experts over their slots as one batched product.  Returns the
+    outputs (E * cap, d) in the activation dtype."""
+    E = cfg.moe.n_experts
+    d = x.shape[1]
+    x_g = x[tok_for_slot[:E * cap]].reshape(E, cap, d)
     g = layers.bmm(x_g, experts["wg"])
     u = layers.bmm(x_g, experts["wu"])
     h = (F.silu(g) * u).to(x.dtype)
-    y = layers.bmm(h, experts["wd"]).to(x.dtype).reshape(trash, d)
-    y = torch.cat([y, y.new_zeros((1, d))])                  # the trash row
+    return layers.bmm(h, experts["wd"]).to(x.dtype).reshape(E * cap, d)
+
+
+def _moe_body(cfg, experts, x, gates, idx):
+    """Routed experts over tokens x: (T, d); gates / idx: (T, k).  Under a
+    mesh, one data-parallel rank's body, its expert shards as one
+    product."""
+    k = cfg.moe.top_k
+    T, d = x.shape
+    dev = x.device
+    tok_for_slot, slot_of_pair, cap = _dispatch(cfg, idx, T)
+    trash = tok_for_slot.shape[0] - 1
+    y = torch.cat([_experts(cfg, experts, x, tok_for_slot, cap),
+                   x.new_zeros((1, d))])                     # the trash row
 
     kept = (slot_of_pair != trash).reshape(T, k)
-    w = torch.where(kept, g_flat.reshape(T, k), torch.zeros((), dtype=F32,
-                                                            device=dev))
+    w = torch.where(kept, gates.reshape(T, k).to(F32),
+                    torch.zeros((), dtype=F32, device=dev))
     y_pairs = y[slot_of_pair].reshape(T, k, d)
     out = torch.zeros((T, d), dtype=F32, device=dev)
     for j in range(k):                                       # fixed order
@@ -150,14 +196,33 @@ def _moe_body(cfg, experts, x, gates, idx):
 # public API
 # --------------------------------------------------------------------------
 
-def moe_apply(cfg, p, x, gates, idx):
+def moe_apply(cfg, p, x, gates, idx, dist: Distribution = LOCAL):
     """Routed-experts output (+ shared experts if configured).
 
-    x: (B, S, d); gates / idx: (B, S, k).
+    x: (B, S, d); gates / idx: (B, S, k).  Under a mesh with a ``model``
+    axis, expert parallelism as the module docstring lays it out; without
+    one, the single-device body.
     """
     B, S, d = x.shape
-    out = _moe_body(cfg, p["experts"], x.reshape(B * S, d),
-                    gates.reshape(B * S, -1), idx.reshape(B * S, -1))
+    xf = x.reshape(B * S, d)
+    gf, idf = gates.reshape(B * S, -1), idx.reshape(B * S, -1)
+    if dist.mesh is None or dist.tp is None:
+        out = _moe_body(cfg, p["experts"], xf, gf, idf)
+    else:
+        # the data axes together, as the reference's shard_map splits the
+        # tokens over them; an axis neither names is replicated
+        dp_size = math.prod(dist.mesh.shape[a] for a in dist.dp_axes)
+        n_shards = dist.mesh.shape[dist.tp]
+        if cfg.moe.n_experts % n_shards:
+            raise ValueError(f"{cfg.moe.n_experts} experts do not split "
+                             f"over {n_shards} shards")
+        # tokens split over dp when divisible (train / prefill); tiny decode
+        # batches are routed redundantly on every dp rank instead
+        n = B * S // dp_size if (B * S) % dp_size == 0 else B * S
+        out = torch.cat([
+            _moe_body(cfg, p["experts"], xf[r * n:(r + 1) * n],
+                      gf[r * n:(r + 1) * n], idf[r * n:(r + 1) * n])
+            for r in range(B * S // n)])
     out = out.reshape(B, S, d)
     if cfg.moe.n_shared:
         out = out + layers.mlp_apply(cfg, p["shared"], x)

@@ -12,9 +12,21 @@ comes from the kinds alone).  The encoder-decoder keeps its encoder in
 with a ``"cross"`` attention and ``"norm_cross"``, in ``params["layers"]``
 (JAX's ``dec_blocks``), so that ``decode_step``'s loop is shared.
 ``repro_torch.convert.lm_params_from_numpy`` turns a JAX pytree into this
-form; caches follow the same flat order.  There is no ``Distribution``:
-tensor parallelism, sequence sharding and expert parallelism wait for
-``models/sharding.py`` (ROADMAP Queue 1 item 20).
+form; caches follow the same flat order.
+
+Distribution enters, as in JAX, only through a ``Distribution`` argument
+(``dist``, default ``LOCAL``; ``models/sharding.py`` lays out the port's
+mesh).  Its constraints (``_shard_heads``, ``_seq_constrain``, the
+residual, FFN and logits constraints) schedule XLA and change no value:
+``Distribution.constrain`` checks their specs and returns the tensor.  Two
+things here change values under a mesh, as they do in the reference: with
+no cache and a tensor-parallel degree ``tp`` above the key/value heads
+(``hq % tp == 0``, ``tp % hkv == 0``) keys and values are repeated ``tp //
+hkv`` times before attention, so the flash kernel runs at ``Hkv = tp``
+(the collected cache stays un-repeated); and a decode step whose kv heads
+do not divide ``tp`` (or with ``cfg.kv_cache_seq_shard``) takes
+``decode_attention``'s sequence-sharded form.  MoE layers run
+``moe.moe_apply`` under ``dist``.
 
 Training: ``loss_fn`` is JAX's token-chunked cross entropy, each chunk
 recomputed in the backward (``torch.utils.checkpoint``).  ``cfg.remat``
@@ -48,6 +60,7 @@ from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import LOCAL, Distribution
 from repro_torch.utils import resolve_device
 
 
@@ -133,7 +146,16 @@ def init_params(cfg: ModelConfig, gen, *, device="cuda") -> Dict[str, Any]:
 # mixers and one layer
 # ==========================================================================
 
-def _attn_mixer(cfg, p, x, positions, *, causal=True, loops="scan",
+def _shard_heads(dist, x, n):
+    """The reference's head-axis constraint: it schedules XLA and changes
+    no value (``Distribution.constrain`` checks its spec)."""
+    tp_size = dist.tp_size()
+    if tp_size > 1 and n % tp_size == 0:
+        return dist.constrain(x, dist.dp_axes, None, dist.tp, None)
+    return x
+
+
+def _attn_mixer(cfg, p, x, positions, dist, *, causal=True, loops="scan",
                 cache=None, cache_pos=None, collect=False,
                 mrope_positions=None):
     B, S, d = x.shape
@@ -153,15 +175,31 @@ def _attn_mixer(cfg, p, x, positions, *, causal=True, loops="scan",
         else:
             q = layers.apply_rope(q, positions, cfg.rope_theta)
             k = layers.apply_rope(k, positions, cfg.rope_theta)
+    q = _shard_heads(dist, q, hq)
+    k = _shard_heads(dist, k, hkv)
+    v = _shard_heads(dist, v, hkv)
 
     new_cache = None
+    unrep_kv = {"k": k, "v": v}
+    tp = dist.tp_size()
+    if (cache is None and tp > 1 and hkv < tp and hq % tp == 0
+            and tp % hkv == 0):
+        # the reference's GQA repeat (GSPMD cannot shard the grouped
+        # reshape below tp kv heads): the same function, the kernel at
+        # Hkv = tp
+        rep = tp // hkv
+        k = _shard_heads(dist, k.repeat_interleave(rep, dim=2), tp)
+        v = _shard_heads(dist, v.repeat_interleave(rep, dim=2), tp)
     if cache is not None:                               # decode (S == 1)
         # JAX donates the cache to dynamic_update_slice; here the slot is
         # written in place, so the caller's cache tensors change.
         cache["k"][:, cache_pos:cache_pos + S] = k
         cache["v"][:, cache_pos:cache_pos + S] = v
+        seq_sharded = cfg.flash_decode and (
+            cfg.kv_cache_seq_shard or (tp > 1 and hkv % tp != 0))
         o = attn_mod.decode_attention(q, cache["k"], cache["v"],
-                                      kv_len=cache_pos + 1)
+                                      kv_len=cache_pos + 1, dist=dist,
+                                      seq_sharded=seq_sharded)
         new_cache = cache
     else:
         o = attn_mod.attention(
@@ -169,19 +207,20 @@ def _attn_mixer(cfg, p, x, positions, *, causal=True, loops="scan",
             kv_chunk=cfg.attn_kv_chunk, loops=loops,
             triangle=cfg.attn_triangle and causal)
         if collect:
-            new_cache = {"k": k, "v": v}
+            new_cache = unrep_kv                 # the cache stays un-repeated
     out = layers.dot(o.reshape(B, S, hq * hd), p["wo"]).to(x.dtype)
-    return out, new_cache
+    return dist.constrain(out, dist.dp_axes, None, None), new_cache
 
 
-def _cross_mixer(cfg, p, x, cache):
+def _cross_mixer(cfg, p, x, dist, cache):
     """Decoder cross-attention over precomputed encoder K/V: the dense
     ``attention.reference``, as in JAX, not the flash kernel."""
     B, S, d = x.shape
     hq, hd = cfg.n_heads, cfg.hd
     q = layers.dot(x, p["wq"]).to(x.dtype).reshape(B, S, hq, hd)
     o = attn_mod.reference(q, cache["ck"], cache["cv"], causal=False)
-    return layers.dot(o.reshape(B, S, hq * hd), p["wo"]).to(x.dtype)
+    out = layers.dot(o.reshape(B, S, hq * hd), p["wo"]).to(x.dtype)
+    return dist.constrain(out, dist.dp_axes, None, None)
 
 
 def _cross_kv(cfg, p, enc_out):
@@ -192,18 +231,30 @@ def _cross_kv(cfg, p, enc_out):
             "cv": v.reshape(B, T, cfg.n_kv, cfg.hd)}
 
 
+def _seq_constrain(cfg, dist, h):
+    """The reference's Megatron sequence parallelism (the residual stream
+    sharded on S over the TP axis): it schedules XLA and changes no value
+    (``Distribution.constrain`` checks its spec)."""
+    if cfg.seq_parallel and dist.tp is not None and h.shape[1] > 1 \
+            and h.shape[1] % dist.tp_size() == 0:
+        return dist.constrain(h, dist.dp_axes, dist.tp, None)
+    return h
+
+
 def _apply_layer(cfg, p, h, kinds, ctx, cache=None):
     """Returns (h, aux, new_cache); aux is the MoE layer's load-balance
     loss, None for the other FFNs (JAX's f32 zero, which would cost a
     kernel launch a layer here)."""
     mixer_kind, ffn_kind = kinds
+    dist = ctx["dist"]
     new_cache: Dict[str, Any] = {}
     keep = ctx["collect"] or cache is not None
 
+    h = _seq_constrain(cfg, dist, h)
     hn = layers.apply_norm(cfg, p["norm1"], h)
     if mixer_kind == "attn":
         mo, c = _attn_mixer(
-            cfg, p["mixer"], hn, ctx["positions"], causal=ctx["causal"],
+            cfg, p["mixer"], hn, ctx["positions"], dist, causal=ctx["causal"],
             loops=ctx["loops"], cache=None if cache is None else cache["attn"],
             cache_pos=ctx.get("cache_pos"), collect=ctx["collect"],
             mrope_positions=ctx.get("mrope_positions"))
@@ -230,17 +281,19 @@ def _apply_layer(cfg, p, h, kinds, ctx, cache=None):
     if "cross" in p:
         hc = layers.apply_norm(cfg, p["norm_cross"], h)
         cross = cache["cross"] if cache is not None else ctx["cross_kv"]
-        h = h + _cross_mixer(cfg, p["cross"], hc, cross)
+        h = h + _cross_mixer(cfg, p["cross"], hc, dist, cross)
         if keep:
             new_cache["cross"] = cross
 
+    h = _seq_constrain(cfg, dist, h)
     hn = layers.apply_norm(cfg, p["norm2"], h)
     aux = None
     if ffn_kind == "dense":
         fo = layers.mlp_apply(cfg, p["ffn"], hn)
+        fo = dist.constrain(fo, dist.dp_axes, None, None)
     elif ffn_kind == "moe":
         gates, idx, aux = moe_mod.route(cfg, p["ffn"], hn)
-        fo = moe_mod.moe_apply(cfg, p["ffn"], hn, gates, idx)
+        fo = moe_mod.moe_apply(cfg, p["ffn"], hn, gates, idx, dist)
     elif ffn_kind == "rwkv_cmix":
         st = None if cache is None else cache["cshift"]
         fo, st2 = rwkv_mod.channel_mix(cfg, p["ffn"], hn, st)
@@ -296,7 +349,7 @@ def _remat_wrap(cfg, fn):
 # forward / prefill / decode
 # ==========================================================================
 
-def _embed_in(cfg, params, batch):
+def _embed_in(cfg, params, batch, dist):
     if "embeds" in batch:
         h = batch["embeds"].to(cfg.adtype)
     else:
@@ -304,11 +357,11 @@ def _embed_in(cfg, params, batch):
     if cfg.max_positions:
         S = h.shape[1]
         h = h + params["pos_embed"][:S][None].to(cfg.adtype)
-    return h
+    return dist.constrain(h, dist.dp_axes, None, None)
 
 
-def backbone(cfg: ModelConfig, params, batch, *, loops: str = "scan",
-             collect: bool = False):
+def backbone(cfg: ModelConfig, params, batch, dist: Distribution = LOCAL,
+             *, loops: str = "scan", collect: bool = False):
     """Runs everything up to (and incl.) the final norm.
     Returns (h, aux, caches): aux sums the MoE layers' load-balance losses
     in layer order (f32 zero without MoE layers); caches is
@@ -319,10 +372,10 @@ def backbone(cfg: ModelConfig, params, batch, *, loops: str = "scan",
     the encoder-decoder, ``tokens`` and ``enc_embeds`` (B, T_enc, d): each
     decoder layer cross-attends to the encoded frames, and its cache also
     holds their K/V.  Under grad each block runs through ``_remat_wrap``."""
-    enc = (encode(cfg, params, batch["enc_embeds"], loops=loops)
+    enc = (encode(cfg, params, batch["enc_embeds"], dist, loops=loops)
            if cfg.is_encdec else None)
-    h = _embed_in(cfg, params, batch)
-    ctx = {"loops": loops, "collect": collect, "causal": True,
+    h = _embed_in(cfg, params, batch, dist)
+    ctx = {"dist": dist, "loops": loops, "collect": collect, "causal": True,
            "positions": torch.arange(h.shape[1], device=h.device)[None, :],
            "mrope_positions": batch.get("mrope_positions")}
     kinds = cfg.layer_kinds()
@@ -359,13 +412,14 @@ def backbone(cfg: ModelConfig, params, batch, *, loops: str = "scan",
     return h, aux, ({"layers": caches} if collect else None)
 
 
-def encode(cfg, params, enc_embeds, *, loops: str = "scan"):
+def encode(cfg, params, enc_embeds, dist: Distribution = LOCAL, *,
+           loops: str = "scan"):
     """The encoder: non-causal self-attention layers over the (B, T, d)
     frame embeddings (the stubbed audio front end's output; no positional
     embedding is added), then ``enc_final_norm``.  Under grad each layer
     runs through ``_remat_wrap``."""
-    h = enc_embeds.to(cfg.adtype)
-    ctx = {"loops": loops, "collect": False, "causal": False,
+    h = dist.constrain(enc_embeds.to(cfg.adtype), dist.dp_axes, None, None)
+    ctx = {"dist": dist, "loops": loops, "collect": False, "causal": False,
            "positions": torch.arange(h.shape[1], device=h.device)[None, :]}
 
     def run(h, p):
@@ -377,29 +431,29 @@ def encode(cfg, params, enc_embeds, *, loops: str = "scan"):
     return layers.apply_norm(cfg, params["enc_final_norm"], h)
 
 
-def _unembed(cfg, params, h):
+def _unembed(cfg, params, h, dist):
     w = params["embed"].T if cfg.tie_embeddings else params["unembed_w"]
     logits = layers.dot(h, w)
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
-    return logits
+    return dist.constrain(logits, dist.dp_axes, None, dist.tp)
 
 
-def forward(cfg: ModelConfig, params, batch, *, loops: str = "scan",
-            collect: bool = False):
+def forward(cfg: ModelConfig, params, batch, dist: Distribution = LOCAL, *,
+            loops: str = "scan", collect: bool = False):
     """Teacher-forcing forward.  Returns (logits f32, aux, caches)."""
-    h, aux, caches = backbone(cfg, params, batch, loops=loops,
+    h, aux, caches = backbone(cfg, params, batch, dist, loops=loops,
                               collect=collect)
-    return _unembed(cfg, params, h), aux, caches
+    return _unembed(cfg, params, h, dist), aux, caches
 
 
 # ==========================================================================
 # loss
 # ==========================================================================
 
-def _nll_chunk(cfg, params, h_chunk, tgt_chunk):
+def _nll_chunk(cfg, params, h_chunk, tgt_chunk, dist):
     """Per-token negative log-likelihood (B, S_c) of one chunk, in f32."""
-    logits = _unembed(cfg, params, h_chunk).to(torch.float32)
+    logits = _unembed(cfg, params, h_chunk, dist).to(torch.float32)
     m = torch.amax(logits, dim=-1, keepdim=True)
     lse = m[..., 0] + torch.log(torch.sum(torch.exp(logits - m), dim=-1))
     # JAX picks the target logit by an iota mask and a sum (a
@@ -408,8 +462,8 @@ def _nll_chunk(cfg, params, h_chunk, tgt_chunk):
     return lse - tgt
 
 
-def loss_fn(cfg, params, batch, *, loops: str = "scan",
-            aux_coef: float = 0.01):
+def loss_fn(cfg, params, batch, dist: Distribution = LOCAL, *,
+            loops: str = "scan", aux_coef: float = 0.01):
     """Token-chunked cross entropy: the (tokens, vocab) logits matrix is
     never formed in full.  ``gcd(S, cfg.loss_chunks)`` chunks run in a
     Python loop, each recomputed in the backward, so no f32 logits block is
@@ -418,14 +472,14 @@ def loss_fn(cfg, params, batch, *, loops: str = "scan",
     mean is over its sum, at least 1).  Returns ``(loss + aux_coef * aux,
     {"nll": loss, "aux": aux})``, ``aux`` being the MoE load-balance
     loss."""
-    h, aux, _ = backbone(cfg, params, batch, loops=loops)
+    h, aux, _ = backbone(cfg, params, batch, dist, loops=loops)
     B, S, d = h.shape
     tg = batch["targets"]
     mask = batch.get("loss_mask")
     n_chunks = math.gcd(S, max(1, cfg.loss_chunks))
     csz = S // n_chunks
     chunk_fn = _checkpointed(
-        lambda hc, tc: _nll_chunk(cfg, params, hc, tc))
+        lambda hc, tc: _nll_chunk(cfg, params, hc, tc, dist))
     nll_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     den = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(n_chunks):
@@ -487,13 +541,16 @@ def init_cache(cfg, B, max_len, enc_len=0, *, device="cuda"):
     return {"layers": caches}
 
 
-def prefill(cfg, params, batch, *, loops: str = "scan"):
+def prefill(cfg, params, batch, dist: Distribution = LOCAL, *,
+            loops: str = "scan"):
     """Full-sequence forward that also returns the cache (kv/state)."""
-    logits, _, caches = forward(cfg, params, batch, loops=loops, collect=True)
+    logits, _, caches = forward(cfg, params, batch, dist, loops=loops,
+                                collect=True)
     return logits[:, -1:], caches
 
 
-def decode_step(cfg, params, cache, token, pos):
+def decode_step(cfg, params, cache, token, pos,
+                dist: Distribution = LOCAL):
     """One decode step.  token: (B,) integers; pos: int (the write slot).
 
     Returns (logits (B,1,V), new_cache).  Attention caches are written in
@@ -506,7 +563,8 @@ def decode_step(cfg, params, cache, token, pos):
     h = params["embed"][token][:, None].to(cfg.adtype)       # (B,1,d)
     if cfg.max_positions:
         h = h + params["pos_embed"][pos][None, None].to(cfg.adtype)
-    ctx = {"loops": "scan", "collect": False, "causal": True,
+    h = dist.constrain(h, dist.dp_axes, None, None)
+    ctx = {"dist": dist, "loops": "scan", "collect": False, "causal": True,
            "positions": torch.full((1, 1), pos, device=h.device),
            "cache_pos": pos, "mrope_positions": None}
     new_layers = []
@@ -515,4 +573,4 @@ def decode_step(cfg, params, cache, token, pos):
         h, _, nc = _apply_layer(cfg, p, h, kinds, ctx, cache=c)
         new_layers.append(nc)
     h = layers.apply_norm(cfg, params["final_norm"], h)
-    return _unembed(cfg, params, h), {"layers": new_layers}
+    return _unembed(cfg, params, h, dist), {"layers": new_layers}

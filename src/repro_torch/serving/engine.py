@@ -4,7 +4,10 @@ Counterpart of ``repro.serving.engine``.  The attention KV cache is
 allocated once, at the prompt length plus ``max_new_tokens``, and every
 decode step writes its slot in place (JAX donates the cache to
 ``dynamic_update_slice`` instead).  The encoder-decoder's cross K/V are
-computed once, at prefill, and read by every decode step.
+computed once, at prefill, and read by every decode step.  Under a
+``Distribution`` (``dist``) the prefill and every decode step run with it;
+the padded cache is a fresh tensor, so the in-place writes never reach the
+prefill's.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models import decode_step, prefill
+from repro_torch.models import LOCAL, Distribution, decode_step, prefill
 
 
 def pad_attn_cache(cache, extra: int):
@@ -38,7 +41,7 @@ def _sync(dev):
 
 @torch.inference_mode()
 def generate(cfg, params, prompt_tokens, *, max_new_tokens: int,
-             temperature: float = 0.0,
+             dist: Distribution = LOCAL, temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
              return_logits: bool = False, stats: Optional[dict] = None,
              enc_embeds=None):
@@ -59,7 +62,7 @@ def generate(cfg, params, prompt_tokens, *, max_new_tokens: int,
     batch = {"tokens": prompt_tokens}
     if enc_embeds is not None:
         batch["enc_embeds"] = enc_embeds
-    logits, cache = prefill(cfg, params, batch)
+    logits, cache = prefill(cfg, params, batch, dist)
     cache = pad_attn_cache(cache, max_new_tokens)
     if stats is not None:
         _sync(dev)
@@ -75,7 +78,7 @@ def generate(cfg, params, prompt_tokens, *, max_new_tokens: int,
     tok, lg = sample(logits)
     toks, lgs = [tok], [lg]
     for i in range(max_new_tokens - 1):
-        logits, cache = decode_step(cfg, params, cache, tok, S0 + i)
+        logits, cache = decode_step(cfg, params, cache, tok, S0 + i, dist)
         tok, lg = sample(logits)
         toks.append(tok)
         lgs.append(lg)

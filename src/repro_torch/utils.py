@@ -29,6 +29,16 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def indexed_device(device) -> torch.device:
+    """:func:`resolve_device` with a CUDA device's index filled in (the
+    current device where none is given), so that equal devices compare
+    equal."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def tree_map(fn, obj):
     """Apply ``fn`` to every tensor inside dataclasses, NamedTuples, dicts,
     lists and tuples (the port's stand-in for ``jax.tree_util.tree_map``)."""

@@ -18,6 +18,7 @@ from repro.models import transformer as jt
 from repro_torch import convert
 from repro_torch.configs import reduced_config as t_reduced
 from repro_torch.launch.steps import make_grad_step
+from repro_torch.models import LOCAL
 
 KEY = jax.random.PRNGKey(0)
 # the loss: the same f32 formulas with sums in another order; a gradient
@@ -81,7 +82,7 @@ def check_loss_and_grads(arch, *, mask=True, seed=0, B=2, S=32, **replace):
     jb, tb = lm_batch(jcfg, seed, B, S, mask=mask)
     (jl, jm), jg = jax.value_and_grad(
         lambda p: jt.loss_fn(jcfg, p, jb), has_aux=True)(jp)
-    grads, loss, metrics = make_grad_step(tcfg)(tp, tb)
+    grads, loss, metrics = make_grad_step(tcfg, LOCAL)(tp, tb)
     assert loss.dtype == torch.float32 and loss.shape == ()
     assert float(loss) == pytest.approx(float(jl), rel=LOSS_RTOL)
     assert float(metrics["nll"]) == pytest.approx(float(jm["nll"]),

@@ -26,6 +26,7 @@ from repro_torch.configs import reduced_config as t_reduced
 from repro_torch.kernels.flash_attention import kernel as flash
 from repro_torch.kernels.rwkv6 import kernel as wkv
 from repro_torch.launch.steps import make_grad_step
+from repro_torch.models import LOCAL
 from repro_torch.models import transformer as tt
 from repro_torch.utils import tree_leaves
 
@@ -176,7 +177,7 @@ def test_a_depth_cut_inside_a_block():
         for remat in ("full", "dots"):
             got = tt.forward(cfg.replace(remat=remat), cut, tb)[0]
             assert torch.equal(got, want), remat
-    runs = [make_grad_step(cfg.replace(remat=r))(cut, tb)
+    runs = [make_grad_step(cfg.replace(remat=r), LOCAL)(cut, tb)
             for r in ("none", "full")]
     assert torch.equal(runs[0][1], runs[1][1])
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(runs[0][0]),

@@ -30,6 +30,7 @@ from repro_torch import convert
 from repro_torch.configs import ARCH_IDS
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import transformer as tt
+from repro_torch.models.sharding import LOCAL as TLOCAL
 from repro_torch.optim import adamw as ta
 from repro_torch.utils import tree_leaves
 
@@ -49,7 +50,7 @@ def test_train_step_matches_jax(arch, accum):
     toc = ta.OptConfig(**oc.__dict__)
     jp2, js2, jm = jsteps.make_train_step(jcfg, LOCAL, oc)(
         jp, ja.adamw_init(jp, oc), jb)
-    tp2, ts2, tm = tsteps.make_train_step(tcfg, toc)(
+    tp2, ts2, tm = tsteps.make_train_step(tcfg, TLOCAL, toc)(
         tp, ta.adamw_init(tp, toc), tb)
     assert float(tm["loss"]) == pytest.approx(float(jm["loss"]), rel=1e-5)
     assert float(tm["grad_norm"]) == pytest.approx(float(jm["grad_norm"]),
@@ -89,8 +90,8 @@ def test_accumulated_gradient_is_the_microbatch_mean():
     _, tb = lm_batch(cfg, 12, 4, 16)
     oc = ta.OptConfig(schedule="const", warmup_steps=1)
     state = ta.adamw_init(params, oc)
-    p2, s2, m = tsteps.make_train_step(cfg, oc)(params, state, tb)
-    gstep = tsteps.make_grad_step(cfg)
+    p2, s2, m = tsteps.make_train_step(cfg, TLOCAL, oc)(params, state, tb)
+    gstep = tsteps.make_grad_step(cfg, TLOCAL)
     micro = tsteps._stack_micro(tb, 2)
     outs = [gstep(params, {k: v[i] for k, v in micro.items()})
             for i in range(2)]
@@ -113,7 +114,7 @@ def test_grad_step_leaves_the_parameters_alone():
     params = tt.init_params(cfg, 1, device="cpu")
     before = [t.clone() for t in tree_leaves(params)]
     _, tb = lm_batch(cfg, 13, 2, 16)
-    grads, loss, metrics = tsteps.make_grad_step(cfg)(params, tb)
+    grads, loss, metrics = tsteps.make_grad_step(cfg, TLOCAL)(params, tb)
     assert not loss.requires_grad and set(metrics) == {"nll", "aux"}
     for p, b, g in zip(tree_leaves(params), before, tree_leaves(grads)):
         assert not p.requires_grad and p.grad is None
@@ -139,13 +140,14 @@ def test_prefill_and_decode_steps_are_the_model_functions():
     toks = torch.tensor(np.random.default_rng(1).integers(0, cfg.vocab,
                                                           (2, 9)))
     with torch.no_grad():
-        logits, cache = tsteps.make_prefill_step(cfg)(params,
+        logits, cache = tsteps.make_prefill_step(cfg, TLOCAL)(params,
                                                       {"tokens": toks})
         want, _ = tt.prefill(cfg, params, {"tokens": toks})
         assert torch.equal(logits, want)
         from repro_torch.serving import pad_attn_cache
         cache = pad_attn_cache(cache, 1)
-        step, _ = tsteps.make_decode_step(cfg)(params, cache, toks[:, -1], 9)
+        step, _ = tsteps.make_decode_step(cfg, TLOCAL)(params, cache,
+                                                       toks[:, -1], 9)
         assert step.shape == (2, 1, cfg.vocab)
 
 

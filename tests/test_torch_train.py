@@ -133,9 +133,15 @@ def test_jax_resumes_a_port_run(runs, tmp_path, capsys):
     _close_checkpoints(tmp_path / "step_4", port_dir / "step_4")
 
 
-def test_mesh_raises_naming_item_20(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 20"):
-        ttrain.main(ARGS + ["--mesh", "1,1", "--device", "cpu"])
+def test_mesh_run_is_the_single_device_run(runs, tmp_path, deterministic):
+    """``--mesh 2,2 --device cpu`` (the CPU device repeated over a (2, 2)
+    mesh): a dense model's losses and step 4 files are the mesh-less
+    run's bit for bit."""
+    port_dir, losses, _, _ = runs
+    got = ttrain.main(ARGS + ["--mesh", "2,2", "--device", "cpu",
+                              "--ckpt-dir", str(tmp_path)])
+    assert got == losses
+    assert _digests(tmp_path / "step_4") == _digests(port_dir / "step_4")
 
 
 def test_default_device_is_the_card(monkeypatch):
