@@ -178,8 +178,8 @@ at once), then runs these phases, each of which raises on failure:
    bytes, each host layout, snapshot, writer-thread save, restore and step
    in seconds, and each run's peak memory are printed;
 13. the ``kernels`` line, whose launch counts add phases 2, 5 (per model),
-   6-10, 11 (a) and (e), 12 and 14 (the backward kernels: phases 11 (e),
-   12 and 14);
+   6-10, 11 (a) and (e), 12, 14 and 15 (the backward kernels: phases 11
+   (e), 12, 14 and 15); the meta costings of phase 15 launch nothing;
 14. distribution on the port's mesh layout (``repro_torch.models.sharding``:
    a mesh repeats the card, every tensor lies whole on it), run after
    phase 12: (a) ``launch.train.main --mesh 1,1 --device cuda`` resumed
@@ -197,7 +197,20 @@ at once), then runs these phases, each of which raises on failure:
    1.25, bit for bit the data-parallel ranks' ``LOCAL`` bodies and within
    1e-4 of the oracle with each rank's overflow zeroed; a bf16 forward, a
    train step (bf16 tier) and a generate bit for bit the (2, 1) mesh's.
-   Peak memory of each case is printed.
+   Peak memory of each case is printed;
+15. the dry run (``repro_torch.launch.dryrun``), run after phase 14: (a)
+   ``dryrun.main(["--all"])`` in process (a cell a worker process, one
+   worker a CPU core) into ``chiprun_out/dryrun``: every cell of the 10
+   architectures x 4 shapes costed on meta tensors on the 16 x 16 mesh, 32
+   ok, 8 skipped, none failed, each cell's bottleneck, compute and memory
+   terms on the H100's peaks, useful ratio and global peak GB, and the
+   sweep's wall; (b) Qwen3-0.6B's train step at phase 11 (e)'s shape and
+   RWKV6-7B's prefill at phase 5's costed on meta, then run on the card
+   under the same counting mode (``analysis.StepCounter``): FLOPs and bytes
+   equal, the card's memory growth over the step within 0.5 % of the
+   tracker's, exact launches, and the roofline share (the bound over the
+   median of 5 runs) at most 1.05, printed with the card's name and power
+   limit.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card, or
 without the repository's ``src/`` beside it, the script fails before
@@ -218,13 +231,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# H100 SXM data sheet: HBM3 bandwidth, the FP64 and FP32 (non-tensor-core)
-# rates and the dense TF32 and bf16 tensor-core rates.
-HBM_BYTES_PER_S = 3.35e12
-FP64_OPS_PER_S = 34e12
-FP32_OPS_PER_S = 67e12
-TF32_OPS_PER_S = 495e12
-BF16_OPS_PER_S = 989e12
 F64 = torch.float64
 
 # main path: the paper's scalability sizes (benchmarks/paper_scalability.py)
@@ -399,6 +405,25 @@ DIST_TRAIN_MESH = (2, 2)
 DIST_MOE_ARCH, DIST_MOE_LAYERS = "deepseek-moe-16b", 4
 DIST_MOE_MESH, DIST_MOE_TP1, DIST_MOE_TRAIN = (2, 4), (2, 1), (2, 512)
 STEP_BUILDERS = ("make_train_step", "jit_train_step")
+# the dry run (phase 15): ``repro_torch.launch.dryrun --all`` on meta
+# tensors, a cell a worker process, one worker a CPU core; then two steps
+# costed on meta and run on the card under the same counting mode:
+# Qwen3-0.6B's train step at phase 11 (e)'s shape (B 4 x T 1,024, 2
+# microbatches, remat full, the f32 tier; per run 2 x 28 x 2 flash forwards
+# and 2 x 28 backwards) and RWKV6-7B's prefill at phase 5's (B 4 x 1,024,
+# chunk 256: 32 wkv6 launches a run)
+DRYRUN_CELLS = {"ok": 32, "skipped": 8}
+HELD_TRAIN = ("qwen3-0.6b", 4, 1024, 2)
+HELD_PREFILL = ("rwkv6-7b", 4, 1024)
+HELD_RUNS = 5        # timed runs of a held step: their median
+# the card's growth over a held step against the tracker's: the tracker
+# sees every storage an operator returns, but not the scratch a kernel's
+# wrapper allocates and frees inside its operator (flash's backward: 512
+# bytes a 64-row query tile a head; wkv6's backward: its own passes') nor
+# the caching allocator's 512-byte blocks; 0.02 % on the probe's card run
+HELD_PEAK_RTOL = 5e-3
+# a roofline share above 1 would mean a count is short
+HELD_SHARE_MAX = 1.05
 
 
 def card_line() -> str:
@@ -461,9 +486,20 @@ def wall_s(fn, reps=3) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes, ops, ops_per_s=FP64_OPS_PER_S):
-    """(ms, 'bytes' | 'operations'): the least time for the work on the card."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+def peaks():
+    """``repro_torch.launch.analysis`` (``src`` on the path): the H100 SXM
+    data sheet's HBM3 bandwidth, FP64 and FP32 (non-tensor-core) rates and
+    dense TF32 and bf16 tensor-core rates, and the model kernels' operation
+    counts, so the kernel table's bounds and the dry run share one count."""
+    from repro_torch.launch import analysis
+    return analysis
+
+
+def bound(nbytes, ops, ops_per_s=None):
+    """(ms, 'bytes' | 'operations'): the least time for the work on the card
+    (at the FP64 rate unless ``ops_per_s`` is given)."""
+    ops_per_s = ops_per_s or peaks().FP64_FLOPS
+    t_bytes = nbytes / peaks().HBM_BW * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -590,7 +626,8 @@ def fused_bound(args, outs):
     operations is one instruction."""
     D, L = fused_work(args)
     ops = float((9 * D * L + 6 * D + 6 * L).sum())
-    rate = (FP64_OPS_PER_S if args[0].dtype == F64 else FP32_OPS_PER_S) / 2
+    rate = (peaks().FP64_FLOPS if args[0].dtype == F64
+            else peaks().FP32_FLOPS) / 2
     return bound(nbytes(*args) + nbytes(*outs), ops, rate)
 
 
@@ -815,7 +852,7 @@ def phase_kernels(main, small):
         b_ms, b_by = bound(nbytes(inc, spare, p_sorted) + nbytes(inc)
                            + 2 * B * Nc * inc.element_size(), 8 * B * Nc * N)
         b_32, _ = bound(nbytes(*cases[1][:3]) + nbytes(cases[1][0])
-                        + 2 * B * Nc * 4, 8 * B * Nc * N, FP32_OPS_PER_S)
+                        + 2 * B * Nc * 4, 8 * B * Nc * N, peaks().FP32_FLOPS)
         # the practical floor of the same traffic: one copy of inc (its
         # bytes read and written once), a yardstick the port never calls
         dst = torch.empty_like(inc)
@@ -1251,11 +1288,10 @@ def phase_flash(gen):
               f"max_abs_err={lib_err!r}")
         # q, k, v read and o written once; two products of 2 * hd
         # operations for every (query, key) pair the mask keeps
-        pairs = S * (S + 1) // 2 if causal else S * S
-        ops = 4 * hd * B * Hq * pairs
-        b_ms, b_by = bound(nbytes(q, k, v, q), ops, BF16_OPS_PER_S)
+        ops = peaks().flash_fwd_ops(B, S, S, Hq, hd, causal)
+        b_ms, b_by = bound(nbytes(q, k, v, q), ops, peaks().BF16_FLOPS)
         # the kernel's own floor: P V runs twice (P_hi and P_lo)
-        split_ms = 1.5 * ops / BF16_OPS_PER_S * 1e3
+        split_ms = 1.5 * ops / peaks().BF16_FLOPS * 1e3
         print(f"  flash_attention {shape} causal={causal}: ms={t_k!r} "
               f"plain_ms={t_p!r} library_ms={t_l!r} bound_ms={b_ms!r} "
               f"({b_by}, bf16 tensor-core rate) split_floor_ms={split_ms!r} "
@@ -1310,17 +1346,6 @@ def wkv_inputs(gen, B, T, H, K, shift, with_state):
     return r, k, v, w, u, S0
 
 
-def wkv_ops(B, T, H, K, L):
-    """Operations of the chunked form at chunk L: the strictly lower
-    intra-chunk product and its product with v, the inter-chunk product and
-    the state update (2 per multiply-add), and about 12 per (row, channel)
-    for the decay cumsum, the four exponentials and their products."""
-    pairs = L * (L - 1) // 2
-    per_chunk = 2 * (pairs * K + pairs * K + 2 * L * K * K + K * K) \
-        + 12 * L * K
-    return B * H * (T // L) * per_chunk
-
-
 def phase_wkv(gen):
     from repro_torch.kernels.rwkv6.kernel import pass_launchers, route, wkv6
     from repro_torch.kernels.rwkv6.ref import chunked_reference
@@ -1367,11 +1392,13 @@ def phase_wkv(gen):
         # operations all at the f32 rate (the CUDA-core kernel's bound)
         moved = nbytes(r, k, v, w, u, y, S)
         elem = 12 * B * T * H * K
-        prod = wkv_ops(B, T, H, K, L) - elem
-        t_ops = (3 * prod / TF32_OPS_PER_S + elem / FP32_OPS_PER_S) * 1e3
-        b_ms, b_by = max((moved / HBM_BYTES_PER_S * 1e3, "bytes"),
+        prod = peaks().wkv_ops(B, T, H, K, L) - elem
+        t_ops = (3 * prod / peaks().TF32_FLOPS
+                 + elem / peaks().FP32_FLOPS) * 1e3
+        b_ms, b_by = max((moved / peaks().HBM_BW * 1e3, "bytes"),
                          (t_ops, "operations"))
-        f32_ms, _ = bound(moved, wkv_ops(B, T, H, K, L), FP32_OPS_PER_S)
+        f32_ms, _ = bound(moved, peaks().wkv_ops(B, T, H, K, L),
+                          peaks().FP32_FLOPS)
         row = dict(name="wkv6", route="cuda",
                    source="src/repro_torch/csrc/wkv6.cu",
                    replaces="src/repro/kernels/rwkv6/kernel.py:73",
@@ -4263,18 +4290,17 @@ def flash_bwd_check(gen):
         t_kg = graph_ms(lambda: fk.flash_attention_bwd(
             q, k, v, o_k, lse, do.contiguous(), causal=causal), 10)
         t_lg = sdpa_bwd_graph_ms(q, k, v, do, causal, 10)
-        pairs = S * (S + 1) // 2 if causal else S * S
-        ops = 5 * 2 * hd * B * Hq * pairs
+        ops = peaks().flash_bwd_ops(B, S, S, Hq, hd, causal)
         moved = nbytes(q, k, v, o_k, do, lse) + nbytes(*got)
         # bf16: the bf16 tensor-core rate; f32: each product as three TF32
         # products, as the f32 bounds of phase 1c count them
-        rate = (BF16_OPS_PER_S if dtype == torch.bfloat16
-                else TF32_OPS_PER_S / 3)
+        rate = (peaks().BF16_FLOPS if dtype == torch.bfloat16
+                else peaks().TF32_FLOPS / 3)
         b_ms, b_by = bound(moved, ops, rate)
-        f32_ms = ops / FP32_OPS_PER_S * 1e3
+        f32_ms = ops / peaks().FP32_FLOPS * 1e3
         # the tensor-core route multiplies P and dS as two bf16 halves and
         # forms S and dP in both kernels: ten bf16 products
-        split_ms = 2 * ops / BF16_OPS_PER_S * 1e3
+        split_ms = 2 * ops / peaks().BF16_FLOPS * 1e3
         print(f"  flash_attention_bwd {shape} {str(dtype)[6:]} causal="
               f"{causal} route={route}: ms={t_k!r} plain_ms={t_p!r} "
               f"(autograd) library_ms={t_l!r} (autograd of SDPA) "
@@ -4294,17 +4320,6 @@ def flash_bwd_check(gen):
                 replaces="src/repro/kernels/flash_attention/kernel.py:71",
                 backward_of="flash_attention", max_abs_err=max(errs),
                 **main, cases=timed)
-
-
-def wkv_bwd_ops(B, T, H, K, L):
-    """Operations of the backward at chunk L: per chunk, five strictly
-    lower intra-chunk products (A, dA, dQ, dKf, A^T dy) and five of the
-    chunk's rows with the state (dR, dK2, K2 dS', R^T dy and the forward
-    sweep's K2^T v), 2 per multiply-add, and about 30 per (row, channel)
-    for the exponentials and the elementwise terms."""
-    pairs = L * (L - 1) // 2
-    per_chunk = 2 * (5 * pairs * K + 5 * L * K * K) + 30 * L * K
-    return B * H * (T // L) * per_chunk
 
 
 def wkv_bwd_check(gen):
@@ -4370,13 +4385,13 @@ def wkv_bwd_check(gen):
         moved = (nbytes(*(t for t in (r, k, v, w, u, S0, dy, dS)
                           if t is not None)) + nbytes(*got)
                  + 2 * B * H * n_c * K * K * 4)
-        ops = wkv_bwd_ops(B, T, H, K, L)
+        ops = peaks().wkv_bwd_ops(B, T, H, K, L)
         elem = 30 * B * T * H * K
-        t_ops = (3 * (ops - elem) / TF32_OPS_PER_S
-                 + elem / FP32_OPS_PER_S) * 1e3
-        b_ms, b_by = max((moved / HBM_BYTES_PER_S * 1e3, "bytes"),
+        t_ops = (3 * (ops - elem) / peaks().TF32_FLOPS
+                 + elem / peaks().FP32_FLOPS) * 1e3
+        b_ms, b_by = max((moved / peaks().HBM_BW * 1e3, "bytes"),
                          (t_ops, "operations"))
-        f32_ms, _ = bound(moved, ops, FP32_OPS_PER_S)
+        f32_ms, _ = bound(moved, ops, peaks().FP32_FLOPS)
         print(f"  wkv6_bwd {(B, T, H, K)} chunk {L} route={how}: ms={t_k!r} "
               f"graph_ms={t_kg!r} plain_ms={t_p!r} (autograd) "
               f"bound_ms={b_ms!r} ({b_by}; products as split TF32) "
@@ -5151,6 +5166,155 @@ def dist_moe():
                 loss=float(m_a["loss"]))
 
 
+def held_step(label, make, step, counters, per_run):
+    """Phase 15 (b): ``step`` costed on meta tensors (``make("meta")``),
+    then run on the card (``make("cuda")``) under the same counting mode:
+    FLOPs and bytes equal, the card's memory growth over the step within
+    ``HELD_PEAK_RTOL`` of the tracker's, the median of ``HELD_RUNS`` timed
+    runs against the roofline's bound.  Returns its launches by kernel
+    (``per_run`` a run: a warm-up, the counted run, the memory run and the
+    timed ones)."""
+    from repro_torch.launch import analysis as an
+    before = {c.__name__: c.launches for c in counters}
+    meta = an.StepCounter()
+    t0 = time.perf_counter()
+    meta.run(step, *make("meta"))
+    meta_s = time.perf_counter() - t0
+    if {c.__name__: c.launches for c in counters} != before:
+        raise AssertionError(f"phase 15 (b) {label}: a meta cost launched")
+    args = make("cuda")
+    step(*args)
+    torch.cuda.synchronize()
+    card = an.StepCounter()
+    card.run(step, *args)
+    torch.cuda.synchronize()
+    if (card.flops, card.bytes) != (meta.flops, meta.bytes):
+        ops = sorted(set(meta.by_op) | set(card.by_op))
+        diff = {k: (meta.by_op.get(k), card.by_op.get(k)) for k in ops
+                if meta.by_op.get(k) != card.by_op.get(k)}
+        raise AssertionError(
+            f"phase 15 (b) {label}: meta counts {meta.flops} FLOPs, "
+            f"{meta.bytes} bytes; the card {card.flops}, {card.bytes}; "
+            f"operators (calls, bytes) that differ: {diff}; FLOPs "
+            f"{meta.flops_by_op} / {card.flops_by_op}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = step(*args)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    del out
+    tracked = meta.peak_bytes - meta.argument_bytes
+    wall = wall_s(lambda: step(*args), HELD_RUNS)
+    rf = an.roofline(meta.cost())
+    share = rf.t_bound / wall
+    runs = HELD_RUNS + 3
+    launches = {c.__name__: c.launches - before[c.__name__]
+                for c in counters if c.launches != before[c.__name__]}
+    print(f"phase 15 (b) {label}: meta {meta.flops} FLOPs, {meta.bytes} "
+          f"bytes (costed in {meta_s:.2f} s), the card's the same; memory "
+          f"growth over the step {grown} bytes on the card, {tracked} "
+          f"tracked (arguments {meta.argument_bytes}); step "
+          f"{wall * 1e3!r} ms (median of {HELD_RUNS}); t_compute "
+          f"{rf.t_compute!r} s, t_memory {rf.t_memory!r} s, bound by "
+          f"{rf.bottleneck}: roofline share {share!r} on {card_line()}; "
+          f"launches {launches} over {runs} runs")
+    if abs(grown - tracked) > HELD_PEAK_RTOL * tracked:
+        raise AssertionError(f"phase 15 (b) {label}: the card grew {grown} "
+                             f"bytes, the tracker {tracked}")
+    if share > HELD_SHARE_MAX:
+        raise AssertionError(f"phase 15 (b) {label}: roofline share {share} "
+                             f"> {HELD_SHARE_MAX}: a count is short")
+    want = {name: n * runs for name, n in per_run.items()}
+    if launches != want:
+        raise AssertionError(f"phase 15 (b) {label}: launches {launches}, "
+                             f"expected {want}")
+    del args
+    torch.cuda.empty_cache()
+    return dict(flops=meta.flops, bytes=meta.bytes, grown=grown,
+                tracked=tracked, step_ms=wall * 1e3, share=share,
+                bottleneck=rf.bottleneck, launches=launches)
+
+
+def held_steps(counters):
+    """Phase 15 (b): the two held steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_prefill_step, make_train_step
+    from repro_torch.models import LOCAL, init_params
+    from repro_torch.optim import OptConfig, adamw_init
+
+    def tokens(cfg, B, T, dev):
+        if dev == "meta":
+            return torch.empty((B, T), dtype=torch.int32, device="meta")
+        gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+        return torch.randint(0, cfg.vocab, (B, T), generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    def params(cfg, dev):
+        return init_params(cfg, None if dev == "meta" else SEED + 15,
+                           device=dev)
+
+    arch, B, T, M = HELD_TRAIN
+    cfg = get_config(arch).replace(grad_accum=M, remat="full")
+    oc = OptConfig(schedule="const", warmup_steps=1, state_dtype="f32")
+
+    def train_inputs(dev):
+        p = params(cfg, dev)
+        toks = tokens(cfg, B, T + 1, dev)
+        return p, adamw_init(p, oc), {"tokens": toks[:, :-1].contiguous(),
+                                      "targets": toks[:, 1:].contiguous()}
+
+    n_attn = sum(1 for mixer, _ in cfg.layer_kinds() if mixer == "attn")
+    out = {"train": held_step(
+        f"{arch} train step (B {B} x T {T}, {M} microbatches, remat full)",
+        train_inputs, make_train_step(cfg, LOCAL, oc), counters,
+        {"flash_attention": 2 * M * n_attn,
+         "flash_attention_bwd": M * n_attn})}
+    arch, B, T = HELD_PREFILL
+    rcfg = get_config(arch)
+    out["prefill"] = held_step(
+        f"{arch} prefill (B {B} x T {T})",
+        lambda dev: (params(rcfg, dev), {"tokens": tokens(rcfg, B, T, dev)}),
+        make_prefill_step(rcfg, LOCAL), counters,
+        {"wkv6": rcfg.n_layers})
+    return out
+
+
+def phase_dryrun(counters):
+    """Phase 15: (a) ``dryrun.main(["--all"])`` into ``chiprun_out/dryrun``,
+    a worker a CPU core: 32 cells costed, 8 skipped, none failed, and each
+    cell's bottleneck, terms, useful ratio and global peak; (b) the held
+    steps."""
+    import os
+    import shutil
+    from repro_torch.launch import dryrun
+    out = Path(__file__).resolve().parent / "chiprun_out" / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    jobs = os.cpu_count() or 1
+    t0 = time.perf_counter()
+    failures = dryrun.main(["--all", "--jobs", str(jobs), "--out-dir",
+                            str(out)])
+    sweep_s = time.perf_counter() - t0
+    recs = [json.loads(f.read_text())
+            for f in sorted(out.glob("*__single.json"))]
+    by_status = {k: [r for r in recs if r["status"] == k]
+                 for k in ("ok", "skipped")}
+    print(f"phase 15 (a): the dry run, {len(recs)} cells on the 16 x 16 "
+          f"meta mesh in {sweep_s!r} s ({jobs} worker processes); per cell "
+          "(global counts over 256 chips, H100 peaks, collective term null)"
+          ": bottleneck, t_compute s, t_memory s, useful_ratio, peak GB")
+    for r in by_status["ok"]:
+        rf = r["roofline"]
+        print(f"  {r['arch']} {r['shape']}: {rf['bottleneck']} "
+              f"{rf['t_compute']!r} {rf['t_memory']!r} "
+              f"{r['useful_ratio']!r} {r['memory']['peak_gb']!r}")
+    counts = {k: len(v) for k, v in by_status.items()}
+    if failures or counts != DRYRUN_CELLS:
+        raise AssertionError(f"phase 15 (a): {failures} failures, {counts} "
+                             f"cells, expected {DRYRUN_CELLS}")
+    return dict(sweep_s=sweep_s, cells=counts, held=held_steps(counters))
+
+
 def phase_distribution(counters, launch, served):
     """Phase 14: (a) the launcher under ``--mesh 1,1``, (b) the GQA repeat
     and the sequence-sharded decode at tp 16, a (2, 2) train step, (c)
@@ -5254,6 +5418,7 @@ def main() -> int:
     launch = timed("phase 12", phase_launch, counters)
     dist = timed("phase 14", phase_distribution, counters, launch,
                  serving[DIST_DENSE_ARCH])
+    dry = timed("phase 15", phase_dryrun, counters)
     flash["phase 11 (a)"] = train["flash_launches"]
     counts["flash_attention"] += train["flash_launches"]
     # phase 11 (e), the training path's main run, for all four model kernels
@@ -5275,6 +5440,10 @@ def main() -> int:
     for name, n in dist["launches"].items():
         by_path[name]["phase 14"] = n
         counts[name] += n
+    for held in dry["held"].values():
+        for name, n in held["launches"].items():
+            by_path[name]["phase 15"] = by_path[name].get("phase 15", 0) + n
+            counts[name] += n
     for name in ("flash_attention", "wkv6", "flash_attention_bwd",
                  "wkv6_bwd"):
         if e_counts[name] == 0:
@@ -5331,6 +5500,11 @@ def main() -> int:
     print(f"  distribution: (a) --mesh 1,1 step_ms={dist['a']['step_ms']!r}"
           f" beside phase 12's {launch['step_ms']!r}, peak_gb="
           f"{dist['a']['peak_gb']!r}; (b) {dist['b']}; (c) {dist['c']}")
+    print(f"  dry run: {dry['cells']} cells in {dry['sweep_s']!r} s; held "
+          "steps " + ", ".join(
+              f"{k}: share {h['share']!r} ({h['bottleneck']}), step_ms "
+              f"{h['step_ms']!r}, peak {h['grown']} / {h['tracked']} bytes"
+              for k, h in dry["held"].items()) + f" on {card}")
     print(f"total: {time.perf_counter() - t_start:.2f} s")
 
     for row in rows.values():

@@ -91,10 +91,22 @@ class FleetSimulator:
 
     # ---------------- profiles from the dry-run roofline ------------------
     def _roofline_record(self, t: TenantSpec) -> dict:
-        d = Path(self.profile_dir or "benchmarks/results/dryrun")
+        """The tenant's cell from the port's dry run
+        (``repro_torch.launch.dryrun``, by default its ``RESULTS_DIR``)."""
+        if self.profile_dir is None:
+            from repro_torch.launch.dryrun import RESULTS_DIR
+            d = RESULTS_DIR
+        else:
+            d = Path(self.profile_dir)
         fn = d / f"{t.arch_id}__{t.shape}__single.json"
         rec = json.loads(fn.read_text())
         assert rec["status"] == "ok", f"no roofline for {t.name}"
+        if rec["roofline"]["t_collective"] is None:
+            raise ValueError(
+                f"{fn}: the dry run has no collective term for {t.name} "
+                "(a mesh repeats one device and no collective runs: ROADMAP "
+                "item 26); give this tenant's (t_compute, t_collective, "
+                "overhead) in profiles=")
         return rec
 
     def tenant_class_params(self, t: TenantSpec,

@@ -3,8 +3,8 @@ counterpart).
 
 The architecture specs are plain ``ModelConfig`` literals, copied from the
 JAX package.  Every one of them can be built and served
-(``repro_torch.models``).  The dry-run input specs
-(``repro.configs.specs``) are not ported yet.
+(``repro_torch.models``); ``specs`` gives each cell's dry-run inputs as
+meta tensors.
 """
 from __future__ import annotations
 

@@ -24,12 +24,22 @@ operands by TMA and so also need what ``_tma_ok`` checks (the backward of
 o and do too); float32, and bfloat16 at head width 32, run the CUDA-core
 kernels, the backward in f32 FMAs (``flash_bwd_dq`` then
 ``flash_bwd_dkdv``).
+
+Each launch is a dispatcher operator (``torch.ops.repro_torch.
+flash_attention`` and ``flash_attention_bwd``) with a CUDA implementation,
+which launches, and a Meta one, which returns empty tensors of the
+kernel's outputs and launches nothing: a meta tensor takes the card's
+route through the same operators, so the dry run
+(``repro_torch.launch.dryrun``) counts the kernels' own operations
+(``fwd_ops`` / ``bwd_ops``, registered as the operators' FLOP formulas)
+and their operands and results.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
@@ -71,10 +81,37 @@ def _need_tma(what, operands):
                          f"bytes, which {', '.join(bad)} lack")
 
 
+def pairs(Sq, Skv, causal) -> int:
+    """(query, key) pairs the mask keeps: key position <= query position
+    where causal (the kernels' mask, both counted from 0)."""
+    if not causal:
+        return Sq * Skv
+    n = min(Sq, Skv)
+    return n * (n + 1) // 2 + (Sq - n) * Skv
+
+
+def fwd_ops(B, Sq, Skv, Hq, hd, causal) -> int:
+    """Operations of the forward: two products (Q K^T and P V) of 2 hd
+    each for every kept pair of every query head."""
+    return 4 * hd * B * Hq * pairs(Sq, Skv, causal)
+
+
+def bwd_ops(B, Sq, Skv, Hq, hd, causal) -> int:
+    """Operations of the backward: five products (S, dP, dV, dQ and dK) of
+    2 hd each for every kept pair of every query head."""
+    return 5 * 2 * hd * B * Hq * pairs(Sq, Skv, causal)
+
+
+def _on_card(t, device) -> bool:
+    """A CUDA tensor, or a meta one (the dry run's stand-in for the
+    card), on ``device``."""
+    return t.device.type in ("cuda", "meta") and t.device == device
+
+
 def _check(q, k, v):
     what = "flash_attention"
     args = (q, k, v)
-    if not all(t.is_cuda and t.device == q.device for t in args):
+    if not all(_on_card(t, q.device) for t in args):
         raise ValueError(f"{what}: operands must all be CPU tensors (plain "
                          "version) or all on one CUDA device (kernel), got "
                          f"{[str(t.device) for t in args]}")
@@ -116,29 +153,22 @@ def _forward(q, k, v, causal, lse=None):
     return o
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True):
-    """(dq, dk, dv) in q's dtype from the forward's output ``o``, its
-    logsumexp ``lse`` (B, Hq, Sq) f32 and the output's cotangent ``do``:
-    the backward kernels on CUDA tensors (q / k / v as the forward takes
-    them; o and do contiguous, in q's dtype), one launch of the route's two
-    kernels, counted in ``flash_attention_bwd.launches``."""
-    what = "flash_attention_bwd"
-    _check(q, k, v)
+def _bwd_outputs(q, k):
     B, Sq, Hq, hd = q.shape
     _, Skv, Hkv, _ = k.shape
-    for name, t, shape, dtype in (("o", o, q.shape, q.dtype),
-                                  ("do", do, q.shape, q.dtype),
-                                  ("lse", lse, (B, Hq, Sq), torch.float32)):
-        if (t.device != q.device or tuple(t.shape) != tuple(shape)
-                or t.dtype != dtype or not t.is_contiguous()):
-            raise ValueError(f"{what}: {name} must be a contiguous {dtype} "
-                             f"tensor of shape {tuple(shape)} on {q.device}, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     dq = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Skv, Hkv, hd), dtype=q.dtype, device=q.device)
-    dv = torch.empty_like(dk)
+    return dq, dk, torch.empty_like(dk)
+
+
+def _bwd_cuda(q, k, v, o, lse, do, causal):
+    """The backward operator's CUDA implementation: one launch of the
+    route's two kernels."""
+    what = "flash_attention_bwd"
+    B, Sq, Hq, hd = q.shape
+    _, Skv, Hkv, _ = k.shape
+    dq, dk, dv = _bwd_outputs(q, k)
     if route(q) == "tensor_cores":
-        _need_tma(what, {"o": o, "do": do})
         # each 64-row query tile's lse log2 e and D, 512 bytes a tile
         dsum = torch.empty((B, Hq, -(-Sq // 64), 2, 64),
                            dtype=torch.float32, device=q.device)
@@ -155,14 +185,83 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True):
     return dq, dk, dv
 
 
+def _fwd_cuda(q, k, v, causal, with_lse):
+    """The forward operator's CUDA implementation: [o], or [o, lse]."""
+    if not with_lse:
+        return [_forward(q, k, v, causal)]
+    B, Sq, Hq, _ = q.shape
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    return [_forward(q, k, v, causal, lse), lse]
+
+
+def _fwd_meta(q, k, v, causal, with_lse):
+    B, Sq, Hq, hd = q.shape
+    o = torch.empty((B, Sq, Hq, hd), dtype=q.dtype, device=q.device)
+    if not with_lse:
+        return [o]
+    return [o, torch.empty((B, Hq, Sq), dtype=torch.float32,
+                           device=q.device)]
+
+
+def _bwd_meta(q, k, v, o, lse, do, causal):
+    return _bwd_outputs(q, k)
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+            "bool with_lse) -> Tensor[]")
+_LIB.define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, "
+            "Tensor lse, Tensor do, bool causal) -> (Tensor, Tensor, Tensor)")
+_LIB.impl("flash_attention", _fwd_cuda, "CUDA")
+_LIB.impl("flash_attention", _fwd_meta, "Meta")
+_LIB.impl("flash_attention_bwd", _bwd_cuda, "CUDA")
+_LIB.impl("flash_attention_bwd", _bwd_meta, "Meta")
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _fwd_flops(q_shape, k_shape, v_shape, causal, with_lse, *args,
+               out_shape=None, **kwargs):
+    B, Sq, Hq, hd = q_shape
+    return fwd_ops(B, Sq, k_shape[1], Hq, hd, causal)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _bwd_flops(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape,
+               causal, *args, out_shape=None, **kwargs):
+    B, Sq, Hq, hd = q_shape
+    return bwd_ops(B, Sq, k_shape[1], Hq, hd, causal)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True):
+    """(dq, dk, dv) in q's dtype from the forward's output ``o``, its
+    logsumexp ``lse`` (B, Hq, Sq) f32 and the output's cotangent ``do``:
+    the backward kernels on CUDA tensors (q / k / v as the forward takes
+    them; o and do contiguous, in q's dtype), one launch of the route's two
+    kernels, counted in ``flash_attention_bwd.launches``; on meta tensors
+    the operator's outputs alone."""
+    what = "flash_attention_bwd"
+    _check(q, k, v)
+    B, Sq, Hq, hd = q.shape
+    for name, t, shape, dtype in (("o", o, q.shape, q.dtype),
+                                  ("do", do, q.shape, q.dtype),
+                                  ("lse", lse, (B, Hq, Sq), torch.float32)):
+        if (t.device != q.device or tuple(t.shape) != tuple(shape)
+                or t.dtype != dtype or not t.is_contiguous()):
+            raise ValueError(f"{what}: {name} must be a contiguous {dtype} "
+                             f"tensor of shape {tuple(shape)} on {q.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if route(q) == "tensor_cores":
+        _need_tma(what, {"o": o, "do": do})
+    return torch.ops.repro_torch.flash_attention_bwd(q, k, v, o, lse, do,
+                                                     causal)
+
+
 class _FlashFunction(torch.autograd.Function):
     """The forward kernel with its logsumexp; the backward kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        B, Sq, Hq, _ = q.shape
-        lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
-        o = _forward(q, k, v, causal, lse)
+        o, lse = torch.ops.repro_torch.flash_attention(q, k, v, causal, True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
         return o
@@ -184,7 +283,7 @@ def flash_attention(q, k, v, *, causal=True):
     _check(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashFunction.apply(q, k, v, causal)
-    return _forward(q, k, v, causal)
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal, False)[0]
 
 
 flash_attention.launches = 0

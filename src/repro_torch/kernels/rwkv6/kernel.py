@@ -28,12 +28,22 @@ for its backward, and a call without it relaunches the forward's state and
 prefix passes.  Any other call runs the two per-head kernels of the first
 port, which recompute the states themselves.  ``wkv6_bwd.launches`` counts
 wrapper calls, one per call whatever the route.
+
+Each launch is a dispatcher operator (``torch.ops.repro_torch.wkv6`` and
+``wkv6_bwd``) with a CUDA implementation, which launches, and a Meta one,
+which returns empty tensors of what the call's route returns (the
+forward's chunk-start states included) and launches nothing: a meta
+tensor takes the card's route, and the dry run
+(``repro_torch.launch.dryrun``) counts the operations ``wkv_ops`` /
+``wkv_bwd_ops`` (the operators' FLOP formulas) and the operands and
+results.  A meta tensor has no address, so it counts as aligned.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.rwkv6 import ref
@@ -47,6 +57,28 @@ _MAX_KV = 64
 _SUB = 64        # rows of the chunk-parallel route's sub-tile
 PASSES = {"state": 1, "prefix": 2, "output": 4}
 BWD_PASSES = {"g": 1, "prefix": 2, "main": 4, "fixup": 8}
+
+
+def wkv_ops(B, T, H, K, L) -> int:
+    """Operations of the chunked form at chunk L: the strictly lower
+    intra-chunk product and its product with v, the inter-chunk product and
+    the state update (2 per multiply-add), and about 12 per (row, channel)
+    for the decay cumsum, the four exponentials and their products."""
+    pairs = L * (L - 1) // 2
+    per_chunk = 2 * (pairs * K + pairs * K + 2 * L * K * K + K * K) \
+        + 12 * L * K
+    return B * H * (T // L) * per_chunk
+
+
+def wkv_bwd_ops(B, T, H, K, L) -> int:
+    """Operations of the backward at chunk L: per chunk, five strictly
+    lower intra-chunk products (A, dA, dQ, dKf, A^T dy) and five of the
+    chunk's rows with the state (dR, dK2, K2 dS', R^T dy and the forward
+    sweep's K2^T v), 2 per multiply-add, and about 30 per (row, channel)
+    for the exponentials and the elementwise terms."""
+    pairs = L * (L - 1) // 2
+    per_chunk = 2 * (5 * pairs * K + 5 * L * K * K) + 30 * L * K
+    return B * H * (T // L) * per_chunk
 
 
 def route(r, k, v, w_log, chunk) -> str:
@@ -75,7 +107,9 @@ def _check(r, k, v, w_log, u, S0):
     B, T, H, K = r.shape
     V = v.shape[-1]
     args = (r, k, v, w_log, u) + (() if S0 is None else (S0,))
-    if not all(t.is_cuda and t.device == r.device for t in args):
+    # a meta tensor is the dry run's stand-in for the card
+    if not all(t.device.type in ("cuda", "meta") and t.device == r.device
+               for t in args):
         raise ValueError(f"{what}: operands must all be CPU tensors (plain "
                          "version) or all on one CUDA device (kernel), got "
                          f"{[str(t.device) for t in args]}")
@@ -93,6 +127,17 @@ def _check(r, k, v, w_log, u, S0):
                          f"K={K} V={V}")
     if not all(t.is_contiguous() for t in args):
         raise ValueError(f"{what}: operands must be contiguous")
+
+
+def _scratch(r, chunk):
+    """The chunk-parallel forward's scratch, which its backward reuses."""
+    B, T, H, K = r.shape
+    n = T // chunk
+    f32 = dict(dtype=torch.float32, device=r.device)
+    return (torch.empty((B, H, n, K, K), **f32),             # U, then S_c
+            torch.empty((B, H, n, chunk // _SUB, K), **f32),  # carries
+            torch.empty((B, H, n, K), **f32),                # Z
+            torch.empty((B, H, n, K), **f32))                # e^{LW_end}
 
 
 def _launcher(r, k, v, w_log, u, S0, chunk):
@@ -113,12 +158,7 @@ def _launcher(r, k, v, w_log, u, S0, chunk):
         def launch(passes=7):
             return lib.wkv6_f32(*ptrs, B, T, H, K, V, chunk, stream)
         return y, S, lib, launch, None
-    n = T // chunk
-    f32 = dict(dtype=torch.float32, device=r.device)
-    scratch = (torch.empty((B, H, n, K, K), **f32),          # U, then S_c
-               torch.empty((B, H, n, chunk // _SUB, K), **f32),  # carries
-               torch.empty((B, H, n, K), **f32),             # Z
-               torch.empty((B, H, n, K), **f32))             # e^{LW_end}
+    scratch = _scratch(r, chunk)
     scratch_ptrs = [t.data_ptr() for t in scratch]
 
     def launch(passes=7):
@@ -136,13 +176,7 @@ def _forward(r, k, v, w_log, u, S0, chunk):
     return y, S, scratch
 
 
-def _bwd_launcher(r, k, v, w_log, u, S0, dy, dS, chunk, saved):
-    """(grads, lib, launch): ``launch(passes)`` runs the backward kernels
-    of the call's route into ``grads`` (dr, dk, dv, dw_log, du's (batch,
-    head) partials, dS0) and returns the C entry's error code; ``passes``
-    (a mask of ``BWD_PASSES``) picks kernels of the chunk-parallel route,
-    which starts from the forward's scratch ``saved`` and, where it is
-    None, first relaunches the forward's state and prefix passes."""
+def _bwd_check(r, k, v, w_log, u, S0, dy, dS, chunk):
     what = "wkv6_bwd"
     _check(r, k, v, w_log, u, S0)
     B, T, H, K = r.shape
@@ -155,12 +189,33 @@ def _bwd_launcher(r, k, v, w_log, u, S0, dy, dS, chunk, saved):
                               or not t.is_contiguous()):
             raise ValueError(f"{what}: {name} must be a contiguous float32 "
                              f"tensor of shape {tuple(shape)} on {r.device}")
+
+
+def _bwd_grads(r, v, S0):
+    """The backward's outputs: dr, dk, dv, dw_log, du's (batch, head)
+    partials (B, H, K) and dS0 (None where S0 is None)."""
+    B, T, H, K = r.shape
     f32 = dict(dtype=torch.float32, device=r.device)
     dr, dk, dw = (torch.empty_like(r) for _ in range(3))
-    dv = torch.empty_like(v)
-    du = torch.empty((B, H, K), **f32)                       # per (b, h)
-    dS0 = None if S0 is None else torch.empty((B, H, K, V), **f32)
-    grads = (dr, dk, dv, dw, du, dS0)
+    dS0 = (None if S0 is None
+           else torch.empty((B, H, K, v.shape[-1]), **f32))
+    return dr, dk, torch.empty_like(v), dw, torch.empty((B, H, K), **f32), \
+        dS0
+
+
+def _bwd_launcher(r, k, v, w_log, u, S0, dy, dS, chunk, saved):
+    """(grads, lib, launch): ``launch(passes)`` runs the backward kernels
+    of the call's route into ``grads`` (dr, dk, dv, dw_log, du's (batch,
+    head) partials, dS0) and returns the C entry's error code; ``passes``
+    (a mask of ``BWD_PASSES``) picks kernels of the chunk-parallel route,
+    which starts from the forward's scratch ``saved`` and, where it is
+    None, first relaunches the forward's state and prefix passes."""
+    what = "wkv6_bwd"
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    f32 = dict(dtype=torch.float32, device=r.device)
+    grads = _bwd_grads(r, v, S0)
+    dr, dk, dv, dw, du, dS0 = grads
     lib = _build.load(what, _BWD_SIGNATURES)
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = _build.stream_of(r)
@@ -198,11 +253,11 @@ def wkv6_bwd(r, k, v, w_log, u, S0, dy, dS, *, chunk, saved=None):
     S0 None is the zero state, and then dS0 is None.  ``saved`` is the
     forward's chunk-parallel scratch (``_forward``'s third output), which
     spares the chunk-parallel route its recomputation of the states."""
-    grads, lib, launch = _bwd_launcher(r, k, v, w_log, u, S0, dy, dS, chunk,
-                                       saved)
-    _build.check(lib, launch(), "wkv6_bwd")
-    wkv6_bwd.launches += 1
-    dr, dk, dv, dw, du, dS0 = grads
+    _bwd_check(r, k, v, w_log, u, S0, dy, dS, chunk)
+    grads = torch.ops.repro_torch.wkv6_bwd(r, k, v, w_log, u, S0, dy, dS,
+                                           chunk, list(saved or ()))
+    dr, dk, dv, dw, du = grads[:5]
+    dS0 = grads[5] if S0 is not None else None
     # the batches' partials of du, added in order
     du_sum = du[0]
     for i in range(1, du.shape[0]):
@@ -210,14 +265,71 @@ def wkv6_bwd(r, k, v, w_log, u, S0, dy, dS, *, chunk, saved=None):
     return dr, dk, dv, dw, du_sum, dS0
 
 
+def _fwd_cuda(r, k, v, w_log, u, S0, chunk):
+    """The forward operator's CUDA implementation: y, S and the
+    chunk-parallel route's scratch (empty on the per-head route)."""
+    y, S, scratch = _forward(r, k, v, w_log, u, S0, chunk)
+    return y, S, list(scratch or ())
+
+
+def _fwd_meta(r, k, v, w_log, u, S0, chunk):
+    B, T, H, K = r.shape
+    S = torch.empty((B, H, K, v.shape[-1]), dtype=torch.float32,
+                    device=r.device)
+    scratch = (_scratch(r, chunk)
+               if route(r, k, v, w_log, chunk) == "chunk-parallel" else ())
+    return torch.empty_like(v), S, list(scratch)
+
+
+def _bwd_cuda(r, k, v, w_log, u, S0, dy, dS, chunk, saved):
+    """The backward operator's CUDA implementation: [dr, dk, dv, dw_log,
+    du's partials] and dS0 where S0 is given."""
+    grads, lib, launch = _bwd_launcher(r, k, v, w_log, u, S0, dy, dS, chunk,
+                                       saved or None)
+    _build.check(lib, launch(), "wkv6_bwd")
+    wkv6_bwd.launches += 1
+    return [g for g in grads if g is not None]
+
+
+def _bwd_meta(r, k, v, w_log, u, S0, dy, dS, chunk, saved):
+    return [g for g in _bwd_grads(r, v, S0) if g is not None]
+
+
+_LIB = torch.library.Library("repro_torch", "FRAGMENT")
+_LIB.define("wkv6(Tensor r, Tensor k, Tensor v, Tensor w_log, Tensor u, "
+            "Tensor? S0, int chunk) -> (Tensor, Tensor, Tensor[])")
+_LIB.define("wkv6_bwd(Tensor r, Tensor k, Tensor v, Tensor w_log, Tensor u, "
+            "Tensor? S0, Tensor dy, Tensor? dS, int chunk, Tensor[] saved) "
+            "-> Tensor[]")
+_LIB.impl("wkv6", _fwd_cuda, "CUDA")
+_LIB.impl("wkv6", _fwd_meta, "Meta")
+_LIB.impl("wkv6_bwd", _bwd_cuda, "CUDA")
+_LIB.impl("wkv6_bwd", _bwd_meta, "Meta")
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv6)
+def _fwd_flops(r_shape, k_shape, v_shape, w_shape, u_shape, S0_shape, chunk,
+               *args, out_shape=None, **kwargs):
+    B, T, H, K = r_shape
+    return wkv_ops(B, T, H, K, chunk)
+
+
+@register_flop_formula(torch.ops.repro_torch.wkv6_bwd)
+def _bwd_flops(r_shape, k_shape, v_shape, w_shape, u_shape, S0_shape,
+               dy_shape, dS_shape, chunk, *args, out_shape=None, **kwargs):
+    B, T, H, K = r_shape
+    return wkv_bwd_ops(B, T, H, K, chunk)
+
+
 class _WKV6Function(torch.autograd.Function):
     """The forward kernels; the backward kernels."""
 
     @staticmethod
     def forward(ctx, r, k, v, w_log, u, S0, chunk):
-        y, S, scratch = _forward(r, k, v, w_log, u, S0, chunk)
+        y, S, scratch = torch.ops.repro_torch.wkv6(r, k, v, w_log, u, S0,
+                                                   chunk)
         # the chunk-parallel route's scratch, for its backward
-        ctx.save_for_backward(r, k, v, w_log, u, S0, *(scratch or ()))
+        ctx.save_for_backward(r, k, v, w_log, u, S0, *scratch)
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)
         return y, S
@@ -252,7 +364,7 @@ def wkv6(r, k, v, w_log, u, *, chunk=64, S0=None):
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in args):
         return _WKV6Function.apply(*args, chunk)
-    return _forward(*args, chunk)[:2]
+    return tuple(torch.ops.repro_torch.wkv6(*args, chunk)[:2])
 
 
 wkv6.launches = 0
@@ -279,6 +391,7 @@ def bwd_pass_launchers(r, k, v, w_log, u, dy, dS=None, *, chunk,
     the forward's state and prefix passes once (it counts no launch; the
     prefix pass rewrites its scratch in place, so only the first full call's
     values mean anything)."""
+    _bwd_check(r, k, v, w_log, u, S0, dy, dS, chunk)
     if bwd_route(r, k, v, w_log, dy, dS, chunk) != "chunk-parallel":
         raise ValueError("wkv6_bwd: the per-head route is timed whole")
     _, lib, launch = _bwd_launcher(r, k, v, w_log, u, S0, dy, dS, chunk,

@@ -14,12 +14,14 @@ CUDA kernels.
 Every step builder takes a ``Distribution`` as the reference's do.  The
 specs (``batch_specs``, ``cache_specs``, ``opt_specs``,
 ``param_shardings``, ``sanitize``) are the reference's rules on the port's
-layouts (``repro_torch.models.sharding``).  ``jit_train_step`` keeps its
-name so a reader finds the counterpart, and is eager: it sanitises the
-three sharding trees and returns a step that places each input on its
-sharding's device, then runs ``make_train_step``.  ``jax.jit``'s compile
-and its buffer donation have no counterpart (the step returns new trees).
-The dry run's ``jit_*`` steps are not ported here.
+layouts (``repro_torch.models.sharding``).  The ``jit_*`` steps keep their
+names so a reader finds the counterparts, and are eager: each sanitises
+its sharding trees and returns a step that places each input on its
+sharding's device, then runs the ``make_*`` step.  ``jax.jit``'s compile
+and its buffer donation have no counterpart (a step returns new trees).
+The dry run's two cost units, ``jit_grad_step_micro`` and
+``jit_opt_step``, return the step and its inputs as meta tensors where
+JAX returns a ``Lowered``.
 """
 from __future__ import annotations
 
@@ -221,7 +223,9 @@ def make_train_step(cfg, dist: Distribution, oc: OptConfig, *,
             for acc, gi in zip(tree_leaves(grads), tree_leaves(g)):
                 acc.add_(gi.to(F32))
             loss_sum = loss_sum + loss
-            del g           # not alive beside the next microbatch's
+            # not alive beside the next microbatch's, nor the update (the
+            # loop variables would keep the last leaves)
+            del g, gi, acc
 
         # a true division: torch's CUDA division by a Python number
         # multiplies by its reciprocal
@@ -253,20 +257,99 @@ def jit_train_step(cfg, dist, oc, params_tree, opt_tree, batch_tree, *,
     runs ``make_train_step``.  ``donate`` is accepted for the reference's
     signature only and changes nothing: the step never writes its
     inputs."""
-    psh = param_shardings(cfg, params_tree, dist)
+    return _placed(make_train_step(cfg, dist, oc, loops=loops),
+                   _param_shardings(cfg, dist, params_tree),
+                   _opt_shardings(cfg, dist, oc, params_tree, opt_tree),
+                   _batch_shardings(cfg, dist, batch_tree))
+
+
+def _param_shardings(cfg, dist, params_tree):
+    return sanitize(param_shardings(cfg, params_tree, dist), params_tree,
+                    dist.mesh)
+
+
+def _batch_shardings(cfg, dist, batch_tree):
+    return sanitize(batch_specs(cfg, batch_tree, dist), batch_tree,
+                    dist.mesh)
+
+
+def _opt_shardings(cfg, dist, oc, params_tree, opt_tree):
     osh = map_with_path(lambda _, s: _ns(dist, s),
                         opt_specs(param_specs(cfg, params_tree, dist), oc,
                                   dist))
-    bsh = batch_specs(cfg, batch_tree, dist)
-    psh = sanitize(psh, params_tree, dist.mesh)
-    osh = sanitize(osh, opt_tree, dist.mesh)
-    bsh = sanitize(bsh, batch_tree, dist.mesh)
-    fn = make_train_step(cfg, dist, oc, loops=loops)
+    return sanitize(osh, opt_tree, dist.mesh)
 
-    def place(shardings, tree):
-        return _zip_map(lambda sh, x: x.to(sh.device), shardings, tree)
 
-    def step(params, opt_state, batch):
-        return fn(place(psh, params), place(osh, opt_state),
-                  place(bsh, batch))
+def _placed(fn, *shardings):
+    """``fn`` with each argument's tensors moved to its sharding tree's
+    devices (a no-op where a tensor lies there)."""
+    def place(sh_tree, tree):
+        return _zip_map(lambda sh, x: x.to(sh.device)
+                        if isinstance(x, torch.Tensor) else x, sh_tree, tree)
+
+    def step(*args):
+        return fn(*(place(sh, a) for sh, a in zip(shardings, args)))
+    return step
+
+
+def _micro_batch_sds(batch_tree, M):
+    """One microbatch's inputs as meta tensors: every leaf's batch axis
+    divided by ``M`` (axis 1 of ``mrope_positions``, axis 0 of the rest)."""
+    def one(path, x):
+        ax = 1 if path.split("/")[-1] == "mrope_positions" else 0
+        shp = list(x.shape)
+        shp[ax] //= M
+        return torch.empty(shp, dtype=x.dtype, device="meta")
+    return map_with_path(one, batch_tree)
+
+
+def jit_grad_step_micro(cfg, dist, params_tree, batch_tree, M, *,
+                        loops="unroll"):
+    """fwd + bwd of ONE microbatch, the dry run's train cost unit:
+    ``(step, (params_tree, microbatch))``, the microbatch as meta tensors
+    (:func:`_micro_batch_sds`)."""
+    mb = _micro_batch_sds(batch_tree, M)
+    step = _placed(make_grad_step(cfg, dist, loops=loops),
+                   _param_shardings(cfg, dist, params_tree),
+                   _batch_shardings(cfg, dist, mb))
+    return step, (params_tree, mb)
+
+
+def jit_opt_step(cfg, dist, oc, params_tree, opt_tree):
+    """The AdamW update alone: ``(step, (params_tree, opt_tree, grads))``,
+    the f32 gradients as meta tensors of the parameters' shapes."""
+    g32 = tree_map(lambda x: torch.empty(x.shape, dtype=F32, device="meta"),
+                   params_tree)
+    step = _placed(make_opt_step(cfg, oc),
+                   _param_shardings(cfg, dist, params_tree),
+                   _opt_shardings(cfg, dist, oc, params_tree, opt_tree),
+                   _param_shardings(cfg, dist, g32))
+    return step, (params_tree, opt_tree, g32)
+
+
+def jit_prefill_step(cfg, dist, params_tree, batch_tree, *, loops="scan"):
+    return _placed(make_prefill_step(cfg, dist, loops=loops),
+                   _param_shardings(cfg, dist, params_tree),
+                   _batch_shardings(cfg, dist, batch_tree))
+
+
+def jit_decode_step(cfg, dist, params_tree, cache_tree, *, donate=True):
+    """The decode step under ``dist``'s mesh; the token is sharded over the
+    data axes when the batch divides them, else replicated.  ``donate`` is
+    accepted for the reference's signature: the step writes the cache in
+    place (``transformer._attn_mixer``).  A meta ``pos`` has no value; the
+    step costs the same at every slot (the cache is read whole, under a
+    mask), so it then runs at slot 0."""
+    B = tree_leaves(cache_tree)[0].shape[0]
+    dp = dist.dp_axes
+    tsh = _ns(dist, P(dp) if B % _axis_size(dist.mesh, dp) == 0 else P(None))
+    fn = _placed(make_decode_step(cfg, dist),
+                 _param_shardings(cfg, dist, params_tree),
+                 sanitize(cache_specs(cfg, cache_tree, dist), cache_tree,
+                          dist.mesh), tsh, _ns(dist, P()))
+
+    def step(params, cache, token, pos):
+        if isinstance(pos, torch.Tensor) and pos.is_meta:
+            pos = 0
+        return fn(params, cache, token, pos)
     return step

@@ -5,7 +5,9 @@
 * a CUDA tensor, in self-attention with ``q_offset == 0`` and no
   ``kv_len`` (prefill and teacher-forced forward, causal or not), goes to
   the hand-written ``flash_attention`` kernel (``csrc/flash_attention.cu``)
-  at every shape; the kernel masks ragged edges itself;
+  at every shape; the kernel masks ragged edges itself.  A meta tensor
+  (the dry run's stand-in for the card) takes the same route, to the
+  kernel's operator, which launches nothing on meta;
 * anything else follows the JAX dispatch: the dense ``reference`` when
   ``Sq * Skv <= q_chunk * kv_chunk`` or the shape is not chunk-divisible,
   else the chunked online softmax (``scan``, ``unroll`` and ``triangle``
@@ -76,7 +78,7 @@ def attention(q, k, v, *, causal=True, q_offset=0, kv_len=None,
 
     ``kv_len``: valid-length mask for decode caches (int or 0-d tensor).
     """
-    if q.is_cuda and q_offset == 0 and kv_len is None:
+    if (q.is_cuda or q.is_meta) and q_offset == 0 and kv_len is None:
         return _flash.flash_attention(q, k, v, causal=causal)
     B, Sq, Hq, dh = q.shape
     _, Skv, Hkv, _ = k.shape

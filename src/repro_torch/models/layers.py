@@ -81,14 +81,26 @@ def bmm(x, w):
 # init helpers: draws on ``gen``'s device; equal to JAX in distribution only
 # --------------------------------------------------------------------------
 
+class NoDraws:
+    """Stands in for a ``torch.Generator`` where parameters are built on
+    meta tensors (``init_params(cfg, None, device="meta")``, the counterpart
+    of JAX's ``eval_shape``): :func:`normal` and :func:`uniform` then give
+    f32 meta tensors of the shape and draw nothing."""
+    device = torch.device("meta")
+
+
 def normal(gen, shape, scale=1.0, shift=0.0):
     """f32 standard normal draws times ``scale`` plus ``shift``."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=F32, device="meta")
     return torch.randn(shape, generator=gen, device=gen.device,
                        dtype=F32) * scale + shift
 
 
 def uniform(gen, shape, scale=1.0):
     """f32 uniform draws on [0, scale)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=F32, device="meta")
     return torch.rand(shape, generator=gen, device=gen.device,
                       dtype=F32) * scale
 

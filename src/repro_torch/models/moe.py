@@ -145,7 +145,9 @@ def _dispatch(cfg, idx, T):
     # position of each (token, expert) pair within its expert's queue
     sort_ix = torch.argsort(e_flat, stable=True)
     e_sorted = e_flat[sort_ix]
-    counts = torch.bincount(e_flat, minlength=E)
+    # bincount's counts by a scatter-add, which meta tensors support
+    counts = torch.zeros(E, dtype=e_flat.dtype, device=dev).scatter_add_(
+        0, e_flat, torch.ones_like(e_flat))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(T * k, device=dev) - starts[e_sorted]
     slot = torch.where(pos < cap, e_sorted * cap + pos,

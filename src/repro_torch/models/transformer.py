@@ -112,10 +112,17 @@ def _layer_init(cfg, gen, mixer_kind, ffn_kind, decoder_cross=False):
 def init_params(cfg: ModelConfig, gen, *, device="cuda") -> Dict[str, Any]:
     """Random parameters, drawn on ``device`` (default the card).
 
-    ``gen`` is an int seed or a ``torch.Generator`` on ``device``.
+    ``gen`` is an int seed or a ``torch.Generator`` on ``device``.  With
+    ``device="meta"`` it is None: the tree's shapes and dtypes are built on
+    meta tensors and nothing is drawn (JAX's ``eval_shape`` of
+    ``init_params``, which the dry run costs against).
     """
     dev = resolve_device(device)
-    if isinstance(gen, int):
+    if dev.type == "meta":
+        if gen is not None:
+            raise ValueError("meta parameters draw nothing: pass gen=None")
+        gen = layers.NoDraws()
+    elif isinstance(gen, int):
         gen = torch.Generator(device=dev).manual_seed(gen)
     elif gen.device.type != dev.type:
         raise ValueError(f"generator on {gen.device}, parameters asked on "
@@ -360,6 +367,21 @@ def _embed_in(cfg, params, batch, dist):
     return dist.constrain(h, dist.dp_axes, None, None)
 
 
+def run_layers(cfg, layer_params, kinds, h, aux, ctx, enc=None):
+    """Layers in order, as the backbone runs a block: each decoder layer's
+    cross K/V from the encoded frames ``enc``, the MoE layers'
+    load-balance losses added to ``aux``.  Returns (h, aux, caches)."""
+    caches = []
+    for p, kind in zip(layer_params, kinds):
+        lctx = ctx if enc is None else {
+            **ctx, "cross_kv": _cross_kv(cfg, p["cross"], enc)}
+        h, a, c = _apply_layer(cfg, p, h, kind, lctx)
+        if a is not None:
+            aux = aux + a
+        caches.append(c)
+    return h, aux, caches
+
+
 def backbone(cfg: ModelConfig, params, batch, dist: Distribution = LOCAL,
              *, loops: str = "scan", collect: bool = False):
     """Runs everything up to (and incl.) the final norm.
@@ -381,16 +403,8 @@ def backbone(cfg: ModelConfig, params, batch, dist: Distribution = LOCAL,
     kinds = cfg.layer_kinds()
 
     def run(h, aux, lo, hi):
-        caches = []
-        for i in range(lo, hi):
-            p = params["layers"][i]
-            lctx = ctx if enc is None else {
-                **ctx, "cross_kv": _cross_kv(cfg, p["cross"], enc)}
-            h, a, c = _apply_layer(cfg, p, h, kinds[i], lctx)
-            if a is not None:
-                aux = aux + a
-            caches.append(c)
-        return h, aux, caches
+        return run_layers(cfg, params["layers"][lo:hi], kinds[lo:hi], h, aux,
+                          ctx, enc)
 
     # the MoE head layers run alone and unwrapped, as JAX keeps them out
     # of its scan; then JAX's scan bodies of cfg.block_len layers (one a

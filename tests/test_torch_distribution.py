@@ -769,3 +769,76 @@ def test_remesh_resume_is_bit_for_bit(tmp_path, deterministic):
     assert l1 + l2 == l_ref
     assert all(torch.equal(a, b) for a, b in
                zip(tree_leaves((p2, o2)), tree_leaves((p_ref, o_ref))))
+
+
+# --------------------------------------------------------------------------
+# the dry run's jit_* steps
+# --------------------------------------------------------------------------
+
+def _same_leaves(a, b):
+    return all(torch.equal(x, y) for x, y in
+               zip(tree_leaves(a), tree_leaves(b)))
+
+
+def test_jit_steps_are_the_make_steps_and_match_jax():
+    """``jit_grad_step_micro``, ``jit_opt_step``, ``jit_prefill_step`` and
+    ``jit_decode_step`` on a (2, 2) CPU mesh: bit for bit the ``make_*``
+    steps, and against JAX's on a (2, 2) mesh within this file's bounds
+    (the gradients within ``test_torch_loss.py``'s 1e-4 of each leaf's
+    largest).  Qwen2-VL's ``mrope_positions`` split their batch on axis 1;
+    a decode batch of 3 does not divide the data axis (replicated token)."""
+    from _torch_lm import GRAD_RTOL, assert_tree_close
+    from repro.models import init_cache as j_init_cache
+    arch, M = "qwen2-vl-7b", 2
+    jcfg, tcfg, jp, _, tp = lm_pair(arch)
+    jb, tb = lm_batch(jcfg, 11, 4, 16)
+    jd, td = jdist((2, 2)), tdist((2, 2))
+
+    step, (p_arg, mb) = tsteps.jit_grad_step_micro(tcfg, td, tp, tb, M)
+    real = {k: v[:, :2] if k == "mrope_positions" else v[:2]
+            for k, v in tb.items()}
+    assert p_arg is tp and all(t.is_meta for t in tree_leaves(mb))
+    assert {k: v.shape for k, v in mb.items()} == {
+        k: v.shape for k, v in real.items()}
+    g, loss, _ = step(tp, real)
+    g_make, loss_make, _ = tsteps.make_grad_step(tcfg, td)(tp, real)
+    assert _same_leaves((g, loss), (g_make, loss_make))
+    jreal = {k: v[:, :2] if k == "mrope_positions" else v[:2]
+             for k, v in jb.items()}
+    jg, jloss, _ = jax.jit(jsteps.make_grad_step(jcfg, jd))(jp, jreal)
+    assert float(loss) == pytest.approx(float(jloss), rel=1e-5)
+    assert_tree_close(convert.lm_params_to_numpy(tcfg, g), jg, GRAD_RTOL)
+
+    oc = ja.OptConfig(lr=LR, schedule="const", warmup_steps=1)
+    toc = ta.OptConfig(**oc.__dict__)
+    g32 = convert.lm_params_from_numpy(
+        tcfg, jax.tree_util.tree_map(np.asarray, jg), device="cpu")
+    step, (_, _, g_meta) = tsteps.jit_opt_step(tcfg, td, toc, tp,
+                                               ta.adamw_init(tp, toc))
+    assert [(t.shape, t.dtype, t.is_meta) for t in tree_leaves(g_meta)] == [
+        (t.shape, torch.float32, True) for t in tree_leaves(tp)]
+    new = step(tp, ta.adamw_init(tp, toc), g32)
+    assert _same_leaves(new, tsteps.make_opt_step(tcfg, toc)(
+        tp, ta.adamw_init(tp, toc), g32))
+    jnew = jax.jit(jsteps.make_opt_step(jcfg, oc))(jp, ja.adamw_init(jp, oc),
+                                                   jg)
+    for w, x in zip(jax.tree_util.tree_leaves(jnew[0]), jax.tree_util.
+                    tree_leaves(convert.lm_params_to_numpy(tcfg, new[0]))):
+        assert float(np.abs(x - np.asarray(w)).max()) <= 2.01 * LR
+
+    pre = tsteps.jit_prefill_step(tcfg, td, tp, tb)(tp, tb)
+    assert _same_leaves(pre, tsteps.make_prefill_step(tcfg, td)(tp, tb))
+    jpre = jax.jit(jsteps.make_prefill_step(jcfg, jd))(jp, jb)
+    assert _rel(pre[0], jpre[0]) <= TOL
+
+    for B in (4, 3):
+        cache = init_cache(tcfg, B, 8, device="cpu")
+        tok = torch.tensor(np.asarray(jb["targets"])[:B, 0])
+        step = tsteps.jit_decode_step(tcfg, td, tp, cache)
+        got = step(tp, cache, tok, torch.tensor(0, dtype=torch.int32))
+        want = tsteps.make_decode_step(tcfg, td)(
+            tp, init_cache(tcfg, B, 8, device="cpu"), tok, 0)
+        assert _same_leaves(got, want)
+    jlog, _ = jax.jit(jsteps.make_decode_step(jcfg, jd))(
+        jp, j_init_cache(jcfg, 3, 8), jnp.asarray(tok.numpy()), jnp.int32(0))
+    assert _rel(got[0], jlog) <= TOL

@@ -113,8 +113,13 @@ def test_wrapper_takes_the_plain_version_only_on_cpu():
     want = tref.reference(tq, tk_, tv, causal=True)
     assert torch.equal(got, want)
     assert tk.flash_attention.launches == before
+    # meta operands (the dry run's stand-in for the card) take the kernel's
+    # operator without a launch; operands on two devices are refused
+    out = tk.flash_attention(*(t.to("meta") for t in (tq, tk_, tv)))
+    assert out.is_meta and out.shape == tq.shape
+    assert tk.flash_attention.launches == before
     with pytest.raises(ValueError, match="CUDA"):
-        tk.flash_attention(*(t.to("meta") for t in (tq, tk_, tv)))
+        tk.flash_attention(tq.to("meta"), tk_, tv)
 
 
 @pytest.mark.parametrize("hd", [64, 128])

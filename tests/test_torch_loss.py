@@ -218,14 +218,16 @@ def test_remat_is_inert_without_grad():
 # --------------------------------------------------------------------------
 
 def test_kernel_wrappers_refuse_grad_before_anything():
-    """Operands off the CPU (meta tensors stand in for the card's here)
-    that require grad, under grad, reach each wrapper's device check, which
-    rejects a meta tensor before the autograd Function, the build and the
-    launch; no forward or backward counter moves.  ``pass_launchers``
-    stays a timing helper with the same check."""
+    """Operands off the CPU that require grad, under grad, reach each
+    wrapper's device check, which rejects operands on two devices (a meta
+    one, the dry run's stand-in for the card, beside CPU ones) before the
+    autograd Function, the build and the launch; all-meta operands run the
+    kernels' operators forward and backward without a launch.  No forward
+    or backward counter moves.  ``pass_launchers`` stays a timing helper
+    with the same check."""
     meta = dict(device="meta", dtype=torch.float32)
     q = torch.empty((1, 8, 2, 32), **meta, requires_grad=True)
-    k = torch.empty((1, 8, 2, 32), **meta)
+    k = torch.empty((1, 8, 2, 32), dtype=torch.float32)
     counters = (flash.flash_attention, flash.flash_attention_bwd,
                 wkv.wkv6, wkv.wkv6_bwd)
     n = [fn.launches for fn in counters]
@@ -234,13 +236,19 @@ def test_kernel_wrappers_refuse_grad_before_anything():
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA device"):
         flash.flash_attention(q, k, k)
     r = torch.empty((1, 8, 2, 16), **meta)
-    u = torch.empty((2, 16), **meta, requires_grad=True)
+    u = torch.empty((2, 16), dtype=torch.float32, requires_grad=True)
     with pytest.raises(ValueError, match="CUDA device"):
         wkv.wkv6(r, r, r, r, u, chunk=4)
     with pytest.raises(ValueError, match="CUDA device"):
         wkv.pass_launchers(r, r, r, r, u, chunk=4)
     with torch.no_grad(), pytest.raises(ValueError, match="CUDA device"):
         wkv.wkv6(r, r, r, r, u, chunk=4)
+    km = k.to("meta")
+    assert torch.autograd.grad(flash.flash_attention(q, km, km).sum(),
+                               q)[0].is_meta
+    um = u.detach().to("meta").requires_grad_(True)
+    assert torch.autograd.grad(wkv.wkv6(r, r, r, r, um, chunk=4)[0].sum(),
+                               um)[0].is_meta
     assert [fn.launches for fn in counters] == n
 
 

@@ -163,8 +163,13 @@ def test_wrapper_takes_the_plain_version_only_on_cpu():
     y1, S1 = tref.chunked_reference(r, k, v, w, u, S0, chunk=8)
     assert torch.equal(y, y1) and torch.equal(S, S1)
     assert tk.wkv6.launches == before
+    # meta operands (the dry run's stand-in for the card) take the kernel's
+    # operator without a launch; operands on two devices are refused
+    y, S = tk.wkv6(*(t.to("meta") for t in (r, k, v, w, u)), chunk=8)
+    assert y.is_meta and S.is_meta and y.shape == v.shape
+    assert tk.wkv6.launches == before
     with pytest.raises(ValueError, match="CUDA"):
-        tk.wkv6(*(t.to("meta") for t in (r, k, v, w, u)), chunk=8)
+        tk.wkv6(*(t.to("meta") for t in (r, k, v, w)), u, chunk=8)
     with pytest.raises(ValueError, match="divisible"):
         tk.wkv6(r, k, v, w, u, chunk=5)
 
