@@ -18,8 +18,10 @@ at once), then runs these phases, each of which raises on failure:
    the same function, that call's time (flash attention at every serving
    model's prefill shape: Qwen3-0.6B, DeepSeekMoE-16B, Jamba's 32 / 8
    heads, Qwen2-VL's 28 / 4, Whisper's non-causal encoder over 1,500
-   frames and its causal decoder); and ``layers.dot`` and ``layers.bmm``
-   on bf16 operands against the f32 product;
+   frames and its causal decoder); ``wkv6`` on each of its three routes,
+   every case timed (CUDA events, a CUDA graph), the tile-parallel route's
+   cases beside the per-head kernel on the same inputs; and ``layers.dot``
+   and ``layers.bmm`` on bf16 operands against the f32 product;
 2. the allocator's main path at the paper's scale (Sec. 5.3: 256 lanes of
    100-500 job classes, capacity factor 0.95, f64): ``CapacityEngine.solve``
    under the fused-kernel, sweep-kernel and default configurations, plus
@@ -41,7 +43,10 @@ at once), then runs these phases, each of which raises on failure:
    self-attention layer, the encoder's included); tokens, logits and the
    last decode step against a forward pass over the prompt and the
    generated tokens are checked; prefill seconds, decode tokens/s, peak
-   memory and the device's idle share are printed.  The MoE models
+   memory and the device's idle share are printed.  RWKV6-7B also serves
+   prompts of 1,000 and 1,023 tokens (chunks 8 and 1: one tile-parallel
+   wkv6 launch a layer), their prefill seconds beside the 1,024 prompt's.
+   The MoE models
    (DeepSeekMoE, Jamba) also gate (b) a second generate bit for bit the
    first and (d) at a drop-free capacity factor the last decode step
    against a forward whose routing is pinned to the generate's (bf16);
@@ -272,6 +277,9 @@ SERVE_B, SERVE_PROMPT, SERVE_NEW = 4, 1024, 16
 # departs from the exact recurrence (ROADMAP Queue 3), so a prefill and a
 # forward over a longer sequence compute different functions there
 RWKV_AGREE_PROMPT = 1040
+# RWKV6-7B's prompts whose length is no multiple of 64 (chunks 8 and 1: the
+# tile-parallel route), served beside the 1,024 prompt for their prefill
+RWKV_RAGGED_PROMPTS = (1000, 1023)
 # flash attention: the Qwen3-0.6B prefill, then a ragged shape (bf16 runs
 # the tensor-core kernel, f32 the CUDA-core one)
 FLASH_MAIN = (4, 1024, 16, 8, 128)           # B, S, Hq, Hkv, hd
@@ -284,15 +292,25 @@ FLASH_MODELS = (("qwen3-0.6b", FLASH_MAIN, True),
                 ("qwen2-vl-7b", (4, 1024, 28, 4, 128), True),
                 ("whisper-base encoder", (4, 1500, 8, 8, 64), False),
                 ("whisper-base decoder", (4, 1024, 8, 8, 64), True))
-# WKV6: (B, T, H, K, chunk, decay shift, with S0); the RWKV6-7B prefill,
-# a 1040-token forward's chunk 16, and a ragged chunk-4 case whose
-# cumulative decays pass the +-30 clamp (the per-head kernel); then the
-# chunk-parallel kernels' prefix from a state, chunk 128, a single chunk and
-# K = V = 32
+# WKV6: (B, T, H, K, chunk, decay shift, with S0); the RWKV6-7B prefill
+# (chunk 256: chunk-parallel); RWKV6-7B's prompts of 1,023, 1,000, 1,040 and
+# 992 tokens (chunks 1, 8, 16, 32: tile-parallel, each with a ragged last
+# tile of 63, 40, 16 and 32 rows), a chunk-4 case whose cumulative decays
+# pass the +-30 clamp, from zeros and from a state, K = V = 32 at chunk 8
+# from a state, and whole tiles only (tile-parallel); a chunk that neither
+# divides 64 nor is a multiple of it (the per-head kernel); then the
+# chunk-parallel kernels' prefix from a state, chunk 128, a single chunk
+# and K = V = 32
 WKV_CASES = ((4, 1024, 64, 64, 256, -0.6, False),
+             (4, 1023, 64, 64, 1, -0.6, False),
+             (4, 1000, 64, 64, 8, -0.6, False),
              (4, 1040, 64, 64, 16, -0.6, False),
+             (4, 992, 64, 64, 32, -0.6, False),
              (2, 300, 4, 64, 4, 2.0, False),
              (2, 300, 4, 64, 4, 2.0, True),
+             (2, 520, 4, 32, 8, -0.6, True),
+             (2, 256, 4, 64, 16, -0.6, False),
+             (2, 500, 4, 64, 10, -0.6, False),
              (4, 1024, 64, 64, 256, -0.6, True),
              (4, 1024, 64, 64, 128, -0.6, False),
              (2, 256, 4, 64, 256, -0.6, False),
@@ -1346,69 +1364,108 @@ def wkv_inputs(gen, B, T, H, K, shift, with_state):
     return r, k, v, w, u, S0
 
 
+def wkv_route_of(L):
+    """The route ``kernel.route`` must give a WKV_CASES case at chunk L (K ==
+    V, a multiple of 4, every operand 16-byte aligned)."""
+    if L % 64 == 0:
+        return "chunk-parallel"
+    return "tile-parallel" if 64 % L == 0 else "per-head"
+
+
 def phase_wkv(gen):
-    from repro_torch.kernels.rwkv6.kernel import pass_launchers, route, wkv6
-    from repro_torch.kernels.rwkv6.ref import chunked_reference
+    """wkv6 against ``chunked_reference`` at every ``WKV_CASES`` case, each
+    case's route asserted, within 1e-4 of max |y| and of max |S|; every
+    case timed by CUDA events and in a CUDA graph, beside the plain
+    version's ms and the bound, with the chunk- and tile-parallel routes'
+    passes alone; at the tile-parallel cases the per-head kernel on the
+    same inputs (``route_launcher``), held and timed the same way.  The
+    row's own numbers are the first case's (the RWKV6-7B prefill)."""
+    from repro_torch.kernels.rwkv6.kernel import (pass_launchers, route,
+                                                  route_launcher, wkv6)
+    from repro_torch.kernels.rwkv6.ref import chunked_reference, reference
     print("phase 1c: wkv6 against its plain version (the chunked form at "
           "the same chunk)")
-    errs, row = [], None
+    errs, cases = [], {}
     for B, T, H, K, L, shift, with_state in WKV_CASES:
         r, k, v, w, u, S0 = wkv_inputs(gen, B, T, H, K, shift, with_state)
         S0_plain = S0 if with_state else torch.zeros(
             (B, H, K, K), device="cuda")
         how = route(r, k, v, w, L)
-        if (L % 64 == 0) != (how == "chunk-parallel"):
+        if how != wkv_route_of(L):
             raise AssertionError(f"wkv6 chunk {L} K {K} took the {how} "
                                  "route")
         y, S = wkv6(r, k, v, w, u, chunk=L, S0=S0)
         y_p, S_p = chunked_reference(r, k, v, w, u, S0_plain, chunk=L)
         # the same f32 formula summed in another order (the products in
-        # three TF32 parts on the chunk-parallel route): within 1e-4 of the
-        # largest magnitude of each output
+        # three TF32 parts on the chunk- and tile-parallel routes): within
+        # 1e-4 of the largest magnitude of each output
         label = (f"wkv6 B={B} T={T} H={H} K={K} chunk={L} "
                  f"{'S0' if with_state else 'zero state'} route={how}")
-        errs.append(max(
-            check_close(y, y_p, 1e-4 * float(y_p.abs().max()), 0.0,
-                        label + " y"),
-            check_close(S, S_p, 1e-4 * float(S_p.abs().max()), 0.0,
-                        label + " S")))
-        if row is not None:
-            continue
-        from repro_torch.kernels.rwkv6.ref import reference
-        y_rec, _ = reference(r, k, v, w, u, S0_plain)
-        dep = float((y - y_rec).abs().max() / y_rec.abs().max())
-        print(f"  (not checked) the chunked form at chunk {L} against the "
-              f"exact recurrence: max|diff|/max|y| = {dep!r}; the kernel "
-              "and its plain version alike (ROADMAP Queue 3)")
-        t_k = cuda_ms(lambda: wkv6(r, k, v, w, u, chunk=L), 20)
-        t_p = cuda_ms(lambda: chunked_reference(r, k, v, w, u, S0_plain,
-                                                chunk=L), 5)
-        passes = {name: cuda_ms(fn, 20) for name, fn in
-                  pass_launchers(r, k, v, w, u, chunk=L).items()}
+        tol_y, tol_S = (1e-4 * float(y_p.abs().max()),
+                        1e-4 * float(S_p.abs().max()))
+        errs.append(max(check_close(y, y_p, tol_y, 0.0, label + " y"),
+                        check_close(S, S_p, tol_S, 0.0, label + " S")))
+        if not cases:
+            y_rec, _ = reference(r, k, v, w, u, S0_plain)
+            dep = float((y - y_rec).abs().max() / y_rec.abs().max())
+            print(f"  (not checked) the chunked form at chunk {L} against "
+                  f"the exact recurrence: max|diff|/max|y| = {dep!r}; the "
+                  "kernel and its plain version alike (ROADMAP Queue 3)")
+        call = lambda: wkv6(r, k, v, w, u, chunk=L, S0=S0)
+        # (the plain version is warm from its check above; at chunk 1 it
+        # takes about a second a call, so one call)
+        case = dict(route=how, ms=cuda_ms(call, 20),
+                    graph_ms=graph_ms(call, 20),
+                    plain_ms=cuda_ms(lambda: chunked_reference(
+                        r, k, v, w, u, S0_plain, chunk=L), 1, warmup=0))
         # the least time: the bytes (inputs read once, y and S written
-        # once) against the operations on the tensor cores as the kernel
-        # runs them, each product as three TF32 products, and the decay
-        # work (12 per (row, channel)) at the f32 rate; beside it the
-        # operations all at the f32 rate (the CUDA-core kernel's bound)
-        moved = nbytes(r, k, v, w, u, y, S)
+        # once) against the operations on the tensor cores as the
+        # tensor-core kernels run them, each product as three TF32
+        # products, and the decay work (12 per (row, channel)) at the f32
+        # rate; beside it the operations all at the f32 rate
+        moved = nbytes(r, k, v, w, u, y, S) + (nbytes(S0) if with_state
+                                               else 0)
         elem = 12 * B * T * H * K
         prod = peaks().wkv_ops(B, T, H, K, L) - elem
         t_ops = (3 * prod / peaks().TF32_FLOPS
                  + elem / peaks().FP32_FLOPS) * 1e3
-        b_ms, b_by = max((moved / peaks().HBM_BW * 1e3, "bytes"),
-                         (t_ops, "operations"))
+        case["bound_ms"], case["bound_by"] = max(
+            (moved / peaks().HBM_BW * 1e3, "bytes"), (t_ops, "operations"))
         f32_ms, _ = bound(moved, peaks().wkv_ops(B, T, H, K, L),
                           peaks().FP32_FLOPS)
-        row = dict(name="wkv6", route="cuda",
-                   source="src/repro_torch/csrc/wkv6.cu",
-                   replaces="src/repro/kernels/rwkv6/kernel.py:73",
-                   ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by,
-                   library_ms=None)
-        print(f"  wkv6 ({how}): ms={t_k!r} plain_ms={t_p!r} "
-              f"bound_ms={b_ms!r} ({b_by}, split TF32 products) "
-              f"f32_rate_bound_ms={f32_ms!r} passes_ms={passes!r}")
-    row["max_abs_err"] = max(errs)
-    return row
+        if how != "per-head":
+            case["passes_ms"] = {
+                name: cuda_ms(fn, 20) for name, fn in pass_launchers(
+                    r, k, v, w, u, chunk=L, S0=S0).items()}
+        if how == "tile-parallel":
+            # the per-head kernel, which took these chunks before the
+            # tile-parallel route, on the same inputs
+            per_head = route_launcher(r, k, v, w, u, chunk=L, how="per-head",
+                                      S0=S0)
+            y_h, S_h = per_head()
+            errs.append(max(
+                check_close(y_h, y_p, tol_y, 0.0, label + " per-head y"),
+                check_close(S_h, S_p, tol_S, 0.0, label + " per-head S")))
+            case["per_head_ms"] = cuda_ms(per_head, 10)
+            case["per_head_graph_ms"] = graph_ms(per_head, 10)
+        print(f"  {label}: ms={case['ms']!r} graph_ms={case['graph_ms']!r} "
+              f"plain_ms={case['plain_ms']!r} bound_ms={case['bound_ms']!r} "
+              f"({case['bound_by']}, split TF32 products) "
+              f"f32_rate_bound_ms={f32_ms!r}"
+              + (f" passes_ms={case['passes_ms']!r}"
+                 if "passes_ms" in case else "")
+              + (f" per_head_ms={case['per_head_ms']!r} per_head_graph_ms="
+                 f"{case['per_head_graph_ms']!r}"
+                 if "per_head_ms" in case else ""))
+        cases[label] = case
+    first = next(iter(cases.values()))
+    return dict(name="wkv6", route="cuda",
+                source="src/repro_torch/csrc/wkv6.cu",
+                replaces="src/repro/kernels/rwkv6/kernel.py:73",
+                max_abs_err=max(errs), library_ms=None,
+                **{k: first[k] for k in ("ms", "graph_ms", "plain_ms",
+                                         "bound_ms", "bound_by")},
+                passes_ms=first["passes_ms"], cases=cases)
 
 
 def phase_dot(gen):
@@ -1579,6 +1636,8 @@ def phase_serving(arch, counters):
     out = dict(prefill_s=stats["prefill_s"], decode_tok_s=dec_tok_s,
                counts=counts, idle=None, idle_warm=None, peak_gb=peak_gb,
                layers=cfg.n_layers, **family)
+    if cfg.rwkv:
+        out.update(rwkv_ragged_prompts(cfg, params, gen, stats["prefill_s"]))
     if arch == DIST_DENSE_ARCH:     # phase 14 (b) generates again on a mesh
         out["generated"] = (toks, logits)
     from torch.profiler import ProfilerActivity, profile
@@ -1815,6 +1874,66 @@ def moe_f32_agreement(cfg):
         raise AssertionError(f"{cfg.name} f32: decode disagrees with the "
                              f"forward pass ({rel})")
     return rel
+
+
+def rwkv_ragged_prompts(cfg, params, gen, prefill_1024):
+    """RWKV6 ``generate`` at the prompts of ``RWKV_RAGGED_PROMPTS``, whose
+    chunks (8 and 1) divide 64, each a prefill and a decode step (2 new
+    tokens): one tile-parallel wkv6 launch a layer and no other, the
+    counts set to 0 just before each generate and read just after; then a
+    warm generate's prefill seconds, printed beside the 1,024 prompt's,
+    and (not the main path) one with ``kernel.route`` sending those chunks
+    to the per-head kernel, as before the tile-parallel route."""
+    from repro_torch.kernels.rwkv6 import kernel as wk
+    from repro_torch.kernels.rwkv6.kernel import wkv6
+    from repro_torch.serving import generate
+    prefill, launches = {SERVE_PROMPT: prefill_1024}, 0
+    per_head = {}
+    for P in RWKV_RAGGED_PROMPTS:
+        prompt = torch.randint(0, cfg.vocab, (SERVE_B, P), generator=gen,
+                               device="cuda")
+        wkv6.launches = 0
+        wkv6.route_launches = dict.fromkeys(wkv6.route_launches, 0)
+        toks, logits = generate(cfg, params, prompt, max_new_tokens=2,
+                                return_logits=True)
+        torch.cuda.synchronize()
+        got = dict(wkv6.route_launches)
+        want = {how: cfg.n_layers if how == "tile-parallel" else 0
+                for how in got}
+        if got != want or wkv6.launches != cfg.n_layers:
+            raise AssertionError(f"{cfg.name} prompt {P} (chunk "
+                                 f"{math.gcd(P, max(256, P // 128))}): wkv6 "
+                                 f"launches by route {got}, expected {want}")
+        if not (torch.isfinite(logits).all()
+                and torch.equal(toks, logits.argmax(-1))):
+            raise AssertionError(f"{cfg.name} prompt {P}: non-finite logits "
+                                 "or tokens that are not their argmax")
+        launches += wkv6.launches
+        # the prefill, warm
+        stats = {}
+        generate(cfg, params, prompt, max_new_tokens=2, stats=stats)
+        prefill[P] = stats["prefill_s"]
+        route = wk.route
+        wk.route = lambda *a: "per-head"
+        try:
+            before, old = {}, wkv6.route_launches["per-head"]
+            toks_h = generate(cfg, params, prompt, max_new_tokens=2,
+                              stats=before)
+        finally:
+            wk.route = route
+        if wkv6.route_launches["per-head"] - old != cfg.n_layers:
+            raise AssertionError(f"{cfg.name} prompt {P}: the per-head "
+                                 "route was not taken")
+        per_head[P] = before["prefill_s"]
+        print(f"  prompt {P} (chunk {math.gcd(P, max(256, P // 128))}): "
+              f"wkv6 launches by route {got}; generate (warm) prefill_s="
+              f"{stats['prefill_s']!r}; through the per-head kernel "
+              f"prefill_s={before['prefill_s']!r}, tokens equal "
+              f"{bool(torch.equal(toks_h, toks))} (not gated: bf16)")
+    print(f"  {cfg.name} prefill_s by prompt length: {prefill!r}; through "
+          f"the per-head kernel {per_head!r}")
+    return dict(prefill_by_prompt=prefill, prefill_per_head=per_head,
+                ragged_launches=launches)
 
 
 def rwkv_f32_agreement(cfg):
@@ -5406,6 +5525,7 @@ def main() -> int:
              if res["counts"]["flash_attention"]}
     counts["flash_attention"] = sum(flash.values())
     counts["wkv6"] = serving["rwkv6-7b"]["counts"]["wkv6"]
+    ragged = serving["rwkv6-7b"]["ragged_launches"]
     window = timed("phase 6", phase_window, counters)
     by_path = {name: {"phase 2": n} for name, n in counts.items()
                if name in ALLOCATOR_KERNELS}
@@ -5427,8 +5547,10 @@ def main() -> int:
     counts["flash_attention"] += e_counts["flash_attention"]
     by_path["flash_attention"] = flash
     by_path["wkv6"] = {"phase 5 rwkv6-7b": counts["wkv6"],
+                       "phase 5 rwkv6-7b prompts "
+                       + ", ".join(map(str, RWKV_RAGGED_PROMPTS)): ragged,
                        "phase 11 (e)": e_counts["wkv6"]}
-    counts["wkv6"] += e_counts["wkv6"]
+    counts["wkv6"] += ragged + e_counts["wkv6"]
     for name, row in train["bwd_rows"].items():
         rows[name] = row
         counts[name] = e_counts[name]
@@ -5465,6 +5587,8 @@ def main() -> int:
         print(f"  serving {arch} ({res['layers']} layers): f32 "
               f"decode-vs-forward {res.get('f32_rel')!r} "
               f"prefill_s={res['prefill_s']!r} "
+              + (f"prefill_s by prompt {res['prefill_by_prompt']!r} "
+                 if "prefill_by_prompt" in res else "") +
               f"decode_tok_s={res['decode_tok_s']!r} "
               f"peak_gb={res['peak_gb']!r} "
               f"idle_share={res['idle']!r} (profiled), "

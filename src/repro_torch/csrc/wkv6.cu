@@ -20,7 +20,8 @@
 // state scratch goes through the second), and mma.sync issues TF32 at
 // about half the dense rate; those are this design's own floors.
 //
-// Two routes; the wrapper (kernels/rwkv6/kernel.py: route) picks one by L.
+// Three routes; the wrapper (kernels/rwkv6/kernel.py: route) picks one by
+// L.
 //
 // Chunk-parallel (L a multiple of 64, K == V a multiple of 4, operands
 // 16-byte aligned: every RWKV6 prefill whose chunk is 64 or more).  Three
@@ -63,8 +64,41 @@
 // wkv6_output holds six 64 x 68 tiles (Q, two k and two v buffers, w):
 // 106 KB and 128 registers a thread, two blocks an SM.
 //
-// Per-head (any other L, as the 1040- and 300-token prompts' chunks 16 and
-// 4): wkv6_kernel, the CUDA-core kernel of the first port.  The Pallas
+// Tile-parallel (L divides 64, the chunk-parallel route's other
+// conditions: every RWKV6 prompt whose length is not a multiple of 64, as
+// the 1,023-, 1,000-, 1,040- and 992-token prompts' chunks 1, 8, 16, 32).
+// It replaces the per-head kernel below for those chunks, which walked
+// every chunk of a (batch, head) in order in one block: B * H blocks, T / L
+// dependent steps each, six barriers and unprefetched loads a chunk, and at
+// L < 64 most of its threads idle in the products.  Bytes bound the same
+// work here as above (about 0.1 ms at the RWKV6-7B prefill), and at L = 1
+// the walk's multiply-adds (2 K V a row) are the most work there is.  The
+// carry S <- e^{LW_end} S + K2^T V has no clip, so the carries of the 64 / L
+// chunks of a 64-row tile compose, in exact arithmetic, into the tile's
+// own carry; the tiles' carries are then the chunk-parallel route's at
+// L = 64, and passes 1 and 2 above run on ceil(T / 64) tiles, the last
+// ragged (T % 64 rows, a whole number of chunks): wkv6_state<true>, whose
+// row bounds the chunk-parallel instance compiles without, and
+// wkv6_prefix<8>, its loads 8 tiles ahead of its carries.  Pass 3 is
+// wkv6_tile_output, one block per (batch, head, tile): B * H * ceil(T / 64)
+// blocks, each 64 / L dependent steps from its tile's state.  Inside a
+// chunk it computes what the reference does, with the chunk's own Z and
+// clip; between chunks it goes through the state only, never through a
+// decay factored across the tile (w down to -8 spans e^{512} over 64 rows,
+// past f32).  The chunks' own products go to the tensor cores over the
+// whole tile at once, masked to one chunk (split TF32, as above); the
+// state walk runs on the CUDA cores, its state in registers, four rows at
+// a time and no barrier, since below 16 rows a chunk fills no m16n8k8
+// tile (and L = 1, every odd prompt length, is the commonest chunk).  The
+// walk's 2 K V multiply-adds a row, with the shared loads and shuffles
+// that feed them, are the output pass's largest part
+// (scripts/attribute_wkv6_tile.py).  Its scratch is the tiles' U and D
+// only: (B, H, ceil(T / 64), K, K), never a state per chunk (4.3 GB at
+// L = 1 and (4, 1023, 64, 64)).
+//
+// Per-head (any other L: a chunk that neither divides 64 nor is a multiple
+// of it, reached at T >= 32,768, e.g. 50,000 -> 10): wkv6_kernel, the
+// CUDA-core kernel of the first port.  The Pallas
 // kernel keeps the K x V state in VMEM scratch over a
 // sequential chunk axis.  Here one block owns one (batch, head), keeps the
 // state in shared memory and loops over the chunks in order.  A chunk of
@@ -364,7 +398,12 @@ size_t smem_bytes(int L) {
 // Pass 1: one block per (batch, head, chunk).  A first sweep sums each
 // 16-row segment of w, from which one thread per channel forms the carries,
 // Z and LW_end by the scan's own additions; a second sweep scans each
-// sub-tile and sums U = K2^T V, its k and v double-buffered.
+// sub-tile and sums U = K2^T V, its k and v double-buffered.  The
+// tile-parallel route runs kTiles, at L = 64 on its tiles, the last of
+// which may be ragged (T % 64 rows: zeros past them), and writes no
+// carries or Z; the chunk-parallel route's instance compiles without
+// those bounds.
+template <bool kTiles>
 __global__ void __launch_bounds__(kThreads, 2)
 wkv6_state(const float* __restrict__ k, const float* __restrict__ v,
            const float* __restrict__ w, float* __restrict__ U,
@@ -378,7 +417,7 @@ wkv6_state(const float* __restrict__ k, const float* __restrict__ v,
   // k (then K2 = k e^{LW_end - LW}) in buffer 2x, v in 2x + 1
   auto buf = [&](int x) { return smem + x * kTile; };
 
-  const int n = T / L, nsub = L / kTS;
+  const int n = kTiles ? (T + L - 1) / L : T / L, nsub = L / kTS;
   const int c = blockIdx.x % n, bh = blockIdx.x / n;
   const int h = bh % H, b = bh / H;
   const int tid = threadIdx.x, seg = tid >> 6, ch = tid & 63;
@@ -386,16 +425,17 @@ wkv6_state(const float* __restrict__ k, const float* __restrict__ v,
   const long long base = ((long long)b * T + (long long)c * L) * row
                          + (long long)h * K;
   const long long chunk = (long long)bh * n + c;
+  const int rows = kTiles ? min(kTS, T - c * L) : kTS;   // of sub-tile 0
 
-  if (K < kTS) zero_smem(smem, 4 * kTile);
+  if (K < kTS || rows < kTS) zero_smem(smem, 4 * kTile);
   __syncthreads();
-  load_tile(buf(0), k + base, row, kTS, K);  // sweep 2's first tiles
-  load_tile(buf(1), v + base, row, kTS, K);
+  load_tile(buf(0), k + base, row, rows, K);  // sweep 2's first tiles
+  load_tile(buf(1), v + base, row, rows, K);
   cp_commit();
 
   float wv[kSeg], wn[kSeg], lw[kSeg];
   for (int s = 0; s < nsub; ++s) {             // sweep 1
-    load_w(wv, w + base + (long long)s * kTS * row, row, K);
+    load_w(wv, w + base + (long long)s * kTS * row, row, K, rows);
     float sum = 0.0f;
 #pragma unroll
     for (int t = 0; t < kSeg; ++t) sum += wv[t];
@@ -409,9 +449,9 @@ wkv6_state(const float* __restrict__ k, const float* __restrict__ v,
     const int zseg = L / 2 / kSeg;
     float carry = 0.0f;
     for (int s = 0; s < nsub; ++s) {
-      if (tid < K) carry_out[(chunk * nsub + s) * K + tid] = carry;
+      if (!kTiles && tid < K) carry_out[(chunk * nsub + s) * K + tid] = carry;
       for (int sg = 0; sg < 4; ++sg) {
-        if (s * 4 + sg == zseg && tid < K)
+        if (!kTiles && s * 4 + sg == zseg && tid < K)
           Z_out[chunk * K + tid] =
               carry + w[base + (long long)(L / 2) * row + tid];
         carry += tot[(s * 4 + sg) * kTS + tid];
@@ -421,7 +461,7 @@ wkv6_state(const float* __restrict__ k, const float* __restrict__ v,
     if (tid < K) D_out[chunk * K + tid] = expf(carry);
     run[tid] = 0.0f;
   }
-  load_w(wv, w + base, row, K);
+  load_w(wv, w + base, row, K, rows);
 
   // sweep 2.  Warp wp owns state rows 16 (wp % 4) .. + 15 and columns
   // 32 (wp / 4) .. + 31.
@@ -488,7 +528,11 @@ wkv6_state(const float* __restrict__ k, const float* __restrict__ v,
   }
 }
 
-// Pass 2: one thread per (batch, head, state element), the chunks in order.
+// Pass 2: one thread per (batch, head, state element), the chunks in order,
+// the loads of kAhead chunks issued before their carries: the chain of
+// carries waits on device memory once every kAhead chunks (the
+// tile-parallel route's 8; the chunk-parallel route's few chunks keep 1).
+template <int kAhead>
 __global__ void __launch_bounds__(kThreads)
 wkv6_prefix(float* __restrict__ U, const float* __restrict__ D,
             const float* __restrict__ S0, float* __restrict__ S_out, int BH,
@@ -499,25 +543,41 @@ wkv6_prefix(float* __restrict__ U, const float* __restrict__ D,
   const long long bh = idx / KV, e = idx % KV;
   const int kk = (int)(e / K);
   float s = S0 ? S0[idx] : 0.0f;
-  for (int c = 0; c < n; ++c) {
-    const long long chunk = bh * n + c;
-    float* p = U + chunk * KV + e;
-    const float uc = *p;
-    *p = s;                              // the state at the chunk's start
-    s = D[chunk * K + kk] * s + uc;
+  for (int c0 = 0; c0 < n; c0 += kAhead) {
+    float uc[kAhead], dc[kAhead];
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      const long long chunk = bh * n + c0 + j;
+      if (c0 + j < n) {
+        uc[j] = U[chunk * KV + e];
+        dc[j] = D[chunk * K + kk];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      if (c0 + j < n) {
+        U[(bh * n + c0 + j) * KV + e] = s;   // the state at the chunk's start
+        s = dc[j] * s + uc[j];
+      }
+    }
   }
   S_out[idx] = s;
 }
 
 // y[16 rows of warp rg] += A V, A = Q Kf^T over the 32 key rows of half hf
 // (masked m < t when diag), both from shared tiles of one 64-row sub-tile.
+// L (a power of two up to 64) cuts the sub-tile into chunks of L rows, and
+// a diagonal A keeps only the pairs inside one chunk: (m ^ t) < L.  At the
+// default L = 64 (a constant) those tests fold away.
 __device__ __forceinline__ void attend(const float* Qs, const float* Kf,
                                        const float* Vt, float (*acc)[4],
-                                       bool diag) {
+                                       bool diag, int L = kTS) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, q = lane & 3;
   const int t0 = 16 * (warp & 3), m0 = 32 * (warp >> 2);
-  if (diag && t0 + 15 < m0) return;      // every m > every t: A = 0
+  const bool chunks = L < kTS;
+  // every m > every t, or every m before the chunk of row t0: A = 0
+  if (diag && (t0 + 15 < m0 || (chunks && m0 + 31 < (t0 & -L)))) return;
   float a[4][4];
 #pragma unroll
   for (int nt = 0; nt < 4; ++nt)
@@ -542,10 +602,11 @@ __device__ __forceinline__ void attend(const float* Qs, const float* Kf,
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
       const int m = m0 + 8 * nt + 2 * q, t = t0 + g;
-      if (!(m < t)) a[nt][0] = 0.0f;
-      if (!(m + 1 < t)) a[nt][1] = 0.0f;
-      if (!(m < t + 8)) a[nt][2] = 0.0f;
-      if (!(m + 1 < t + 8)) a[nt][3] = 0.0f;
+      if (!(m < t && (!chunks || (m ^ t) < L))) a[nt][0] = 0.0f;
+      if (!(m + 1 < t && (!chunks || ((m + 1) ^ t) < L))) a[nt][1] = 0.0f;
+      if (!(m < t + 8 && (!chunks || (m ^ (t + 8)) < L))) a[nt][2] = 0.0f;
+      if (!(m + 1 < t + 8 && (!chunks || ((m + 1) ^ (t + 8)) < L)))
+        a[nt][3] = 0.0f;
     }
   }
   // k step nt covers key rows m0 + 8 nt .. + 7, k index q <-> row 2q and
@@ -563,6 +624,36 @@ __device__ __forceinline__ void attend(const float* Qs, const float* Kf,
       bb[vt][1] = vr[kLDT + 8 * vt];
     }
     mma3<kTS / 8>(acc, ah, al, bb);
+  }
+}
+
+// Ys <- the sum of the two halves' accumulators of attend (warp wp's rows
+// 16 (wp % 4) .. + 15, all columns), once every warp is done reading Ys.
+__device__ __forceinline__ void sum_halves(float* Ys, const float (*acc)[4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3, t0w = 16 * (warp & 3);
+  __syncthreads();
+#pragma unroll
+  for (int hf = 1; hf >= 0; --hf) {
+    if (warp >> 2 == hf) {
+#pragma unroll
+      for (int vt = 0; vt < kTS / 8; ++vt) {
+        float* o = Ys + (t0w + g) * kLDT + 8 * vt + 2 * q;
+        const float* a = acc[vt];
+        if (hf) {
+          o[0] = a[0];
+          o[1] = a[1];
+          o[8 * kLDT] = a[2];
+          o[8 * kLDT + 1] = a[3];
+        } else {
+          o[0] += a[0];
+          o[1] += a[1];
+          o[8 * kLDT] += a[2];
+          o[8 * kLDT + 1] += a[3];
+        }
+      }
+    }
+    __syncthreads();
   }
 }
 
@@ -714,29 +805,7 @@ wkv6_output(const float* __restrict__ r, const float* __restrict__ k,
   }
 
   // add the two halves in Qs and write the sub-tile's rows out
-  __syncthreads();
-  if (hf == 1) {
-#pragma unroll
-    for (int vt = 0; vt < kTS / 8; ++vt) {
-      float* o = Qs + (t0w + g) * kLDT + 8 * vt + 2 * q;
-      o[0] = acc[vt][0];
-      o[1] = acc[vt][1];
-      o[8 * kLDT] = acc[vt][2];
-      o[8 * kLDT + 1] = acc[vt][3];
-    }
-  }
-  __syncthreads();
-  if (hf == 0) {
-#pragma unroll
-    for (int vt = 0; vt < kTS / 8; ++vt) {
-      float* o = Qs + (t0w + g) * kLDT + 8 * vt + 2 * q;
-      o[0] += acc[vt][0];
-      o[1] += acc[vt][1];
-      o[8 * kLDT] += acc[vt][2];
-      o[8 * kLDT + 1] += acc[vt][3];
-    }
-  }
-  __syncthreads();
+  sum_halves(Qs, acc);
   const int per_row = K >> 2;
   for (int idx = tid; idx < kTS * per_row; idx += kThreads) {
     const int t = idx / per_row, cc = (idx % per_row) * 4;
@@ -745,10 +814,226 @@ wkv6_output(const float* __restrict__ r, const float* __restrict__ k,
   }
 }
 
+// One step of a reduce-scatter over lane bit H: of x[0 .. 2H), the lane
+// keeps the upper half if its bit H is set, else the lower, adds its
+// partner's copy of it and leaves it in x[0 .. H).
+template <int H>
+__device__ __forceinline__ void halve(float* x, int lane) {
+  const bool hi = lane & H;
+#pragma unroll
+  for (int m = 0; m < H; ++m) {
+    const float send = hi ? x[m] : x[m + H];
+    x[m] = (hi ? x[m + H] : x[m]) + __shfl_xor_sync(0xffffffffu, send, H);
+  }
+}
+
+// Step 4 of wkv6_tile_output, the walk over the tile's first ``rows`` rows
+// in chunks of L.  Thread (warp, lane) holds the 4 x 4 block s of the
+// state at rows 4 kg (kg = lane % 16) and columns 4 vg (vg = 2 warp + lane
+// / 16).  Four rows at a time: for each row t it forms its share of
+// R_t S_c over its 4 state rows, sums K2_t^T v_t into up, and at a
+// chunk's last row sets s <- e^{LW_end} s + up; then a reduce-scatter over
+// the 16 lanes of kg (15 shuffles, one order) leaves lane kg the sum for
+// row kg / 4, column 4 vg + kg % 4 of the group, which it adds, with
+// the bonus term, into Ys.  Rows past ``rows`` (zeros) change nothing that
+// is stored.
+__device__ __forceinline__ void walk_tile(const float* Rs, const float* K2,
+                                          const float* Vs, const float* Ws,
+                                          const float* diag, float* Ys,
+                                          float (*s)[4], int rows, int L) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int kg = lane & 15, vg = 2 * warp + (lane >> 4);
+  float up[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) up[a][i] = 0.0f;
+  for (int t0 = 0; t0 < rows; t0 += 4) {
+    float x[16];                        // x[4 r + i]: row t0 + r, col i
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr) {
+      const int t = t0 + rr;
+      const float4 ra =
+          *reinterpret_cast<const float4*>(Rs + t * kLDT + 4 * kg);
+      const float4 ka =
+          *reinterpret_cast<const float4*>(K2 + t * kLDT + 4 * kg);
+      const float4 va =
+          *reinterpret_cast<const float4*>(Vs + t * kLDT + 4 * vg);
+      const float rv[4] = {ra.x, ra.y, ra.z, ra.w};
+      const float kv[4] = {ka.x, ka.y, ka.z, ka.w};
+      const float vt[4] = {va.x, va.y, va.z, va.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float p = rv[0] * s[0][i];
+#pragma unroll
+        for (int a = 1; a < 4; ++a) p = fmaf(rv[a], s[a][i], p);
+        x[4 * rr + i] = p;
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) up[a][i] = fmaf(kv[a], vt[i], up[a][i]);
+      if (((t + 1) & (L - 1)) == 0) {   // the chunk's last row
+        const float4 da =
+            *reinterpret_cast<const float4*>(Ws + t * kLDT + 4 * kg);
+        const float dv[4] = {da.x, da.y, da.z, da.w};
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            s[a][i] = fmaf(dv[a], s[a][i], up[a][i]);
+            up[a][i] = 0.0f;
+          }
+      }
+    }
+    halve<8>(x, lane);
+    halve<4>(x, lane);
+    halve<2>(x, lane);
+    halve<1>(x, lane);
+    const int t = t0 + (kg >> 2), col = 4 * vg + (kg & 3);
+    Ys[t * kLDT + col] += x[0] + diag[t] * Vs[t * kLDT + col];
+  }
+}
+
+// Pass 3 of the tile-parallel route: one block per (batch, head, 64-row
+// tile), whose chunks of L rows (L divides 64) it walks in order from the
+// state at the tile's start, S_tile (the prefix pass's, over U).
+//   1. r, k, w and v of the tile by cp.async (zeros past a ragged tile's
+//      rows), S_tile into registers, the bonus sum_k r u k of each row.
+//   2. LW inside each chunk (thread (seg, ch) sums its 16 rows in order
+//      from 0 at each chunk's first row; a chunk of 32 rows adds its first
+//      segment's total to its second), then Q, Kf with the chunk's own Z =
+//      LW[L / 2] and the clip, R = r e^{LWp} and K2 = k e^{LW_end - LW},
+//      and e^{LW_end} at each chunk's last row.
+//   3. The chunks' own products Q Kf^T, masked to m < t inside a chunk,
+//      times V, on the tensor cores (attend, split TF32) over the whole
+//      tile at once: they do not read the state.
+//   4. The walk (walk_tile), on the CUDA cores, no barrier inside it.
+__global__ void __launch_bounds__(kThreads, 2)
+wkv6_tile_output(const float* __restrict__ r, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ w,
+                 const float* __restrict__ u, const float* __restrict__ St,
+                 float* __restrict__ y, int T, int H, int K, int L) {
+  extern __shared__ float smem[];
+  float* Qs = smem;                     // r, then Q; then y
+  float* Ks = Qs + kTile;               // k, then Kf
+  float* Vs = Ks + kTile;               // v
+  float* Ws = Vs + kTile;               // w, then LW; then e^{LW_end} at
+                                        // each chunk's last row
+  float* Rs = Ws + kTile;               // r e^{LWp}
+  float* K2 = Rs + kTile;               // k e^{LW_end - LW}
+  float* seg_sum = K2 + kTile;
+  float* us = seg_sum + 4 * kTS;
+  float* diag = us + kTS;
+
+  const int n = (T + kTS - 1) / kTS;
+  const int tile = blockIdx.x % n, bh = blockIdx.x / n;
+  const int h = bh % H, b = bh / H;
+  const int rows = min(kTS, T - tile * kTS);   // a multiple of L
+  const int tid = threadIdx.x, seg = tid >> 6, ch = tid & 63;
+  const int warp = tid >> 5, lane = tid & 31;
+  const long long row = (long long)H * K;
+  const long long base = ((long long)b * T + (long long)tile * kTS) * row
+                         + (long long)h * K;
+
+  if (K < kTS || rows < kTS) zero_smem(smem, 4 * kTile);
+  if (tid < kTS) us[tid] = tid < K ? u[(long long)h * K + tid] : 0.0f;
+  __syncthreads();
+  load_tile(Qs, r + base, row, rows, K);
+  load_tile(Ks, k + base, row, rows, K);
+  load_tile(Ws, w + base, row, rows, K);
+  cp_commit();
+  load_tile(Vs, v + base, row, rows, K);
+  cp_commit();
+
+  const int kg = lane & 15, vg = 2 * warp + (lane >> 4);
+  const float* Sb = St + ((long long)bh * n + tile) * K * K;
+  float st[4][4];                       // S[4 kg + a][4 vg + i]
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const float4 sa = 4 * kg + a < K && 4 * vg < K
+        ? *reinterpret_cast<const float4*>(Sb + (4 * kg + a) * K + 4 * vg)
+        : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    st[a][0] = sa.x;
+    st[a][1] = sa.y;
+    st[a][2] = sa.z;
+    st[a][3] = sa.w;
+  }
+  cp_wait<1>();
+  __syncthreads();
+
+  for (int t = warp * 8; t < warp * 8 + 8; ++t) {   // sum_k r u k
+    float p = 0.0f;
+    for (int kk = lane; kk < K; kk += 32)
+      p += Qs[t * kLDT + kk] * us[kk] * Ks[t * kLDT + kk];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
+    if (lane == 0) diag[t] = p;
+  }
+  float wv[kSeg], lw[kSeg], run = 0.0f;
+#pragma unroll
+  for (int t = 0; t < kSeg; ++t) {
+    wv[t] = Ws[(seg * kSeg + t) * kLDT + ch];
+    if (((seg * kSeg + t) & (L - 1)) == 0) run = 0.0f;
+    run += wv[t];
+    lw[t] = run;
+  }
+  if (L > kSeg) {
+    seg_sum[seg * kTS + ch] = run;
+    __syncthreads();
+    float carry = 0.0f;
+    for (int sg = seg & -(L / kSeg); sg < seg; ++sg)
+      carry += seg_sum[sg * kTS + ch];
+#pragma unroll
+    for (int t = 0; t < kSeg; ++t) lw[t] = carry + lw[t];
+  }
+#pragma unroll
+  for (int t = 0; t < kSeg; ++t) Ws[(seg * kSeg + t) * kLDT + ch] = lw[t];
+  __syncthreads();                      // LW whole; the bonus has read r, k
+#pragma unroll
+  for (int t = 0; t < kSeg; ++t) {
+    const int i = seg * kSeg + t, c0 = i & -L, e = i * kLDT + ch;
+    const float z = Ws[(c0 + L / 2) * kLDT + ch];
+    const float lwe = Ws[(c0 + L - 1) * kLDT + ch];
+    const float lwp = lw[t] - wv[t], rr = Qs[e], kv = Ks[e];
+    Qs[e] = rr * fast_clamp_exp(lwp - z);
+    Rs[e] = rr * __expf(lwp);
+    Ks[e] = kv * fast_clamp_exp(z - lw[t]);
+    K2[e] = kv * __expf(lwe - lw[t]);  // exponent <= 0
+  }
+  __syncthreads();                      // every Z and LW_end is read
+#pragma unroll
+  for (int t = 0; t < kSeg; ++t) {
+    const int i = seg * kSeg + t;
+    if ((i & (L - 1)) == L - 1) Ws[i * kLDT + ch] = __expf(lw[t]);
+  }
+  cp_wait<0>();
+  __syncthreads();
+
+  // the chunks' own products; then their two halves' sums into Qs
+  float acc[kTS / 8][4];
+#pragma unroll
+  for (int vt = 0; vt < kTS / 8; ++vt)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[vt][x] = 0.0f;
+  if (L > 1) attend(Qs, Ks, Vs, acc, true, L);
+  sum_halves(Qs, acc);
+
+  walk_tile(Rs, K2, Vs, Ws, diag, Qs, st, rows, L);
+  __syncthreads();
+  const int per_row = K >> 2;
+  for (int idx = tid; idx < rows * per_row; idx += kThreads) {
+    const int t = idx / per_row, cc = (idx % per_row) * 4;
+    *reinterpret_cast<float4*>(y + base + (long long)t * row + cc) =
+        *reinterpret_cast<const float4*>(Qs + t * kLDT + cc);
+  }
+}
+
 size_t state_smem(int L) {
   return sizeof(float) * (4 * kTile + 6 * kTS + (size_t)(L / kSeg) * kTS);
 }
 constexpr size_t kOutputSmem = sizeof(float) * (6 * kTile + 7 * kTS);
+constexpr size_t kTileOutputSmem = sizeof(float) * (6 * kTile + 6 * kTS);
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
@@ -789,17 +1074,17 @@ int wkv6_chunked_f32(const float* r, const float* k, const float* v,
   cudaError_t err;
   if (passes & 1) {
     const size_t smem = state_smem(L);
-    err = cudaFuncSetAttribute(wkv6_state,
+    err = cudaFuncSetAttribute(wkv6_state<false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
-    wkv6_state<<<BH * n, kThreads, smem, stream>>>(k, v, w, U, carry, Z, D,
-                                                   T, H, K, L);
+    wkv6_state<false><<<BH * n, kThreads, smem, stream>>>(k, v, w, U, carry,
+                                                          Z, D, T, H, K, L);
   }
   if (passes & 2) {
     const long long total = (long long)BH * K * K;
-    wkv6_prefix<<<(int)((total + kThreads - 1) / kThreads), kThreads, 0,
-                  stream>>>(U, D, S0, S, BH, n, K);
+    wkv6_prefix<1><<<(int)((total + kThreads - 1) / kThreads), kThreads, 0,
+                     stream>>>(U, D, S0, S, BH, n, K);
   }
   if (passes & 4) {
     err = cudaFuncSetAttribute(wkv6_output,
@@ -808,6 +1093,44 @@ int wkv6_chunked_f32(const float* r, const float* k, const float* v,
     if (err != cudaSuccess) return (int)err;
     wkv6_output<<<BH * n * nsub, kThreads, kOutputSmem, stream>>>(
         r, k, v, w, u, U, carry, Z, y, T, H, K, L);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The tile-parallel route: L divides 64 and T.  U (B, H, ceil(T / 64), K,
+// K) and D (B, H, ceil(T / 64), K) are the wrapper's scratch; passes as for
+// wkv6_chunked_f32 (1 state, 2 prefix, 4 output).
+int wkv6_tiled_f32(const float* r, const float* k, const float* v,
+                   const float* w, const float* u, const float* S0, float* y,
+                   float* S, float* U, float* D, int B, int T, int H, int K,
+                   int L, int passes, cudaStream_t stream) {
+  if (K < 4 || K > kTS || K % 4 != 0 || L < 1 || kTS % L != 0 || T < 1 ||
+      T % L != 0 || !aligned16(r) || !aligned16(k) || !aligned16(v) ||
+      !aligned16(w) || !aligned16(y) || !aligned16(U))
+    return (int)cudaErrorInvalidValue;
+  const int n = (T + kTS - 1) / kTS, BH = B * H;
+  cudaError_t err;
+  if (passes & 1) {
+    const size_t smem = state_smem(kTS);
+    err = cudaFuncSetAttribute(wkv6_state<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    wkv6_state<true><<<BH * n, kThreads, smem, stream>>>(
+        k, v, w, U, nullptr, nullptr, D, T, H, K, kTS);
+  }
+  if (passes & 2) {
+    const long long total = (long long)BH * K * K;
+    wkv6_prefix<8><<<(int)((total + kThreads - 1) / kThreads), kThreads, 0,
+                     stream>>>(U, D, S0, S, BH, n, K);
+  }
+  if (passes & 4) {
+    err = cudaFuncSetAttribute(wkv6_tile_output,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kTileOutputSmem);
+    if (err != cudaSuccess) return (int)err;
+    wkv6_tile_output<<<BH * n, kThreads, kTileOutputSmem, stream>>>(
+        r, k, v, w, u, U, y, T, H, K, L);
   }
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,9 @@
-// The pieces that csrc/wkv6.cu's chunk-parallel forward and csrc/wkv6_bwd.cu's
-// chunk-parallel backward share: the 64-row sub-tile and its 68-float shared
-// rows, the TF32 tensor-core product split in three (split, mma3), cp.async
-// tile loads, and the blocked scan of the log decays (load_w, scan_rows), so
-// that a row's LW has the same bits in every kernel that rebuilds it.
+// The pieces that csrc/wkv6.cu's chunk- and tile-parallel forwards and
+// csrc/wkv6_bwd.cu's chunk-parallel backward share: the 64-row sub-tile (the
+// tile-parallel route's tile) and its 68-float shared rows, the TF32
+// tensor-core product split in three (split, mma3), cp.async tile loads,
+// and the blocked scan of the log decays (load_w, scan_rows), so that a
+// row's LW has the same bits in every kernel that rebuilds it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -101,14 +102,19 @@ __device__ __forceinline__ float fast_clamp_exp(float x) {
 }
 
 // Thread (seg, ch), seg = tid / 64, ch = tid % 64: its 16 values of w in
-// rows 16 seg .. + 15 of a 64-row sub-tile, channel ch (0 past K), straight
-// from device memory; a warp reads 32 neighbouring floats of a row.
+// rows 16 seg .. + 15 of a 64-row sub-tile, channel ch (0 past K and past
+// the sub-tile's first ``rows`` rows; at the constant rows = 64 the row
+// test folds away), straight from device memory; a warp reads 32
+// neighbouring floats of a row.
 __device__ __forceinline__ void load_w(float* wv, const float* src,
-                                       long long row_stride, int K) {
+                                       long long row_stride, int K,
+                                       int rows = kTS) {
   const int seg = threadIdx.x >> 6, ch = threadIdx.x & 63;
 #pragma unroll
   for (int t = 0; t < kSeg; ++t)
-    wv[t] = ch < K ? src[(long long)(seg * kSeg + t) * row_stride + ch] : 0.0f;
+    wv[t] = ch < K && (rows == kTS || seg * kSeg + t < rows)
+                ? src[(long long)(seg * kSeg + t) * row_stride + ch]
+                : 0.0f;
 }
 
 // The blocked scan of one 64-row sub-tile: from its values wv (load_w) and

@@ -14,19 +14,29 @@ default, the TPU kernel's function), so that every chunked ``time_mix``
 runs through it, a carried state included.  The kernels take float32
 operands with K, V <= 64.
 
-Two forward routes (``route``): a chunk that is a multiple of 64, with K ==
-V a multiple of 4 and 16-byte aligned operands, runs the chunk-parallel
-kernels on the tensor cores (state, prefix and output passes: three CUDA
-kernels); any other chunk runs the per-head kernel.  ``wkv6.launches``
-counts wrapper calls that launched, one per call whatever the route.
+Three forward routes (``route``), each launched by state, prefix and
+output passes except the last.  With K == V a multiple of 4 and 16-byte
+aligned operands, a chunk that is a multiple of 64 runs the chunk-parallel
+kernels (in parallel over chunks, their products on the tensor cores), and
+a chunk that divides 64 (1, 2, ..., 32: every RWKV6 prompt whose length is
+not a multiple of 64) runs the tile-parallel ones: the chunk-parallel
+state and prefix passes over 64-row tiles (the last may be ragged), whose
+carries compose the chunks', then an output pass that walks each tile's
+chunks from the tile's state.  Any other call runs the per-head kernel
+(a chunk that neither divides 64 nor is a multiple of it, reached at T >=
+32,768).  ``wkv6.launches`` counts wrapper calls that launched, one per
+call whatever the route, and ``wkv6.route_launches`` the same by route.
+``route_launcher`` runs a call on a route of one's choosing, to hold two
+routes to each other at one shape.
 
 The backward has two routes too (``bwd_route``).  Where the forward's is
 chunk-parallel and dy (and dS) are 16-byte aligned, four kernels on the
 tensor cores (G, reverse prefix, main and fix-up passes) start from the
 forward's chunk-start states: ``_WKV6Function`` keeps the forward's scratch
 for its backward, and a call without it relaunches the forward's state and
-prefix passes.  Any other call runs the two per-head kernels of the first
-port, which recompute the states themselves.  ``wkv6_bwd.launches`` counts
+prefix passes.  Any other call, a tile-parallel forward's included (it
+keeps no scratch), runs the two per-head kernels of the first port, which
+recompute the states themselves.  ``wkv6_bwd.launches`` counts
 wrapper calls, one per call whatever the route.
 
 Each launch is a dispatcher operator (``torch.ops.repro_torch.wkv6`` and
@@ -50,11 +60,14 @@ from repro_torch.kernels.rwkv6 import ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"wkv6_f32": [_P] * 8 + [_I] * 6 + [_P],
-               "wkv6_chunked_f32": [_P] * 12 + [_I] * 6 + [_P]}
+               "wkv6_chunked_f32": [_P] * 12 + [_I] * 6 + [_P],
+               "wkv6_tiled_f32": [_P] * 10 + [_I] * 6 + [_P]}
 _BWD_SIGNATURES = {"wkv6_bwd_f32": [_P] * 15 + [_I] * 6 + [_P],
                    "wkv6_bwd_chunked_f32": [_P] * 22 + [_I] * 6 + [_P]}
 _MAX_KV = 64
-_SUB = 64        # rows of the chunk-parallel route's sub-tile
+_SUB = 64        # rows of the chunk-parallel route's sub-tile, and of
+#                  the tile-parallel route's tile
+ROUTES = ("chunk-parallel", "tile-parallel", "per-head")
 PASSES = {"state": 1, "prefix": 2, "output": 4}
 BWD_PASSES = {"g": 1, "prefix": 2, "main": 4, "fixup": 8}
 
@@ -82,19 +95,23 @@ def wkv_bwd_ops(B, T, H, K, L) -> int:
 
 
 def route(r, k, v, w_log, chunk) -> str:
-    """``"chunk-parallel"`` or ``"per-head"``: the kernel a call with these
-    operands and this chunk runs on the card."""
+    """One of ``ROUTES``: the kernels a call with these operands and this
+    chunk runs on the card."""
     K, V = r.shape[-1], v.shape[-1]
-    if (chunk % _SUB == 0 and K == V and K % 4 == 0
+    if (K == V and K % 4 == 0
             and all(t.data_ptr() % 16 == 0 for t in (r, k, v, w_log))):
-        return "chunk-parallel"
+        if chunk % _SUB == 0:
+            return "chunk-parallel"
+        if _SUB % chunk == 0:
+            return "tile-parallel"
     return "per-head"
 
 
 def bwd_route(r, k, v, w_log, dy, dS, chunk) -> str:
     """``"chunk-parallel"`` or ``"per-head"``: the backward kernels a call
     with these operands, cotangents (``dS`` None: zeros) and chunk runs on
-    the card."""
+    the card.  Every chunk below 64 takes the per-head backward, which
+    recomputes its states itself."""
     if (route(r, k, v, w_log, chunk) == "chunk-parallel"
             and all(t.data_ptr() % 16 == 0 for t in (dy, dS)
                     if t is not None)):
@@ -140,12 +157,14 @@ def _scratch(r, chunk):
             torch.empty((B, H, n, K), **f32))                # e^{LW_end}
 
 
-def _launcher(r, k, v, w_log, u, S0, chunk):
+def _launcher(r, k, v, w_log, u, S0, chunk, how=None):
     """(y, S, lib, launch, scratch): ``launch(passes)`` runs the kernels of
-    the call's route into y and S and returns the C entry's error code;
-    ``passes`` (a mask of ``PASSES``) picks kernels of the chunk-parallel
-    route, whose scratch (the chunk-start states S_c, the carries, Z and
-    e^{LW_end}) ``scratch`` is; None on the per-head route."""
+    route ``how`` (the call's own by default) into y and S and returns the C
+    entry's error code; ``passes`` (a mask of ``PASSES``) picks kernels of
+    the chunk- and tile-parallel routes.  ``scratch`` is the chunk-parallel
+    route's (the chunk-start states S_c, the carries, Z and e^{LW_end}),
+    which its backward reads; None on the other routes (the tile-parallel
+    route's tile states and decays live in ``launch`` alone)."""
     B, T, H, K = r.shape
     V = v.shape[-1]
     y = torch.empty_like(v)
@@ -153,26 +172,41 @@ def _launcher(r, k, v, w_log, u, S0, chunk):
     lib = _build.load("wkv6", _SIGNATURES)
     ptrs = [t.data_ptr() for t in (r, k, v, w_log, u)] + [
         None if S0 is None else S0.data_ptr(), y.data_ptr(), S.data_ptr()]
-    stream = _build.stream_of(r)
-    if route(r, k, v, w_log, chunk) == "per-head":
+    # the stream current at each launch, so that a CUDA graph captures it
+    stream = lambda: _build.stream_of(r)
+    how = how or route(r, k, v, w_log, chunk)
+    if how == "per-head":
         def launch(passes=7):
-            return lib.wkv6_f32(*ptrs, B, T, H, K, V, chunk, stream)
+            return lib.wkv6_f32(*ptrs, B, T, H, K, V, chunk, stream())
+        return y, S, lib, launch, None
+    if how == "tile-parallel":
+        n = -(-T // _SUB)
+        f32 = dict(dtype=torch.float32, device=r.device)
+        # held by ``launch`` itself, not only by their addresses
+        tiles = (torch.empty((B, H, n, K, K), **f32),    # U, then S_tile
+                 torch.empty((B, H, n, K), **f32))       # e^{LW_end}
+
+        def launch(passes=7):
+            return lib.wkv6_tiled_f32(*ptrs, *(t.data_ptr() for t in tiles),
+                                      B, T, H, K, chunk, passes, stream())
         return y, S, lib, launch, None
     scratch = _scratch(r, chunk)
     scratch_ptrs = [t.data_ptr() for t in scratch]
 
     def launch(passes=7):
         return lib.wkv6_chunked_f32(*ptrs, *scratch_ptrs, B, T, H, K, chunk,
-                                    passes, stream)
+                                    passes, stream())
     return y, S, lib, launch, scratch
 
 
 def _forward(r, k, v, w_log, u, S0, chunk):
     """(y, S, scratch): the forward kernels' outputs and the chunk-parallel
-    route's scratch (None on the per-head route)."""
-    y, S, lib, launch, scratch = _launcher(r, k, v, w_log, u, S0, chunk)
+    route's scratch (None on the other routes)."""
+    how = route(r, k, v, w_log, chunk)
+    y, S, lib, launch, scratch = _launcher(r, k, v, w_log, u, S0, chunk, how)
     _build.check(lib, launch(), "wkv6")
     wkv6.launches += 1
+    wkv6.route_launches[how] += 1
     return y, S, scratch
 
 
@@ -267,7 +301,7 @@ def wkv6_bwd(r, k, v, w_log, u, S0, dy, dS, *, chunk, saved=None):
 
 def _fwd_cuda(r, k, v, w_log, u, S0, chunk):
     """The forward operator's CUDA implementation: y, S and the
-    chunk-parallel route's scratch (empty on the per-head route)."""
+    chunk-parallel route's scratch (empty on the other routes)."""
     y, S, scratch = _forward(r, k, v, w_log, u, S0, chunk)
     return y, S, list(scratch or ())
 
@@ -368,20 +402,39 @@ def wkv6(r, k, v, w_log, u, *, chunk=64, S0=None):
 
 
 wkv6.launches = 0
+wkv6.route_launches = dict.fromkeys(ROUTES, 0)
 wkv6_bwd.launches = 0
 
 
 def pass_launchers(r, k, v, w_log, u, *, chunk, S0=None) -> dict:
-    """Pass name -> a callable that launches that kernel of the
-    chunk-parallel route alone on this call's buffers, to time it (it counts
+    """Pass name -> a callable that launches that kernel of the chunk- or
+    tile-parallel route alone on this call's buffers, to time it (it counts
     no launch; the prefix pass rewrites its scratch in place, so only the
     first full call's values mean anything)."""
     _check(r, k, v, w_log, u, S0)
-    if route(r, k, v, w_log, chunk) != "chunk-parallel":
+    if route(r, k, v, w_log, chunk) == "per-head":
         raise ValueError("wkv6: the per-head route has one kernel")
     _, _, lib, launch, _ = _launcher(r, k, v, w_log, u, S0, chunk)
     return {name: (lambda bit=bit: _build.check(lib, launch(bit), "wkv6"))
             for name, bit in PASSES.items()}
+
+
+def route_launcher(r, k, v, w_log, u, *, chunk, how, S0=None):
+    """A callable that runs this call's kernels on route ``how`` (one of
+    ``ROUTES`` that takes the call: the per-head route takes any chunk
+    that divides T) into buffers of its own and returns (y, S); it counts
+    no launch.  It holds a route to another, or times it, at one shape."""
+    _check(r, k, v, w_log, u, S0)
+    if r.shape[1] % chunk:
+        raise ValueError(f"T={r.shape[1]} must be divisible by chunk={chunk}")
+    if how != "per-head" and how != route(r, k, v, w_log, chunk):
+        raise ValueError(f"wkv6: chunk {chunk} does not take the {how} route")
+    y, S, lib, launch, _ = _launcher(r, k, v, w_log, u, S0, chunk, how)
+
+    def run():
+        _build.check(lib, launch(), "wkv6")
+        return y, S
+    return run
 
 
 def bwd_pass_launchers(r, k, v, w_log, u, dy, dS=None, *, chunk,

@@ -174,6 +174,41 @@ def test_wkv6_operators_count_chip_smokes_operations(chunk, scratch):
     assert counter.by_op["repro_torch.wkv6"] == [1, fwd]
 
 
+@pytest.mark.parametrize("T,chunk,how", [(1000, 8, "tile-parallel"),
+                                         (1023, 1, "tile-parallel"),
+                                         (500, 10, "per-head")])
+def test_wkv6_meta_route_returns_no_scratch(T, chunk, how):
+    """A chunk that divides 64 takes the tile-parallel route on meta as on
+    the card (a ragged last tile here), and one that neither divides 64 nor
+    is a multiple of it the per-head route: the forward operator returns
+    y, S and no scratch (the tile states live inside the call; the
+    backward recomputes its own), so a step counts the chunked form's
+    FLOPs at chunk L and the operands and results alone."""
+    B, H, K = 2, 64, 64
+    r, k, v, w = (_meta(B, T, H, K) for _ in range(4))
+    u, S0 = _meta(H, K), _meta(B, H, K, K)
+    assert wk.route(r, k, v, w, chunk) == how
+    assert wk.bwd_route(r, k, v, w, v, S0, chunk) == "per-head"
+    with torch.no_grad():
+        y, S, scratch = torch.ops.repro_torch.wkv6(r, k, v, w, u, S0, chunk)
+    assert scratch == [] and y.shape == v.shape and S.shape == S0.shape
+
+    def step(*args):
+        y, S = wk.wkv6(*args[:5], chunk=chunk, S0=args[5])
+        return torch.autograd.grad((y, S), args,
+                                   (torch.empty_like(y), torch.empty_like(S)))
+
+    before = _launches()
+    counter = an.StepCounter()
+    grads = counter.run(step, r, k, v, w, u, S0)
+    assert _launches() == before
+    assert counter.flops == (_smoke_wkv(B, T, H, K, chunk, False)
+                             + _smoke_wkv(B, T, H, K, chunk, True))
+    assert [g.shape for g in grads] == [t.shape for t in (r, k, v, w, u, S0)]
+    fwd = (5 * B * T * H * K + H * K + 2 * B * H * K * K) * 4
+    assert counter.by_op["repro_torch.wkv6"] == [1, fwd]
+
+
 # --------------------------------------------------------------------------
 # StepCounter by hand
 # --------------------------------------------------------------------------

@@ -18,7 +18,11 @@ three passes (per-chunk state, prefix over chunks, output by 64-row
 sub-tile, with the blocked scan of the decays) are held to JAX's
 ``wkv_chunked`` within the same 1e-4, and its TF32 products are emulated to
 show why each is split in three (a single TF32 product breaks 1e-4 of
-max |y|; the split stays within 1e-5 of an f64 evaluation).
+max |y|; the split stays within 1e-5 of an f64 evaluation).  So is its
+tile-parallel route (chunks that divide 64): the same state and prefix
+passes over 64-row tiles, whose carries compose the chunks', then a walk
+over each tile's chunks from the tile's state, at every such chunk, at
+decays on the -8 clamp and where the clip binds, with a ragged last tile.
 """
 import jax
 import jax.numpy as jnp
@@ -325,15 +329,113 @@ def test_tf32_split_keeps_the_gate_where_one_tf32_product_breaks_it(
 
 
 def test_route_by_chunk_and_alignment():
-    """The tensor-core route takes chunks that are multiples of 64 with
-    K == V a multiple of 4 and 16-byte aligned operands; the per-head kernel
-    takes the rest (the 1040- and 300-token prompts' chunks 16 and 4)."""
+    """With K == V a multiple of 4 and 16-byte aligned operands, the
+    chunk-parallel route takes chunks that are multiples of 64 and the
+    tile-parallel route chunks that divide 64 (the 1040- and 300-token
+    prompts' chunks 16 and 4, and 32); the per-head kernel takes the rest:
+    other chunks (10, as T = 50,000 gives), other widths, misaligned
+    operands.  Only the chunk-parallel forward has a backward of its own."""
     r, k, v, w, u, _ = (torch.tensor(a) for a in wkv_inputs(7, 1, 256, 2, 32))
     assert tk.route(r, k, v, w, 256) == "chunk-parallel"
     assert tk.route(r, k, v, w, 64) == "chunk-parallel"
-    for chunk in (16, 4, 32):
-        assert tk.route(r, k, v, w, chunk) == "per-head"
-    assert tk.route(r, k, v[..., :28].contiguous(), w, 64) == "per-head"
+    for chunk in (16, 4, 32, 8, 2, 1):
+        assert tk.route(r, k, v, w, chunk) == "tile-parallel"
+        assert tk.bwd_route(r, k, v, w, v, None, chunk) == "per-head"
+    assert tk.bwd_route(r, k, v, w, v, None, 64) == "chunk-parallel"
+    r10 = torch.zeros((1, 250, 2, 32))
+    assert tk.route(r10, r10, r10, r10, 10) == "per-head"
+    for chunk in (64, 16):
+        assert tk.route(r, k, v[..., :28].contiguous(), w, chunk) == \
+            "per-head"
     flat = torch.zeros(r.numel() + 1)
     shifted = flat[1:].view(r.shape)
-    assert tk.route(shifted, k, v, w, 64) == "per-head"
+    for chunk in (64, 16):
+        assert tk.route(shifted, k, v, w, chunk) == "per-head"
+
+
+# --------------------------------------------------------------------------
+# the tile-parallel route of csrc/wkv6.cu, emulated in plain torch
+# --------------------------------------------------------------------------
+
+def tile_walk(r, k, v, w, u, S0, chunk):
+    """The kernel's tile-parallel route in f32, at a chunk L dividing 64:
+    the state pass over 64-row tiles (the last ragged: T % 64 rows), LW by
+    the blocked scan from each tile's start, U = K2^T V and D = e^{LW_end};
+    the prefix over tiles (its last state is the output S); then per tile,
+    from its state: LW inside each chunk (16-row segments summed in order
+    from 0 at each chunk's first row, a 32-row chunk's second segment plus
+    its first's total), the chunks' own products masked to m < t inside a
+    chunk over the whole tile, and the walk over the chunks, y += (r
+    e^{LWp}) S_c and S <- e^{LW_end} S + K2^T V."""
+    B, T, H, K = r.shape
+    L = chunk
+    assert SUB % L == 0 and T % L == 0
+    f = lambda x: x.permute(0, 2, 1, 3)                     # (B,H,T,.)
+    r_, k_, v_, w_ = (f(x) for x in (r, k, v, w))
+    y = torch.empty_like(v_)
+    bonus = (r_ * u[None, :, None] * k_).sum(-1, keepdim=True)
+    S = S0
+    for t0 in range(0, T, SUB):
+        n = min(SUB, T - t0)
+        rt, kt, vt, wt = (x[:, :, t0:t0 + n] for x in (r_, k_, v_, w_))
+        pad = lambda x: torch.cat(
+            [x, x.new_zeros(B, H, SUB - n, x.shape[-1])], 2)
+        wseg = pad(wt).reshape(B, H, SUB // SEG, SEG, K)
+        local = wseg.cumsum(3)
+        # the state pass: the tile's LW by the blocked scan
+        base = torch.cat([torch.zeros(B, H, 1, K),
+                          local[:, :, :-1, -1].cumsum(2)], 2)
+        LWt = (base[:, :, :, None] + local).reshape(B, H, SUB, K)[:, :, :n]
+        LWe = LWt[:, :, -1]
+        U = (kt * torch.exp(LWe[:, :, None] - LWt)).transpose(-1, -2) @ vt
+        S_tile = S
+        S = torch.exp(LWe)[..., None] * S + U                # the prefix
+        # the output pass: LW inside each chunk
+        lw = torch.zeros(B, H, SUB, K)
+        for i in range(SUB):
+            seg_start = i % SEG == 0
+            prev = lw[:, :, i - 1] if i % L and not seg_start else 0.0
+            lw[:, :, i] = prev + pad(wt)[:, :, i]
+        if L > SEG:
+            lw = lw.reshape(B, H, SUB // SEG, SEG, K)
+            lw[:, :, 1::2] = lw[:, :, 0::2, -1:] + lw[:, :, 1::2]
+            lw = lw.reshape(B, H, SUB, K)
+        lw = lw[:, :, :n]
+        c0 = torch.arange(n) // L * L
+        Z, E = lw[:, :, c0 + L // 2], lw[:, :, c0 + L - 1]
+        lwp = lw - wt
+        Q = rt * torch.exp((lwp - Z).clamp(-30, 30))
+        Kf = kt * torch.exp((Z - lw).clamp(-30, 30))
+        R, K2 = rt * torch.exp(lwp), kt * torch.exp(E - lw)
+        ti = torch.arange(n)
+        mask = (ti[None, :] < ti[:, None]) & (c0[None, :] == c0[:, None])
+        yt = (Q @ Kf.transpose(-1, -2)).masked_fill(~mask, 0.0) @ vt
+        Sc = S_tile
+        for c in range(0, n, L):
+            rows = slice(c, c + L)
+            yt[:, :, rows] += R[:, :, rows] @ Sc
+            Sc = (torch.exp(lw[:, :, c + L - 1])[..., None] * Sc
+                  + K2[:, :, rows].transpose(-1, -2) @ vt[:, :, rows])
+        y[:, :, t0:t0 + n] = yt + bonus[:, :, t0:t0 + n] * vt
+    return y.permute(0, 2, 1, 3), S
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("case", ["clamp", "clip"])
+def test_tile_walk_emulation_matches_jax(case, chunk):
+    """The tile-parallel route's decomposition computes JAX's chunked form
+    at every chunk that divides 64, within 1e-4 of max |y| and of max |S|,
+    on T = 224 (three tiles and a ragged one of 32 rows), from a state.
+    Decays on the -8 clamp (64 rows span e^{-512}: every value finite,
+    though a decay factored across a tile would overflow f32) and the
+    2.0-shift decays, where the clip binds inside chunks of 8 and more."""
+    B, T, H, K = 2, 224, 2, 16
+    arrs = wkv_inputs(chunk + T, B, T, H, K, decay_shift=2.0, state=True)
+    if case == "clamp":
+        arrs[3] = np.full_like(arrs[3], -8.0)
+    (jr, jk_, jv, jw, ju, jS), targs = both(arrs)
+    y, S = tile_walk(*targs, chunk)
+    assert torch.isfinite(y).all() and torch.isfinite(S).all()
+    jy, jS2 = jrwkv.wkv_chunked(jr, jk_, jv, jw, ju, jS, chunk=chunk)
+    assert_rel_close(y, jy, 1e-4, "y")
+    assert_rel_close(S, jS2, 1e-4, "S")
