@@ -367,7 +367,8 @@ FLEET_COMPACT, FLEET_STREAM_N_MAX = 0.6, 1024
 # f32-tier state (bf16 weights, f32 gradients and accumulator, f32 m, v
 # and master) and the functional update's second copy fit the card (its
 # 32 layers, 7.6 B parameters, would not): at T = 256 the model's chunk
-# rule gives 256, so every WKV is the plain recurrence and no kernel runs
+# rule gives 256 >= T, so every WKV runs the kernels at chunk 1 (the
+# recurrence's function), held to the same step on wkv_recurrent
 LOSS_ARCH, LOSS_B, LOSS_S = "qwen3-0.6b", 4, 1024
 TRAIN_ARCH, TRAIN_LAYERS, TRAIN_B, TRAIN_T = "rwkv6-7b", 2, 2, 256
 TRAIN_ACCUM, TRAIN_STEPS = 2, 8
@@ -377,24 +378,43 @@ TRAIN_ACCUM, TRAIN_STEPS = 2, 8
 # ragged bf16 shapes at head widths 128 and 64 (the tensor-core route,
 # 1,000 rows: no multiple of its 64- or 128-row tiles); wkv6 (B, T, H, K, chunk, decay shift, S0, a
 # cotangent on the final state): the RWKV6-7B prefill and train shapes at
-# chunk 256 (the chunk-parallel forward and backward), the per-head routes'
-# chunk 16 at T = 1,040, and decays that saturate the clips (shift 2.0)
+# chunk 256 (the chunk-parallel forward and backward); its training
+# lengths of 1,023, 1,000, 1,040 and 992 tokens (chunks 1, 8, 16 and 32:
+# the tile-parallel routes, each with a ragged last tile of 63, 40, 16 and
+# 32 rows), each also through the per-head backward on the same inputs;
+# decays that saturate the clips (shift 2.0) at chunk 256 and at chunk 4
+# (tile-parallel)
 FLASH_BWD_RAGGED = (1, 1000, 4, 2, 32)
 FLASH_BWD_TC_RAGGED = ((1, 1000, 4, 2, 128), (1, 1000, 4, 4, 64))
 WKV_BWD_CASES = ((4, 1024, 64, 64, 256, -0.6, False, False),
                  (2, 1024, 64, 64, 256, -0.6, True, True),
+                 (2, 1023, 64, 64, 1, -0.6, True, True),
+                 (2, 1000, 64, 64, 8, -0.6, True, True),
                  (2, 1040, 64, 64, 16, -0.6, False, True),
+                 (2, 992, 64, 64, 32, -0.6, True, True),
                  (2, 512, 8, 64, 256, 2.0, True, True),
                  (2, 300, 4, 64, 4, 2.0, True, True))
+# the kernels of each wkv6_bwd route (csrc/wkv6_bwd.cu)
+WKV_BWD_KERNELS = {
+    "chunk-parallel": ["wkv6_bwd_g<false>", "wkv6_bwd_prefix<1>",
+                       "wkv6_bwd_main", "wkv6_bwd_fixup"],
+    "tile-parallel": ["wkv6_bwd_g<true>", "wkv6_bwd_prefix<8>",
+                      "wkv6_bwd_tile_walk", "wkv6_bwd_tile",
+                      "wkv6_bwd_tile_du"],
+    "per-head": ["wkv6_bwd_states", "wkv6_bwd"]}
 WKV_BWD_MAIN = (2, 1024, 64, 64, 256)
 # (e) train steps through both directions of the kernels, 2 microbatches,
 # remat full, the f32 state tier, on one batch: Qwen3-0.6B at full width
 # and depth, B 4 x T 1,024; RWKV6-7B at full width and TRAIN_LAYERS layers
 # (the cut of (c)), B 2 x T 1,024 (chunk 256 < T: the chunk-parallel
-# forward and the backward kernels); then the two reduced configurations
-# (f32) at B 2 x T 512, a grad step on the card against the CPU's
-KERNEL_TRAIN = (("qwen3-0.6b", None, 4, 1024), ("rwkv6-7b", TRAIN_LAYERS, 2,
-                                                1024))
+# forward and backward) and B 2 x T 1,023 (chunk 1: the tile-parallel
+# ones), the latter also against the same grad step with the backward on
+# the per-head route; then the two reduced configurations (f32) at B 2 x
+# T 512, a grad step on the card against the CPU's
+KERNEL_TRAIN = (("qwen3-0.6b", None, 4, 1024),
+                ("rwkv6-7b", TRAIN_LAYERS, 2, 1024),
+                ("rwkv6-7b", TRAIN_LAYERS, 2, 1023))
+TILE_TRAIN_T = 1023
 KERNEL_TRAIN_STEPS, REDUCED_B, REDUCED_T = 4, 2, 512
 # the training launcher (phase 12): ``repro_torch.launch.train.main`` on
 # Qwen3-0.6B at full width and depth (remat full, f32 state tier), B 4 x T
@@ -4098,9 +4118,62 @@ def train_loss_check(flash, device="cuda"):
     return cfg, params, batch, sum(launches.values())
 
 
+@contextlib.contextmanager
+def recurrent_wkv():
+    """``time_mix``'s WKV at 2 <= T <= chunk (the wrapper at chunk 1) on
+    the plain recurrence ``wkv_recurrent`` instead, as before the kernels
+    took it: a step on the card with no WKV kernel at that length."""
+    from repro_torch.kernels.rwkv6 import kernel as wk
+    from repro_torch.models import rwkv
+
+    def wkv(r, k, v, w, u, *, chunk=64, S0=None):
+        if chunk == 1:
+            return rwkv.wkv_recurrent(r, k, v, w, u, S0)
+        return saved(r, k, v, w, u, chunk=chunk, S0=S0)
+    saved = wk.wkv6
+    wk.wkv6 = wkv
+    try:
+        yield
+    finally:
+        wk.wkv6 = saved
+
+
+@contextlib.contextmanager
+def forced_bwd_route(how):
+    """Every ``wkv6_bwd`` call on route ``how`` (the per-head route takes
+    any chunk)."""
+    from repro_torch.kernels.rwkv6 import kernel as wk
+    saved = wk.bwd_route
+    wk.bwd_route = lambda *a: how
+    try:
+        yield
+    finally:
+        wk.bwd_route = saved
+
+
+def _step_agreement(label, a, b, loss_rel, leaf_rel):
+    """A grad step's loss and gradients against another's: the loss within
+    ``loss_rel`` relative, every leaf within ``leaf_rel`` of its largest
+    |g|; returns (loss rel, worst leaf rel)."""
+    (ga, la), (gb, lb) = a, b
+    rel = float((la.float() - lb.float()).abs() / lb.float().abs())
+    worst, at = max((float((x.float() - y.float()).abs().max()
+                           / y.float().abs().max().clamp_min(1e-30)), i)
+                    for i, (x, y) in enumerate(_pairs(ga, gb)))
+    same = sum(bitwise(x, y) for x, y in _pairs(ga, gb))
+    print(f"  {label}: loss {float(la)!r} / {float(lb)!r} (rel {rel!r}), "
+          f"{same} of {len(list(_leaves(ga)))} gradient leaves bit for bit, "
+          f"worst leaf {at} at {worst!r} of its largest |g|")
+    if not (rel <= loss_rel and worst <= leaf_rel):
+        raise AssertionError(f"{label}: loss rel {rel}, worst leaf {worst}")
+    return rel, worst
+
+
 def train_step_check(counters, device="cuda"):
-    """(c) the full-width RWKV6-7B train step at T 256, where no kernel
-    runs, and (d) AdamW against the CPU."""
+    """(c) the full-width RWKV6-7B train step at T 256, whose WKV runs the
+    kernels at chunk 1 (T <= chunk), held to the same step with the WKV on
+    the plain recurrence, and (d) AdamW against the CPU."""
+    from repro_torch.kernels.rwkv6 import kernel as wk
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import (_stack_micro, make_grad_step,
                                           make_train_step)
@@ -4119,15 +4192,18 @@ def train_step_check(counters, device="cuda"):
           f"{get_config(TRAIN_ARCH).n_layers} layers: depth cut; d "
           f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}), "
           f"{n_params} parameters; B {B}, T {T} (WKV chunk {chunk}: T <= "
-          f"chunk, the plain recurrence), grad_accum {cfg.grad_accum}, "
+          f"chunk, the kernels at chunk 1), grad_accum {cfg.grad_accum}, "
           f"remat {cfg.remat}")
     if T > chunk:
-        raise AssertionError("phase 11 (c): the train step would reach wkv6")
+        raise AssertionError("phase 11 (c): the train step would take the "
+                             f"wrapper at chunk {chunk}")
     batch = lm_batch(cfg, gen, B, T, device)
     micro = _stack_micro(batch, cfg.grad_accum)
     mbs = [{k: v[i] for k, v in micro.items()}
            for i in range(cfg.grad_accum)]
-    counts0 = [fn.launches for fn in counters]
+    counts0 = {fn.__name__: fn.launches for fn in counters}
+    routes0 = (dict(wk.wkv6.route_launches),
+               dict(wk.wkv6_bwd.route_launches))
 
     # remat: the loss bit for bit, the gradients within one bf16 ULP of
     # each leaf's largest |g| (each gradient is rounded to the parameters'
@@ -4157,7 +4233,37 @@ def train_step_check(counters, device="cuda"):
         if not worst <= 1.0:
             raise AssertionError(f"phase 11 (c): remat={remat} gradients "
                                  f"depart by {worst} bf16 ULPs")
-    del grads
+    # the same grad step with the WKV on the plain recurrence, as before
+    # the kernels took T <= chunk.  In f32 (the weights cast, the same
+    # batch) only the WKV's f32 sums differ: within 1e-3 of each leaf's
+    # largest |g| (u's and w0's gradients sum 256 tokens' terms that cancel
+    # to a few 1e-3 of them).  In the phase's bf16 the activations after
+    # the WKV round either way and the layers after them see other inputs
+    # (u's gradient moved 1.8 % there, its sum cancelling): within 5e-2,
+    # the loss within 1e-3
+    t0 = time.perf_counter()
+    with recurrent_wkv():
+        g, loss, _ = make_grad_step(cfg.replace(remat="none"),
+                                    LOCAL)(params, mbs[0])
+        torch.cuda.synchronize()
+    print(f"  grad step remat=none on wkv_recurrent: "
+          f"{time.perf_counter() - t0!r} s")
+    recurrence = {"bf16": _step_agreement(
+        "bf16: kernels at chunk 1 vs wkv_recurrent", grads["none"],
+        (g, loss), 1e-3, 5e-2)}
+    del grads, g
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32",
+                        remat="none")
+    p32 = tree_map(lambda t: t.float(), params)
+    step32 = make_grad_step(cfg32, LOCAL)
+    g32, loss32, _ = step32(p32, mbs[0])
+    with recurrent_wkv():
+        g, loss, _ = step32(p32, mbs[0])
+    recurrence["f32"] = _step_agreement(
+        "f32: kernels at chunk 1 vs wkv_recurrent", (g32, loss32),
+        (g, loss), 1e-5, 1e-3)
+    del g32, g, p32
+    torch.cuda.empty_cache()
 
     # the accumulated gradient: one f32-tier train step against AdamW on
     # the mean of the two microbatches' grad steps
@@ -4234,13 +4340,23 @@ def train_step_check(counters, device="cuda"):
         idle_warm = 1.0 - busy / (steps["f32"]["step_ms"] / 1e3)
         print(f"  device busy over the unprofiled f32 step "
               f"({steps['f32']['step_ms']!r} ms): idle_share={idle_warm!r}")
-    if [fn.launches for fn in counters] != counts0:
-        raise AssertionError("phase 11 (c): a kernel launched in the train "
-                             "step")
-    print("  the model kernels' launch counters unchanged, forward and "
-          "backward")
+    moved = {fn.__name__: fn.launches - counts0[fn.__name__]
+             for fn in counters}
+    by_route = ({h: wk.wkv6.route_launches[h] - routes0[0][h]
+                 for h in routes0[0]},
+                {h: wk.wkv6_bwd.route_launches[h] - routes0[1][h]
+                 for h in routes0[1]})
+    print(f"  launches in (c): {moved}; wkv6 by route {by_route[0]}, "
+          f"wkv6_bwd by route {by_route[1]}")
+    if not (moved["wkv6"] > 0 and moved["wkv6_bwd"] > 0
+            and by_route[0]["tile-parallel"] == moved["wkv6"]
+            and by_route[1]["tile-parallel"] == moved["wkv6_bwd"]
+            and moved["flash_attention"] == moved["flash_attention_bwd"] == 0):
+        raise AssertionError("phase 11 (c): the T 256 step did not run the "
+                             "tile-parallel wkv6 kernels both ways alone")
     adamw_against_cpu(cfg, params, mean)
-    return dict(params=n_params, steps=steps, idle=idle, idle_warm=idle_warm)
+    return dict(params=n_params, steps=steps, idle=idle, idle_warm=idle_warm,
+                recurrence=recurrence, launches=moved)
 
 
 def adamw_against_cpu(cfg, params, grads):
@@ -4443,18 +4559,21 @@ def flash_bwd_check(gen):
 
 def wkv_bwd_check(gen):
     """(b) wkv6: the six gradients against autograd of ``wkv_chunked``;
-    two calls bit for bit; one backward launch a call; each case's backward
-    route (``kernel.bwd_route``: chunk 256 chunk-parallel, chunks 16 and 4
-    per-head); at each shape the kernels' ms by CUDA events and in a CUDA
-    graph, and autograd's of the plain version; at the train shape also the
-    backward given the forward's saved scratch (as a train step runs it)
-    and each pass alone (the forward's state and prefix passes, which a call
-    without that scratch relaunches, then ``bwd_pass_launchers``).  The
-    row's own numbers are the train shape's."""
+    two calls bit for bit; one backward launch a call, on its route
+    (``kernel.bwd_route``: chunk 256 chunk-parallel, chunks 1-32
+    tile-parallel) by ``wkv6_bwd.route_launches``; at each shape the
+    kernels' ms by CUDA events and in a CUDA graph, and autograd's of the
+    plain version; from the forward's saved scratch (as a train step runs
+    it) and each pass alone at the train shape and every tile-parallel
+    case; at the tile-parallel cases the per-head backward on the same
+    inputs (``bwd_route_launcher``), held to the plain version and to the
+    tile route, timed the same way, and each one's peak memory.  The row's
+    own numbers are the train shape's."""
     from repro_torch.kernels.rwkv6 import kernel as wk
     from repro_torch.kernels.rwkv6.ref import chunked_reference
     print("phase 11 (b): wkv6's backward kernels against autograd of the "
           "chunked form")
+    names = ("dr", "dk", "dv", "dw", "du", "dS0")
     errs, timed = [], {}
     for B, T, H, K, L, shift, with_state, final in WKV_BWD_CASES:
         r, k, v, w, u, S0 = wkv_inputs(gen, B, T, H, K, shift, True)
@@ -4466,7 +4585,7 @@ def wkv_bwd_check(gen):
         label = (f"wkv6 bwd B={B} T={T} H={H} K={K} chunk={L} shift={shift}"
                  f"{' S0' if with_state else ''}"
                  f"{' dS' if final else ''} route={how}")
-        if (L % 64 == 0) != (how == "chunk-parallel"):
+        if how != wkv_route_of(L):
             raise AssertionError(f"{label}: chunk {L} took the {how} "
                                  "backward route")
 
@@ -4476,11 +4595,13 @@ def wkv_bwd_check(gen):
             y, S = wk.wkv6(*leaves[:5], chunk=L, S0=leaves[5])
             outs, cots = ((y, S), (dy, dS)) if final else ((y,), (dy,))
             return torch.autograd.grad(outs, leaves, cots)
-        n = (wk.wkv6.launches, wk.wkv6_bwd.launches)
+        n = (wk.wkv6.launches, wk.wkv6_bwd.launches,
+             wk.wkv6_bwd.route_launches[how])
         got = run()
-        if (wk.wkv6.launches - n[0], wk.wkv6_bwd.launches - n[1]) != (1, 1):
+        if (wk.wkv6.launches - n[0], wk.wkv6_bwd.launches - n[1],
+                wk.wkv6_bwd.route_launches[how] - n[2]) != (1, 1, 1):
             raise AssertionError(f"{label}: forward / backward launches "
-                                 "did not move by one each")
+                                 "did not move by one each on the route")
         if not all(bitwise(a, b) for a, b in zip(got, run())):
             raise AssertionError(f"{label}: two backward calls differ")
         leaves = [t.clone().requires_grad_(True) for t in (r, k, v, w, u, S0)]
@@ -4489,21 +4610,18 @@ def wkv_bwd_check(gen):
         want = torch.autograd.grad(outs, leaves, cots, retain_graph=True)
         # the same f32 formulas summed in another order: within 1e-4 of
         # each gradient's largest magnitude, as phase 1c holds y and S
-        for name, a, b in zip(("dr", "dk", "dv", "dw", "du", "dS0"), got,
-                              want):
+        for name, a, b in zip(names, got, want):
             errs.append(check_close(a, b, 1e-4 * float(b.abs().max()), 0.0,
                                     f"{label} {name}"))
-        t_k = cuda_ms(lambda: wk.wkv6_bwd(r, k, v, w, u, S0, dy, dS,
-                                          chunk=L), 10)
-        t_kg = graph_ms(lambda: wk.wkv6_bwd(r, k, v, w, u, S0, dy, dS,
-                                            chunk=L), 10)
-        t_p = grad_ms(outs, leaves, cots, 3)
-        n_c = T // L
+        call = lambda: wk.wkv6_bwd(r, k, v, w, u, S0, dy, dS, chunk=L)
+        t_k = cuda_ms(call, 10)
+        t_kg = graph_ms(call, 10)
+        # autograd of the plain version: about 3 s a call at chunk 1
+        t_p = grad_ms(outs, leaves, cots, 3 if T // L <= 128 else 1)
         # read r, k, v, w, dy (and u, S0, dS) once, write dr, dk, dv, dw
-        # (and du, dS0); the state scratch written and read once
+        # (and du, dS0): no state kept a chunk, which no route needs
         moved = (nbytes(*(t for t in (r, k, v, w, u, S0, dy, dS)
-                          if t is not None)) + nbytes(*got)
-                 + 2 * B * H * n_c * K * K * 4)
+                          if t is not None)) + nbytes(*got))
         ops = peaks().wkv_bwd_ops(B, T, H, K, L)
         elem = 30 * B * T * H * K
         t_ops = (3 * (ops - elem) / peaks().TF32_FLOPS
@@ -4511,20 +4629,19 @@ def wkv_bwd_check(gen):
         b_ms, b_by = max((moved / peaks().HBM_BW * 1e3, "bytes"),
                          (t_ops, "operations"))
         f32_ms, _ = bound(moved, ops, peaks().FP32_FLOPS)
+        case = dict(kernels=how, ms=t_k, graph_ms=t_kg, plain_ms=t_p,
+                    bound_ms=b_ms, bound_by=b_by)
         print(f"  wkv6_bwd {(B, T, H, K)} chunk {L} route={how}: ms={t_k!r} "
               f"graph_ms={t_kg!r} plain_ms={t_p!r} (autograd) "
               f"bound_ms={b_ms!r} ({b_by}; products as split TF32) "
               f"f32_rate_bound_ms={f32_ms!r}")
-        timed[label] = dict(kernels=how, ms=t_k, graph_ms=t_kg,
-                            plain_ms=t_p, bound_ms=b_ms, bound_by=b_by)
-        if (B, T, H, K, L) == WKV_BWD_MAIN:
-            main = timed[label]
+        if (B, T, H, K, L) == WKV_BWD_MAIN or how == "tile-parallel":
             # the backward as a train step runs it, from the forward's
             # saved scratch; and each pass alone
             _, _, saved = wk._forward(r, k, v, w, u, S0, L)
-            main["saved_ms"] = cuda_ms(lambda: wk.wkv6_bwd(
+            case["saved_ms"] = cuda_ms(lambda: wk.wkv6_bwd(
                 r, k, v, w, u, S0, dy, dS, chunk=L, saved=saved), 10)
-            main["saved_graph_ms"] = graph_ms(lambda: wk.wkv6_bwd(
+            case["saved_graph_ms"] = graph_ms(lambda: wk.wkv6_bwd(
                 r, k, v, w, u, S0, dy, dS, chunk=L, saved=saved), 10)
             fwd = wk.pass_launchers(r, k, v, w, u, chunk=L, S0=S0)
             passes = {f"forward {name}": cuda_ms(fwd[name], 10)
@@ -4532,16 +4649,55 @@ def wkv_bwd_check(gen):
             passes.update({name: cuda_ms(fn, 10) for name, fn in
                            wk.bwd_pass_launchers(r, k, v, w, u, dy, dS,
                                                  chunk=L, S0=S0).items()})
-            main["passes_ms"] = passes
+            case["passes_ms"] = passes
+            del saved
             print(f"  wkv6_bwd {(B, T, H, K)} chunk {L} from the forward's "
-                  f"saved scratch: ms={main['saved_ms']!r} graph_ms="
-                  f"{main['saved_graph_ms']!r}; each pass alone (ms): "
+                  f"saved scratch: ms={case['saved_ms']!r} graph_ms="
+                  f"{case['saved_graph_ms']!r}; each pass alone (ms): "
                   f"{passes!r}")
+        if how == "tile-parallel":
+            # the per-head backward, which took these chunks before, on the
+            # same inputs: held to the plain version and to the tile route
+            per_head = wk.bwd_route_launcher(r, k, v, w, u, dy, dS, chunk=L,
+                                             how="per-head", S0=S0)
+            ph = per_head()
+            for name, a, b, c in zip(names, ph, want, got):
+                scale = 1e-4 * float(b.abs().max())
+                errs.append(check_close(a, b, scale, 0.0,
+                                        f"{label} per-head {name}"))
+                check_close(c, a, scale, 0.0,
+                            f"{label} tile-parallel vs per-head {name}")
+            case["per_head_ms"] = cuda_ms(per_head, 3)
+            case["per_head_graph_ms"] = graph_ms(per_head, 3)
+            del per_head, ph
+            torch.cuda.empty_cache()
+            # each route's peak over a call that allocates all it needs:
+            # the per-head's chunk-start scratch (B, H, T / L, K, K) against
+            # the tile route's tile states and cotangents (B, H, ceil(T /
+            # 64), K, K)
+            fresh = lambda: wk.bwd_route_launcher(
+                r, k, v, w, u, dy, dS, chunk=L, how="per-head", S0=S0)()
+            for key, fn in (("peak_gb", call), ("per_head_peak_gb", fresh)):
+                torch.cuda.synchronize()
+                base_b = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                fn()
+                torch.cuda.synchronize()
+                case[key] = (torch.cuda.max_memory_allocated() - base_b) / 1e9
+            torch.cuda.empty_cache()
+            print(f"  wkv6_bwd {(B, T, H, K)} chunk {L} per-head route: "
+                  f"ms={case['per_head_ms']!r} graph_ms="
+                  f"{case['per_head_graph_ms']!r}; peak over a call (GB): "
+                  f"tile-parallel {case['peak_gb']!r}, per-head "
+                  f"{case['per_head_peak_gb']!r}")
+        timed[label] = case
+        if (B, T, H, K, L) == WKV_BWD_MAIN:
+            main = case
     return dict(name="wkv6_bwd", route="cuda",
                 source="src/repro_torch/csrc/wkv6_bwd.cu",
                 replaces="src/repro/kernels/rwkv6/kernel.py:73",
                 backward_of="wkv6", max_abs_err=max(errs), library_ms=None,
-                **main, cases=timed)
+                kernels_by_route=WKV_BWD_KERNELS, **main, cases=timed)
 
 
 def _grads_bitwise(label, a, b):
@@ -4647,6 +4803,60 @@ def kernel_train(arch, layers, B, T, kernels):
                 idle=idle, idle_warm=idle_warm, launches=got)
 
 
+def tile_step_vs_per_head():
+    """(e) RWKV6-7B's grad step at B 2 x T 1,023 (chunk 1: the
+    tile-parallel forward and backward) against the same step with the
+    backward forced onto the per-head route: the loss bit for bit (the same
+    forward), the gradients within the bf16 rounding that f32 sums in
+    another order can flip; each step's backward launches on its route."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv6 import kernel as wk
+    from repro_torch.launch.steps import _stack_micro, make_grad_step
+    from repro_torch.models import LOCAL
+    from repro_torch.models import init_params
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS,
+                                         grad_accum=TRAIN_ACCUM,
+                                         remat="full")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    params = init_params(cfg, gen, device="cuda")
+    batch = lm_batch(cfg, gen, TRAIN_B, TILE_TRAIN_T)
+    mb = {k: v[0] for k, v in _stack_micro(batch, cfg.grad_accum).items()}
+    step = make_grad_step(cfg, LOCAL)
+    outs, walls = {}, {}
+    for how in ("tile-parallel", "per-head"):
+        n0 = dict(wk.wkv6_bwd.route_launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if how == "per-head":
+            with forced_bwd_route(how):
+                g, loss, _ = step(params, mb)
+        else:
+            g, loss, _ = step(params, mb)
+        torch.cuda.synchronize()
+        walls[how] = time.perf_counter() - t0
+        moved = {h: wk.wkv6_bwd.route_launches[h] - n0[h] for h in n0}
+        if moved[how] != cfg.n_layers or sum(moved.values()) != moved[how]:
+            raise AssertionError(f"phase 11 (e) T {TILE_TRAIN_T}: backward "
+                                 f"launches by route {moved}, expected "
+                                 f"{cfg.n_layers} on {how}")
+        outs[how] = (g, loss)
+    print(f"  {TRAIN_ARCH} ({cfg.n_layers} layers) grad step B {TRAIN_B} x "
+          f"T {TILE_TRAIN_T}, one microbatch: walls (s) {walls}")
+    if not bitwise(outs["tile-parallel"][1], outs["per-head"][1]):
+        raise AssertionError("phase 11 (e): the loss moved with the "
+                             "backward's route")
+    # the same forward; the backwards' f32 sums differ in their last bits,
+    # which flip bf16 roundings in the chains after the WKV (the token
+    # shift's mixes round their gradients at each bf16 product): 2 ULPs of
+    # a leaf's largest |g| at worst on the card (2^-6.9), within 2^-5
+    rel, worst = _step_agreement(
+        f"T {TILE_TRAIN_T} tile-parallel backward vs per-head",
+        outs["tile-parallel"], outs["per-head"], 0.0, 2.0 ** -5)
+    del outs, params
+    torch.cuda.empty_cache()
+    return dict(walls=walls, worst_leaf_rel=worst)
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """The model kernels' wrappers swapped for their plain versions, so
@@ -4744,11 +4954,21 @@ def phase_train(counters):
     t0 = time.perf_counter()
     for fn in counters:
         fn.launches = 0
+    for fn in (wk.wkv6, wk.wkv6_bwd):
+        fn.route_launches = dict.fromkeys(fn.route_launches, 0)
     kernels = {"qwen3-0.6b": (fk.flash_attention, fk.flash_attention_bwd),
                "rwkv6-7b": (wk.wkv6, wk.wkv6_bwd)}
     out["kernel_train"] = [kernel_train(arch, layers, B, T, kernels[arch])
                            for arch, layers, B, T in KERNEL_TRAIN]
     e_counts = {fn.__name__: fn.launches for fn in counters}
+    e_routes = (dict(wk.wkv6.route_launches),
+                dict(wk.wkv6_bwd.route_launches))
+    print(f"  phase 11 (e) wkv6 launches by route {e_routes[0]}, wkv6_bwd "
+          f"{e_routes[1]}")
+    if not (e_routes[0]["tile-parallel"] and e_routes[1]["tile-parallel"]):
+        raise AssertionError("phase 11 (e): the T 1,023 step did not run "
+                             "the tile-parallel kernels both ways")
+    out["tile_vs_per_head"] = tile_step_vs_per_head()
     for arch in ("qwen3-0.6b", "rwkv6-7b"):
         reduced_against_cpu(arch)
     walls["e"] = time.perf_counter() - t0
@@ -5606,7 +5826,12 @@ def main() -> int:
               f"peak_gb={res['peak_gb']!r} loss {res['losses'][0]!r} -> "
               f"{res['losses'][-1]!r}")
     print(f"  train f32 step idle_share={train['idle']!r} (profiled), "
-          f"{train['idle_warm']!r} (against the unprofiled steps)")
+          f"{train['idle_warm']!r} (against the unprofiled steps); the T "
+          f"{TRAIN_T} step's WKV on the kernels at chunk 1 against "
+          f"wkv_recurrent (loss rel, worst leaf rel): "
+          f"{train['recurrence']!r}, launches {train['launches']}")
+    print(f"  train T {TILE_TRAIN_T} grad step, tile-parallel backward "
+          f"against per-head: {train['tile_vs_per_head']!r}")
     for res in train["kernel_train"]:
         print(f"  train through the kernels {res['arch']} ({res['layers']} "
               f"layers, {res['params']} parameters), B {res['B']} x T "

@@ -814,19 +814,6 @@ wkv6_output(const float* __restrict__ r, const float* __restrict__ k,
   }
 }
 
-// One step of a reduce-scatter over lane bit H: of x[0 .. 2H), the lane
-// keeps the upper half if its bit H is set, else the lower, adds its
-// partner's copy of it and leaves it in x[0 .. H).
-template <int H>
-__device__ __forceinline__ void halve(float* x, int lane) {
-  const bool hi = lane & H;
-#pragma unroll
-  for (int m = 0; m < H; ++m) {
-    const float send = hi ? x[m] : x[m + H];
-    x[m] = (hi ? x[m + H] : x[m]) + __shfl_xor_sync(0xffffffffu, send, H);
-  }
-}
-
 // Step 4 of wkv6_tile_output, the walk over the tile's first ``rows`` rows
 // in chunks of L.  Thread (warp, lane) holds the 4 x 4 block s of the
 // state at rows 4 kg (kg = lane % 16) and columns 4 vg (vg = 2 warp + lane

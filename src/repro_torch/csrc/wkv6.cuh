@@ -1,9 +1,10 @@
 // The pieces that csrc/wkv6.cu's chunk- and tile-parallel forwards and
-// csrc/wkv6_bwd.cu's chunk-parallel backward share: the 64-row sub-tile (the
-// tile-parallel route's tile) and its 68-float shared rows, the TF32
-// tensor-core product split in three (split, mma3), cp.async tile loads,
-// and the blocked scan of the log decays (load_w, scan_rows), so that a
-// row's LW has the same bits in every kernel that rebuilds it.
+// csrc/wkv6_bwd.cu's chunk- and tile-parallel backwards share: the 64-row
+// sub-tile (the tile-parallel routes' tile) and its 68-float shared rows,
+// the TF32 tensor-core product split in three (split, mma3), cp.async tile
+// loads, the blocked scan of the log decays (load_w, scan_rows), so that a
+// row's LW has the same bits in every kernel that rebuilds it, and the
+// walks' reduce-scatter over a half-warp (halve).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -137,6 +138,20 @@ __device__ __forceinline__ void scan_rows(const float* wv, float* seg_sum,
   for (int s = 0; s < seg; ++s) base += seg_sum[s * kTS + ch];
 #pragma unroll
   for (int t = 0; t < kSeg; ++t) lw[t] = base + lw[t];
+}
+
+// One step of a reduce-scatter over lane bit H: of x[0 .. 2H), the lane
+// keeps the upper half if its bit H is set, else the lower, adds its
+// partner's copy of it and leaves it in x[0 .. H).  After H = 8, 4, 2, 1
+// lane j of a half-warp holds the half-warp's sum of x[j] (the walks').
+template <int H>
+__device__ __forceinline__ void halve(float* x, int lane) {
+  const bool hi = lane & H;
+#pragma unroll
+  for (int m = 0; m < H; ++m) {
+    const float send = hi ? x[m] : x[m + H];
+    x[m] = (hi ? x[m + H] : x[m]) + __shfl_xor_sync(0xffffffffu, send, H);
+  }
 }
 
 __device__ __forceinline__ void zero_smem(float* p, int n) {

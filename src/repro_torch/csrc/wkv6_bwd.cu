@@ -37,7 +37,8 @@
 // pair against the function's five), and mma.sync issues TF32 at about half
 // the dense rate.
 //
-// Two routes; the wrapper (kernels/rwkv6/kernel.py: bwd_route) picks one.
+// Three routes, as the forward's; the wrapper (kernels/rwkv6/kernel.py:
+// bwd_route) picks one.
 //
 // Chunk-parallel (L a multiple of 64, K == V a multiple of 4, operands and
 // cotangents 16-byte aligned: the RWKV6 train and prefill chunk of 256).
@@ -80,9 +81,59 @@
 //      totals + dLW_end + [t <= L / 2] dZ; the chunk-0 block also sums du's
 //      (batch, head) partial over the chunks and sub-tiles in reverse.
 //
-// Per-head (any other L, as the 1040- and 300-token prompts' chunks 16 and
-// 4): the CUDA-core kernels of the first port, launched in this order on
-// one stream, one block per (batch, head) each, 256 threads:
+// Tile-parallel (L divides 64, the chunk-parallel route's other
+// conditions: every RWKV6 train length that is no multiple of 64, chunks 1
+// to 32, and the short power-of-two sequences that time_mix runs at chunk
+// 1).  It replaces the per-head kernels below for those chunks, which took
+// B * H blocks, each walking T / L chunks in order twice, every chunk padded
+// to a 64-row sub-tile of f32 products (63/64 padding at L = 1), from a
+// (B, H, T / L, K, V) scratch of chunk-start states (2.1 GB at L = 1 and
+// (2, 1023, 64, 64)).  Bytes bound the function here (about 0.09 ms at
+// (2, 1040, 64, 64): its operands and gradients once), and at L = 1 the
+// walks' multiply-adds below (about 8 K V a row, on the CUDA cores: every
+// row a state step) are the most work there is.  The reverse carry
+// dS'_{c-1} = D_c dS'_c + R_c^T dy_c has no clip, so the chunks of a 64-row
+// tile compose into the tile's own carry: G = (r e^{LWp})^T dy and D =
+// e^{LW_end} over the tile, every exponent <= 0.  The forward's tile
+// scratch (csrc/wkv6.cu, its passes 1 and 2 over ceil(T / 64) tiles, the
+// last ragged) gives each tile's start state and D, which the autograd
+// Function keeps; a call without it relaunches those two passes.  Then
+// five kernels:
+//   1. wkv6_bwd_g<true>: pass 1 above at L = 64 over the tiles (rows
+//      bounded in the ragged one, no carries): G of each tile.
+//   2. wkv6_bwd_prefix<8>: the tiles in reverse, dS'_tile over G, dS0; its
+//      loads 8 tiles ahead of its carries.
+//   3. wkv6_bwd_tile_walk and 4. wkv6_bwd_tile, one block of 16 warps per
+//      (batch, head, tile) each: B * H * ceil(T / 64) blocks, each 64 / L
+//      dependent steps a walk.  Inside a chunk they compute what the plain
+//      version does, with the chunk's own LW, Z and clip; between chunks
+//      they go through the state and its cotangent only, never through a
+//      decay factored across the tile (w down to -8 spans e^{512} over 64
+//      rows, past f32).  The state terms take walks on the CUDA cores,
+//      state in registers and no barrier: pass 3 walks forward from the
+//      tile's start state (dR) and back from its end cotangent (dK2), and
+//      pass 4 back again in the other layout (dv's K2 dS'), beside the
+//      chunks' own products (dA, dQ, dKf, A^T dy) on the tensor cores over
+//      the whole tile at once, masked to one chunk.  dLW_end needs
+//      e^{LW_end} <dS'_c, S_c> at every chunk boundary, where the two walks
+//      of pass 3 run in opposite directions, and no state a chunk may be
+//      kept in device memory (the per-head scratch above): the forward walk
+//      keeps the state at every 8th row that starts a chunk on chip (8 at
+//      most, 128 KB), and the backward walk takes each chunk's dot there,
+//      walking each half of an 8-row window forward again at L < 8 with
+//      its states in registers.  The dot is taken from the two states:
+//      summed instead from per-row terms (<dS'_{c-1}, S_c> - sum R dR + sum
+//      K2 dK2, as the GLA-family backwards do), it cancels where the decays
+//      are strong and lands 2.5 to 7 times further from an f64 evaluation
+//      than JAX's f32 gradient on the -8 clamp
+//      (tests/test_torch_wkv6_backward.py).
+//   5. wkv6_bwd_tile_du: du's (batch, head) partials, the tiles' added in
+//      order.
+//
+// Per-head (any other L: a chunk that neither divides 64 nor is a multiple
+// of it, reached at T >= 32,768; or operands not 16-byte aligned): the
+// CUDA-core kernels of the first port, launched in this order on one
+// stream, one block per (batch, head) each, 256 threads:
 //   1. wkv6_bwd_states walks the chunks in order, as the forward does, and
 //      writes the state at each chunk's start to a (B, H, n, K, V) scratch
 //      that the wrapper allocates (the per-head forward holds its state in
@@ -619,6 +670,7 @@ struct Seq {
   float *carry, *Z, *LWE;
 };
 
+template <bool kTiles>
 __global__ void __launch_bounds__(kThreads, 2)
 wkv6_bwd_g(const float* __restrict__ r, const float* __restrict__ w,
            const float* __restrict__ dy, const float* __restrict__ carry_in,
@@ -628,7 +680,7 @@ wkv6_bwd_g(const float* __restrict__ r, const float* __restrict__ w,
   // r (then R) in buffer 2x, dy in 2x + 1
   auto buf = [&](int x) { return smem + x * kTile; };
 
-  const int n = T / L, nsub = L / kTS;
+  const int n = kTiles ? (T + L - 1) / L : T / L, nsub = L / kTS;
   const int c = blockIdx.x % n, bh = blockIdx.x / n;
   const int h = bh % H, b = bh / H;
   const int tid = threadIdx.x, seg = tid >> 6, ch = tid & 63;
@@ -636,15 +688,16 @@ wkv6_bwd_g(const float* __restrict__ r, const float* __restrict__ w,
   const long long base = ((long long)b * T + (long long)c * L) * row
                          + (long long)h * K;
   const long long chunk = (long long)bh * n + c;
-  const float* carry = carry_in + chunk * nsub * K;
+  const float* carry = kTiles ? nullptr : carry_in + chunk * nsub * K;
+  const int rows = kTiles ? min(kTS, T - c * L) : kTS;   // of sub-tile 0
 
-  if (K < kTS) zero_smem(smem, 4 * kTile);
+  if (K < kTS || rows < kTS) zero_smem(smem, 4 * kTile);
   __syncthreads();
-  load_tile(buf(0), r + base, row, kTS, K);
-  load_tile(buf(1), dy + base, row, kTS, K);
+  load_tile(buf(0), r + base, row, rows, K);
+  load_tile(buf(1), dy + base, row, rows, K);
   cp_commit();
   float wv[kSeg], wn[kSeg], lw[kSeg];
-  load_w(wv, w + base, row, K);
+  load_w(wv, w + base, row, K, rows);
 
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
   const int m0 = 16 * (warp & 3), n0 = 32 * (warp >> 2);
@@ -663,7 +716,8 @@ wkv6_bwd_g(const float* __restrict__ r, const float* __restrict__ w,
       load_w(wn, w + off, row, K);
     }
     cp_commit();
-    scan_rows(wv, seg_sum, ch < K ? carry[s * K + ch] : 0.0f, lw);
+    scan_rows(wv, seg_sum, !kTiles && ch < K ? carry[s * K + ch] : 0.0f,
+              lw);
     cp_wait<1>();
     __syncthreads();
     float* Rs = buf(2 * bs);
@@ -706,7 +760,7 @@ wkv6_bwd_g(const float* __restrict__ r, const float* __restrict__ w,
       if (kk < K && vv < K) Gb[kk * K + vv] = acc[nt][x];
     }
   }
-  if (tid < K) {                 // a sub-tile's 64 loads, then 64 adds
+  if (!kTiles && tid < K) {      // a sub-tile's 64 loads, then 64 adds
     float run = 0.0f;
     for (int s = 0; s < nsub; ++s) {
       const float* wc = w + base + (long long)s * kTS * row + tid;
@@ -725,7 +779,10 @@ wkv6_bwd_g(const float* __restrict__ r, const float* __restrict__ w,
 }
 
 // Pass 2: one thread per (batch, head, state element), the chunks in
-// reverse.
+// reverse, the loads of kAhead chunks issued before their carries (the
+// tile-parallel route's 8 over its tiles; the chunk-parallel route's few
+// chunks keep 1).
+template <int kAhead>
 __global__ void __launch_bounds__(kThreads)
 wkv6_bwd_prefix(float* __restrict__ G, const float* __restrict__ D,
                 const float* __restrict__ dS, float* __restrict__ dS0, int BH,
@@ -736,12 +793,24 @@ wkv6_bwd_prefix(float* __restrict__ G, const float* __restrict__ D,
   const long long bh = idx / KV, e = idx % KV;
   const int kk = (int)(e / K);
   float s = dS ? dS[idx] : 0.0f;
-  for (int c = n - 1; c >= 0; --c) {
-    const long long chunk = bh * n + c;
-    float* p = G + chunk * KV + e;
-    const float gc = *p;
-    *p = s;                        // the cotangent of the chunk's end state
-    s = D[chunk * K + kk] * s + gc;
+  for (int c1 = n - 1; c1 >= 0; c1 -= kAhead) {
+    float gc[kAhead], dc[kAhead];
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      const long long chunk = bh * n + c1 - j;
+      if (c1 - j >= 0) {
+        gc[j] = G[chunk * KV + e];
+        dc[j] = D[chunk * K + kk];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      if (c1 - j >= 0) {
+        // the cotangent of the chunk's end state
+        G[(bh * n + c1 - j) * KV + e] = s;
+        s = dc[j] * s + gc[j];
+      }
+    }
   }
   if (dS0) dS0[idx] = s;
 }
@@ -785,11 +854,13 @@ __device__ __forceinline__ void scan_rows2(const float* wv, float* seg_sum,
 
 // a[nt] (16 x 8 NT) = A B^T for rows row0 .. + 15 of A and rows col0 .. +
 // 8 NT - 1 of B, over the 64 channels of both tiles; kLower keeps column <
-// row, kUpper row < column.  Fragments as mma3's (g = lane / 4, q = lane %
-// 4).
+// row, kUpper row < column, and below L = 64 (a power of two) only the
+// pairs inside one chunk of L rows, (row ^ column) < L.  Fragments as
+// mma3's (g = lane / 4, q = lane % 4).
 template <int MASK, int NT>
 __device__ __forceinline__ void prod_abt(const float* A, const float* B,
-                                         float (*a)[4], int row0, int col0) {
+                                         float (*a)[4], int row0, int col0,
+                                         int L = kTS) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
@@ -817,7 +888,9 @@ __device__ __forceinline__ void prod_abt(const float* A, const float* B,
       for (int x = 0; x < 4; ++x) {
         const int rr = row0 + g + 8 * (x >> 1);
         const int cc = col0 + 8 * nt + 2 * q + (x & 1);
-        if (MASK == kLower ? !(cc < rr) : !(rr < cc)) a[nt][x] = 0.0f;
+        if ((MASK == kLower ? !(cc < rr) : !(rr < cc))
+            || (L < kTS && (rr ^ cc) >= L))
+          a[nt][x] = 0.0f;
       }
   }
 }
@@ -829,13 +902,16 @@ __device__ __forceinline__ void prod_abt(const float* A, const float* B,
 template <int MASK, int NT>
 __device__ __forceinline__ void chain(const float* A, const float* B,
                                       const float* C, float (*acc)[4],
-                                      int row0, int col0) {
+                                      int row0, int col0, int L = kTS) {
   // every column >= every row, or every row >= every column: P = 0
   if (MASK == kLower && row0 + 15 <= col0) return;
   if (MASK == kUpper && row0 >= col0 + 8 * NT - 1) return;
+  // every column before the rows' first chunk, or after their last: P = 0
+  if (L < kTS && MASK == kLower && col0 + 8 * NT - 1 < (row0 & -L)) return;
+  if (L < kTS && MASK == kUpper && col0 > ((row0 + 15) | (L - 1))) return;
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
   float a[NT][4];
-  prod_abt<MASK, NT>(A, B, a, row0, col0);
+  prod_abt<MASK, NT>(A, B, a, row0, col0, L);
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     const float fa[4] = {a[nt][0], a[nt][2], a[nt][1], a[nt][3]};
@@ -1260,8 +1336,632 @@ wkv6_bwd_fixup(const float* __restrict__ Sc, const float* __restrict__ dSc,
   }
 }
 
+// --------------------------------------------------------------------------
+// the tile-parallel route: wkv6_bwd_g<true>, wkv6_bwd_prefix<8>,
+// wkv6_bwd_tile_walk, wkv6_bwd_tile, wkv6_bwd_tile_du
+// --------------------------------------------------------------------------
+
+__device__ __forceinline__ void load4(float* d, const float* p) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  d[0] = a.x;
+  d[1] = a.y;
+  d[2] = a.z;
+  d[3] = a.w;
+}
+
+__device__ __forceinline__ void load2(float* d, const float* p) {
+  const float2 a = *reinterpret_cast<const float2*>(p);
+  d[0] = a.x;
+  d[1] = a.y;
+}
+
+// ---- pass 3, wkv6_bwd_tile_walk: 16 warps, thread (warp, lane) holds the
+// 2 x 4 block of a K x K state at rows 2 kg (kg = 2 warp + lane / 16) and
+// columns 4 vg (vg = lane % 16), so a row's product with the state summed
+// over its columns runs over the 16 lanes of a half-warp.
+constexpr int kWalkThreads = 512;
+
+__device__ __forceinline__ void zero24(float (*x)[4]) {
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[a][i] = 0.0f;
+}
+
+// up += a b^T over a thread's 2 x 4 block
+__device__ __forceinline__ void outer_add(float (*up)[4], const float* a,
+                                          const float* b) {
+#pragma unroll
+  for (int x = 0; x < 2; ++x)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) up[x][i] = fmaf(a[x], b[i], up[x][i]);
+}
+
+// s <- d s + up, up <- 0 (a chunk's carry, by row of the state)
+__device__ __forceinline__ void carry(float (*s)[4], float (*up)[4],
+                                      const float* d) {
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[a][i] = fmaf(d[a], s[a][i], up[a][i]);
+      up[a][i] = 0.0f;
+    }
+}
+
+// x[2 rr + a] = b_rr . s[a] over the thread's 4 columns
+__device__ __forceinline__ void row_dot(float* x, const float* b,
+                                       const float (*s)[4]) {
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    float p = b[0] * s[a][0];
+#pragma unroll
+    for (int i = 1; i < 4; ++i) p = fmaf(b[i], s[a][i], p);
+    x[a] = p;
+  }
+}
+
+// The checkpoint slots: a thread's 8 floats of a state, element-major, so
+// that a warp's accesses are free of bank conflicts.
+__device__ __forceinline__ void put_ck(float* ck, int slot,
+                                       const float (*s)[4]) {
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      ck[(slot * 8 + 4 * a + i) * kWalkThreads + threadIdx.x] = s[a][i];
+}
+
+__device__ __forceinline__ void get_ck(float (*s)[4], const float* ck,
+                                       int slot) {
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      s[a][i] = ck[(slot * 8 + 4 * a + i) * kWalkThreads + threadIdx.x];
+}
+
+// Pass 3 of the tile-parallel route: one block of 16 warps per (batch,
+// head, tile), the state terms that a chunk's state S_c and the cotangent
+// of its end state dS'_c give: dR = dy S_c^T into dr, dK2 = v dS'_c^T into
+// dk, and dLW_end's e^{LW_end} <dS'_c, S_c> (summed over a state row) into
+// dw at the chunk's first row; pass 4 reads them there and writes the
+// gradients over them.  It walks forward from S_tile (dR), keeping the
+// state at every 8th row that starts a chunk (at most 8, 128 KB), then back
+// from dS'_tile (dK2, and the dot at each chunk's first row), walking each
+// 4-row half of an 8-row window forward again at L < 8 from its kept state,
+// the half's states in registers: the two walks run in opposite
+// directions, and no state a chunk is kept in device memory.  The dot is
+// taken from the two states themselves: telescoped from per-row terms
+// instead (<dS'_{c-1}, S_c> - sum R dR + sum K2 dK2), it loses the term to
+// cancellation where the decays are strong (on the -8 clamp it is e^{-8}
+// of the terms beside it).  A row's sums go out by one reduce-scatter over
+// the half-warp every 8 rows (4 forward, 2 x 4 back).  The operands (K2, V,
+// R, dy, e^{LW_end}) are rebuilt with pass 4's LW, bit for bit.  One block
+// an SM (its checkpoints), so the state is spread over 16 warps.
+__global__ void __launch_bounds__(kWalkThreads, 1)
+wkv6_bwd_tile_walk(const float* __restrict__ r, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ w,
+                   const float* __restrict__ dy, const float* __restrict__ St,
+                   const float* __restrict__ dSt, float* __restrict__ dR,
+                   float* __restrict__ dK2, float* __restrict__ dw, int T,
+                   int H, int K, int L) {
+  extern __shared__ float smem[];
+  float* KS = smem;             // k, then K2
+  float* VS = KS + kTile;       // v
+  float* RS = VS + kTile;       // r, then R
+  float* DYS = RS + kTile;      // dy
+  float* WS = DYS + kTile;      // w, then LW; e^{LW_end} at chunks' ends
+  float* CK = WS + kTile;       // 8 slots of a state
+
+  const int n = (T + kTS - 1) / kTS;
+  const int ti = (int)(blockIdx.x % n), bh = (int)(blockIdx.x / n);
+  const int h = bh % H, b = bh / H;
+  const int rows = min(kTS, T - ti * kTS);   // a multiple of L
+  const int tid = threadIdx.x, ch = tid & 63;
+  const long long row = (long long)H * K;
+  const long long base = ((long long)b * T + (long long)ti * kTS) * row
+                         + (long long)h * K;
+  const long long st = ((long long)bh * n + ti) * K * K;
+
+  if (K < kTS || rows < kTS)
+    for (int idx = tid; idx < 5 * kTile; idx += kWalkThreads)
+      smem[idx] = 0.0f;
+  __syncthreads();
+  load_tile2(KS, k + base, row, rows, K);
+  load_tile2(VS, v + base, row, rows, K);
+  load_tile2(RS, r + base, row, rows, K);
+  load_tile2(DYS, dy + base, row, rows, K);
+  load_tile2(WS, w + base, row, rows, K);
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+  // LW, R, K2 and e^{LW_end} by chunk, as pass 4 forms them: thread
+  // (group, ch) takes max(8, L) rows (whole chunks)
+  const int G = max(8, L), g0 = (tid >> 6) * G;
+  if (g0 < kTS) {
+    for (int c0 = g0; c0 < g0 + G; c0 += L) {
+      float run = 0.0f;
+      for (int t = c0; t < c0 + L; ++t) {
+        const int e = t * kLDT + ch;
+        const float wv = WS[e];
+        run += wv;
+        RS[e] = RS[e] * __expf(run - wv);
+        WS[e] = run;
+      }
+      for (int t = c0; t < c0 + L; ++t) {
+        const int e = t * kLDT + ch;
+        KS[e] = KS[e] * __expf(run - WS[e]);   // exponent <= 0
+      }
+      WS[(c0 + L - 1) * kLDT + ch] = __expf(run);
+    }
+  }
+  __syncthreads();
+
+  const int lane = tid & 31, kg = 2 * (tid >> 5) + (lane >> 4);
+  const int vg = lane & 15;
+  const bool kin = 2 * kg < K && 4 * vg < K;
+  float s[2][4], up[2][4], kv[2], xv[4], dv[4], d[2];
+  const float* src = St + st + (2 * kg) * K + 4 * vg;
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[a][i] = kin ? src[a * K + i] : 0.0f;
+  zero24(up);
+  for (int t0 = 0; t0 < rows; t0 += 8) {   // forward: dR, and the states
+    if ((t0 & (L - 1)) == 0) put_ck(CK, t0 >> 3, s);
+    float x[16];                        // x[2 rr + a]: row t0 + rr, 2 kg + a
+#pragma unroll
+    for (int rr = 0; rr < 8; ++rr) {
+      const int t = t0 + rr;
+      load4(dv, DYS + t * kLDT + 4 * vg);
+      load2(kv, KS + t * kLDT + 2 * kg);
+      load4(xv, VS + t * kLDT + 4 * vg);
+      row_dot(x + 2 * rr, dv, s);
+      outer_add(up, kv, xv);
+      if (((t + 1) & (L - 1)) == 0) {   // the chunk's last row
+        load2(d, WS + t * kLDT + 2 * kg);
+        carry(s, up, d);
+      }
+    }
+    halve<8>(x, lane);
+    halve<4>(x, lane);
+    halve<2>(x, lane);
+    halve<1>(x, lane);
+    const int t = t0 + (vg >> 1), kk = 2 * kg + (vg & 1);
+    if (t < rows && kk < K) dR[base + (long long)t * row + kk] = x[0];
+  }
+  src = dSt + st + (2 * kg) * K + 4 * vg;   // back: dS'
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[a][i] = kin ? src[a * K + i] : 0.0f;
+  zero24(up);
+  for (int w0 = (rows - 1) & ~7; w0 >= 0; w0 -= 8) {
+#pragma unroll
+    for (int hf = 1; hf >= 0; --hf) {   // the window's halves, last first
+      const int h0 = w0 + 4 * hf;
+      if (h0 >= rows) continue;
+      float sw[4][2][4];                // L < 8: the state at each row
+      if (L < 8) {
+        float f[2][4], fu[2][4];
+        get_ck(f, CK, w0 >> 3);
+        zero24(fu);
+#pragma unroll
+        for (int j = 0; j < 4 * hf + 4; ++j) {
+          const int t = w0 + j;
+          if (j >= 4 * hf) {
+#pragma unroll
+            for (int a = 0; a < 2; ++a)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) sw[j - 4 * hf][a][i] = f[a][i];
+          }
+          if (t < rows) {
+            load2(kv, KS + t * kLDT + 2 * kg);
+            load4(xv, VS + t * kLDT + 4 * vg);
+            outer_add(fu, kv, xv);
+            if (((t + 1) & (L - 1)) == 0) {
+              load2(d, WS + t * kLDT + 2 * kg);
+              carry(f, fu, d);
+            }
+          }
+        }
+      }
+      float x[8], q[8];                 // dK2 and the dots, row h0 + jj
+#pragma unroll
+      for (int jj = 3; jj >= 0; --jj) {
+        const int t = h0 + jj;
+        x[2 * jj] = x[2 * jj + 1] = q[2 * jj] = q[2 * jj + 1] = 0.0f;
+        if (t >= rows) continue;
+        load2(kv, RS + t * kLDT + 2 * kg);
+        load4(dv, DYS + t * kLDT + 4 * vg);
+        load4(xv, VS + t * kLDT + 4 * vg);
+        row_dot(x + 2 * jj, xv, s);
+        outer_add(up, kv, dv);
+        if ((t & (L - 1)) == 0) {       // the chunk's first row
+          float sc[2][4];
+          if (L < 8) {
+#pragma unroll
+            for (int a = 0; a < 2; ++a)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) sc[a][i] = sw[jj][a][i];
+          } else {
+            get_ck(sc, CK, t >> 3);
+          }
+          load2(d, WS + (t + L - 1) * kLDT + 2 * kg);
+#pragma unroll
+          for (int a = 0; a < 2; ++a) {
+            float p = s[a][0] * sc[a][0];
+#pragma unroll
+            for (int i = 1; i < 4; ++i) p = fmaf(s[a][i], sc[a][i], p);
+            q[2 * jj + a] = d[a] * p;
+          }
+          carry(s, up, d);
+        }
+      }
+      // 8 values over the 16 lanes: bits 4, 2, 1, then the lanes 8 apart
+      halve<4>(x, lane);
+      halve<2>(x, lane);
+      halve<1>(x, lane);
+      halve<4>(q, lane);
+      halve<2>(q, lane);
+      halve<1>(q, lane);
+      x[0] += __shfl_xor_sync(0xffffffffu, x[0], 8);
+      q[0] += __shfl_xor_sync(0xffffffffu, q[0], 8);
+      const int j = vg & 7, t = h0 + (j >> 1), kk = 2 * kg + (j & 1);
+      if (vg < 8 && t < rows && kk < K) {
+        dK2[base + (long long)t * row + kk] = x[0];
+        if ((t & (L - 1)) == 0) dw[base + (long long)t * row + kk] = q[0];
+      }
+    }
+  }
+}
+
+// ---- pass 4, wkv6_bwd_tile's walk: warps 0-7, thread (warp, lane) holds
+// the 4 x 4 block of dS' at rows 4 kg (kg = lane % 16) and columns 4 vg
+// (vg = 2 warp + lane / 16), so a row's product K2_t dS' summed over the
+// state's rows runs over the 16 lanes of a half-warp (the forward's
+// walk_tile layout).
+__device__ __forceinline__ void dv_layout(int& kg, int& vg) {
+  const int lane = threadIdx.x & 31;
+  kg = lane & 15;
+  vg = 2 * (threadIdx.x >> 5) + (lane >> 4);
+}
+
+// The backward walk over a tile's first ``rows`` rows in chunks of L, last
+// first, from the tile's end cotangent s: dv's state term K2_t dS'_c into
+// O, and at each chunk's first row dS' <- e^{LW_end} dS' + R^T dy (up sums
+// R_t^T dy_t).  Four rows at a time; then a reduce-scatter over the 16
+// lanes of kg (15 shuffles, one order) leaves lane kg the sum for row kg /
+// 4, column 4 vg + kg % 4.  Rows past ``rows`` (zeros) change nothing that
+// is stored.
+__device__ __forceinline__ void walk_dv(const float* Rs, const float* DY,
+                                        const float* K2s, const float* Ds,
+                                        float* O, float (*s)[4], int rows,
+                                        int L) {
+  const int lane = threadIdx.x & 31;
+  int kg, vg;
+  dv_layout(kg, vg);
+  float up[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) up[a][i] = 0.0f;
+  for (int t0 = ((rows + 3) & ~3) - 4; t0 >= 0; t0 -= 4) {
+    float x[16];                        // x[4 rr + i]: row t0 + rr, 4 vg + i
+#pragma unroll
+    for (int rr = 3; rr >= 0; --rr) {
+      const int t = t0 + rr;
+      float rv[4], dv[4], kv[4];
+      load4(rv, Rs + t * kLDT + 4 * kg);
+      load4(dv, DY + t * kLDT + 4 * vg);
+      load4(kv, K2s + t * kLDT + 4 * kg);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float p = kv[0] * s[0][i];
+#pragma unroll
+        for (int a = 1; a < 4; ++a) p = fmaf(kv[a], s[a][i], p);
+        x[4 * rr + i] = p;
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) up[a][i] = fmaf(rv[a], dv[i], up[a][i]);
+      if (t < rows && (t & (L - 1)) == 0) {   // the chunk's first row
+        float d[4];
+        load4(d, Ds + (t + L - 1) * kLDT + 4 * kg);
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            s[a][i] = fmaf(d[a], s[a][i], up[a][i]);
+            up[a][i] = 0.0f;
+          }
+      }
+    }
+    halve<8>(x, lane);
+    halve<4>(x, lane);
+    halve<2>(x, lane);
+    halve<1>(x, lane);
+    O[(t0 + (kg >> 2)) * kLDT + 4 * vg + (kg & 3)] = x[0];
+  }
+}
+
+__device__ __forceinline__ void zero_acc(float (*acc)[4]) {
+#pragma unroll
+  for (int vt = 0; vt < kTS / 8; ++vt)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) acc[vt][x] = 0.0f;
+}
+
+// a barrier of the block's second group of 8 warps alone
+__device__ __forceinline__ void group_sync() {
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+}
+
+// Pass 4 of the tile-parallel route: one block of 16 warps per (batch,
+// head, 64-row tile), whose chunks of L rows (L divides 64) it takes with
+// the cotangent of the tile's end state dS'_tile (pass 2's, over G) and
+// pass 3's state terms.
+//   1. r, k, v, w and dy of the tile by cp.async (zeros past a ragged
+//      tile's rows); the bonus sum_k r u k and ddiag = dy . v of each row.
+//   2. LW inside each chunk summed as the plain version sums it
+//      (torch.cumsum on the card: one running sum a channel from 0 at the
+//      chunk's first row), on which every clip and its gradient mask is
+//      taken; then Q, Kf (the chunk's own Z and clip), R = r e^{LWp}, K2 =
+//      k e^{LW_end - LW} and e^{LW_end} at each chunk's last row.
+//   3. Warps 0-7 walk back from dS'_tile (walk_dv: dv's state term), while
+//      warps 8-15 take the chunks' own products over the whole tile on the
+//      tensor cores, masked to one chunk (split TF32, chain): dQ = dA Kf,
+//      dKf = dA^T Q and A^T dy.
+//   4. The elementwise terms with pass 3's dR and dK2 (dr, dk and dv out,
+//      and per row dLWp + E, E, gK - gQ, K2 dK2 and ddiag r k), then by
+//      chunk dLW_end = sum_t K2 dK2 + pass 3's e^{LW_end} <dS'_c, S_c>,
+//      dw's reversed sum inside each chunk, and the tile's partial of du.
+// Twelve 64 x 68 tiles (205 KB): one block an SM.
+constexpr int kTileBwdThreads = 512;
+
+__global__ void __launch_bounds__(kTileBwdThreads, 1)
+wkv6_bwd_tile(const float* __restrict__ r, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ w,
+              const float* __restrict__ u, const float* __restrict__ dy,
+              const float* __restrict__ dSt, Grads out, int T, int H, int K,
+              int L) {
+  extern __shared__ float smem[];
+  auto tile = [&](int x) { return smem + x * kTile; };
+  float* VS = tile(0);      // v; then du's partial sums
+  float* DYS = tile(1);     // dy
+  float* QS = tile(2);      // r, then Q
+  float* KFS = tile(3);     // k, then Kf; then ddiag r k
+  float* LWS = tile(4);     // w, then LW
+  float* RS = tile(5);      // LW, then R; then gK - gQ
+  float* K2S = tile(6);     // K2; then K2 dK2
+  float* DS = tile(7);      // e^{LW_end} at chunks' last rows
+  float* DVS = tile(8);     // dv
+  float* DQS = tile(9);     // dQ; then dLWp + E
+  float* DKS = tile(10);    // dKf; then E
+  float* DLS = tile(11);    // the chunks' A^T dy
+  float* us = smem + 12 * kTile;
+  float* diag = us + kTS;   // sum_k r u k of each row
+  float* ddiag = diag + kTS;  // dy . v of each row
+
+  const int n = (T + kTS - 1) / kTS;
+  const int ti = (int)(blockIdx.x % n), bh = (int)(blockIdx.x / n);
+  const int h = bh % H, b = bh / H;
+  const int rows = min(kTS, T - ti * kTS);   // a multiple of L
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ch = tid & 63, e8 = tid >> 6;    // rows 8 e8 .. + 7, channel ch
+  const long long row = (long long)H * K;
+  const long long base = ((long long)b * T + (long long)ti * kTS) * row
+                         + (long long)h * K;
+  const long long st = ((long long)bh * n + ti) * K * K;
+
+  if (K < kTS || rows < kTS)
+    for (int idx = tid; idx < 5 * kTile; idx += kTileBwdThreads)
+      smem[idx] = 0.0f;
+  if (tid < kTS) us[tid] = tid < K ? u[(long long)h * K + tid] : 0.0f;
+  __syncthreads();
+  load_tile2(VS, v + base, row, rows, K);
+  load_tile2(DYS, dy + base, row, rows, K);
+  load_tile2(QS, r + base, row, rows, K);
+  load_tile2(KFS, k + base, row, rows, K);
+  load_tile2(LWS, w + base, row, rows, K);
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
+
+  for (int t = warp * 4; t < warp * 4 + 4; ++t) {   // sum r u k, dy . v
+    float p = 0.0f, pd = 0.0f;
+    for (int kk = lane; kk < K; kk += 32) {
+      p += QS[t * kLDT + kk] * us[kk] * KFS[t * kLDT + kk];
+      pd += DYS[t * kLDT + kk] * VS[t * kLDT + kk];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      p += __shfl_xor_sync(0xffffffffu, p, o);
+      pd += __shfl_xor_sync(0xffffffffu, pd, o);
+    }
+    if (lane == 0) {
+      diag[t] = p;
+      ddiag[t] = pd;
+    }
+  }
+  // LW inside each chunk, one running sum a channel: a thread takes G =
+  // max(8, L) rows (whole chunks)
+  const int G = max(8, L), grp = tid >> 6;
+  const bool has_grp = grp * G < kTS;
+  if (has_grp) {
+    float run = 0.0f;
+    for (int t = grp * G; t < grp * G + G; ++t) {
+      if ((t & (L - 1)) == 0) run = 0.0f;
+      run += LWS[t * kLDT + ch];
+      RS[t * kLDT + ch] = run;
+    }
+  }
+  __syncthreads();
+  {
+    float lw[8], wv[8], zv[8], le[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int t = 8 * e8 + j, c0 = t & -L;
+      lw[j] = RS[t * kLDT + ch];
+      wv[j] = LWS[t * kLDT + ch];
+      zv[j] = RS[(c0 + L / 2) * kLDT + ch];
+      le[j] = RS[(c0 + L - 1) * kLDT + ch];
+    }
+    __syncthreads();                    // every LW, Z and LW_end is read
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int e = (8 * e8 + j) * kLDT + ch;
+      const float lwp = lw[j] - wv[j], rr = QS[e], kv = KFS[e];
+      QS[e] = rr * fast_clamp_exp(lwp - zv[j]);
+      KFS[e] = kv * fast_clamp_exp(zv[j] - lw[j]);
+      RS[e] = rr * __expf(lwp);
+      K2S[e] = kv * __expf(le[j] - lw[j]);   // exponent <= 0
+      LWS[e] = lw[j];
+      DS[e] = __expf(lw[j]);            // read at chunks' last rows only
+    }
+  }
+  __syncthreads();
+
+  if (warp < 8) {
+    float s[4][4];
+    int kg, vg;
+    dv_layout(kg, vg);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      if (4 * kg + a < K && 4 * vg < K) {
+        load4(s[a], dSt + st + (4 * kg + a) * K + 4 * vg);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[a][i] = 0.0f;
+      }
+    }
+    walk_dv(RS, DYS, K2S, DS, DVS, s, rows, L);
+  } else if (L > 1) {
+    // the chunks' own products: warp gw takes rows 16 (gw % 4) .. + 15 and
+    // key rows 32 (gw / 4) .. + 31; the second half's sums go in first
+    const int gw = warp & 7, row0 = 16 * (gw & 3), half = gw >> 2;
+    float acc[kTS / 8][4];
+    zero_acc(acc);                      // dQ = tril(dy v^T) Kf
+    chain<kLower, 4>(DYS, VS, KFS, acc, row0, 32 * half, L);
+    if (half) put<kTS / 8, kStore>(DQS, acc, row0, 0);
+    group_sync();
+    if (!half) put<kTS / 8, kAdd>(DQS, acc, row0, 0);
+    zero_acc(acc);                      // dKf = tril(dy v^T)^T Q
+    chain<kUpper, 4>(VS, DYS, QS, acc, row0, 32 * half, L);
+    if (half) put<kTS / 8, kStore>(DKS, acc, row0, 0);
+    group_sync();
+    if (!half) put<kTS / 8, kAdd>(DKS, acc, row0, 0);
+    zero_acc(acc);                      // the chunks' A^T dy
+    chain<kUpper, 4>(KFS, QS, DYS, acc, row0, 32 * half, L);
+    if (half) put<kTS / 8, kStore>(DLS, acc, row0, 0);
+    group_sync();
+    if (!half) put<kTS / 8, kAdd>(DLS, acc, row0, 0);
+  }
+  __syncthreads();
+
+  // the elementwise terms, thread (e8, ch): rows 8 e8 .. + 7
+  if (ch < K) {
+    const float uu = us[ch];
+    const bool prods = L > 1;
+    for (int j = 0; j < 8; ++j) {
+      const int t = 8 * e8 + j;
+      if (t >= rows) break;
+      const int e = t * kLDT + ch, c0 = t & -L;
+      const long long gi = base + (long long)t * row + ch;
+      const float lw = LWS[e], zs = LWS[(c0 + L / 2) * kLDT + ch];
+      const float le = LWS[(c0 + L - 1) * kLDT + ch];
+      const float rv = r[gi], kv = k[gi];
+      const float lwp = lw - w[gi], xq = lwp - zs, xk = zs - lw;
+      const float eQ = fast_clamp_exp(xq), eK = fast_clamp_exp(xk);
+      const float eP = __expf(lwp), e2 = __expf(le - lw);
+      const float dq = prods ? DQS[e] : 0.0f, dkf = prods ? DKS[e] : 0.0f;
+      const float drr = out.dr[gi], dk2 = out.dk[gi];   // pass 3's
+      const float bonus = ddiag[t] * uu;
+      out.dr[gi] = dq * eQ + drr * eP + bonus * kv;
+      out.dk[gi] = dkf * eK + dk2 * e2 + bonus * rv;
+      const float gQ = fabsf(xq) <= kClamp ? dq * (rv * eQ) : 0.0f;
+      const float gK = fabsf(xk) <= kClamp ? dkf * (kv * eK) : 0.0f;
+      const float k2k2 = dk2 * (kv * e2);
+      const float E = -gK - k2k2;
+      DQS[e] = gQ + drr * (rv * eP) + E;   // dLWp + E
+      DKS[e] = E;
+      RS[e] = gK - gQ;
+      K2S[e] = k2k2;
+      KFS[e] = ddiag[t] * rv * kv;
+    }
+  }
+  {                                     // dv, 16 bytes a thread
+    const int per_row = K >> 2;
+    for (int idx = tid; idx < rows * per_row; idx += kTileBwdThreads) {
+      const int t = idx / per_row, cc = (idx % per_row) * 4;
+      float a[4], c[4], d[4];
+      load4(a, DVS + t * kLDT + cc);
+      load4(d, DYS + t * kLDT + cc);
+      if (L > 1) {
+        load4(c, DLS + t * kLDT + cc);
+#pragma unroll
+        for (int x = 0; x < 4; ++x) a[x] += c[x];
+      }
+      *reinterpret_cast<float4*>(out.dv + base + (long long)t * row + cc) =
+          make_float4(a[0] + diag[t] * d[0], a[1] + diag[t] * d[1],
+                      a[2] + diag[t] * d[2], a[3] + diag[t] * d[3]);
+    }
+  }
+  __syncthreads();
+
+  // by chunk, thread (group, ch): dLW_end = sum K2 dK2 + pass 3's
+  // e^{LW_end} <dS', S> (in dw at the chunk's first row), dZ = sum (gK -
+  // gQ), then dw's reversed sum over the chunk; du's sum by group
+  const int g_end = min(grp * G + G, rows);
+  if (ch < K && has_grp) {
+    float su = 0.0f;
+    for (int c0 = grp * G; c0 < g_end; c0 += L) {
+      float sk = 0.0f, sz = 0.0f;
+      for (int t = c0; t < c0 + L; ++t) {
+        const int e = t * kLDT + ch;
+        sk += K2S[e];
+        sz += RS[e];
+        su += KFS[e];
+      }
+      const float dl = sk + out.dw[base + (long long)c0 * row + ch];
+      float run = 0.0f;
+      for (int t = c0 + L - 1; t >= c0; --t) {
+        const int e = t * kLDT + ch;
+        out.dw[base + (long long)t * row + ch] =
+            run + DKS[e] + dl + (t - c0 <= L / 2 ? sz : 0.0f);
+        run += DQS[e];
+      }
+    }
+    VS[grp * kLDT + ch] = su;
+  }
+  __syncthreads();
+  if (tid < K) {                        // du's partial of the tile
+    float su = 0.0f;
+    for (int g = 0; g < kTS / G; ++g) su += VS[g * kLDT + tid];
+    out.tot[((long long)bh * n + ti) * K + tid] = su;
+  }
+}
+
+// Pass 5: one thread per (batch, head, channel): du's (batch, head) partial,
+// the tiles' partials added in order.
+__global__ void __launch_bounds__(kThreads)
+wkv6_bwd_tile_du(const float* __restrict__ part, float* __restrict__ du,
+                 int BH, int n, int K) {
+  const int idx = blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= BH * K) return;
+  const int bh = idx / K, kk = idx % K;
+  float sum = 0.0f;
+  for (int i = 0; i < n; ++i) sum += part[((long long)bh * n + i) * K + kk];
+  du[idx] = sum;
+}
+
 constexpr size_t kGSmem = sizeof(float) * (4 * kTile + 4 * kTS);
 constexpr size_t kMainSmem = sizeof(float) * (12 * kTile + 8 * kTS);
+constexpr size_t kTileBwdSmem = sizeof(float) * (12 * kTile + 3 * kTS);
+constexpr size_t kWalkSmem =
+    sizeof(float) * (5 * kTile + 8 * 8 * kWalkThreads);
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
@@ -1324,18 +2024,18 @@ int wkv6_bwd_chunked_f32(const float* r, const float* k, const float* v,
   const int n = T / L, nsub = L / kTS, BH = B * H;
   cudaError_t err;
   if (passes & 1) {
-    err = cudaFuncSetAttribute(wkv6_bwd_g,
+    err = cudaFuncSetAttribute(wkv6_bwd_g<false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)kGSmem);
     if (err != cudaSuccess) return (int)err;
-    wkv6_bwd_g<<<BH * n, kThreads, kGSmem, stream>>>(
+    wkv6_bwd_g<false><<<BH * n, kThreads, kGSmem, stream>>>(
         r, w, dy, carry, G, Seq{seq_carry, seq_Z, LWE}, T, H, K, L);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   if (passes & 2) {
     const long long total = (long long)BH * K * K;
-    wkv6_bwd_prefix<<<(int)((total + kThreads - 1) / kThreads), kThreads, 0,
-                      stream>>>(G, D, dS, dS0, BH, n, K);
+    wkv6_bwd_prefix<1><<<(int)((total + kThreads - 1) / kThreads), kThreads,
+                         0, stream>>>(G, D, dS, dS0, BH, n, K);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   if (passes & 4) {
@@ -1352,6 +2052,65 @@ int wkv6_bwd_chunked_f32(const float* r, const float* k, const float* v,
     wkv6_bwd_fixup<<<BH * n, kThreads,
                      sizeof(float) * (2 * nsub + 1) * kTS, stream>>>(
         Sc, G, D, tot, dw, du, T, H, K, L);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The tile-parallel route (K == V, L divides 64 and T).  St (B, H, n, K,
+// K) and D (B, H, n, K), n = ceil(T / 64): the forward's tile scratch after
+// its passes 1 and 2 (csrc/wkv6.cu, wkv6_tiled_f32), the state at each
+// tile's start and e^{LW_end} of each tile.  G (B, H, n, K, K) and part (B,
+// H, n, K): this route's scratch.  passes: a mask of the kernels to launch
+// (1 G, 2 prefix, 16 walk, 4 main, 8 du; in that order): 31 for a call.
+int wkv6_bwd_tiled_f32(const float* r, const float* k, const float* v,
+                       const float* w, const float* u, const float* dy,
+                       const float* dS, const float* St, const float* D,
+                       float* G, float* part, float* dr, float* dk, float* dv,
+                       float* dw, float* du, float* dS0, int B, int T, int H,
+                       int K, int L, int passes, cudaStream_t stream) {
+  if (K < 4 || K > kTS || K % 4 != 0 || L < 1 || kTS % L != 0 || T < 1 ||
+      T % L != 0 || !aligned16(r) || !aligned16(k) || !aligned16(v) ||
+      !aligned16(w) || !aligned16(dy) || !aligned16(St) || !aligned16(G) ||
+      !aligned16(dv) || !aligned16(dw))
+    return (int)cudaErrorInvalidValue;
+  const int n = (T + kTS - 1) / kTS, BH = B * H;
+  cudaError_t err;
+  if (passes & 1) {
+    err = cudaFuncSetAttribute(wkv6_bwd_g<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kGSmem);
+    if (err != cudaSuccess) return (int)err;
+    wkv6_bwd_g<true><<<BH * n, kThreads, kGSmem, stream>>>(
+        r, w, dy, nullptr, G, Seq{nullptr, nullptr, nullptr}, T, H, K, kTS);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if (passes & 2) {
+    const long long total = (long long)BH * K * K;
+    wkv6_bwd_prefix<8><<<(int)((total + kThreads - 1) / kThreads), kThreads,
+                         0, stream>>>(G, D, dS, dS0, BH, n, K);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if (passes & 16) {
+    err = cudaFuncSetAttribute(wkv6_bwd_tile_walk,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kWalkSmem);
+    if (err != cudaSuccess) return (int)err;
+    wkv6_bwd_tile_walk<<<BH * n, kWalkThreads, kWalkSmem, stream>>>(
+        r, k, v, w, dy, St, G, dr, dk, dw, T, H, K, L);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if (passes & 4) {
+    err = cudaFuncSetAttribute(wkv6_bwd_tile,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)kTileBwdSmem);
+    if (err != cudaSuccess) return (int)err;
+    wkv6_bwd_tile<<<BH * n, kTileBwdThreads, kTileBwdSmem, stream>>>(
+        r, k, v, w, u, dy, G, Grads{dr, dk, dv, dw, part}, T, H, K, L);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if (passes & 8) {
+    wkv6_bwd_tile_du<<<(BH * K + kThreads - 1) / kThreads, kThreads, 0,
+                       stream>>>(part, du, BH, n, K);
   }
   return (int)cudaGetLastError();
 }

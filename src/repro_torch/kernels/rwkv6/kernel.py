@@ -29,15 +29,23 @@ call whatever the route, and ``wkv6.route_launches`` the same by route.
 ``route_launcher`` runs a call on a route of one's choosing, to hold two
 routes to each other at one shape.
 
-The backward has two routes too (``bwd_route``).  Where the forward's is
-chunk-parallel and dy (and dS) are 16-byte aligned, four kernels on the
-tensor cores (G, reverse prefix, main and fix-up passes) start from the
-forward's chunk-start states: ``_WKV6Function`` keeps the forward's scratch
-for its backward, and a call without it relaunches the forward's state and
-prefix passes.  Any other call, a tile-parallel forward's included (it
-keeps no scratch), runs the two per-head kernels of the first port, which
-recompute the states themselves.  ``wkv6_bwd.launches`` counts
-wrapper calls, one per call whatever the route.
+The backward has the same three routes (``bwd_route``): the forward's
+chunk- or tile-parallel route where dy (and dS) are 16-byte aligned, else
+per-head.  Chunk-parallel: four kernels on the tensor cores (G, reverse
+prefix, main and fix-up passes) from the forward's chunk-start states.
+Tile-parallel: the G and reverse-prefix passes over 64-row tiles, a
+block a tile that walks its chunks forward and back (dR, dK2 and each
+chunk's e^{LW_end} <dS', S>, the states kept on chip at every 8th row), a
+block a tile for the rest (dv's state term, the chunks' own products on
+the tensor cores, the elementwise terms), and du's sum over the tiles.
+Both start from the forward's scratch, which ``_WKV6Function`` keeps for
+its backward (the tile-parallel route's: each tile's start state and
+decay, (B, H, ceil(T / 64), K, K), about 34 MB a layer at (2, 1040, 64,
+64)); a call without it relaunches the forward's state and prefix passes.
+Any other call runs the two per-head kernels of the first port, which
+recompute the states themselves.  ``wkv6_bwd.launches`` counts wrapper calls, one per call
+whatever the route, and ``wkv6_bwd.route_launches`` the same by route;
+``bwd_route_launcher`` runs a backward on a route of one's choosing.
 
 Each launch is a dispatcher operator (``torch.ops.repro_torch.wkv6`` and
 ``wkv6_bwd``) with a CUDA implementation, which launches, and a Meta one,
@@ -63,13 +71,17 @@ _SIGNATURES = {"wkv6_f32": [_P] * 8 + [_I] * 6 + [_P],
                "wkv6_chunked_f32": [_P] * 12 + [_I] * 6 + [_P],
                "wkv6_tiled_f32": [_P] * 10 + [_I] * 6 + [_P]}
 _BWD_SIGNATURES = {"wkv6_bwd_f32": [_P] * 15 + [_I] * 6 + [_P],
-                   "wkv6_bwd_chunked_f32": [_P] * 22 + [_I] * 6 + [_P]}
+                   "wkv6_bwd_chunked_f32": [_P] * 22 + [_I] * 6 + [_P],
+                   "wkv6_bwd_tiled_f32": [_P] * 17 + [_I] * 6 + [_P]}
 _MAX_KV = 64
 _SUB = 64        # rows of the chunk-parallel route's sub-tile, and of
 #                  the tile-parallel route's tile
 ROUTES = ("chunk-parallel", "tile-parallel", "per-head")
 PASSES = {"state": 1, "prefix": 2, "output": 4}
-BWD_PASSES = {"g": 1, "prefix": 2, "main": 4, "fixup": 8}
+# the tile-parallel backward's "walk" pass (dR, dK2 and each chunk's
+# e^{LW_end} <dS', S>) runs between its prefix and main passes; its "fixup"
+# sums du
+BWD_PASSES = {"g": 1, "prefix": 2, "walk": 16, "main": 4, "fixup": 8}
 
 
 def wkv_ops(B, T, H, K, L) -> int:
@@ -108,14 +120,13 @@ def route(r, k, v, w_log, chunk) -> str:
 
 
 def bwd_route(r, k, v, w_log, dy, dS, chunk) -> str:
-    """``"chunk-parallel"`` or ``"per-head"``: the backward kernels a call
-    with these operands, cotangents (``dS`` None: zeros) and chunk runs on
-    the card.  Every chunk below 64 takes the per-head backward, which
-    recomputes its states itself."""
-    if (route(r, k, v, w_log, chunk) == "chunk-parallel"
-            and all(t.data_ptr() % 16 == 0 for t in (dy, dS)
-                    if t is not None)):
-        return "chunk-parallel"
+    """One of ``ROUTES``: the backward kernels a call with these operands,
+    cotangents (``dS`` None: zeros) and chunk runs on the card: the
+    forward's route where dy and dS are 16-byte aligned, else per-head."""
+    how = route(r, k, v, w_log, chunk)
+    if how != "per-head" and all(t.data_ptr() % 16 == 0 for t in (dy, dS)
+                                 if t is not None):
+        return how
     return "per-head"
 
 
@@ -146,11 +157,16 @@ def _check(r, k, v, w_log, u, S0):
         raise ValueError(f"{what}: operands must be contiguous")
 
 
-def _scratch(r, chunk):
-    """The chunk-parallel forward's scratch, which its backward reuses."""
+def _scratch(r, chunk, how="chunk-parallel"):
+    """The chunk- or tile-parallel forward's scratch, which its backward
+    reuses."""
     B, T, H, K = r.shape
-    n = T // chunk
     f32 = dict(dtype=torch.float32, device=r.device)
+    if how == "tile-parallel":
+        n = -(-T // _SUB)
+        return (torch.empty((B, H, n, K, K), **f32),         # U, then S_tile
+                torch.empty((B, H, n, K), **f32))            # e^{LW_end}
+    n = T // chunk
     return (torch.empty((B, H, n, K, K), **f32),             # U, then S_c
             torch.empty((B, H, n, chunk // _SUB, K), **f32),  # carries
             torch.empty((B, H, n, K), **f32),                # Z
@@ -162,9 +178,9 @@ def _launcher(r, k, v, w_log, u, S0, chunk, how=None):
     route ``how`` (the call's own by default) into y and S and returns the C
     entry's error code; ``passes`` (a mask of ``PASSES``) picks kernels of
     the chunk- and tile-parallel routes.  ``scratch`` is the chunk-parallel
-    route's (the chunk-start states S_c, the carries, Z and e^{LW_end}),
-    which its backward reads; None on the other routes (the tile-parallel
-    route's tile states and decays live in ``launch`` alone)."""
+    route's (the chunk-start states S_c, the carries, Z and e^{LW_end}) or
+    the tile-parallel route's (the tile-start states and e^{LW_end} of
+    each tile), which the backward reads; None on the per-head route."""
     B, T, H, K = r.shape
     V = v.shape[-1]
     y = torch.empty_like(v)
@@ -180,16 +196,13 @@ def _launcher(r, k, v, w_log, u, S0, chunk, how=None):
             return lib.wkv6_f32(*ptrs, B, T, H, K, V, chunk, stream())
         return y, S, lib, launch, None
     if how == "tile-parallel":
-        n = -(-T // _SUB)
-        f32 = dict(dtype=torch.float32, device=r.device)
         # held by ``launch`` itself, not only by their addresses
-        tiles = (torch.empty((B, H, n, K, K), **f32),    # U, then S_tile
-                 torch.empty((B, H, n, K), **f32))       # e^{LW_end}
+        tiles = _scratch(r, chunk, how)
 
         def launch(passes=7):
             return lib.wkv6_tiled_f32(*ptrs, *(t.data_ptr() for t in tiles),
                                       B, T, H, K, chunk, passes, stream())
-        return y, S, lib, launch, None
+        return y, S, lib, launch, tiles
     scratch = _scratch(r, chunk)
     scratch_ptrs = [t.data_ptr() for t in scratch]
 
@@ -200,8 +213,8 @@ def _launcher(r, k, v, w_log, u, S0, chunk, how=None):
 
 
 def _forward(r, k, v, w_log, u, S0, chunk):
-    """(y, S, scratch): the forward kernels' outputs and the chunk-parallel
-    route's scratch (None on the other routes)."""
+    """(y, S, scratch): the forward kernels' outputs and the chunk- or
+    tile-parallel route's scratch (None on the per-head route)."""
     how = route(r, k, v, w_log, chunk)
     y, S, lib, launch, scratch = _launcher(r, k, v, w_log, u, S0, chunk, how)
     _build.check(lib, launch(), "wkv6")
@@ -237,13 +250,14 @@ def _bwd_grads(r, v, S0):
         dS0
 
 
-def _bwd_launcher(r, k, v, w_log, u, S0, dy, dS, chunk, saved):
+def _bwd_launcher(r, k, v, w_log, u, S0, dy, dS, chunk, saved, how=None):
     """(grads, lib, launch): ``launch(passes)`` runs the backward kernels
-    of the call's route into ``grads`` (dr, dk, dv, dw_log, du's (batch,
-    head) partials, dS0) and returns the C entry's error code; ``passes``
-    (a mask of ``BWD_PASSES``) picks kernels of the chunk-parallel route,
-    which starts from the forward's scratch ``saved`` and, where it is
-    None, first relaunches the forward's state and prefix passes."""
+    of route ``how`` (the call's own by default) into ``grads`` (dr, dk,
+    dv, dw_log, du's (batch, head) partials, dS0) and returns the C entry's
+    error code; ``passes`` (a mask of ``BWD_PASSES``) picks kernels of the
+    chunk- and tile-parallel routes, which start from the forward's scratch
+    ``saved`` and, where it is None, first relaunch the forward's state and
+    prefix passes."""
     what = "wkv6_bwd"
     B, T, H, K = r.shape
     V = v.shape[-1]
@@ -252,20 +266,33 @@ def _bwd_launcher(r, k, v, w_log, u, S0, dy, dS, chunk, saved):
     dr, dk, dv, dw, du, dS0 = grads
     lib = _build.load(what, _BWD_SIGNATURES)
     ptr = lambda t: None if t is None else t.data_ptr()
-    stream = _build.stream_of(r)
+    # the stream current at each launch, so that a CUDA graph captures it
+    stream = lambda: _build.stream_of(r)
     n = T // chunk
-    if bwd_route(r, k, v, w_log, dy, dS, chunk) == "per-head":
+    how = how or bwd_route(r, k, v, w_log, dy, dS, chunk)
+    if how == "per-head":
         scratch = torch.empty((B, H, n, K, V), **f32)       # chunk starts
 
         def launch(passes=15):
             return lib.wkv6_bwd_f32(*(ptr(t) for t in (
                 r, k, v, w_log, u, S0, dy, dS, scratch, dr, dk, dv, dw, du,
-                dS0)), B, T, H, K, V, chunk, stream)
+                dS0)), B, T, H, K, V, chunk, stream())
         return grads, lib, launch
     if saved is None:
-        _, _, flib, flaunch, saved = _launcher(r, k, v, w_log, u, S0, chunk)
+        _, _, flib, flaunch, saved = _launcher(r, k, v, w_log, u, S0, chunk,
+                                               how)
         _build.check(flib, flaunch(PASSES["state"] | PASSES["prefix"]),
                      what)
+    if how == "tile-parallel":
+        nt = -(-T // _SUB)
+        own = (torch.empty((B, H, nt, K, K), **f32),         # G, then dS'
+               torch.empty((B, H, nt, K), **f32))            # du by tile
+
+        def launch(passes=31):
+            return lib.wkv6_bwd_tiled_f32(*(ptr(t) for t in (
+                r, k, v, w_log, u, dy, dS, *saved, *own, dr, dk, dv, dw, du,
+                dS0)), B, T, H, K, chunk, passes, stream())
+        return grads, lib, launch
     nsub = chunk // _SUB
     own = (torch.empty((B, H, n, K, K), **f32),              # G, then dS'
            torch.empty((B, H, n, nsub, K), **f32),           # LW's carries,
@@ -276,7 +303,7 @@ def _bwd_launcher(r, k, v, w_log, u, S0, dy, dS, chunk, saved):
     def launch(passes=15):
         return lib.wkv6_bwd_chunked_f32(*(ptr(t) for t in (
             r, k, v, w_log, u, dy, dS, *saved, *own, dr, dk, dv, dw, du,
-            dS0)), B, T, H, K, chunk, passes, stream)
+            dS0)), B, T, H, K, chunk, passes, stream())
     return grads, lib, launch
 
 
@@ -285,14 +312,18 @@ def wkv6_bwd(r, k, v, w_log, u, S0, dy, dS, *, chunk, saved=None):
     cotangents ``dy`` of y and ``dS`` of the final state (None: zeros):
     the backward kernels on CUDA tensors, counted in ``wkv6_bwd.launches``.
     S0 None is the zero state, and then dS0 is None.  ``saved`` is the
-    forward's chunk-parallel scratch (``_forward``'s third output), which
-    spares the chunk-parallel route its recomputation of the states."""
+    forward's chunk- or tile-parallel scratch (``_forward``'s third output),
+    which spares those routes their recomputation of the states."""
     _bwd_check(r, k, v, w_log, u, S0, dy, dS, chunk)
     grads = torch.ops.repro_torch.wkv6_bwd(r, k, v, w_log, u, S0, dy, dS,
                                            chunk, list(saved or ()))
+    return _summed(grads, S0)
+
+
+def _summed(grads, S0):
+    """The backward's outputs with du's batch partials added in order."""
     dr, dk, dv, dw, du = grads[:5]
     dS0 = grads[5] if S0 is not None else None
-    # the batches' partials of du, added in order
     du_sum = du[0]
     for i in range(1, du.shape[0]):
         du_sum = du_sum + du[i]
@@ -300,8 +331,8 @@ def wkv6_bwd(r, k, v, w_log, u, S0, dy, dS, *, chunk, saved=None):
 
 
 def _fwd_cuda(r, k, v, w_log, u, S0, chunk):
-    """The forward operator's CUDA implementation: y, S and the
-    chunk-parallel route's scratch (empty on the other routes)."""
+    """The forward operator's CUDA implementation: y, S and the chunk- or
+    tile-parallel route's scratch (empty on the per-head route)."""
     y, S, scratch = _forward(r, k, v, w_log, u, S0, chunk)
     return y, S, list(scratch or ())
 
@@ -310,18 +341,20 @@ def _fwd_meta(r, k, v, w_log, u, S0, chunk):
     B, T, H, K = r.shape
     S = torch.empty((B, H, K, v.shape[-1]), dtype=torch.float32,
                     device=r.device)
-    scratch = (_scratch(r, chunk)
-               if route(r, k, v, w_log, chunk) == "chunk-parallel" else ())
+    how = route(r, k, v, w_log, chunk)
+    scratch = _scratch(r, chunk, how) if how != "per-head" else ()
     return torch.empty_like(v), S, list(scratch)
 
 
 def _bwd_cuda(r, k, v, w_log, u, S0, dy, dS, chunk, saved):
     """The backward operator's CUDA implementation: [dr, dk, dv, dw_log,
     du's partials] and dS0 where S0 is given."""
+    how = bwd_route(r, k, v, w_log, dy, dS, chunk)
     grads, lib, launch = _bwd_launcher(r, k, v, w_log, u, S0, dy, dS, chunk,
-                                       saved or None)
+                                       saved or None, how)
     _build.check(lib, launch(), "wkv6_bwd")
     wkv6_bwd.launches += 1
+    wkv6_bwd.route_launches[how] += 1
     return [g for g in grads if g is not None]
 
 
@@ -362,7 +395,7 @@ class _WKV6Function(torch.autograd.Function):
     def forward(ctx, r, k, v, w_log, u, S0, chunk):
         y, S, scratch = torch.ops.repro_torch.wkv6(r, k, v, w_log, u, S0,
                                                    chunk)
-        # the chunk-parallel route's scratch, for its backward
+        # the chunk- or tile-parallel route's scratch, for its backward
         ctx.save_for_backward(r, k, v, w_log, u, S0, *scratch)
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)
@@ -404,6 +437,7 @@ def wkv6(r, k, v, w_log, u, *, chunk=64, S0=None):
 wkv6.launches = 0
 wkv6.route_launches = dict.fromkeys(ROUTES, 0)
 wkv6_bwd.launches = 0
+wkv6_bwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def pass_launchers(r, k, v, w_log, u, *, chunk, S0=None) -> dict:
@@ -439,16 +473,38 @@ def route_launcher(r, k, v, w_log, u, *, chunk, how, S0=None):
 
 def bwd_pass_launchers(r, k, v, w_log, u, dy, dS=None, *, chunk,
                        S0=None) -> dict:
-    """Pass name -> a callable that launches that kernel of the
-    chunk-parallel backward alone on this call's buffers, to time it, after
+    """Pass name -> a callable that launches that kernel of the chunk- or
+    tile-parallel backward alone on this call's buffers, to time it, after
     the forward's state and prefix passes once (it counts no launch; the
     prefix pass rewrites its scratch in place, so only the first full call's
     values mean anything)."""
     _bwd_check(r, k, v, w_log, u, S0, dy, dS, chunk)
-    if bwd_route(r, k, v, w_log, dy, dS, chunk) != "chunk-parallel":
+    how = bwd_route(r, k, v, w_log, dy, dS, chunk)
+    if how == "per-head":
         raise ValueError("wkv6_bwd: the per-head route is timed whole")
     _, lib, launch = _bwd_launcher(r, k, v, w_log, u, S0, dy, dS, chunk,
                                    None)
     return {name: (lambda bit=bit: _build.check(lib, launch(bit),
                                                 "wkv6_bwd"))
-            for name, bit in BWD_PASSES.items()}
+            for name, bit in BWD_PASSES.items()
+            if name != "walk" or how == "tile-parallel"}
+
+
+def bwd_route_launcher(r, k, v, w_log, u, dy, dS=None, *, chunk, how,
+                       S0=None):
+    """A callable that runs this call's backward on route ``how`` (one of
+    ``ROUTES`` that takes the call: the per-head route takes any chunk that
+    divides T), from the states it recomputes, into buffers of its own and
+    returns (dr, dk, dv, dw_log, du, dS0); it counts no launch.  It holds
+    a route to another, or times it, at one shape."""
+    _bwd_check(r, k, v, w_log, u, S0, dy, dS, chunk)
+    if how != "per-head" and how != bwd_route(r, k, v, w_log, dy, dS, chunk):
+        raise ValueError(f"wkv6_bwd: chunk {chunk} does not take the {how} "
+                         "route")
+    grads, lib, launch = _bwd_launcher(r, k, v, w_log, u, S0, dy, dS, chunk,
+                                       None, how)
+
+    def run():
+        _build.check(lib, launch(), "wkv6_bwd")
+        return _summed(grads, S0)
+    return run

@@ -9,10 +9,13 @@ Counterpart of ``repro.models.rwkv``.  Three evaluation paths:
   the plain version of the ``wkv6`` kernel.
 * ``wkv_step``      -- single decode step.
 
-``time_mix`` keeps the JAX dispatch: ``T == 1`` -> ``wkv_step``,
-``T <= chunk`` -> ``wkv_recurrent``, longer -> the ``wkv6`` kernel wrapper,
-which launches the CUDA kernel for CUDA tensors and runs ``wkv_chunked``
-for CPU tensors.
+``time_mix`` dispatches as JAX's does by length: ``T == 1`` ->
+``wkv_step``; ``2 <= T <= chunk`` -> the ``wkv6`` kernel wrapper at chunk 1,
+whose chunked form is the recurrence's function (JAX runs
+``wkv_recurrent`` there, one ``lax.scan`` that XLA compiles into one device
+loop; a Python loop here would launch every step's kernels from the
+host); longer -> the wrapper at ``chunk``.  The wrapper launches the CUDA
+kernels for CUDA tensors and runs ``wkv_chunked`` for CPU tensors.
 
 State per layer: S (B,H,K,V) + token-shift tails for time/channel mix.
 """
@@ -193,8 +196,11 @@ def time_mix(cfg, p, x, state, *, chunk=64):
                         w_log[:, 0], u, state["S"])
         y = y[:, None]
     elif T <= chunk:
-        y, S = wkv_recurrent(r.to(F32), kk.to(F32), v.to(F32), w_log, u,
-                             state["S"])
+        # the chunked form at chunk 1 is the recurrence: one row a chunk
+        # has no pair in A, and LWp = LW_end - LW = 0, so no clip acts;
+        # only f32 rounding departs from wkv_recurrent
+        y, S = _wkv_kernel.wkv6(r.to(F32), kk.to(F32), v.to(F32), w_log, u,
+                                chunk=1, S0=state["S"].to(F32))
     else:
         y, S = _wkv_kernel.wkv6(r.to(F32), kk.to(F32), v.to(F32), w_log, u,
                                 chunk=chunk, S0=state["S"].to(F32))

@@ -166,10 +166,11 @@ def test_wkv6_operators_count_chip_smokes_operations(chunk, scratch):
                              + _smoke_wkv(B, T, H, K, chunk, True))
     assert [g.shape for g in grads] == [t.shape for t in (r, k, v, w, u, S0)]
     # the chunk-parallel route's forward also returns its chunk-start
-    # states (and the backward reads them); the per-head route none
-    n = T // chunk
-    saved = B * H * n * (K * K + (chunk // 64) * K + 2 * K) * 4 if scratch \
-        else 0
+    # states (and the backward reads them); the tile-parallel route (chunk
+    # 16) its tile-start states and decays
+    n, nt = T // chunk, -(-T // 64)
+    saved = (B * H * n * (K * K + (chunk // 64) * K + 2 * K) * 4 if scratch
+             else B * H * nt * (K * K + K) * 4)
     fwd = (5 * B * T * H * K + H * K + 2 * B * H * K * K) * 4 + saved
     assert counter.by_op["repro_torch.wkv6"] == [1, fwd]
 
@@ -180,18 +181,24 @@ def test_wkv6_operators_count_chip_smokes_operations(chunk, scratch):
 def test_wkv6_meta_route_returns_no_scratch(T, chunk, how):
     """A chunk that divides 64 takes the tile-parallel route on meta as on
     the card (a ragged last tile here), and one that neither divides 64 nor
-    is a multiple of it the per-head route: the forward operator returns
-    y, S and no scratch (the tile states live inside the call; the
-    backward recomputes its own), so a step counts the chunked form's
-    FLOPs at chunk L and the operands and results alone."""
+    is a multiple of it the per-head route; the backward takes the
+    forward's route.  The per-head forward operator returns y, S and no
+    scratch (its backward recomputes its own states); the tile-parallel one
+    also its tile scratch, each tile's start state and decay, which its
+    backward reads.  A step counts the chunked form's FLOPs at chunk L and
+    the operands and results."""
     B, H, K = 2, 64, 64
     r, k, v, w = (_meta(B, T, H, K) for _ in range(4))
     u, S0 = _meta(H, K), _meta(B, H, K, K)
     assert wk.route(r, k, v, w, chunk) == how
-    assert wk.bwd_route(r, k, v, w, v, S0, chunk) == "per-head"
+    assert wk.bwd_route(r, k, v, w, v, S0, chunk) == how
     with torch.no_grad():
         y, S, scratch = torch.ops.repro_torch.wkv6(r, k, v, w, u, S0, chunk)
-    assert scratch == [] and y.shape == v.shape and S.shape == S0.shape
+    nt = -(-T // 64)
+    want = ([(B, H, nt, K, K), (B, H, nt, K)] if how == "tile-parallel"
+            else [])
+    assert [tuple(t.shape) for t in scratch] == want
+    assert y.shape == v.shape and S.shape == S0.shape
 
     def step(*args):
         y, S = wk.wkv6(*args[:5], chunk=chunk, S0=args[5])
@@ -205,7 +212,8 @@ def test_wkv6_meta_route_returns_no_scratch(T, chunk, how):
     assert counter.flops == (_smoke_wkv(B, T, H, K, chunk, False)
                              + _smoke_wkv(B, T, H, K, chunk, True))
     assert [g.shape for g in grads] == [t.shape for t in (r, k, v, w, u, S0)]
-    fwd = (5 * B * T * H * K + H * K + 2 * B * H * K * K) * 4
+    saved = B * H * nt * (K * K + K) * 4 if how == "tile-parallel" else 0
+    fwd = (5 * B * T * H * K + H * K + 2 * B * H * K * K) * 4 + saved
     assert counter.by_op["repro_torch.wkv6"] == [1, fwd]
 
 

@@ -24,6 +24,8 @@ passes over 64-row tiles, whose carries compose the chunks', then a walk
 over each tile's chunks from the tile's state, at every such chunk, at
 decays on the -8 clamp and where the clip binds, with a ragged last tile.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -129,31 +131,79 @@ def test_recurrence_and_step_match_jax():
     assert_rel_close(S, jS2, 1e-5, "step S")
 
 
-@pytest.mark.parametrize("T,chunk", [(1, 64), (12, 16), (48, 16)])
-def test_time_mix_dispatch_matches_jax(T, chunk):
-    """T == 1 -> the step, T <= chunk -> the recurrence, longer -> the wkv6
-    wrapper (its plain chunked version here), each from a carried state."""
+GRAD_INPUTS = ("x", "S", "shift", "u", "w0", "rwkv_wk")
+
+
+@functools.lru_cache(maxsize=None)
+def time_mix_params():
+    """A small f32 RWKV6 configuration (both packages') and JAX's time-mix
+    parameters, made once for the dispatch cases."""
     jcfg = JConfig(name="t", family="ssm", n_layers=1, d_model=32, n_heads=4,
                    n_kv=4, d_ff=64, vocab=16, rwkv=True, rwkv_head_dim=8,
                    dtype="float32", param_dtype="float32")
     tcfg = TConfig(**{f: getattr(jcfg, f) for f in jcfg.__dataclass_fields__})
-    p = jrwkv.time_mix_init(jcfg, jax.random.PRNGKey(0))
+    return jcfg, tcfg, jrwkv.time_mix_init(jcfg, jax.random.PRNGKey(0))
+
+
+@pytest.mark.parametrize("T,chunk", [(1, 64), (12, 16), (48, 16), (2, 2),
+                                     (16, 16), (128, 128)])
+def test_time_mix_dispatch_matches_jax(T, chunk, monkeypatch):
+    """T == 1 -> the step; 2 <= T <= chunk -> the wkv6 wrapper at chunk 1
+    (JAX: the recurrence, the same function; its plain chunked version
+    here); longer -> the wrapper at the chunk; each from a carried state.
+    The output and new state within 1e-4 of JAX's; where 2 <= T <= chunk
+    (as the model's chunk rule gives for T = 2, 16 and 128) also the
+    gradients of x, S, the token shift, u, w0 and the key projection for
+    cotangents on the output and the state, against JAX's vjp within 1e-4
+    (f32 sums in another order).  The wrapper's chunk is spied on."""
+    jcfg, tcfg, p = time_mix_params()
     tp = {k: torch.tensor(np.asarray(v)) for k, v in p.items()}
     rng = np.random.default_rng(T)
     x = rng.standard_normal((2, T, 32)).astype(np.float32)
     S = rng.standard_normal((2, 4, 8, 8)).astype(np.float32) * 0.3
     shift = rng.standard_normal((2, 32)).astype(np.float32)
-    before = tk.wkv6.launches
-    out, st = trwkv.time_mix(tcfg, tp, torch.tensor(x),
-                             {"S": torch.tensor(S), "shift": torch.tensor(shift)},
-                             chunk=chunk)
-    jout, jst = jrwkv.time_mix(jcfg, p, jnp.asarray(x),
-                               {"S": jnp.asarray(S), "shift": jnp.asarray(shift)},
-                               chunk=chunk)
-    assert tk.wkv6.launches == before
-    assert_rel_close(out, jout, 1e-4, "out")
-    assert_rel_close(st["S"], jst["S"], 1e-4, "S")
-    np.testing.assert_array_equal(st["shift"].numpy(), np.asarray(jst["shift"]))
+    g_out = rng.standard_normal((2, T, 32)).astype(np.float32)
+    g_S = rng.standard_normal((2, 4, 8, 8)).astype(np.float32)
+    chunks, wrapper = [], tk.wkv6
+
+    def spy(*args, chunk, **kw):
+        chunks.append(chunk)
+        return wrapper(*args, chunk=chunk, **kw)
+    monkeypatch.setattr(tk, "wkv6", spy)
+    graded = 2 <= T <= chunk
+    ins = {"x": x, "S": S, "shift": shift, **{n: np.asarray(p[n]) for n in
+                                               GRAD_INPUTS[3:]}}
+    leaves = {n: torch.tensor(a, requires_grad=graded) for n, a in ins.items()}
+    before = wrapper.launches
+    out, st = trwkv.time_mix(
+        tcfg, {**tp, **{n: leaves[n] for n in GRAD_INPUTS[3:]}}, leaves["x"],
+        {"S": leaves["S"], "shift": leaves["shift"]}, chunk=chunk)
+
+    @jax.jit
+    def jax_side(ins, cots):
+        def fn(x, S, shift, *params):
+            out, st = jrwkv.time_mix(
+                jcfg, {**p, **dict(zip(GRAD_INPUTS[3:], params))}, x,
+                {"S": S, "shift": shift}, chunk=chunk)
+            return out, st["S"], st["shift"]
+        outs, pull = jax.vjp(fn, *ins)
+        return outs, pull((*cots, jnp.zeros_like(outs[2])))
+    (jout, jS, jshift), want = jax_side(
+        [jnp.asarray(ins[n]) for n in GRAD_INPUTS],
+        (jnp.asarray(g_out), jnp.asarray(g_S)))
+    assert wrapper.launches == before
+    assert chunks == ([] if T == 1 else [1] if T <= chunk else [chunk])
+    assert_rel_close(out.detach(), jout, 1e-4, "out")
+    assert_rel_close(st["S"].detach(), jS, 1e-4, "S")
+    np.testing.assert_array_equal(st["shift"].detach().numpy(),
+                                  np.asarray(jshift))
+    if not graded:
+        return
+    got = torch.autograd.grad((out, st["S"]),
+                              [leaves[n] for n in GRAD_INPUTS],
+                              (torch.tensor(g_out), torch.tensor(g_S)))
+    for name, g, w in zip(GRAD_INPUTS, got, want):
+        assert_rel_close(g, w, 1e-4, f"d{name}")
 
 
 def test_wrapper_takes_the_plain_version_only_on_cpu():
@@ -334,13 +384,13 @@ def test_route_by_chunk_and_alignment():
     tile-parallel route chunks that divide 64 (the 1040- and 300-token
     prompts' chunks 16 and 4, and 32); the per-head kernel takes the rest:
     other chunks (10, as T = 50,000 gives), other widths, misaligned
-    operands.  Only the chunk-parallel forward has a backward of its own."""
+    operands.  The backward takes the forward's route."""
     r, k, v, w, u, _ = (torch.tensor(a) for a in wkv_inputs(7, 1, 256, 2, 32))
     assert tk.route(r, k, v, w, 256) == "chunk-parallel"
     assert tk.route(r, k, v, w, 64) == "chunk-parallel"
     for chunk in (16, 4, 32, 8, 2, 1):
         assert tk.route(r, k, v, w, chunk) == "tile-parallel"
-        assert tk.bwd_route(r, k, v, w, v, None, chunk) == "per-head"
+        assert tk.bwd_route(r, k, v, w, v, None, chunk) == "tile-parallel"
     assert tk.bwd_route(r, k, v, w, v, None, 64) == "chunk-parallel"
     r10 = torch.zeros((1, 250, 2, 32))
     assert tk.route(r10, r10, r10, r10, 10) == "per-head"

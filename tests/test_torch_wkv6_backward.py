@@ -22,6 +22,8 @@ of sub-tiles, and dw's reversed sum carried across the sub-tiles; it is
 held to JAX at the same tolerance, as ``test_three_pass_emulation_
 matches_jax`` holds the forward's chunk-parallel route.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -60,6 +62,20 @@ def jax_vjp(arrs, chunk):
     _, vjp = jax.vjp(lambda *x: jrwkv.wkv_chunked(*x, chunk=chunk),
                      r, k, v, w, u, S0)
     return vjp((dy, dS))
+
+
+@functools.lru_cache(maxsize=None)
+def _jitted_vjp(chunk):
+    def vjp(r, k, v, w, u, S0, dy, dS):
+        _, pull = jax.vjp(lambda *x: jrwkv.wkv_chunked(*x, chunk=chunk),
+                          r, k, v, w, u, S0)
+        return pull((dy, dS))
+    return jax.jit(vjp)
+
+
+def jitted_vjp(arrs, chunk):
+    """``jax_vjp`` compiled once a chunk, for the cases that share a shape."""
+    return _jitted_vjp(chunk)(*(jnp.asarray(a) for a in arrs))
 
 
 def check(got, want, label):
@@ -418,28 +434,223 @@ def test_bwd_tf32_split_keeps_the_gate_where_one_tf32_product_breaks_it():
         assert worst(tf32_mm(3, rounding)) <= 1e-5, rounding
 
 
-def test_bwd_route_by_chunk_and_alignment():
-    """The chunk-parallel backward takes what the chunk-parallel forward
-    takes (a chunk that is a multiple of 64, K == V a multiple of 4, 16-byte
-    aligned operands) with dy and dS 16-byte aligned; the per-head kernels
-    take the rest (the 1040- and 300-token prompts' chunks 16 and 4)."""
+# --------------------------------------------------------------------------
+# the tile-parallel route of csrc/wkv6_bwd.cu, emulated in plain torch
+# --------------------------------------------------------------------------
+
+def tile_parallel_walk(r, k, v, w, u, S0, dy, dS, chunk):
+    """The tile-parallel backward's passes over (B, H) at once, at a chunk
+    L dividing 64, over 64-row tiles (the last ragged): the forward's tile
+    passes (LW by the blocked scan from each tile's start, U = K2^T V and D
+    = e^{LW_end}; the prefix, each tile's start state); G = (r
+    e^{LWp})^T dy a tile and the reverse prefix over the tiles (each tile's
+    end cotangent, dS0); then per tile: LW inside each chunk as one running
+    sum from the chunk's first row, the chunks' own products over the tile
+    masked to one chunk, the forward walk from the tile's start state (dR,
+    and the state at each chunk's start, which the kernels keep on chip or
+    recompute from a checkpoint every 8 rows), the backward walk from its
+    end cotangent (dv's K2 dS' and dK2; at each chunk's first row
+    e^{LW_end} <dS'_c, S_c> for dLW_end, then dS' <- e^{LW_end} dS' + R^T
+    dy), the elementwise terms, dw's reversed sum inside each chunk; du by
+    tile, the tiles added in order, then the batches."""
+    B, T, H, K = r.shape
+    L = chunk
+    assert SUB % L == 0 and T % L == 0
+    tr = lambda x: x.transpose(-1, -2)
+    f = lambda x: x.permute(0, 2, 1, 3)                     # (B,H,T,.)
+    r_, k_, v_, w_, dy_ = (f(x) for x in (r, k, v, w, dy))
+    tiles = [(a, min(a + SUB, T)) for a in range(0, T, SUB)]
+
+    def tile_lw(x):
+        """LW of a tile's rows by the blocked scan from 0."""
+        n = x.shape[2]
+        pad = torch.cat([x, x.new_zeros(B, H, SUB - n, K)], 2)
+        local = pad.reshape(B, H, SUB // SEG, SEG, K).cumsum(3)
+        base = torch.cat([torch.zeros(B, H, 1, K),
+                          local[:, :, :-1, -1].cumsum(2)], 2)
+        return (base[:, :, :, None] + local).reshape(B, H, SUB, K)[:, :, :n]
+    # the forward's tile passes, then G and the reverse prefix over tiles
+    St, Dt, S = [], [], S0
+    G = []
+    for a, b in tiles:
+        LW = tile_lw(w_[:, :, a:b])
+        LWe = LW[:, :, -1]
+        U = tr(k_[:, :, a:b] * torch.exp(LWe[:, :, None] - LW)) @ v_[:, :, a:b]
+        St.append(S)
+        Dt.append(torch.exp(LWe))
+        S = torch.exp(LWe)[..., None] * S + U
+        G.append(tr(r_[:, :, a:b] * torch.exp(LW - w_[:, :, a:b]))
+                 @ dy_[:, :, a:b])
+    dSt = [None] * len(tiles)
+    ds = torch.zeros_like(S0) if dS is None else dS
+    for i in reversed(range(len(tiles))):
+        dSt[i] = ds
+        ds = Dt[i][..., None] * ds + G[i]
+    dS0 = ds
+    clip = lambda x: torch.exp(x.clamp(-CLAMP, CLAMP))
+    outer = lambda a, b: a[..., :, None] * b[..., None, :]
+    out = {x: torch.empty_like(t) for x, t in (("r", r_), ("k", k_),
+                                                ("v", v_), ("w", w_))}
+    du_tiles = []
+    for i, (a, b) in enumerate(tiles):
+        n = b - a
+        rt, kt, vt, wt, dyt = (x[:, :, a:b] for x in (r_, k_, v_, w_, dy_))
+        LW = torch.empty_like(wt)
+        for t in range(n):
+            LW[:, :, t] = wt[:, :, t] if t % L == 0 else LW[:, :, t - 1] \
+                + wt[:, :, t]
+        c0 = torch.arange(n) // L * L
+        Z, LWe = LW[:, :, c0 + L // 2], LW[:, :, c0 + L - 1]
+        LWp = LW - wt
+        xq, xk = LWp - Z, Z - LW
+        eQ, eK, eP, e2 = clip(xq), clip(xk), torch.exp(LWp), torch.exp(LWe
+                                                                      - LW)
+        Q, Kf, R, K2 = rt * eQ, kt * eK, rt * eP, kt * e2
+        D = torch.exp(LW)                      # read at chunks' last rows
+        ti = torch.arange(n)
+        own = (ti[None, :] < ti[:, None]) & (c0[None, :] == c0[:, None])
+        dA = (dyt @ tr(vt)).masked_fill(~own, 0.0)
+        A = (Q @ tr(Kf)).masked_fill(~own, 0.0)
+        dQ, dKf, dv = dA @ Kf, tr(dA) @ Q, tr(A) @ dyt
+        s, up, starts = St[i], 0.0, {}
+        dR, dK2, dvs = (torch.empty_like(x) for x in (rt, kt, vt))
+        for t in range(n):                     # the forward walk
+            if t % L == 0:
+                starts[t] = s
+            dR[:, :, t] = torch.einsum("bhv,bhkv->bhk", dyt[:, :, t], s)
+            up = up + outer(K2[:, :, t], vt[:, :, t])
+            if (t + 1) % L == 0:
+                s, up = D[:, :, t, :, None] * s + up, 0.0
+        s, up, sd = dSt[i], 0.0, {}
+        for t in reversed(range(n)):           # the backward walk
+            dvs[:, :, t] = torch.einsum("bhk,bhkv->bhv", K2[:, :, t], s)
+            dK2[:, :, t] = torch.einsum("bhv,bhkv->bhk", vt[:, :, t], s)
+            up = up + outer(R[:, :, t], dyt[:, :, t])
+            if t % L == 0:
+                d = D[:, :, t + L - 1]
+                sd[t] = d * (s * starts[t]).sum(-1)   # e^{LW_end} <dS', S>
+                s, up = d[..., None] * s + up, 0.0
+        ddiag = (dyt * vt).sum(-1, keepdim=True)
+        diag = (rt * u[None, :, None] * kt).sum(-1, keepdim=True)
+        bonus = ddiag * u[None, :, None]
+        out["r"][:, :, a:b] = dQ * eQ + dR * eP + bonus * kt
+        out["k"][:, :, a:b] = dKf * eK + dK2 * e2 + bonus * rt
+        out["v"][:, :, a:b] = dv + dvs + diag * dyt
+        gQ = torch.where(xq.abs() <= CLAMP, dQ * Q, 0.0)
+        gK = torch.where(xk.abs() <= CLAMP, dKf * Kf, 0.0)
+        k2k2 = dK2 * K2
+        E = -gK - k2k2
+        fr = gQ + dR * R + E                   # dLWp + E
+        half = (torch.arange(L) <= L // 2).to(r.dtype)[:, None]
+        for c in range(0, n, L):
+            rows = slice(c, c + L)
+            dlwe = k2k2[:, :, rows].sum(2) + sd[c]
+            dz = (gK - gQ)[:, :, rows].sum(2)
+            after = fr[:, :, rows].flip(2).cumsum(2).flip(2) - fr[:, :, rows]
+            out["w"][:, :, a + c:a + c + L] = (
+                after + E[:, :, rows] + dlwe[:, :, None]
+                + half * dz[:, :, None])
+        du_tiles.append((ddiag * rt * kt).sum(2))
+    du = du_tiles[0]
+    for x in du_tiles[1:]:
+        du = du + x
+    du_sum = du[0]
+    for b in range(1, B):
+        du_sum = du_sum + du[b]
+    back = lambda x: x.permute(0, 2, 1, 3)
+    return (*(back(out[x]) for x in ("r", "k", "v", "w")), du_sum, dS0)
+
+
+@pytest.fixture
+def one_thread():
+    """Torch on one thread for a test of many tiny ops: beside the other
+    test workers, a pool of threads a small product only waits on them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("case", ["model", "clip", "clamp"])
+def test_tile_parallel_walk_matches_jax(case, chunk, one_thread):
+    """The tile-parallel backward's decomposition computes the gradients of
+    JAX's chunked form at every chunk that divides 64, within 1e-4 of each
+    gradient's largest magnitude, on T = 224 (three tiles and a ragged one
+    of 32 rows), from a state and with a cotangent on the final state: at
+    the model's decays (shift -0.6), at shift 2.0, where the clip binds
+    inside chunks of 8 and more, and on the -8 clamp (64 rows span
+    e^{-512}: no decay is factored across a tile).
+
+    On the clamp dw is a difference of terms up to e^8 its size (at chunk
+    1, dw_t = e^{w_t} <dS'_t, S_t>, less and plus K2 dK2), so f32 cannot
+    hold it to 1e-4 of max |dw| there: JAX's own f32 gradient departs from
+    an f64 evaluation of the same chunked form by up to 5.2e-4 of it (chunk
+    2).  There the five other gradients are held to JAX within 1e-4, and dw
+    to the f64 evaluation within twice JAX's own departure (at least
+    1e-4).  dLW_end's state term is the dot of the two walks' states:
+    telescoped from per-row terms instead (<dS'_{c-1}, S_c> - sum R dR +
+    sum K2 dK2), dw lands 7.8e-4 from f64 at chunk 1 against JAX's
+    1.2e-4."""
+    B, T, H, K = 2, 224, 2, 16
+    shift = {"model": -0.6, "clip": 2.0, "clamp": 2.0}[case]
+    arrs = operands(T + chunk + len(case), B, T, H, K, decay_shift=shift)
+    if case == "clamp":
+        arrs[3] = np.full_like(arrs[3], -8.0)
+    targs = [torch.tensor(a) for a in arrs]
+    got = tile_parallel_walk(*targs, chunk)
+    assert all(torch.isfinite(g).all() for g in got)
+    want = jitted_vjp(arrs, chunk)
+    label = f"tile-parallel walk chunk {chunk}"
+    if case != "clamp":
+        check(got, want, label)
+        return
+    for name, g, w in zip(NAMES, got, want):
+        if name != "dw":
+            assert_rel_close(g, w, 1e-4, f"{label} {name}")
+    from test_torch_wkv6 import chunked_f64
+    f64 = [torch.tensor(a, dtype=torch.float64) for a in arrs]
+    leaves = [a.clone().requires_grad_(True) for a in f64[:6]]
+    y, S = chunked_f64(*leaves, chunk, torch.matmul)
+    dy = f64[6].reshape(B, T // chunk, chunk, H, K).permute(0, 3, 1, 2, 4)
+    exact = torch.autograd.grad((y * dy).sum() + (S * f64[7]).sum(),
+                                leaves)[3]
+    scale = float(exact.abs().max())
+    own = float((got[3].double() - exact).abs().max()) / scale
+    jax_err = float((torch.tensor(np.asarray(want[3])).double()
+                     - exact).abs().max()) / scale
+    assert own <= 2 * max(jax_err, 1e-4), (own, jax_err)
+
+
+@pytest.mark.parametrize("chunk", [64, 16])
+def test_bwd_route_by_chunk_and_alignment(chunk):
+    """Each backward takes what its forward takes (K == V a multiple of 4,
+    16-byte aligned operands) with dy and dS 16-byte aligned: the
+    chunk-parallel kernels a chunk that is a multiple of 64, the
+    tile-parallel ones a chunk that divides 64 (the 1040- and 300-token
+    prompts' chunks 16 and 4, every odd length's 1); the per-head kernels
+    the rest (a chunk of 10, other widths, misaligned operands), at a chunk
+    of each route (``chunk``)."""
     from repro_torch.kernels.rwkv6 import kernel as tk
     r, k, v, w, u, S0, dy, dS = (torch.tensor(a)
                                  for a in operands(7, 1, 256, 2, 32))
     assert tk.bwd_route(r, k, v, w, dy, dS, 256) == "chunk-parallel"
     assert tk.bwd_route(r, k, v, w, dy, None, 64) == "chunk-parallel"
-    for chunk in (16, 4, 32, 128 + 64):
-        want = "chunk-parallel" if chunk % 64 == 0 else "per-head"
-        assert tk.bwd_route(r, k, v, w, dy, dS, chunk) == want, chunk
+    for c in (16, 4, 32, 1, 2, 8, 128 + 64, 10):
+        want = ("chunk-parallel" if c % 64 == 0 else
+                "tile-parallel" if 64 % c == 0 else "per-head")
+        assert tk.bwd_route(r, k, v, w, dy, dS, c) == want, c
+    how = tk.bwd_route(r, k, v, w, dy, dS, chunk)
+    assert how == ("chunk-parallel" if chunk == 64 else "tile-parallel")
     v28, dy28 = (x[..., :28].contiguous() for x in (v, dy))
-    assert tk.bwd_route(r, k, v28, w, dy28, None, 64) == "per-head"
+    assert tk.bwd_route(r, k, v28, w, dy28, None, chunk) == "per-head"
     r30, k30, v30, w30, dy30 = (x[..., :30].contiguous()
                                 for x in (r, k, v, w, dy))
-    assert tk.bwd_route(r30, k30, v30, w30, dy30, None, 64) == "per-head"
+    assert tk.bwd_route(r30, k30, v30, w30, dy30, None, chunk) == "per-head"
 
     def shifted(x):
         flat = torch.zeros(x.numel() + 1)
         return flat[1:].view(x.shape)
-    assert tk.bwd_route(r, k, v, w, shifted(dy), dS, 64) == "per-head"
-    assert tk.bwd_route(r, k, v, w, dy, shifted(dS), 64) == "per-head"
-    assert tk.bwd_route(shifted(r), k, v, w, dy, dS, 64) == "per-head"
+    assert tk.bwd_route(r, k, v, w, shifted(dy), dS, chunk) == "per-head"
+    assert tk.bwd_route(r, k, v, w, dy, shifted(dS), chunk) == "per-head"
+    assert tk.bwd_route(shifted(r), k, v, w, dy, dS, chunk) == "per-head"
