@@ -386,6 +386,9 @@ TRAIN_ACCUM, TRAIN_STEPS = 2, 8
 # (tile-parallel)
 FLASH_BWD_RAGGED = (1, 1000, 4, 2, 32)
 FLASH_BWD_TC_RAGGED = ((1, 1000, 4, 2, 128), (1, 1000, 4, 4, 64))
+# head width 32 where the grid fills the card (the Qwen3-0.6B shape's batch
+# and heads), causal, in both dtypes
+FLASH_HD32_FULL = (4, 1024, 16, 8, 32)
 WKV_BWD_CASES = ((4, 1024, 64, 64, 256, -0.6, False, False),
                  (2, 1024, 64, 64, 256, -0.6, True, True),
                  (2, 1023, 64, 64, 1, -0.6, True, True),
@@ -1339,6 +1342,9 @@ def phase_flash(gen):
             cases_row[label] = dict(shape=shape, causal=causal, ms=t_k,
                                     plain_ms=t_p, library_ms=t_l,
                                     bound_ms=b_ms, bound_by=b_by)
+    cases_row["cuda_cores"] = cuda_core_forward(gen, flash_attention,
+                                                reference)
+    errs += [r["max_abs_err"] for r in cases_row["cuda_cores"].values()]
     check_tma_refusal(flash_attention)
     # the row's own numbers are the first serving shape's, the Qwen3 prefill
     main = cases_row[FLASH_MODELS[0][0]]
@@ -1349,6 +1355,57 @@ def phase_flash(gen):
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                 library_ms=main["library_ms"], max_abs_err=max(errs),
                 cases=cases_row)
+
+
+def cuda_core_forward(gen, flash_attention, reference):
+    """The forward's CUDA-core route (``flash_fwd_kernel``: f32, and bf16 at
+    head width 32) held to its plain version at the phase's gates and
+    timed against SDPA (events and CUDA graphs, in turns) and its bound:
+    f32 at the Qwen3-0.6B shape, both dtypes at the ragged head-width-32
+    shape and at FLASH_HD32_FULL, causal."""
+    from repro_torch.kernels.flash_attention.kernel import route
+    rows = {}
+    for shape, dtype in ((FLASH_MAIN, torch.float32),
+                         (FLASH_BWD_RAGGED, torch.float32),
+                         (FLASH_BWD_RAGGED, torch.bfloat16),
+                         (FLASH_HD32_FULL, torch.float32),
+                         (FLASH_HD32_FULL, torch.bfloat16)):
+        B, S, Hq, Hkv, hd = shape
+        q, k, v = flash_inputs(gen, *shape, dtype)
+        label = f"flash_attention {shape} {str(dtype)[6:]} causal=True"
+        if route(q) != "cuda_cores":
+            raise AssertionError(f"{label}: not the CUDA-core route")
+        rt = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-4
+        err = check_close(flash_attention(q, k, v, causal=True),
+                          reference(q, k, v, causal=True), 1e-5, rt,
+                          f"{label} route=cuda_cores")
+        fns = {"kernel": (lambda: flash_attention(q, k, v, causal=True), 20),
+               "library": (lambda: sdpa(q, k, v, True), 20),
+               "plain": (lambda: reference(q, k, v, causal=True), 5)}
+        times = {name: [] for name in fns}
+        for name in ("kernel", "library", "plain", "library", "kernel"):
+            fn, reps = fns[name]
+            times[name].append(cuda_ms(fn, reps))
+        t_k, t_l, t_p = (statistics.mean(times[n])
+                         for n in ("kernel", "library", "plain"))
+        t_kg = graph_ms(fns["kernel"][0], 20)
+        t_lg = graph_ms(fns["library"][0], 20)
+        ops = peaks().flash_fwd_ops(B, S, S, Hq, hd, True)
+        # bf16 at the bf16 tensor-core rate; f32 each product as three TF32
+        # products, as the backward's f32 bound counts them
+        rate = (peaks().BF16_FLOPS if dtype == torch.bfloat16
+                else peaks().TF32_FLOPS / 3)
+        b_ms, b_by = bound(nbytes(q, k, v, q), ops, rate)
+        print(f"  {label} route=cuda_cores: ms={t_k!r} plain_ms={t_p!r} "
+              f"library_ms={t_l!r} graph_ms={t_kg!r} library_graph_ms="
+              f"{t_lg!r} bound_ms={b_ms!r} ({b_by}) "
+              f"f32_cuda_core_floor_ms={ops / peaks().FP32_FLOPS * 1e3!r} "
+              f"turns={times!r}")
+        rows[f"{shape} {str(dtype)[6:]}"] = dict(
+            ms=t_k, plain_ms=t_p, library_ms=t_l, graph_ms=t_kg,
+            library_graph_ms=t_lg, bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=err)
+    return rows
 
 
 def check_tma_refusal(flash_attention):
@@ -4452,12 +4509,14 @@ def flash_bwd_check(gen):
     """(b) flash: the backward kernels' dq, dk, dv against autograd of
     ``ref.reference`` and against ``ref.backward`` fed the kernel's own
     output and logsumexp; the logsumexp against ``ref.forward_lse``; two
-    calls bit for bit; one backward launch a call; at each shape the
-    route (``kernel.route``), the kernels' ms, the plain version's
-    (autograd) and SDPA's backward by CUDA events around the calls (host
-    time between kernels included), and the kernels' and SDPA's backward
-    in CUDA graphs (``graph_ms``, ``library_graph_ms``: device time alone);
-    the row's own numbers are the Qwen3-0.6B shape's, in bf16."""
+    calls bit for bit; one backward launch a call, on the route
+    ``kernel.bwd_route`` names (``route_launches``: bf16 the wgmma
+    kernels, f32 the split-TF32 ones); at each shape the kernels' ms, the
+    plain version's (autograd) and SDPA's backward by CUDA events around
+    the calls (host time between kernels included), the kernels' and
+    SDPA's backward in CUDA graphs (``graph_ms``, ``library_graph_ms``:
+    device time alone); the row's own numbers are the Qwen3-0.6B shape's,
+    in bf16."""
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention import ref as fr
     print("phase 11 (b): flash_attention's backward kernels against the "
@@ -4467,25 +4526,34 @@ def flash_bwd_check(gen):
         (FLASH_BWD_RAGGED, c, dt) for c in (True, False)
         for dt in (torch.float32, torch.bfloat16)] + [
         (shape, c, torch.bfloat16) for shape in FLASH_BWD_TC_RAGGED
-        for c in (True, False)]
+        for c in (True, False)] + [
+        (FLASH_HD32_FULL, True, dt) for dt in (torch.float32, torch.bfloat16)]
     errs, timed = [], {}
     for shape, causal, dtype in cases:
         B, S, Hq, Hkv, hd = shape
         q, k, v = flash_inputs(gen, *shape, dtype)
         do = torch.randn((B, S, Hq, hd), generator=gen,
                          device="cuda").to(dtype)
-        route = fk.route(q)
+        route = fk.bwd_route(q)
         label = (f"flash bwd {shape} {str(dtype)[6:]} causal={causal} "
                  f"route={route}")
+        if route != ("tensor_cores" if dtype == torch.bfloat16
+                     else "split_tf32"):
+            raise AssertionError(f"{label}: not the dtype's backward route")
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
         n_fwd, n_bwd = fk.flash_attention.launches, \
             fk.flash_attention_bwd.launches
+        by_route = dict(fk.flash_attention_bwd.route_launches)
         o = fk.flash_attention(*leaves, causal=causal)
         got = torch.autograd.grad(o, leaves, do)
+        moved = {r: n - by_route[r]
+                 for r, n in fk.flash_attention_bwd.route_launches.items()}
+        print(f"  {label}: backward launches by route {moved}")
         if (fk.flash_attention.launches - n_fwd,
-                fk.flash_attention_bwd.launches - n_bwd) != (1, 1):
+                fk.flash_attention_bwd.launches - n_bwd) != (1, 1) or \
+                moved != {r: int(r == route) for r in moved}:
             raise AssertionError(f"{label}: forward / backward launches "
-                                 "did not move by one each")
+                                 "did not move by one each, on the route")
         again = torch.autograd.grad(fk.flash_attention(*leaves,
                                                        causal=causal),
                                     leaves, do)
@@ -4533,9 +4601,11 @@ def flash_bwd_check(gen):
                 else peaks().TF32_FLOPS / 3)
         b_ms, b_by = bound(moved, ops, rate)
         f32_ms = ops / peaks().FP32_FLOPS * 1e3
-        # the tensor-core route multiplies P and dS as two bf16 halves and
-        # forms S and dP in both kernels: ten bf16 products
-        split_ms = 2 * ops / peaks().BF16_FLOPS * 1e3
+        # the wgmma route multiplies P and dS as two bf16 halves and forms
+        # S and dP in both kernels: ten bf16 products; the split-TF32 route
+        # forms S and dP in both too: seven products of three TF32 each
+        split_ms = (2 * ops / peaks().BF16_FLOPS if dtype == torch.bfloat16
+                    else 7 / 5 * 3 * ops / peaks().TF32_FLOPS) * 1e3
         print(f"  flash_attention_bwd {shape} {str(dtype)[6:]} causal="
               f"{causal} route={route}: ms={t_k!r} plain_ms={t_p!r} "
               f"(autograd) library_ms={t_l!r} (autograd of SDPA) "
@@ -4543,11 +4613,12 @@ def flash_bwd_check(gen):
               f"graphs) "
               f"bound_ms={b_ms!r} ({b_by}, 5 products) "
               f"f32_cuda_core_floor_ms={f32_ms!r} "
-              f"ten_bf16_products_ms={split_ms!r}")
+              f"route_products_ms={split_ms!r}")
         timed[f"{shape} {str(dtype)[6:]} causal={causal}"] = dict(
             kernels=route, ms=t_k, plain_ms=t_p, library_ms=t_l,
             graph_ms=t_kg, library_graph_ms=t_lg, bound_ms=b_ms,
             bound_by=b_by)
+    misaligned_f32_views(gen, fk)
     # the row's own numbers are the first serving shape's, the Qwen3 prefill
     main = timed[f"{FLASH_MODELS[0][1]} bfloat16 causal=True"]
     return dict(name="flash_attention_bwd", route="cuda",
@@ -4555,6 +4626,40 @@ def flash_bwd_check(gen):
                 replaces="src/repro/kernels/flash_attention/kernel.py:71",
                 backward_of="flash_attention", max_abs_err=max(errs),
                 **main, cases=timed)
+
+
+def misaligned_f32_views(gen, fk):
+    """(b) f32 q, k, v as views one element into wider tensors, so no base
+    is 16-byte aligned: the split-TF32 route copies them 4 bytes at a time
+    and must give the contiguous copies' gradients bit for bit, on one
+    launch of that route a call."""
+    for shape in ((1, 1000, 4, 2, 32), (1, 1000, 4, 2, 128)):
+        B, S, Hq, Hkv, hd = shape
+        q, k, v = flash_inputs(gen, *shape, torch.float32)
+        do = torch.randn((B, S, Hq, hd), generator=gen, device="cuda")
+
+        def off(t):
+            wide = torch.empty(t.shape[:-1] + (hd + 1,), device="cuda")
+            wide[..., 1:] = t
+            return wide[..., 1:]
+        views = [off(t) for t in (q, k, v)]
+        lse = torch.empty((B, Hq, S), device="cuda")
+        o = fk._forward(q, k, v, True, lse)
+        n0 = dict(fk.flash_attention_bwd.route_launches)
+        got = fk.flash_attention_bwd(*views, o, lse, do, causal=True)
+        moved = {r: n - n0[r]
+                 for r, n in fk.flash_attention_bwd.route_launches.items()}
+        want = fk.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        same = all(bitwise(a, b) for a, b in zip(got, want))
+        print(f"  flash bwd {shape} float32 causal=True, q / k / v off "
+              f"16-byte alignment: launches by route {moved}, gradients "
+              f"{'bit for bit' if same else 'DIFFER from'} the contiguous "
+              "copies'")
+        if views[0].data_ptr() % 16 == 0 or not same or \
+                moved != {r: int(r == "split_tf32") for r in moved}:
+            raise AssertionError(f"flash bwd {shape}: misaligned f32 views "
+                                 "did not run the split-TF32 route to the "
+                                 "contiguous copies' bits")
 
 
 def wkv_bwd_check(gen):
@@ -4888,8 +4993,10 @@ def reduced_against_cpu(arch):
     """(e) the reduced f32 configuration: one grad step on the card
     (through the kernels) against the same step on the CPU (the plain
     versions) and on the card with the kernels swapped for their plain
-    versions, on the same weights and batch."""
+    versions, on the same weights and batch; a model with attention runs
+    its backward on the split-TF32 route (``route_launches``)."""
     from repro_torch.configs import reduced_config
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.launch.steps import make_grad_step
     from repro_torch.models import LOCAL
     from repro_torch.models import init_params
@@ -4901,7 +5008,17 @@ def reduced_against_cpu(arch):
     step = make_grad_step(cfg, LOCAL)
     g_cpu, l_cpu, _ = step(params, batch)
     on_card = lambda tree: tree_map(lambda t: t.to("cuda"), tree)
+    n0 = dict(fk.flash_attention_bwd.route_launches)
     g_card, l_card, _ = step(on_card(params), on_card(batch))
+    moved = {r: n - n0[r]
+             for r, n in fk.flash_attention_bwd.route_launches.items()}
+    attn = sum(1 for mixer, _ in cfg.layer_kinds() if mixer == "attn")
+    print(f"  {arch} reduced: flash backward launches by route {moved} "
+          f"({attn} attention layers, {cfg.dtype})")
+    if moved != {r: attn * (r == "split_tf32") for r in moved}:
+        raise AssertionError(f"phase 11 (e) {arch} reduced: the backward "
+                             "did not run the split-TF32 route once a "
+                             "layer")
     with plain_kernels():
         g_plain, _, _ = step(on_card(params), on_card(batch))
     rel = float((l_card.cpu() - l_cpu).abs() / l_cpu.abs())
@@ -4954,7 +5071,7 @@ def phase_train(counters):
     t0 = time.perf_counter()
     for fn in counters:
         fn.launches = 0
-    for fn in (wk.wkv6, wk.wkv6_bwd):
+    for fn in (wk.wkv6, wk.wkv6_bwd, fk.flash_attention_bwd):
         fn.route_launches = dict.fromkeys(fn.route_launches, 0)
     kernels = {"qwen3-0.6b": (fk.flash_attention, fk.flash_attention_bwd),
                "rwkv6-7b": (wk.wkv6, wk.wkv6_bwd)}
@@ -5708,9 +5825,10 @@ def main() -> int:
             if "registers" in ln or "spill" in ln:
                 print(f"  {name}: {ln.strip()}")
     # the tensor-core backwards' entries: registers and spills
-    for entry, usage in ptxas_usage(logs.get("flash_attention_bwd", ""),
-                                    "wgmma").items():
-        print(f"  flash_attention_bwd wgmma entry {entry}: {usage}")
+    for word in ("wgmma", "tf32"):
+        for entry, usage in ptxas_usage(logs.get("flash_attention_bwd", ""),
+                                        word).items():
+            print(f"  flash_attention_bwd {word} entry {entry}: {usage}")
     for entry, usage in ptxas_usage(logs.get("wkv6_bwd", ""),
                                     "wkv6_bwd").items():
         print(f"  wkv6_bwd entry {entry}: {usage}")

@@ -12,20 +12,60 @@
 //   dK_j  = scale sum_{h in group, i} dS_ij q_i
 // with the results written in the operands' dtype.  Each route is two
 // kernels launched in this order on one stream: a dQ kernel, a block per
-// query tile of one query head, which also forms D for its rows (into a
-// scratch for the next kernel), then a dK / dV kernel, a block per kv tile
-// of one kv head, which loops over the query tiles of every query head of
-// its group that the mask reaches: the GQA sum is a loop in one block, not
-// a sum across blocks.  Each sum runs in a fixed order and nothing is added
-// atomically, so two calls give the same bits.
+// query tile of one query head, which also writes D and lse log2 e of its
+// rows (a 512-byte block per 64-row query tile of a (B, Hq, ceil(Sq / 64),
+// 2, 64) f32 scratch) for the next kernel, then a dK / dV kernel, a block
+// per kv tile of one kv head, which loops over the query tiles of every
+// query head of its group that the mask reaches: the GQA sum is a loop in
+// one block, not a sum across blocks.  Each sum runs in a fixed order and
+// nothing is added atomically, so two calls give the same bits.
 //
 // What bounds it: operations, five products of 2 HD flops per (query, key)
 // pair the mask keeps (S, dP, dV, dQ, dK), 2.5 times the forward's two.
+// Both routes run every product on the tensor cores and form S and dP in
+// both kernels: seven products against the bound's five.
 //
-// flash_bwd_dq_wgmma and flash_bwd_dkdv_wgmma (bf16, head width 64 or 128:
-// every full-size config) run every product on the tensor cores: wgmma on
-// 128-byte swizzled tiles that TMA loads through the (B, S, H, hd) strides
-// (the pieces shared with the forward are in hopper.cuh).  A block has two
+// flash_bwd_dq_tf32 and flash_bwd_dkdv_tf32 (float32, head width 32, 64 or
+// 128: every reduced config, any f32 training) multiply on the TF32 tensor
+// cores by mma.sync m16n8k8, every product split in three (tf32.cuh: x =
+// hi + lo, each a TF32 value truncated from x, and a b = a_hi b_hi + a_hi
+// b_lo + a_lo b_hi): truncated TF32 products alone move the gradients 38 to
+// 276 times past the f32 gate (1e-5 max + 1e-4 |ref|), the split form
+// stays within 0.16 of it (tests/test_torch_flash_backward.py).  mma.sync
+// and not TF32 wgmma: wgmma reads a TF32 operand from shared memory K-major
+// only, so dQ = dS K, dV = P^T dO and dK = dS^T Q would need K, dO and Q
+// transposed in shared memory, and P and dS leave the accumulator in a
+// layout that is not the TF32 A fragment's; mma.sync reads its fragments
+// from any layout.  Each warp owns 16 rows and a part of the other side's
+// tile: their S and dP stay in registers as accumulator fragments, and the
+// second products take them as A fragments as they lie, because the sum
+// over the score tile's columns runs in a permuted order (k slot q of an
+// 8-column step is column 2 q, slot q + 4 column 2 q + 1), which the B
+// operand's rows follow.  Shared tiles are f32 rows of HD + 4 floats (4 mod
+// 32): the fragment reads of both orders (rows g, columns q; rows 2 q and
+// 2 q + 1, columns g) reach 32 banks for 32 lanes, and rows stay 16-byte
+// aligned for cp.async.  Tiles arrive by cp.async in a ring of two stages,
+// 16 bytes a copy where every operand's base and strides are 16-byte
+// multiples, else 4 bytes a copy: the route takes any strided f32 view that
+// the wrapper admits, so nothing is kept for another route.  The dQ kernel
+// has 8 warps over 64 query rows, each 16 rows x one 32-column half of
+// every 64-row K / V tile, the halves' dQ added in a fixed order at the
+// end; the dK / dV kernel has 4 warps over 32 kv rows, each 16 rows x one
+// half of every 64-row Q / dO tile, likewise.  So the ragged (1, 1000, 4,
+// 2, 32) shape has 64 blocks of each kernel (a block per 128 rows would
+// leave 32 and 16 of 132 SMs busy).  At head width 128 the f32 tiles hold
+// one block on an SM (198 KB and 166 KB of shared memory).
+//
+// flash_bwd_dq_wgmma and flash_bwd_dkdv_wgmma (bf16, head width 32, 64 or
+// 128: every full-size config) run every product on the tensor cores: wgmma
+// on swizzled tiles (128-byte; 64-byte at head width 32, whose rows are 64
+// bytes) that TMA loads through the (B, S, H, hd) strides (the pieces shared
+// with the forward are in hopper.cuh).  TMA needs a 16-byte aligned base and
+// batch, row and head strides that are 16-byte multiples, so a bf16 q, k or
+// v view that misses them is refused: at head width 64 and 128 as before,
+// and at head width 32, which the CUDA-core kernels took before this route
+// (the wrapper refuses such a view under grad before the forward launches;
+// no configuration makes one).  A block has two
 // consumer warpgroups of 64 rows each over a 128-row tile; one thread also
 // keeps a ring of three 64-row stages of the other side filled (in the dK /
 // dV kernel with each query tile's lse and D too, by bulk copy).  Letting
@@ -48,12 +88,6 @@
 // ptxas may give each 255 (at 384, with a producer warpgroup as in the
 // forward, the cap would be 168); the dK / dV kernel's peak is dK and dV
 // (HD / 2 each) beside S^T and dP^T (32 + 32) or their split halves (16 x 4).
-//
-// flash_bwd_dq and flash_bwd_dkdv (float32, and bf16 at head width 32) run
-// the same schedule in f32 FMAs on the CUDA cores with 64-row tiles: each of
-// the 256 threads holds 4 rows x 4 columns of a 64 x 64 score tile and 4
-// rows x (HD / 16) columns of each accumulator; row statistics reduce over
-// the 16 threads that share a row, and D goes to a (B, Hq, Sq) scratch.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,89 +97,22 @@
 #include <type_traits>
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
-constexpr int kBR = 64;        // rows of a query or kv tile
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kPLD = kBR + 1;  // padded row of a 64 x 64 score tile
+constexpr int kBR = 64;         // rows of a Q / dO or K / V tile, of a dQ block
+constexpr int kStages = 2;      // tiles of the other side in flight
+constexpr int kStat = 2 * kBR;  // floats of a query tile's lse log2 e and D
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float sum16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off, 16);
-  return x;
-}
-
-// kBR rows x HD of a strided operand from row row0 -> dst (f32, row LD),
-// zeros past n_rows
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          long long row_stride, int row0,
-                                          int n_rows) {
-  constexpr int LD = HD + 1;
-  for (int idx = threadIdx.x; idx < kBR * HD; idx += kThreads) {
-    const int r = idx / HD, d = idx % HD;
-    const int s = row0 + r;
-    dst[r * LD + d] = s < n_rows ? to_f32(src[(long long)s * row_stride + d])
-                                 : 0.0f;
-  }
-}
-
-// acc[i][j] = sum_d A[(ty * 4 + i) * LD + d] * B[(tx + 16 j) * LD + d]
-template <int HD>
-__device__ __forceinline__ void dot_tile(float (&acc)[4][4],
-                                         const float* __restrict__ A,
-                                         const float* __restrict__ B, int ty,
-                                         int tx) {
-  constexpr int LD = HD + 1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-#pragma unroll 8
-  for (int d = 0; d < HD; ++d) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty * 4 + i) * LD + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * LD + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
-  }
-}
-
-// acc[i][c] += sum_r P[(ty * 4 + i) * kPLD + r] * X[r * LD + tx + 16 c]
-template <int HD>
-__device__ __forceinline__ void accumulate(float (&acc)[4][HD / 16],
-                                           const float* __restrict__ P,
-                                           const float* __restrict__ X, int ty,
-                                           int tx) {
-  constexpr int LD = HD + 1;
-#pragma unroll 4
-  for (int r = 0; r < kBR; ++r) {
-    float p[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = P[(ty * 4 + i) * kPLD + r];
-#pragma unroll
-    for (int c = 0; c < HD / 16; ++c) {
-      const float x = X[r * LD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][c] += p[i] * x;
-    }
-  }
-}
+// The f32 route's tiling: a dQ block is 8 warps over 64 query rows (4 row
+// groups of 16 x two 32-column halves of each 64-row K / V tile), a dK / dV
+// block 4 warps over kKvRows kv rows (2 row groups x two halves of each
+// 64-row Q / dO tile).  Each warp's S and dP are 16 x 32, 16 accumulator
+// floats each.
+constexpr int kDqThreads = 256;
+constexpr int kKvRows = 32;
+constexpr int kKvThreads = 128;
 
 // whether the forward let query row qpos see kv row kpos
 __device__ __forceinline__ bool kept(int qpos, int kpos, int Sq, int Skv,
@@ -157,220 +124,474 @@ struct Strides {
   long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
 };
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const T* __restrict__ o,
-             const T* __restrict__ dout, const float* __restrict__ lse,
-             float* __restrict__ Dsum, T* __restrict__ dq, int Sq, int Skv,
-             int Hq, int G, Strides st, int causal, float scale) {
-  constexpr int LD = HD + 1;
-  constexpr int CPT = HD / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;               // kBR x LD
-  float* dOs = Qs + kBR * LD;     // kBR x LD
-  float* Ks = dOs + kBR * LD;     // kBR x LD
-  float* Vs = Ks + kBR * LD;      // kBR x LD
-  float* dSs = Vs + kBR * LD;     // kBR x kPLD
-  float* lse_s = dSs + kBR * kPLD;
-  float* D_s = lse_s + kBR;
+// Where a query tile's row statistics lie in the scratch that each route's
+// dQ kernel writes and its dK / dV kernel reads: for each (batch, query
+// head) and 64-row query tile t, the rows' lse log2 e, then their D, 512
+// contiguous bytes.
+__device__ __forceinline__ long long stat_at(int b, int h, int Hq, int n_q64,
+                                             int t) {
+  return (((long long)b * Hq + h) * n_q64 + t) * kStat;
+}
 
-  const int n_q = (Sq + kBR - 1) / kBR;
-  const int q0 = (n_q - 1 - (int)blockIdx.x) * kBR;   // longest first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const T* qb = q + b * st.qsb + h * st.qsh;
-  const T* kb = k + b * st.ksb + (h / G) * st.ksh;
-  const T* vb = v + b * st.vsb + (h / G) * st.vsh;
-  const long long rowO = (long long)Hq * HD;          // o, dO, dq contiguous
-  const long long ob = (long long)b * Sq * rowO + (long long)h * HD;
-  const long long lb = ((long long)b * Hq + h) * Sq;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src));
+}
 
-  load_tile<T, HD>(Qs, qb, st.qss, q0, Sq);
-  load_tile<T, HD>(dOs, dout + ob, rowO, q0, Sq);
-  // D_i = dO_i . o_i, over the 16 threads that share row i
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i, s = q0 + r;
-    float part = 0.0f;
-    if (s < Sq) {
-#pragma unroll
-      for (int c = 0; c < CPT; ++c)
-        part += to_f32(dout[ob + s * rowO + tx + 16 * c]) *
-                to_f32(o[ob + s * rowO + tx + 16 * c]);
+// ROWS rows x HD of a row-strided f32 operand from row row0 -> dst (row
+// HD + 4 floats), zeros past n_rows, by the block's NT threads: 16 bytes a
+// copy where `vec`, else 4
+template <int HD, int ROWS, int NT>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          long long row_stride, int row0,
+                                          int n_rows, bool vec) {
+  constexpr int LD = HD + 4;
+  if (vec) {
+    constexpr int kPer = HD / 4;
+    for (int idx = threadIdx.x; idx < ROWS * kPer; idx += NT) {
+      const int r = idx / kPer, c = (idx % kPer) * 4;
+      float* d = dst + r * LD + c;
+      if (row0 + r < n_rows)
+        cp_async16(d, src + (long long)(row0 + r) * row_stride + c);
+      else
+        *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
-    const float d = sum16(part);
-    if (tx == 0) {
-      D_s[r] = d;
-      lse_s[r] = s < Sq ? lse[lb + s] : 0.0f;
-      if (s < Sq) Dsum[lb + s] = d;
+  } else {
+    for (int idx = threadIdx.x; idx < ROWS * HD; idx += NT) {
+      const int r = idx / HD, c = idx % HD;
+      float* d = dst + r * LD + c;
+      if (row0 + r < n_rows)
+        cp_async4(d, src + (long long)(row0 + r) * row_stride + c);
+      else
+        *d = 0.0f;
     }
-  }
-
-  float acc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.0f;
-
-  const int q_last = min(q0 + kBR, Sq) - 1;
-  const int n_k = (Skv + kBR - 1) / kBR;
-  const int kt_end = causal ? min(n_k, q_last / kBR + 1) : n_k;
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * kBR;
-    __syncthreads();  // the previous tile's dS K is done with Ks and dSs
-    load_tile<T, HD>(Ks, kb, st.kss, k0, Skv);
-    load_tile<T, HD>(Vs, vb, st.vss, k0, Skv);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    dot_tile<HD>(s, Qs, Ks, ty, tx);
-    dot_tile<HD>(dp, dOs, Vs, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float p = kept(q0 + r, k0 + c, Sq, Skv, causal)
-                            ? expf(s[i][j] * scale - lse_s[r])
-                            : 0.0f;
-        dSs[r * kPLD + c] = p * (dp[i][j] - D_s[r]);
-      }
-    }
-    __syncthreads();
-    accumulate<HD>(acc, dSs, Ks, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = q0 + ty * 4 + i;
-    if (s >= Sq) continue;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c)
-      store(dq + ob + s * rowO + tx + 16 * c, acc[i][c] * scale);
   }
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, const T* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ Dsum,
-               T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv, int Hq,
-               int G, Strides st, int causal, float scale) {
-  constexpr int LD = HD + 1;
-  constexpr int CPT = HD / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;               // kBR x LD, this block's kv rows
-  float* Vs = Ks + kBR * LD;      // kBR x LD
-  float* Qs = Vs + kBR * LD;      // kBR x LD, a query tile
-  float* dOs = Qs + kBR * LD;     // kBR x LD
-  float* Ps = dOs + kBR * LD;     // kBR x kPLD: P^T (kv rows x query cols)
-  float* dSs = Ps + kBR * kPLD;   // kBR x kPLD: dS^T
-  float* lse_s = dSs + kBR * kPLD;
-  float* D_s = lse_s + kBR;
-
-  const int k0 = blockIdx.x * kBR;   // causal: the most query tiles first
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int Hkv = Hq / G;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const long long rowO = (long long)Hq * HD;
-  const long long rowKV = (long long)Hkv * HD;       // dk, dv contiguous
-
-  load_tile<T, HD>(Ks, k + b * st.ksb + hk * st.ksh, st.kss, k0, Skv);
-  load_tile<T, HD>(Vs, v + b * st.vsb + hk * st.vsh, st.vss, k0, Skv);
-
-  float dka[4][CPT], dva[4][CPT];
+// acc[j] = A B^T for the warp's 16 rows of A and 8 rows 8 j .. 8 j + 7 of
+// B, j < N, over HD: S = Q K^T, dP = dO V^T and their transposes.  A and B
+// point at row 0 of the warp's rows (row HD + 4 floats); g = lane / 4, t =
+// lane % 4.
+template <int HD, int N>
+__device__ __forceinline__ void dot_rows(float (&acc)[N][4],
+                                         const float* __restrict__ A,
+                                         const float* __restrict__ B, int g,
+                                         int t) {
+  constexpr int LD = HD + 4;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < N; ++j)
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) dka[i][c] = dva[i][c] = 0.0f;
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk) {
+    const float* a = A + g * LD + 8 * kk + t;
+    const float av[4] = {a[0], a[8 * LD], a[4], a[8 * LD + 4]};
+    uint32_t ah[4], al[4];
+    split4(av, ah, al);
+    float b[N][2];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float* bp = B + (8 * j + g) * LD + 8 * kk + t;
+      b[j][0] = bp[0];
+      b[j][1] = bp[4];
+    }
+    mma3<N>(acc, ah, al, b);
+  }
+}
 
-  const int n_q = (Sq + kBR - 1) / kBR;
-  const int qt_begin = causal ? k0 / kBR : 0;
-  for (int g = 0; g < G; ++g) {
-    const int h = hk * G + g;
-    const T* qb = q + b * st.qsb + h * st.qsh;
-    const long long ob = (long long)b * Sq * rowO + (long long)h * HD;
-    const long long lb = ((long long)b * Hq + h) * Sq;
-    for (int qt = qt_begin; qt < n_q; ++qt) {
-      const int q0 = qt * kBR;
-      __syncthreads();  // the previous tile's sums are done with the tiles
-      load_tile<T, HD>(Qs, qb, st.qss, q0, Sq);
-      load_tile<T, HD>(dOs, dout + ob, rowO, q0, Sq);
-      if (tid < kBR) {
-        const int s = q0 + tid;
-        lse_s[tid] = s < Sq ? lse[lb + s] : 0.0f;
-        D_s[tid] = s < Sq ? Dsum[lb + s] : 0.0f;
-      }
-      __syncthreads();
-      float s[4][4], dp[4][4];
-      dot_tile<HD>(s, Ks, Qs, ty, tx);     // S^T: kv rows x query columns
-      dot_tile<HD>(dp, Vs, dOs, ty, tx);   // dP^T
+// acc[i] (the warp's 16 rows x head columns 8 i .. 8 i + 7) += X Y, X the
+// 16 x 8 NK product that x holds as accumulator fragments (x[j]: columns
+// 8 j .. 8 j + 7), Y rows 0 .. 8 NK - 1 of a tile (row HD + 4 floats).  The
+// sum over X's columns runs in a permuted order: k slot t of step j is
+// column 8 j + 2 t, slot t + 4 column 8 j + 2 t + 1, so x[j] is the A
+// fragment as it lies, and B's fragment is Y's rows 8 j + 2 t and + 1.
+template <int HD, int NK>
+__device__ __forceinline__ void accumulate_rows(float (&acc)[HD / 8][4],
+                                                const float (&x)[NK][4],
+                                                const float* __restrict__ Y,
+                                                int g, int t) {
+  constexpr int LD = HD + 4;
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    const float av[4] = {x[j][0], x[j][2], x[j][1], x[j][3]};
+    uint32_t ah[4], al[4];
+    split4(av, ah, al);
+    const float* y = Y + (8 * j + 2 * t) * LD + g;
+#pragma unroll
+    for (int i0 = 0; i0 < HD / 8; i0 += 4) {
+      float b[4][2];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int r = ty * 4 + i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = tx + 16 * j;
-          const float p = kept(q0 + c, k0 + r, Sq, Skv, causal)
-                              ? expf(s[i][j] * scale - lse_s[c])
-                              : 0.0f;
-          Ps[r * kPLD + c] = p;
-          dSs[r * kPLD + c] = p * (dp[i][j] - D_s[c]);
-        }
+        b[i][0] = y[8 * (i0 + i)];
+        b[i][1] = y[LD + 8 * (i0 + i)];
       }
-      __syncthreads();
-      accumulate<HD>(dva, Ps, dOs, ty, tx);
-      accumulate<HD>(dka, dSs, Qs, ty, tx);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = k0 + ty * 4 + i;
-    if (s >= Skv) continue;
-    const long long base = ((long long)b * Skv + s) * rowKV + hk * HD;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      store(dk + base + tx + 16 * c, dka[i][c] * scale);
-      store(dv + base + tx + 16 * c, dva[i][c]);
+      mma3<4>(&acc[i0], ah, al, b);
     }
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, const float* lse, float* Dsum, void* dq,
-           void* dk, void* dv, int B, int Sq, int Skv, int Hq, int Hkv,
-           const Strides& st, int causal, float scale, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (4 * kBR * (HD + 1) + 2 * kBR * kPLD + 2 * kBR);
-  auto kdq = flash_bwd_dq<T, HD>;
-  auto kkv = flash_bwd_dkdv<T, HD>;
+template <int N>
+__device__ __forceinline__ void zero_frags(float (&x)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[i][e] = 0.0f;
+}
+
+// One block per (64-row query tile, query head, batch), longest first: 8
+// warps, a warp 16 query rows x one 32-column half of each K / V tile.  D_i = dO_i . o_i and lse_i log2 e come first, into registers and
+// the statistics scratch; then for every 64-row kv tile the mask reaches,
+// with K and V in a ring of two stages:
+//   S = Q K^T, dP = dO V^T, P = exp2(S scale log2 e - lse log2 e) (0 where
+//   the forward masked), dS = P (dP - D), dQ += dS K
+// and the halves' dQ, added in order, times scale is written once.
+template <int HD>
+__global__ void __launch_bounds__(kDqThreads)
+flash_bwd_dq_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ o,
+                  const float* __restrict__ dout,
+                  const float* __restrict__ lse, float* __restrict__ stats,
+                  float* __restrict__ dq, int Sq, int Skv, int Hq, int G,
+                  Strides st, int causal, float scale, float scale_log2,
+                  int vec) {
+  constexpr int NT = kDqThreads;
+  constexpr int LD = HD + 4;
+  constexpr int kTile = kBR * LD;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                    // kBR x LD
+  float* dOs = Qs + kTile;             // kBR x LD
+  float* Ks = dOs + kTile;             // kStages x kBR x LD
+  float* Vs = Ks + kStages * kTile;    // kStages x kBR x LD
+
+  const int n_q = (Sq + kBR - 1) / kBR;
+  const int qt = n_q - 1 - (int)blockIdx.x;   // longest first
+  const int q0 = qt * kBR;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const float* kb = k + b * st.ksb + (h / G) * st.ksh;
+  const float* vb = v + b * st.vsb + (h / G) * st.vsh;
+  const long long rowO = (long long)Hq * HD;          // o, dO, dq contiguous
+  const long long ob = (long long)b * Sq * rowO + (long long)h * HD;
+  const int q_last = min(q0 + kBR, Sq) - 1;
+  const int n_k = (Skv + kBR - 1) / kBR;
+  const int n_tiles = causal ? min(n_k, q_last / kBR + 1) : n_k;
+
+  auto load_kv = [&](int n) {
+    const int s = n % kStages;
+    load_rows<HD, kBR, NT>(Ks + s * kTile, kb, st.kss, n * kBR, Skv, vec);
+    load_rows<HD, kBR, NT>(Vs + s * kTile, vb, st.vss, n * kBR, Skv, vec);
+  };
+  load_rows<HD, kBR, NT>(Qs, q + b * st.qsb + h * st.qsh, st.qss, q0, Sq,
+                         vec);
+  load_rows<HD, kBR, NT>(dOs, dout + ob, rowO, q0, Sq, vec);
+  load_kv(0);
+  cp_commit();
+  if (n_tiles > 1) load_kv(1);
+  cp_commit();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp & 3, half = warp >> 2;   // row group, kv half
+  const int r0 = 16 * rg + g;                  // rows r0 and r0 + 8
+  const int qpos0 = q0 + r0, qpos1 = qpos0 + 8;
+  // D and lse log2 e of the two rows, over the 4 threads that share them;
+  // rows past Sq get 0 and 0 (the dK / dV kernel masks them)
+  float d0 = 0.0f, d1 = 0.0f;
+#pragma unroll 4
+  for (int c = t; c < HD; c += 4) {
+    const long long at0 = ob + qpos0 * rowO + c, at1 = at0 + 8 * rowO;
+    if (qpos0 < Sq) d0 += dout[at0] * o[at0];
+    if (qpos1 < Sq) d1 += dout[at1] * o[at1];
+  }
+  d0 = hopper::quad_sum(d0);
+  d1 = hopper::quad_sum(d1);
+  const float* lrow = lse + ((long long)b * Hq + h) * Sq;
+  const float l0 = qpos0 < Sq ? lrow[qpos0] * hopper::kLog2e : 0.0f;
+  const float l1 = qpos1 < Sq ? lrow[qpos1] * hopper::kLog2e : 0.0f;
+  if (half == 0 && t == 0) {
+    float* sb = stats + stat_at(b, h, Hq, n_q, qt);
+    sb[r0] = l0;
+    sb[r0 + 8] = l1;
+    sb[kBR + r0] = d0;
+    sb[kBR + r0 + 8] = d1;
+  }
+
+  float acc[HD / 8][4];
+  zero_frags(acc);
+  const int q0w = q0 + 16 * rg;
+  for (int n = 0; n < n_tiles; ++n) {
+    cp_wait<1>();      // tile n has landed (this thread's copies) ...
+    __syncthreads();   // ... and every thread's
+    const int s = n % kStages;
+    const int kc0 = n * kBR + 32 * half;   // the half's first kv column
+    // a half wholly past Sq or Skv, or wholly above its diagonal, adds 0
+    if (q0w < Sq && kc0 < Skv && !(causal && kc0 > q0w + 15)) {
+      const float* Kt = Ks + s * kTile + 32 * half * LD;
+      float sc[4][4], dp[4][4];   // S, then P; dP, then dS
+      dot_rows<HD, 4>(sc, Qs + 16 * rg * LD, Kt, g, t);
+      dot_rows<HD, 4>(dp, dOs + 16 * rg * LD, Vs + s * kTile + 32 * half * LD,
+                      g, t);
+      const bool masked = kc0 + 32 > Skv || q0w + 16 > Sq ||
+                          (causal && kc0 + 31 > q0w);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float p0 = exp2f(sc[j][e] * scale_log2 - l0);
+          float p1 = exp2f(sc[j][2 + e] * scale_log2 - l1);
+          if (masked) {
+            const int kpos = kc0 + 8 * j + 2 * t + e;
+            if (!kept(qpos0, kpos, Sq, Skv, causal)) p0 = 0.0f;
+            if (!kept(qpos1, kpos, Sq, Skv, causal)) p1 = 0.0f;
+          }
+          dp[j][e] = p0 * (dp[j][e] - d0);
+          dp[j][2 + e] = p1 * (dp[j][2 + e] - d1);
+        }
+      }
+      accumulate_rows<HD, 4>(acc, dp, Kt, g, t);
+    }
+    __syncthreads();   // every warp is done with stage s
+    if (n + kStages < n_tiles) load_kv(n + kStages);
+    cp_commit();
+  }
+
+  // the second half's sums onto the first's, through the K ring (free: the
+  // loop's last copies have landed and been read): value x of thread (rg,
+  // lane) at red[x 128 + slot]
+  cp_wait<0>();
+  float* red = Ks;
+  const int slot = 32 * rg + lane;
+  if (half == 1) {
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) red[(4 * i + e) * 128 + slot] = acc[i][e];
+  }
+  __syncthreads();
+  if (half == 1) return;
+#pragma unroll
+  for (int i = 0; i < HD / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] += red[(4 * i + e) * 128 + slot];
+#pragma unroll
+  for (int i = 0; i < HD / 8; ++i) {
+    const long long col = ob + 8 * i + 2 * t;
+    if (qpos0 < Sq)
+      *reinterpret_cast<float2*>(dq + qpos0 * rowO + col) =
+          make_float2(acc[i][0] * scale, acc[i][1] * scale);
+    if (qpos1 < Sq)
+      *reinterpret_cast<float2*>(dq + qpos1 * rowO + col) =
+          make_float2(acc[i][2] * scale, acc[i][3] * scale);
+  }
+}
+
+// One block per (kKvRows kv rows, kv head, batch), the kv tiles that the
+// most query tiles reach first: 4 warps, a warp 16 kv rows x one half (32
+// rows) of each 64-row Q / dO tile.  For every query head of the GQA group
+// and every query tile the mask reaches, in that order (no atomics: the
+// group's sum is this loop), with the tile's Q, dO and row statistics in a
+// ring of two stages:
+//   S^T = K Q^T, dP^T = V dO^T, P^T = exp2(S^T scale log2 e - lse log2 e)
+//   (0 where the forward masked), dS^T = P^T (dP^T - D),
+//   dV += P^T dO, dK += dS^T Q
+// and the two halves' sums, added in order, are written once (dK times
+// scale).
+template <int HD>
+__global__ void __launch_bounds__(kKvThreads)
+flash_bwd_dkdv_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ stats, float* __restrict__ dk,
+                    float* __restrict__ dv, int Sq, int Skv, int Hq, int G,
+                    Strides st, int causal, float scale, float scale_log2,
+                    int vec) {
+  constexpr int NT = kKvThreads;
+  constexpr int RG = kKvRows / 16;       // row groups
+  constexpr int LD = HD + 4;
+  constexpr int kTile = kBR * LD;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;                      // kKvRows x LD, this block's kv rows
+  float* Vs = Ks + kKvRows * LD;         // kKvRows x LD
+  float* Qs = Vs + kKvRows * LD;         // kStages x kBR x LD
+  float* dOs = Qs + kStages * kTile;     // kStages x kBR x LD
+  float* Ss = dOs + kStages * kTile;     // kStages x kStat
+
+  const int k0 = blockIdx.x * kKvRows;   // causal: the most query tiles first
+  const int hk = blockIdx.y, b = blockIdx.z;
+  const long long rowO = (long long)Hq * HD;
+  const int n_q = (Sq + kBR - 1) / kBR;
+  const int qt_begin = causal ? k0 / kBR : 0;
+  const int per_head = max(0, n_q - qt_begin);
+  const int n_iter = G * per_head;
+
+  auto load_q = [&](int n) {
+    const int s = n % kStages;
+    const int h = hk * G + n / per_head, qt = qt_begin + n % per_head;
+    load_rows<HD, kBR, NT>(Qs + s * kTile, q + b * st.qsb + h * st.qsh,
+                           st.qss, qt * kBR, Sq, vec);
+    load_rows<HD, kBR, NT>(dOs + s * kTile,
+                           dout + (long long)b * Sq * rowO + (long long)h * HD,
+                           rowO, qt * kBR, Sq, vec);
+    // the tile's lse log2 e and D: 512 bytes of the scratch, 16-byte aligned
+    if (threadIdx.x < kStat / 4)
+      cp_async16(Ss + s * kStat + 4 * threadIdx.x,
+                 stats + stat_at(b, h, Hq, n_q, qt) + 4 * threadIdx.x);
+  };
+  load_rows<HD, kKvRows, NT>(Ks, k + b * st.ksb + hk * st.ksh, st.kss, k0,
+                             Skv, vec);
+  load_rows<HD, kKvRows, NT>(Vs, v + b * st.vsb + hk * st.vsh, st.vss, k0,
+                             Skv, vec);
+  if (n_iter > 0) load_q(0);
+  cp_commit();
+  if (n_iter > 1) load_q(1);
+  cp_commit();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rw = warp % RG, half = warp / RG;   // row group, query half
+  const int k0w = k0 + 16 * rw;
+  const int kpos0 = k0w + g, kpos1 = kpos0 + 8;
+  float dka[HD / 8][4], dva[HD / 8][4];
+  zero_frags(dka);
+  zero_frags(dva);
+
+  for (int n = 0; n < n_iter; ++n) {
+    cp_wait<1>();
+    __syncthreads();
+    const int s = n % kStages;
+    // this warp's 32 query columns of the tile
+    const int qc0 = (qt_begin + n % per_head) * kBR + 32 * half;
+    // a warp wholly past Skv or Sq, or wholly above its diagonal, adds 0
+    if (k0w < Skv && qc0 < Sq && !(causal && k0w > qc0 + 31)) {
+      const float* Qt = Qs + s * kTile + 32 * half * LD;
+      const float* dOt = dOs + s * kTile + 32 * half * LD;
+      const float* lse2 = Ss + s * kStat + 32 * half;
+      const float* Dr = lse2 + kBR;
+      float sc[4][4], dp[4][4];   // S^T, then P^T; dP^T, then dS^T
+      dot_rows<HD, 4>(sc, Ks + 16 * rw * LD, Qt, g, t);
+      dot_rows<HD, 4>(dp, Vs + 16 * rw * LD, dOt, g, t);
+      const bool masked =
+          qc0 + 32 > Sq || k0w + 16 > Skv || (causal && k0w + 15 > qc0);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * t + e;
+          const float l = lse2[c], d = Dr[c];
+          float p0 = exp2f(sc[j][e] * scale_log2 - l);
+          float p1 = exp2f(sc[j][2 + e] * scale_log2 - l);
+          if (masked) {
+            if (!kept(qc0 + c, kpos0, Sq, Skv, causal)) p0 = 0.0f;
+            if (!kept(qc0 + c, kpos1, Sq, Skv, causal)) p1 = 0.0f;
+          }
+          sc[j][e] = p0;
+          sc[j][2 + e] = p1;
+          dp[j][e] = p0 * (dp[j][e] - d);
+          dp[j][2 + e] = p1 * (dp[j][2 + e] - d);
+        }
+      }
+      accumulate_rows<HD, 4>(dva, sc, dOt, g, t);
+      accumulate_rows<HD, 4>(dka, dp, Qt, g, t);
+    }
+    __syncthreads();
+    if (n + kStages < n_iter) load_q(n + kStages);
+    cp_commit();
+  }
+
+  // the second half's sums onto the first's, through the Q ring (free: the
+  // loop's last copies have landed and been read): value x of thread (rw,
+  // lane) at red[x kKvRows 2 + slot]
+  cp_wait<0>();
+  float* red = Qs;
+  const int slot = 32 * rw + lane;
+  if (half == 1) {
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        red[(4 * i + e) * 2 * kKvRows + slot] = dka[i][e];
+        red[(HD / 2 + 4 * i + e) * 2 * kKvRows + slot] = dva[i][e];
+      }
+  }
+  __syncthreads();
+  if (half == 1) return;
+  const long long rowKV = (long long)(Hq / G) * HD;   // dk, dv contiguous
+  const long long at0 =
+      ((long long)b * Skv + kpos0) * rowKV + (long long)hk * HD + 2 * t;
+  const long long at1 = at0 + 8 * rowKV;
+#pragma unroll
+  for (int i = 0; i < HD / 8; ++i) {
+    float kx[4], vx[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      kx[e] = (dka[i][e] + red[(4 * i + e) * 2 * kKvRows + slot]) * scale;
+      vx[e] = dva[i][e] + red[(HD / 2 + 4 * i + e) * 2 * kKvRows + slot];
+    }
+    if (kpos0 < Skv) {
+      *reinterpret_cast<float2*>(dk + at0 + 8 * i) = make_float2(kx[0], kx[1]);
+      *reinterpret_cast<float2*>(dv + at0 + 8 * i) = make_float2(vx[0], vx[1]);
+    }
+    if (kpos1 < Skv) {
+      *reinterpret_cast<float2*>(dk + at1 + 8 * i) = make_float2(kx[2], kx[3]);
+      *reinterpret_cast<float2*>(dv + at1 + 8 * i) = make_float2(vx[2], vx[3]);
+    }
+  }
+}
+
+// 16 bytes a copy where every operand's base and strides allow it
+bool vec_ok(const void* q, const void* k, const void* v, const void* o,
+            const void* dout, const Strides& st) {
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) |
+                          reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) |
+                          reinterpret_cast<uintptr_t>(o) |
+                          reinterpret_cast<uintptr_t>(dout);
+  const long long strides = st.qsb | st.qss | st.qsh | st.ksb | st.kss |
+                            st.ksh | st.vsb | st.vss | st.vsh;
+  return bases % 16 == 0 && strides % 4 == 0;
+}
+
+// stats: the (B, Hq, ceil(Sq / 64), 2, 64) f32 scratch that the first
+// kernel writes and the second reads
+template <int HD>
+int launch_tf32(const void* q, const void* k, const void* v, const void* o,
+                const void* dout, const float* lse, float* stats, void* dq,
+                void* dk, void* dv, int B, int Sq, int Skv, int Hq, int Hkv,
+                const Strides& st, int causal, float scale,
+                cudaStream_t stream) {
+  constexpr int LD = HD + 4;
+  const int smem_dq = (int)sizeof(float) * (2 + 2 * kStages) * kBR * LD;
+  const int smem_kv = (int)sizeof(float) *
+                      ((2 * kKvRows + 2 * kStages * kBR) * LD +
+                       kStages * kStat);
+  auto kdq = flash_bwd_dq_tf32<HD>;
+  auto kkv = flash_bwd_dkdv_tf32<HD>;
   cudaFuncSetAttribute(kdq, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+                       smem_dq);
   cudaFuncSetAttribute(kkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+                       smem_kv);
   const int G = Hq / Hkv;
-  kdq<<<dim3((Sq + kBR - 1) / kBR, Hq, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(o),
-      static_cast<const T*>(dout), lse, Dsum, static_cast<T*>(dq), Sq, Skv,
-      Hq, G, st, causal, scale);
+  const float scale_log2 = scale * hopper::kLog2e;
+  const int vec = vec_ok(q, k, v, o, dout, st);
+  const float* fq = static_cast<const float*>(q);
+  const float* fk = static_cast<const float*>(k);
+  const float* fv = static_cast<const float*>(v);
+  const float* fdo = static_cast<const float*>(dout);
+  kdq<<<dim3((Sq + kBR - 1) / kBR, Hq, B), kDqThreads, smem_dq, stream>>>(
+      fq, fk, fv, static_cast<const float*>(o), fdo, lse, stats,
+      static_cast<float*>(dq), Sq, Skv, Hq, G, st, causal, scale, scale_log2,
+      vec);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  kkv<<<dim3((Skv + kBR - 1) / kBR, Hkv, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, Dsum,
-      static_cast<T*>(dk), static_cast<T*>(dv), Sq, Skv, Hq, G, st, causal,
-      scale);
+  kkv<<<dim3((Skv + kKvRows - 1) / kKvRows, Hkv, B), kKvThreads, smem_kv,
+        stream>>>(
+      fq, fk, fv, fdo, stats, static_cast<float*>(dk), static_cast<float*>(dv),
+      Sq, Skv, Hq, G, st, causal, scale, scale_log2, vec);
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
 // flash_bwd_dq_wgmma, flash_bwd_dkdv_wgmma: bf16 on the tensor cores, head
-// width 64 or 128
+// width 32, 64 or 128
 // ---------------------------------------------------------------------------
 
 namespace hopper {
@@ -384,8 +605,10 @@ constexpr uint32_t kStatBytes = 2 * kBN * 4;  // lse log2 e and D, 64 rows
 
 template <int HD>
 struct BwdTiles {
-  static constexpr uint32_t kWide = kQColBlock * (HD / 64);    // 128 rows
-  static constexpr uint32_t kNarrow = kColBlock * (HD / 64);   // 64 rows
+  static constexpr uint32_t kWide = kBM * 2 * HD;     // bytes of 128 rows
+  static constexpr uint32_t kNarrow = kBN * 2 * HD;   // ... of 64 rows
+  static constexpr int kBlocks = HD >= 64 ? HD / 64 : 1;   // column blocks
+  static constexpr uint32_t kRow = row_bytes<HD>();  // a row of one block
   // two wide tiles, a ring of stages of two narrow tiles (and in the dK /
   // dV kernel a statistics block), 1 + 2 x stages mbarriers, alignment
   // slack
@@ -411,14 +634,6 @@ template <int N>
 __device__ __forceinline__ void zero(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) r[i] = 0.0f;
-}
-
-// Where the row statistics that flash_bwd_dkdv_wgmma reads by bulk copy
-// lie: for each (batch, query head) and 64-row query tile t, the rows'
-// lse log2 e, then their D, 512 contiguous bytes.
-__device__ __forceinline__ long long stat_at(int b, int h, int Hq, int n_q64,
-                                             int t) {
-  return (((long long)b * Hq + h) * n_q64 + t) * (2 * kBN);
 }
 
 // One block per (query head, batch, 128-row query tile), longest first: two
@@ -465,7 +680,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     const int s = n % kStagesDq;
     mbar_expect_tx(full + 8 * s, 2 * Tl::kNarrow);
 #pragma unroll
-    for (int c = 0; c < HD / 64; ++c) {
+    for (int c = 0; c < Tl::kBlocks; ++c) {
       tma_load(sK + s * Tl::kNarrow + c * kColBlock, &tk, full + 8 * s,
                64 * c, n * kBN, hk, b);
       tma_load(sV + s * Tl::kNarrow + c * kColBlock, &tv, full + 8 * s,
@@ -484,7 +699,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   if (tid == kLoader) {
     mbar_expect_tx(q_full, 2 * Tl::kWide);
 #pragma unroll
-    for (int c = 0; c < HD / 64; ++c) {
+    for (int c = 0; c < Tl::kBlocks; ++c) {
       tma_load(sQ + c * kQColBlock, &tq, q_full, 64 * c, q0, h, b);
       tma_load(sdO + c * kQColBlock, &tdo, q_full, 64 * c, q0, h, b);
     }
@@ -548,8 +763,8 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   zero(acc);
   float sc[kBN / 2], dp[kBN / 2];   // S, then P; dP, then dS
   uint32_t hi[kBN / 4], lo[kBN / 4];
-  const uint32_t sQw = sQ + wg * 64 * kRowBytes;
-  const uint32_t sdOw = sdO + wg * 64 * kRowBytes;
+  const uint32_t sQw = sQ + wg * 64 * Tl::kRow;
+  const uint32_t sdOw = sdO + wg * 64 * Tl::kRow;
   // this warpgroup's tiles: those its rows see (none wholly past Sq)
   const int n_w = q0w >= Sq ? 0
                   : causal ? min(n_k, min(q0w + 63, Sq - 1) / kBN + 1)
@@ -676,7 +891,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
     const int h = hk * G + n / per_head, qt = qt_begin + n % per_head;
     mbar_expect_tx(full + 8 * s, 2 * Tl::kNarrow + kStatBytes);
 #pragma unroll
-    for (int c = 0; c < HD / 64; ++c) {
+    for (int c = 0; c < Tl::kBlocks; ++c) {
       tma_load(sQ + s * Tl::kNarrow + c * kColBlock, &tq, full + 8 * s,
                64 * c, qt * kBN, h, b);
       tma_load(sdO + s * Tl::kNarrow + c * kColBlock, &tdo, full + 8 * s,
@@ -697,7 +912,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
   if (tid == kLoader) {
     mbar_expect_tx(kv_full, 2 * Tl::kWide);
 #pragma unroll
-    for (int c = 0; c < HD / 64; ++c) {
+    for (int c = 0; c < Tl::kBlocks; ++c) {
       tma_load(sK + c * kQColBlock, &tk, kv_full, 64 * c, k0, hk, b);
       tma_load(sV + c * kQColBlock, &tv, kv_full, 64 * c, k0, hk, b);
     }
@@ -710,8 +925,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
   const int k0w = k0 + wg * 64;
   // this thread's two kv rows (accumulator layout of wgmma m64nNk16)
   const int kpos0 = k0w + warp * 16 + (lane >> 2), kpos1 = kpos0 + 8;
-  const uint32_t sKw = sK + wg * 64 * kRowBytes;
-  const uint32_t sVw = sV + wg * 64 * kRowBytes;
+  const uint32_t sKw = sK + wg * 64 * Tl::kRow;
+  const uint32_t sVw = sV + wg * 64 * Tl::kRow;
 
   float dka[HD / 2], dva[HD / 2];
   zero(dka);
@@ -861,34 +1076,31 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace hopper
 
-// bf16 at head width 64 or 128 goes to the tensor-core kernels; float32, and
-// bf16 at head width 32, to the CUDA-core ones
+// bf16 goes to the wgmma kernels, float32 to the split-TF32 ones
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const void* o,
-             const void* dout, const float* lse, float* Dsum, void* dq,
+             const void* dout, const float* lse, float* stats, void* dq,
              void* dk, void* dv, int B, int Sq, int Skv, int Hq, int Hkv,
              int hd, const Strides& st, int causal, float scale,
              cudaStream_t stream) {
-  constexpr bool tensor_cores = std::is_same<T, __nv_bfloat16>::value;
-#define BWD_ARGS                                                            \
-  q, k, v, o, dout, lse, Dsum, dq, dk, dv, B, Sq, Skv, Hq, Hkv, st, causal, \
+  constexpr bool wgmma = std::is_same<T, __nv_bfloat16>::value;
+#define BWD_ARGS                                                             \
+  q, k, v, o, dout, lse, stats, dq, dk, dv, B, Sq, Skv, Hq, Hkv, st, causal, \
       scale, stream
+#define BWD_CASE(HD)                        \
+  case HD:                                  \
+    if constexpr (wgmma)                    \
+      return hopper::launch<HD>(BWD_ARGS);  \
+    else                                    \
+      return launch_tf32<HD>(BWD_ARGS);
   switch (hd) {
-    case 32:
-      return launch<T, 32>(BWD_ARGS);
-    case 64:
-      if constexpr (tensor_cores)
-        return hopper::launch<64>(BWD_ARGS);
-      else
-        return launch<T, 64>(BWD_ARGS);
-    case 128:
-      if constexpr (tensor_cores)
-        return hopper::launch<128>(BWD_ARGS);
-      else
-        return launch<T, 128>(BWD_ARGS);
+    BWD_CASE(32)
+    BWD_CASE(64)
+    BWD_CASE(128)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef BWD_CASE
 #undef BWD_ARGS
 }
 
@@ -898,20 +1110,19 @@ extern "C" {
 
 // q, k, v through their (batch, row, head) strides, head axis contiguous;
 // o, dout, dq (B, Sq, Hq, hd), dk, dv (B, Skv, Hkv, hd) contiguous; lse
-// (B, Hq, Sq) f32 contiguous; Dsum a scratch the first kernel writes:
-// (B, Hq, Sq) f32 on the CUDA cores, (B, Hq, ceil(Sq / 64), 2, 64) f32 on
-// the tensor cores.
-#define FLASH_BWD_ENTRY(NAME, T)                                             \
-  int NAME(const void* q, const void* k, const void* v, const void* o,      \
-           const void* dout, const float* lse, float* Dsum, void* dq,       \
-           void* dk, void* dv, int B, int Sq, int Skv, int Hq, int Hkv,     \
-           int hd, long long qsb, long long qss, long long qsh,             \
-           long long ksb, long long kss, long long ksh, long long vsb,      \
-           long long vss, long long vsh, int causal, float scale,           \
-           cudaStream_t stream) {                                           \
-    const Strides st{qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};          \
-    return dispatch<T>(q, k, v, o, dout, lse, Dsum, dq, dk, dv, B, Sq, Skv, \
-                       Hq, Hkv, hd, st, causal, scale, stream);             \
+// (B, Hq, Sq) f32 contiguous; stats a scratch the first kernel writes and
+// the second reads, (B, Hq, ceil(Sq / 64), 2, 64) f32 on either route.
+#define FLASH_BWD_ENTRY(NAME, T)                                              \
+  int NAME(const void* q, const void* k, const void* v, const void* o,       \
+           const void* dout, const float* lse, float* stats, void* dq,       \
+           void* dk, void* dv, int B, int Sq, int Skv, int Hq, int Hkv,      \
+           int hd, long long qsb, long long qss, long long qsh,              \
+           long long ksb, long long kss, long long ksh, long long vsb,       \
+           long long vss, long long vsh, int causal, float scale,            \
+           cudaStream_t stream) {                                            \
+    const Strides st{qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};           \
+    return dispatch<T>(q, k, v, o, dout, lse, stats, dq, dk, dv, B, Sq, Skv, \
+                       Hq, Hkv, hd, st, causal, scale, stream);              \
   }
 
 FLASH_BWD_ENTRY(flash_attention_bwd_f32, float)

@@ -2,12 +2,15 @@
 // (flash_attention.cu's flash_fwd_wgmma, flash_attention_bwd.cu's
 // flash_bwd_dq_wgmma and flash_bwd_dkdv_wgmma): mbarriers, TMA loads through
 // 4-D tensor maps over (B, S, H, hd) strides, wgmma shared-memory
-// descriptors with the 128-byte swizzle, the m64nNk16 bf16 products and the
-// split of an f32 fragment into two bf16 halves.
+// descriptors with the 128-byte swizzle (64-byte at head width 32), the
+// m64nNk16 bf16 products and the split of an f32 fragment into two bf16
+// halves.
 //
 // Tiles: a tile of R rows x HD bf16 columns lies in shared memory as HD / 64
 // column blocks of R rows x 128 bytes, each 1024-byte aligned and swizzled
-// by TMA as wgmma reads it.  The products take a "wide" tile of kBM = 128
+// by TMA as wgmma reads it; at HD = 32 (the backward only) as one block of R
+// rows x 64 bytes, under the 64-byte swizzle, whose 8-row groups lie 512
+// bytes apart.  The products take a "wide" tile of kBM = 128
 // rows (two consumer warpgroups of 64 rows each) against a "narrow" tile of
 // kBN = 64 rows.
 #pragma once
@@ -28,6 +31,17 @@ constexpr uint32_t kQColBlock = kBM * kRowBytes;   // a 64-column block of a
                                                    // wide tile
 constexpr uint32_t kColBlock = kBN * kRowBytes;    // ... of a narrow tile
 constexpr float kLog2e = 1.4426950408889634f;
+
+// bytes of a tile row within one swizzled column block, the swizzle's span
+template <int HD>
+__host__ __device__ constexpr uint32_t row_bytes() {
+  return HD >= 64 ? kRowBytes : 2 * HD;
+}
+// the descriptor's layout type: 1 the 128-byte swizzle, 2 the 64-byte one
+template <int HD>
+__host__ __device__ constexpr uint64_t swizzle_type() {
+  return HD >= 64 ? 1 : 2;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -79,14 +93,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// wgmma shared-memory descriptor, 128-byte swizzle.  K-major operands (Q, K)
-// step 8-row groups by SBO = 1024; the MN-major V steps 8-row groups of its
-// K axis (kv rows) by SBO = 1024 and 64-column blocks of N by LBO.
+// wgmma shared-memory descriptor, 128-byte swizzle (layout 1) or 64-byte
+// (layout 2).  K-major operands (Q, K) step 8-row groups by SBO = 8 rows
+// (1024 bytes; 512 under the 64-byte swizzle); the MN-major V steps 8-row
+// groups of its K axis (kv rows) by the same SBO and column blocks of N by
+// LBO.
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
+                                         uint32_t sbo, uint64_t layout = 1) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -182,6 +198,20 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+// d[16] += A (64 x 16, registers) . B (16 x 32, shared memory, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], uint32_t a0,
+                                         uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16\n"
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15},"
+      " {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : F8(d, 0), F8(d, 8)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
 #undef F32
 #undef F8
 
@@ -197,30 +227,38 @@ __device__ __forceinline__ void split(float a, float b, uint32_t& hi,
 }
 
 // S (+)= Q K^T over the head axis: HD / 16 steps of k16, both operands
-// K-major; within a 128-byte row a step moves the start by 32 bytes.  The A
-// operand (sQw) is 64 rows of a wide tile, the B operand (sKs) a narrow tile.
+// K-major; within a 128-byte (64-byte) row a step moves the start by 32
+// bytes.  The A operand (sQw) is 64 rows of a wide tile, the B operand (sKs)
+// a narrow tile.
 template <int HD>
 __device__ __forceinline__ void issue_qk(float (&sc)[kBN / 2], uint32_t sQw,
                                          uint32_t sKs) {
+  constexpr uint32_t sbo = 8 * row_bytes<HD>();
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     const uint32_t off = (kk & 3) * 32;
-    wgmma_ss(sc, desc(sQw + (kk >> 2) * kQColBlock + off, 16, 1024),
-             desc(sKs + (kk >> 2) * kColBlock + off, 16, 1024), kk > 0);
+    wgmma_ss(sc,
+             desc(sQw + (kk >> 2) * kQColBlock + off, 16, sbo,
+                  swizzle_type<HD>()),
+             desc(sKs + (kk >> 2) * kColBlock + off, 16, sbo,
+                  swizzle_type<HD>()),
+             kk > 0);
   }
 }
 
 // O += P_hi V + P_lo V over the tile's kv rows: kBN / 16 steps of k16, V
-// (a narrow tile) MN-major, a step moves 16 rows (2048 bytes) down every
-// column block.
+// (a narrow tile of HD = 2 N columns) MN-major, a step moves 16 rows (2048
+// bytes; 1024 at HD = 32) down every column block.
 template <int N>
 __device__ __forceinline__ void issue_pv(float (&acc)[N],
                                          const uint32_t (&phi)[kBN / 4],
                                          const uint32_t (&plo)[kBN / 4],
                                          uint32_t sVs) {
+  constexpr uint32_t row = row_bytes<2 * N>();
 #pragma unroll
   for (int kk = 0; kk < kBN / 16; ++kk) {
-    const uint64_t dv = desc(sVs + kk * 16 * kRowBytes, kColBlock, 1024);
+    const uint64_t dv = desc(sVs + kk * 16 * row, kBN * row, 8 * row,
+                             swizzle_type<2 * N>());
     wgmma_rs(acc, phi[4 * kk], phi[4 * kk + 1], phi[4 * kk + 2],
              phi[4 * kk + 3], dv);
     wgmma_rs(acc, plo[4 * kk], plo[4 * kk + 1], plo[4 * kk + 2],
@@ -272,7 +310,8 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A (B, S, H, hd) bf16 operand, head axis contiguous, as a 4-D tensor map
-// (innermost axis first) in boxes of 64 head columns x `rows` rows.  TMA takes
+// (innermost axis first) in boxes of 64 head columns x `rows` rows under the
+// 128-byte swizzle (hd 32: 32 columns, the 64-byte swizzle).  TMA takes
 // a 16-byte aligned base and strides that are multiples of 16 bytes; the
 // stride of an axis of extent 1 is never stepped, so any valid one serves.
 // The driver encodes against the calling thread's current context, which a
@@ -293,11 +332,13 @@ inline bool tensor_map(CUtensorMap* map, const void* ptr, int hd, int S,
   const cuuint64_t strides[3] = {S > 1 ? 2ull * ss : unit,
                                  H > 1 ? 2ull * sh : unit,
                                  B > 1 ? 2ull * sb : unit};
-  const cuuint32_t box[4] = {64, rows, 1, 1};
+  const cuuint32_t box[4] = {hd >= 64 ? 64u : (cuuint32_t)hd, rows, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                hd >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                         : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

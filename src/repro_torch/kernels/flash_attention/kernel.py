@@ -17,13 +17,19 @@ counterpart here: the CUDA kernels use their own tiles and mask ragged
 edges themselves, so they take any Sq and Skv.  They take bfloat16 or
 float32 with head width 32, 64 or 128, read q / k / v through their
 strides (the last axis contiguous) and write contiguous results in q's
-dtype.  ``route`` names the kernels a call runs: bfloat16 at head width
-64 or 128 runs the tensor-core forward and backward (``flash_fwd_wgmma``;
-``flash_bwd_dq_wgmma`` then ``flash_bwd_dkdv_wgmma``), which read their
-operands by TMA and so also need what ``_tma_ok`` checks (the backward of
-o and do too); float32, and bfloat16 at head width 32, run the CUDA-core
-kernels, the backward in f32 FMAs (``flash_bwd_dq`` then
-``flash_bwd_dkdv``).
+dtype.  ``route`` names the forward kernel a call runs: bfloat16 at head
+width 64 or 128 runs the tensor-core ``flash_fwd_wgmma``, which reads its
+operands by TMA and so also needs what ``_tma_ok`` checks; float32, and
+bfloat16 at head width 32, the CUDA-core ``flash_fwd_kernel``.
+``bwd_route`` names the backward's: bfloat16 at every head width runs
+``flash_bwd_dq_wgmma`` then ``flash_bwd_dkdv_wgmma`` ("tensor_cores",
+TMA: q, k, v, o and do must pass ``_tma_ok``; under grad q, k and v are
+checked before the forward launches, so a refused input fails there and
+not inside autograd); float32 runs ``flash_bwd_dq_tf32`` then
+``flash_bwd_dkdv_tf32`` ("split_tf32": mma.sync on the TF32 tensor
+cores, each product split in three, any strides).
+``flash_attention_bwd.route_launches`` counts the backward's launches by
+route.
 
 Each launch is a dispatcher operator (``torch.ops.repro_torch.
 flash_attention`` and ``flash_attention_bwd``) with a CUDA implementation,
@@ -67,10 +73,20 @@ def _tma_ok(t) -> bool:
 
 
 def route(q) -> str:
-    """``"tensor_cores"`` where ``q`` (B, S, H, hd) takes the wgmma kernels
+    """``"tensor_cores"`` where ``q`` (B, S, H, hd) takes the wgmma forward
     (bfloat16 at head width 64 or 128), else ``"cuda_cores"``."""
     return ("tensor_cores" if q.dtype == torch.bfloat16
             and q.shape[-1] in _TMA_HEAD_DIMS else "cuda_cores")
+
+
+BWD_ROUTES = ("tensor_cores", "split_tf32")
+
+
+def bwd_route(q) -> str:
+    """One of ``BWD_ROUTES``: the backward kernels a call with ``q`` (B, S,
+    H, hd) runs, ``"tensor_cores"`` (wgmma) for bfloat16, ``"split_tf32"``
+    (mma.sync, each product as three TF32 products) for float32."""
+    return "tensor_cores" if q.dtype == torch.bfloat16 else "split_tf32"
 
 
 def _need_tma(what, operands):
@@ -108,7 +124,14 @@ def _on_card(t, device) -> bool:
     return t.device.type in ("cuda", "meta") and t.device == device
 
 
-def _check(q, k, v):
+def _check(q, k, v, backward=False):
+    """Raise for operands the kernels do not take: the forward's, and with
+    ``backward`` the backward's too.  The backward's bf16 route reads q, k
+    and v by TMA at every head width, so with ``backward`` a bf16 view at
+    head width 32 that ``_tma_ok`` refuses (a base or a stride off 16
+    bytes) is refused, although the forward's CUDA-core kernel takes it:
+    the CUDA-core backward that took such views is gone, and no
+    configuration makes one."""
     what = "flash_attention"
     args = (q, k, v)
     if not all(_on_card(t, q.device) for t in args):
@@ -129,7 +152,8 @@ def _check(q, k, v):
                          f"got {hd}")
     if any(t.stride(-1) != 1 for t in args):
         raise ValueError(f"{what}: the head axis must be contiguous")
-    if route(q) == "tensor_cores":
+    if route(q) == "tensor_cores" or (backward
+                                       and bwd_route(q) == "tensor_cores"):
         _need_tma(what, {"q": q, "k": k, "v": v})
 
 
@@ -168,20 +192,19 @@ def _bwd_cuda(q, k, v, o, lse, do, causal):
     B, Sq, Hq, hd = q.shape
     _, Skv, Hkv, _ = k.shape
     dq, dk, dv = _bwd_outputs(q, k)
-    if route(q) == "tensor_cores":
-        # each 64-row query tile's lse log2 e and D, 512 bytes a tile
-        dsum = torch.empty((B, Hq, -(-Sq // 64), 2, 64),
-                           dtype=torch.float32, device=q.device)
-    else:
-        dsum = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    # each 64-row query tile's lse log2 e and D, 512 bytes a tile, on
+    # either route
+    stats = torch.empty((B, Hq, -(-Sq // 64), 2, 64), dtype=torch.float32,
+                        device=q.device)
     lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
     fn = getattr(lib, f"{what}_{_SUFFIX[q.dtype]}")
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             do.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+             do.data_ptr(), lse.data_ptr(), stats.data_ptr(), dq.data_ptr(),
              dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, Hq, Hkv, hd,
              *_strides(q, k, v), int(causal), hd ** -0.5, _build.stream_of(q))
     _build.check(lib, err, what)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.route_launches[bwd_route(q)] += 1
     return dq, dk, dv
 
 
@@ -237,10 +260,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True):
     logsumexp ``lse`` (B, Hq, Sq) f32 and the output's cotangent ``do``:
     the backward kernels on CUDA tensors (q / k / v as the forward takes
     them; o and do contiguous, in q's dtype), one launch of the route's two
-    kernels, counted in ``flash_attention_bwd.launches``; on meta tensors
-    the operator's outputs alone."""
+    kernels, counted in ``flash_attention_bwd.launches`` and by route in
+    ``flash_attention_bwd.route_launches``; on meta tensors the operator's
+    outputs alone."""
     what = "flash_attention_bwd"
-    _check(q, k, v)
+    _check(q, k, v, backward=True)
     B, Sq, Hq, hd = q.shape
     for name, t, shape, dtype in (("o", o, q.shape, q.dtype),
                                   ("do", do, q.shape, q.dtype),
@@ -250,7 +274,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True):
             raise ValueError(f"{what}: {name} must be a contiguous {dtype} "
                              f"tensor of shape {tuple(shape)} on {q.device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if route(q) == "tensor_cores":
+    if bwd_route(q) == "tensor_cores":
         _need_tma(what, {"o": o, "do": do})
     return torch.ops.repro_torch.flash_attention_bwd(q, k, v, o, lse, do,
                                                      causal)
@@ -280,11 +304,14 @@ def flash_attention(q, k, v, *, causal=True):
     """q: (B, Sq, Hq, hd); k/v: (B, Skv, Hkv, hd) -> (B, Sq, Hq, hd)."""
     if q.device.type == "cpu":
         return ref.reference(q, k, v, causal=causal)
-    _check(q, k, v)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
+    _check(q, k, v, backward=grad)
+    if grad:
         return _FlashFunction.apply(q, k, v, causal)
     return torch.ops.repro_torch.flash_attention(q, k, v, causal, False)[0]
 
 
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
+flash_attention_bwd.route_launches = dict.fromkeys(BWD_ROUTES, 0)

@@ -122,11 +122,12 @@ def test_wrapper_takes_the_plain_version_only_on_cpu():
         tk.flash_attention(tq.to("meta"), tk_, tv)
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128])
 def test_tma_check_takes_contiguous_and_refuses_misaligned_views(hd):
-    """What the tensor-core kernel's TMA loads need of a bf16 operand: a
+    """What the tensor-core kernels' TMA loads need of a bf16 operand: a
     16-byte aligned base and batch / row / head strides of multiples of 16
-    bytes, except on an axis of extent 1, which is never stepped."""
+    bytes, except on an axis of extent 1, which is never stepped (head width
+    32, a 64-byte row: the wgmma backward's)."""
     B, S, H = 2, 40, 4
     assert tk._tma_ok(torch.zeros((B, S, H, hd), dtype=torch.bfloat16))
     wide = torch.zeros((B, S, H, hd + 8), dtype=torch.bfloat16)
@@ -175,3 +176,30 @@ def test_p_split_keeps_the_bf16_gate_where_bf16_p_breaks_it(causal):
     r_bf16 = ratio(out(p_hi))
     assert float(r_bf16.max()) > 10.0
     assert float((r_bf16 > 1.0).double().mean()) > 0.05
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_grad_checks_the_backward_operands_before_the_forward(dtype):
+    """Under grad a bf16 call at head width 32 will run the wgmma backward,
+    so q, k and v must also pass the TMA check, and a q that fails it is
+    refused before the forward launches; without grad the CUDA-core forward
+    takes it, and f32 (the split-TF32 backward) takes it either way.  Meta
+    operands stand in for the card: nothing launches."""
+    B, S, H, hd = 2, 40, 4, 32
+    flat = torch.zeros((B, S, H * hd + 1), dtype=dtype, device="meta")
+    q = flat[..., :H * hd].unflatten(-1, (H, hd))   # rows 16-byte misaligned
+    k = torch.zeros((B, S, 2, hd), dtype=dtype, device="meta")
+    before = (tk.flash_attention.launches, tk.flash_attention_bwd.launches)
+    assert tk.flash_attention(q, k, k).is_meta
+    q.requires_grad_(True)
+    if dtype == torch.bfloat16:
+        assert tk.bwd_route(q) == "tensor_cores" and not tk._tma_ok(q)
+        with pytest.raises(ValueError, match="TMA"):
+            tk.flash_attention(q, k, k)
+        with torch.no_grad():
+            assert tk.flash_attention(q, k, k).is_meta
+    else:
+        assert tk.bwd_route(q) == "split_tf32"
+        assert tk.flash_attention(q, k, k).is_meta
+    assert (tk.flash_attention.launches,
+            tk.flash_attention_bwd.launches) == before

@@ -22,6 +22,7 @@ import torch
 
 from _torch_parity import assert_rel_close
 from repro.models import attention as jattn
+from repro_torch.kernels.flash_attention import kernel as tkern
 from repro_torch.kernels.flash_attention import ref as tref
 from repro_torch.models import attention as tattn
 
@@ -170,3 +171,83 @@ def test_split_products_meet_the_bf16_gate(B, S, Hq, Hkv, hd, causal):
         tol = 1e-5 * w.abs().max() + 2.0 ** -7 * w.abs()
         assert bool((err <= tol).all()), (
             f"{name}: worst {float((err / tol).max())} of the gate")
+
+
+def tf32(x):
+    """x truncated to TF32 (sign, exponent and 10 mantissa bits) by
+    masking its bits, as the kernels' ``split`` (``csrc/tf32.cuh``)."""
+    return (x.contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+def split_tf32_backward(q, k, v, o, lse, do, *, causal, split=True):
+    """The f32 route's arithmetic (``flash_bwd_dq_tf32`` /
+    ``flash_bwd_dkdv_tf32``), emulated in f32 (a test helper, not a plain
+    version of the kernels): every product of S = Q K^T, dP = dO V^T, dV =
+    P^T dO, dQ = dS K and dK = dS^T Q takes each operand x as hi =
+    tf32(x) and lo = tf32(x - hi) and sums hi hi + hi lo + lo hi in f32
+    (``split=False``: hi hi alone, TF32 products); P = exp2(S scale log2 e
+    - lse log2 e), 0 where the forward masked; D = rowsum(dO o) in f32."""
+    B, Sq, Hq, hd = q.shape
+    _, Skv, Hkv, _ = k.shape
+    grp = lambda x: x.reshape(B, Sq, Hkv, Hq // Hkv, hd)
+
+    def prod(eq, a, b):
+        ah, bh = tf32(a), tf32(b)
+        out = torch.einsum(eq, ah, bh)
+        if split:
+            out = (out + torch.einsum(eq, ah, tf32(b - bh))
+                   + torch.einsum(eq, tf32(a - ah), bh))
+        return out
+
+    qf, of, dof = grp(q), grp(o), grp(do)
+    scale = hd ** -0.5
+    s = prod("bqhgd,bkhd->bhgqk", qf, k)
+    lse2 = (lse * torch.tensor(LOG2E)).reshape(B, Hkv, -1, Sq)
+    p = torch.exp2(s * torch.tensor(scale * LOG2E) - lse2[..., None])
+    if causal:
+        keep = torch.arange(Skv)[None, :] <= torch.arange(Sq)[:, None]
+        p = torch.where(keep, p, torch.zeros(()))
+    dp = prod("bqhgd,bkhd->bhgqk", dof, v)
+    D = torch.einsum("bqhgd,bqhgd->bhgq", dof, of)
+    ds = p * (dp - D[..., None])
+    dv = prod("bhgqk,bqhgd->bkhd", p, dof)
+    dk = prod("bhgqk,bqhgd->bkhd", ds, qf)
+    dq = prod("bhgqk,bkhd->bqhgd", ds, k)
+    return dq.reshape(B, Sq, Hq, hd) * scale, dk * scale, dv
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd", SHAPES)
+def test_split_tf32_products_meet_the_f32_gate(B, S, Hq, Hkv, hd, causal):
+    """The f32 route's arithmetic (``split_tf32_backward``) against
+    ``ref.backward`` in f32 on the same inputs, per element within
+    ``chip_smoke.py`` phase 11 (b)'s f32 gate, 1e-5 max + 1e-4 |ref|.
+    Measured here: the split form at most 0.16 of the gate; truncated TF32
+    products alone (``split=False``) 38 to 276 times it, which is why the
+    kernels split."""
+    _, (tq, tk, tv, tdo), _ = inputs(S * Hq + hd, B, S, Hq, Hkv, hd,
+                                     "float32")
+    o, lse = tref.forward_lse(tq, tk, tv, causal=causal)
+    want = tref.backward(tq, tk, tv, o, lse, tdo, causal=causal)
+    got = split_tf32_backward(tq, tk, tv, o, lse, tdo, causal=causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        w = w.double()
+        err = (g.double() - w).abs()
+        tol = 1e-5 * w.abs().max() + 1e-4 * w.abs()
+        assert bool((err <= tol).all()), (
+            f"{name}: worst {float((err / tol).max())} of the gate")
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_route_by_dtype(dtype, hd):
+    """bfloat16 takes the wgmma backward at every head width (the forward
+    keeps the CUDA-core kernel at 32), float32 the split-TF32 one; a call
+    counts in exactly one route."""
+    q = torch.zeros((1, 8, 2, hd), dtype=dtype)
+    want = "tensor_cores" if dtype == torch.bfloat16 else "split_tf32"
+    assert tkern.bwd_route(q) == want and want in tkern.BWD_ROUTES
+    assert tkern.route(q) == ("tensor_cores" if dtype == torch.bfloat16
+                              and hd != 32 else "cuda_cores")
+    assert set(tkern.flash_attention_bwd.route_launches) == set(
+        tkern.BWD_ROUTES)
