@@ -18,7 +18,10 @@ at once), then runs these phases, each of which raises on failure:
    the same function, that call's time (flash attention at every serving
    model's prefill shape: Qwen3-0.6B, DeepSeekMoE-16B, Jamba's 32 / 8
    heads, Qwen2-VL's 28 / 4, Whisper's non-causal encoder over 1,500
-   frames and its causal decoder); ``wkv6`` on each of its three routes,
+   frames and its causal decoder; its f32 route ``flash_fwd_tf32`` and its
+   bf16 route at head width 32, each case on its route, twice bit for bit,
+   an f32 view off 16-byte alignment bit for bit its contiguous copy, and
+   misaligned bf16 views refused); ``wkv6`` on each of its three routes,
    every case timed (CUDA events, a CUDA graph), the tile-parallel route's
    cases beside the per-head kernel on the same inputs; and ``layers.dot``
    and ``layers.bmm`` on bf16 operands against the f32 product;
@@ -184,7 +187,11 @@ at once), then runs these phases, each of which raises on failure:
    in seconds, and each run's peak memory are printed;
 13. the ``kernels`` line, whose launch counts add phases 2, 5 (per model),
    6-10, 11 (a) and (e), 12, 14 and 15 (the backward kernels: phases 11
-   (e), 12, 14 and 15); the meta costings of phase 15 launch nothing;
+   (e), 12, 14 and 15; the forward's f32 route ``flash_fwd_tf32``, its own
+   row: phase 11 (e)'s reduced steps, the only f32 attention on the path;
+   phases 11 (a), 12 and 14 show by ``route_launches`` that their bf16
+   forwards ran the wgmma route); the meta costings of phase 15 launch
+   nothing;
 14. distribution on the port's mesh layout (``repro_torch.models.sharding``:
    a mesh repeats the card, every tensor lies whole on it), run after
    phase 12: (a) ``launch.train.main --mesh 1,1 --device cuda`` resumed
@@ -281,7 +288,7 @@ RWKV_AGREE_PROMPT = 1040
 # tile-parallel route), served beside the 1,024 prompt for their prefill
 RWKV_RAGGED_PROMPTS = (1000, 1023)
 # flash attention: the Qwen3-0.6B prefill, then a ragged shape (bf16 runs
-# the tensor-core kernel, f32 the CUDA-core one)
+# the wgmma kernel, f32 the split-TF32 one)
 FLASH_MAIN = (4, 1024, 16, 8, 128)           # B, S, Hq, Hkv, hd
 FLASH_RAGGED = (2, 200, 6, 3, 64)
 # every serving model's prefill self-attention (causal, except Whisper's
@@ -374,7 +381,7 @@ TRAIN_ARCH, TRAIN_LAYERS, TRAIN_B, TRAIN_T = "rwkv6-7b", 2, 2, 256
 TRAIN_ACCUM, TRAIN_STEPS = 2, 8
 # (b) the backward kernels: flash at every serving prefill shape (bf16, as
 # the models run: the tensor-core route) and the Qwen3 shape in f32, a
-# ragged shape at head width 32 in both dtypes (the CUDA-core route), and
+# ragged shape at head width 32 in both dtypes (each dtype's route), and
 # ragged bf16 shapes at head widths 128 and 64 (the tensor-core route,
 # 1,000 rows: no multiple of its 64- or 128-row tiles); wkv6 (B, T, H, K, chunk, decay shift, S0, a
 # cotangent on the final state): the RWKV6-7B prefill and train shapes at
@@ -1288,8 +1295,9 @@ def sdpa(q, k, v, causal):
 
 
 def phase_flash(gen):
-    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ref import reference
+    flash_attention = fk.flash_attention
     print("phase 1b: flash_attention against its plain version")
     errs, cases_row = [], {}
     # bf16: both sides round the same f32 result to bf16 once, and two
@@ -1342,28 +1350,48 @@ def phase_flash(gen):
             cases_row[label] = dict(shape=shape, causal=causal, ms=t_k,
                                     plain_ms=t_p, library_ms=t_l,
                                     bound_ms=b_ms, bound_by=b_by)
-    cases_row["cuda_cores"] = cuda_core_forward(gen, flash_attention,
-                                                reference)
-    errs += [r["max_abs_err"] for r in cases_row["cuda_cores"].values()]
+    routes = forward_routes(gen, fk, reference)
+    cases_row["routes"] = routes
+    errs += [r["max_abs_err"] for r in routes.values()
+             if r["route"] == "tensor_cores"]
     check_tma_refusal(flash_attention)
     # the row's own numbers are the first serving shape's, the Qwen3 prefill
     main = cases_row[FLASH_MODELS[0][0]]
-    return dict(name="flash_attention", route="cuda",
-                source="src/repro_torch/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention/kernel.py:71",
-                ms=main["ms"], plain_ms=main["plain_ms"],
-                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                library_ms=main["library_ms"], max_abs_err=max(errs),
-                cases=cases_row)
+    row = dict(name="flash_attention", route="cuda",
+               source="src/repro_torch/csrc/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention/kernel.py:71",
+               ms=main["ms"], plain_ms=main["plain_ms"],
+               bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+               library_ms=main["library_ms"], max_abs_err=max(errs),
+               cases=cases_row)
+    # the f32 route's own row: flash_fwd_tf32 at the f32 Qwen3-0.6B shape
+    tf32 = routes[f"{FLASH_MAIN} float32"]
+    tf32_row = dict(name="flash_fwd_tf32", route="cuda",
+                    source="src/repro_torch/csrc/flash_attention.cu",
+                    replaces="src/repro/kernels/flash_attention/kernel.py:71",
+                    ms=tf32["ms"], plain_ms=tf32["plain_ms"],
+                    bound_ms=tf32["bound_ms"], bound_by=tf32["bound_by"],
+                    library_ms=tf32["library_ms"],
+                    max_abs_err=max(r["max_abs_err"] for r in routes.values()
+                                    if r["route"] == "split_tf32"),
+                    graph_ms=tf32["graph_ms"],
+                    library_graph_ms=tf32["library_graph_ms"],
+                    cases={k: r for k, r in routes.items()
+                           if r["route"] == "split_tf32"})
+    return row, tf32_row
 
 
-def cuda_core_forward(gen, flash_attention, reference):
-    """The forward's CUDA-core route (``flash_fwd_kernel``: f32, and bf16 at
-    head width 32) held to its plain version at the phase's gates and
-    timed against SDPA (events and CUDA graphs, in turns) and its bound:
-    f32 at the Qwen3-0.6B shape, both dtypes at the ragged head-width-32
-    shape and at FLASH_HD32_FULL, causal."""
-    from repro_torch.kernels.flash_attention.kernel import route
+def forward_routes(gen, fk, reference):
+    """The forward's routes redesigned last, ``flash_fwd_tf32`` (f32) and
+    ``flash_fwd_wgmma`` at head width 32 (bf16), held to the plain version
+    at the phase's gates, two calls bit for bit, one launch a call on the
+    route ``kernel.route`` names (``route_launches``), and timed against
+    SDPA (events and CUDA graphs, in turns) and the bound: f32 at the
+    Qwen3-0.6B shape, both dtypes at the ragged head-width-32 shape and at
+    FLASH_HD32_FULL, causal.  Then f32 q, k, v one element into wider
+    tensors (no base 16-byte aligned: copies of 4 bytes) give their
+    contiguous copies' output bit for bit."""
+    flash_attention = fk.flash_attention
     rows = {}
     for shape, dtype in ((FLASH_MAIN, torch.float32),
                          (FLASH_BWD_RAGGED, torch.float32),
@@ -1372,13 +1400,23 @@ def cuda_core_forward(gen, flash_attention, reference):
                          (FLASH_HD32_FULL, torch.bfloat16)):
         B, S, Hq, Hkv, hd = shape
         q, k, v = flash_inputs(gen, *shape, dtype)
+        route = fk.route(q)
         label = f"flash_attention {shape} {str(dtype)[6:]} causal=True"
-        if route(q) != "cuda_cores":
-            raise AssertionError(f"{label}: not the CUDA-core route")
+        if route != ("tensor_cores" if dtype == torch.bfloat16
+                     else "split_tf32"):
+            raise AssertionError(f"{label}: not the dtype's route")
+        n0 = dict(flash_attention.route_launches)
+        got = flash_attention(q, k, v, causal=True)
+        moved = {r: n - n0[r]
+                 for r, n in flash_attention.route_launches.items()}
+        if moved != {r: int(r == route) for r in moved}:
+            raise AssertionError(f"{label}: launches by route {moved}, "
+                                 f"expected one on {route}")
+        if not bitwise(got, flash_attention(q, k, v, causal=True)):
+            raise AssertionError(f"{label}: two calls differ")
         rt = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-4
-        err = check_close(flash_attention(q, k, v, causal=True),
-                          reference(q, k, v, causal=True), 1e-5, rt,
-                          f"{label} route=cuda_cores")
+        err = check_close(got, reference(q, k, v, causal=True), 1e-5, rt,
+                          f"{label} route={route}")
         fns = {"kernel": (lambda: flash_attention(q, k, v, causal=True), 20),
                "library": (lambda: sdpa(q, k, v, True), 20),
                "plain": (lambda: reference(q, k, v, causal=True), 5)}
@@ -1396,36 +1434,61 @@ def cuda_core_forward(gen, flash_attention, reference):
         rate = (peaks().BF16_FLOPS if dtype == torch.bfloat16
                 else peaks().TF32_FLOPS / 3)
         b_ms, b_by = bound(nbytes(q, k, v, q), ops, rate)
-        print(f"  {label} route=cuda_cores: ms={t_k!r} plain_ms={t_p!r} "
+        print(f"  {label} route={route}: ms={t_k!r} plain_ms={t_p!r} "
               f"library_ms={t_l!r} graph_ms={t_kg!r} library_graph_ms="
-              f"{t_lg!r} bound_ms={b_ms!r} ({b_by}) "
-              f"f32_cuda_core_floor_ms={ops / peaks().FP32_FLOPS * 1e3!r} "
-              f"turns={times!r}")
+              f"{t_lg!r} bound_ms={b_ms!r} ({b_by}) turns={times!r}")
         rows[f"{shape} {str(dtype)[6:]}"] = dict(
-            ms=t_k, plain_ms=t_p, library_ms=t_l, graph_ms=t_kg,
+            route=route, ms=t_k, plain_ms=t_p, library_ms=t_l, graph_ms=t_kg,
             library_graph_ms=t_lg, bound_ms=b_ms, bound_by=b_by,
             max_abs_err=err)
+    for shape in (FLASH_BWD_RAGGED, FLASH_MAIN):
+        hd = shape[-1]
+        q, k, v = flash_inputs(gen, *shape, torch.float32)
+
+        def off(t):
+            wide = torch.empty(t.shape[:-1] + (hd + 1,), device="cuda")
+            wide[..., 1:] = t
+            return wide[..., 1:]
+        views = [off(t) for t in (q, k, v)]
+        n0 = dict(flash_attention.route_launches)
+        got = flash_attention(*views, causal=True)
+        moved = {r: n - n0[r]
+                 for r, n in flash_attention.route_launches.items()}
+        same = bitwise(got, flash_attention(q, k, v, causal=True))
+        print(f"  flash_attention {shape} float32 causal=True, q / k / v "
+              f"off 16-byte alignment: launches by route {moved}, output "
+              f"{'bit for bit' if same else 'DIFFERS from'} the contiguous "
+              "copies'")
+        if views[0].data_ptr() % 16 == 0 or not same or \
+                moved != {r: int(r == "split_tf32") for r in moved}:
+            raise AssertionError(f"flash_attention {shape}: misaligned f32 "
+                                 "views did not run the split-TF32 route "
+                                 "to the contiguous copies' bits")
     return rows
 
 
 def check_tma_refusal(flash_attention):
     """A bf16 view whose base is not 16-byte aligned (q taken one element
-    into the head axis of a wider tensor) is refused before any launch."""
-    B, S, Hq, Hkv, hd = FLASH_RAGGED
-    wide = torch.zeros((B, S, Hq, hd + 8), dtype=torch.bfloat16,
-                       device="cuda")
-    q = wide[..., 1:hd + 1]
-    k = torch.zeros((B, S, Hkv, hd), dtype=torch.bfloat16, device="cuda")
-    before = flash_attention.launches
-    try:
-        flash_attention(q, k, k, causal=True)
-    except ValueError as exc:
-        print(f"  misaligned q refused: {exc}")
-    else:
-        raise AssertionError("flash_attention launched on a q view that TMA "
-                             "cannot read")
-    if flash_attention.launches != before:
-        raise AssertionError("flash_attention counted a refused launch")
+    into the head axis of a wider tensor) is refused before any launch, at
+    head width 64 and at 32, with and without grad."""
+    for shape in (FLASH_RAGGED, FLASH_BWD_RAGGED):
+        B, S, Hq, Hkv, hd = shape
+        wide = torch.zeros((B, S, Hq, hd + 8), dtype=torch.bfloat16,
+                           device="cuda")
+        k = torch.zeros((B, S, Hkv, hd), dtype=torch.bfloat16, device="cuda")
+        for grad in (False, True):
+            q = wide[..., 1:hd + 1].detach().requires_grad_(grad)
+            before = flash_attention.launches
+            try:
+                flash_attention(q, k, k, causal=True)
+            except ValueError as exc:
+                print(f"  misaligned q {shape} (grad {grad}) refused: {exc}")
+            else:
+                raise AssertionError(f"flash_attention {shape} launched on "
+                                     "a q view that TMA cannot read")
+            if flash_attention.launches != before:
+                raise AssertionError("flash_attention counted a refused "
+                                     "launch")
 
 
 def wkv_inputs(gen, B, T, H, K, shift, with_state):
@@ -4143,6 +4206,7 @@ def train_loss_check(flash, device="cuda"):
           f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}), B {B}, S {S}, "
           f"{chunks} chunks, against an unchunked f32 cross entropy")
     launches = {}
+    routes0 = dict(flash.route_launches)
     with torch.no_grad():
         got = {}
         for name, b in (("unmasked", batch),
@@ -4172,6 +4236,9 @@ def train_loss_check(flash, device="cuda"):
     if any(n != n_attn for n in launches.values()):
         raise AssertionError(f"phase 11 (a): flash launches {launches}, "
                              f"expected {n_attn} a pass")
+    fwd_routes_moved(flash, routes0, "tensor_cores" if cfg.dtype
+                     == "bfloat16" else "split_tf32", f"phase 11 (a) "
+                     f"{LOSS_ARCH} {cfg.dtype}")
     return cfg, params, batch, sum(launches.values())
 
 
@@ -4505,12 +4572,23 @@ def ptxas_usage(log, word):
     return out
 
 
+def fwd_routes_moved(flash, n0, route, label):
+    """The forward's launches by route since ``n0`` (its ``route_launches``
+    then); raise unless all ran ``route``, at least one."""
+    moved = {r: n - n0[r] for r, n in flash.route_launches.items()}
+    print(f"  {label}: flash forward launches by route {moved}")
+    if moved[route] < 1 or any(n for r, n in moved.items() if r != route):
+        raise AssertionError(f"{label}: the forward did not run only the "
+                             f"{route} route")
+    return moved
+
+
 def flash_bwd_check(gen):
     """(b) flash: the backward kernels' dq, dk, dv against autograd of
     ``ref.reference`` and against ``ref.backward`` fed the kernel's own
     output and logsumexp; the logsumexp against ``ref.forward_lse``; two
     calls bit for bit; one backward launch a call, on the route
-    ``kernel.bwd_route`` names (``route_launches``: bf16 the wgmma
+    ``kernel.route`` names (``route_launches``: bf16 the wgmma
     kernels, f32 the split-TF32 ones); at each shape the kernels' ms, the
     plain version's (autograd) and SDPA's backward by CUDA events around
     the calls (host time between kernels included), the kernels' and
@@ -4534,7 +4612,7 @@ def flash_bwd_check(gen):
         q, k, v = flash_inputs(gen, *shape, dtype)
         do = torch.randn((B, S, Hq, hd), generator=gen,
                          device="cuda").to(dtype)
-        route = fk.bwd_route(q)
+        route = fk.route(q)
         label = (f"flash bwd {shape} {str(dtype)[6:]} causal={causal} "
                  f"route={route}")
         if route != ("tensor_cores" if dtype == torch.bfloat16
@@ -4994,7 +5072,7 @@ def reduced_against_cpu(arch):
     (through the kernels) against the same step on the CPU (the plain
     versions) and on the card with the kernels swapped for their plain
     versions, on the same weights and batch; a model with attention runs
-    its backward on the split-TF32 route (``route_launches``)."""
+    its forward and backward on the split-TF32 route (``route_launches``)."""
     from repro_torch.configs import reduced_config
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.launch.steps import make_grad_step
@@ -5009,10 +5087,14 @@ def reduced_against_cpu(arch):
     g_cpu, l_cpu, _ = step(params, batch)
     on_card = lambda tree: tree_map(lambda t: t.to("cuda"), tree)
     n0 = dict(fk.flash_attention_bwd.route_launches)
+    f0 = dict(fk.flash_attention.route_launches)
     g_card, l_card, _ = step(on_card(params), on_card(batch))
     moved = {r: n - n0[r]
              for r, n in fk.flash_attention_bwd.route_launches.items()}
     attn = sum(1 for mixer, _ in cfg.layer_kinds() if mixer == "attn")
+    if attn:
+        fwd_routes_moved(fk.flash_attention, f0, "split_tf32",
+                         f"phase 11 (e) {arch} reduced")
     print(f"  {arch} reduced: flash backward launches by route {moved} "
           f"({attn} attention layers, {cfg.dtype})")
     if moved != {r: attn * (r == "split_tf32") for r in moved}:
@@ -5071,7 +5153,8 @@ def phase_train(counters):
     t0 = time.perf_counter()
     for fn in counters:
         fn.launches = 0
-    for fn in (wk.wkv6, wk.wkv6_bwd, fk.flash_attention_bwd):
+    for fn in (wk.wkv6, wk.wkv6_bwd, fk.flash_attention,
+               fk.flash_attention_bwd):
         fn.route_launches = dict.fromkeys(fn.route_launches, 0)
     kernels = {"qwen3-0.6b": (fk.flash_attention, fk.flash_attention_bwd),
                "rwkv6-7b": (wk.wkv6, wk.wkv6_bwd)}
@@ -5090,6 +5173,8 @@ def phase_train(counters):
         reduced_against_cpu(arch)
     walls["e"] = time.perf_counter() - t0
     print(f"  phase 11 walls (s): {walls}")
+    e_counts["flash_fwd_tf32"] = fk.flash_attention.route_launches[
+        "split_tf32"]
     out.update(flash_launches=flash_n, bwd_rows=bwd_rows, e_counts=e_counts)
     return out
 
@@ -5221,6 +5306,7 @@ def phase_launch(counters):
     for fn in counters:
         fn.launches = 0
     flash_fns = (fk.flash_attention, fk.flash_attention_bwd)
+    routes0 = dict(fk.flash_attention.route_launches)
     log, runs = [], {}
     try:
         runs["A"] = launch_run("A", root / "A", log, flash_fns)
@@ -5242,6 +5328,8 @@ def phase_launch(counters):
         for d in (root / "A", root / "B" / "step_4"):
             shutil.rmtree(d, ignore_errors=True)
     got = (fk.flash_attention.launches, fk.flash_attention_bwd.launches)
+    fwd_routes_moved(fk.flash_attention, routes0, "tensor_cores" if cfg.dtype
+                     == "bfloat16" else "split_tf32", f"phase 12 {cfg.dtype}")
     a, b = runs["A"]["losses"], runs["B"]["losses"]
     resumed = f"[train] resumed from step {LAUNCH_RESUME}" in out.getvalue()
     same_files = sum(got_files.get(k) == v for k, v in want_files.items())
@@ -5323,6 +5411,7 @@ def dist_launch(launch):
     want = (n_steps * M * 2 * per, n_steps * M * per)
     flash_fns = (fk.flash_attention, fk.flash_attention_bwd)
     n0 = tuple(f.launches for f in flash_fns)
+    routes0 = dict(fk.flash_attention.route_launches)
     log = []
     try:
         (root / "C").mkdir()
@@ -5337,6 +5426,9 @@ def dist_launch(launch):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     got = tuple(f.launches - n for f, n in zip(flash_fns, n0))
+    fwd_routes_moved(fk.flash_attention, routes0, "tensor_cores" if cfg.dtype
+                     == "bfloat16" else "split_tf32",
+                     f"phase 14 (a) {cfg.dtype}")
     resumed = f"[train] resumed from step {LAUNCH_RESUME}" in out.getvalue()
     b = launch["runs"]["B"]["losses"]
     same_files = got_files == launch["b_files"]
@@ -5824,11 +5916,12 @@ def main() -> int:
                 print(f"  {name}: {ln.strip()}")
             if "registers" in ln or "spill" in ln:
                 print(f"  {name}: {ln.strip()}")
-    # the tensor-core backwards' entries: registers and spills
-    for word in ("wgmma", "tf32"):
-        for entry, usage in ptxas_usage(logs.get("flash_attention_bwd", ""),
-                                        word).items():
-            print(f"  flash_attention_bwd {word} entry {entry}: {usage}")
+    # the tensor-core kernels' entries, both ways: registers and spills
+    for name in ("flash_attention", "flash_attention_bwd"):
+        for word in ("wgmma", "tf32"):
+            for entry, usage in ptxas_usage(logs.get(name, ""),
+                                            word).items():
+                print(f"  {name} {word} entry {entry}: {usage}")
     for entry, usage in ptxas_usage(logs.get("wkv6_bwd", ""),
                                     "wkv6_bwd").items():
         print(f"  wkv6_bwd entry {entry}: {usage}")
@@ -5848,7 +5941,8 @@ def main() -> int:
 
     rows = timed("phase 1", phase_kernels, main_batch, small)
     cuda_gen = torch.Generator(device="cuda").manual_seed(SEED)
-    rows["flash_attention"] = timed("phase 1b", phase_flash, cuda_gen)
+    rows["flash_attention"], rows["flash_fwd_tf32"] = timed(
+        "phase 1b", phase_flash, cuda_gen)
     rows["wkv6"] = timed("phase 1c", phase_wkv, cuda_gen)
     timed("phase 1d", phase_dot, cuda_gen)
     configs, counts, reports = timed("phase 2", phase_main, main_batch, gen,
@@ -5884,6 +5978,10 @@ def main() -> int:
     flash["phase 11 (e)"] = e_counts["flash_attention"]
     counts["flash_attention"] += e_counts["flash_attention"]
     by_path["flash_attention"] = flash
+    # the f32 route's launches on the main path: phase 11 (e)'s reduced
+    # steps (every other path runs bf16)
+    counts["flash_fwd_tf32"] = e_counts["flash_fwd_tf32"]
+    by_path["flash_fwd_tf32"] = {"phase 11 (e)": e_counts["flash_fwd_tf32"]}
     by_path["wkv6"] = {"phase 5 rwkv6-7b": counts["wkv6"],
                        "phase 5 rwkv6-7b prompts "
                        + ", ".join(map(str, RWKV_RAGGED_PROMPTS)): ragged,
@@ -5904,8 +6002,8 @@ def main() -> int:
         for name, n in held["launches"].items():
             by_path[name]["phase 15"] = by_path[name].get("phase 15", 0) + n
             counts[name] += n
-    for name in ("flash_attention", "wkv6", "flash_attention_bwd",
-                 "wkv6_bwd"):
+    for name in ("flash_attention", "flash_fwd_tf32", "wkv6",
+                 "flash_attention_bwd", "wkv6_bwd"):
         if e_counts[name] == 0:
             raise AssertionError(f"phase 11 (e): {name} was not launched on "
                                  "the training path")

@@ -79,7 +79,7 @@ def main() -> int:
         spans = kernel_spans(lambda: fk.flash_attention_bwd(
             q, k, v, o, lse, do, causal=causal))
         label = (f"{shape} {str(dtype)[6:]} causal={causal} "
-                 f"route={fk.bwd_route(q)}")
+                 f"route={fk.route(q)}")
         if not spans:
             print(f"{label}: the profiler recorded no backward kernel",
                   file=sys.stderr)

@@ -44,10 +44,12 @@
 // operand's rows follow.  Shared tiles are f32 rows of HD + 4 floats (4 mod
 // 32): the fragment reads of both orders (rows g, columns q; rows 2 q and
 // 2 q + 1, columns g) reach 32 banks for 32 lanes, and rows stay 16-byte
-// aligned for cp.async.  Tiles arrive by cp.async in a ring of two stages,
-// 16 bytes a copy where every operand's base and strides are 16-byte
-// multiples, else 4 bytes a copy: the route takes any strided f32 view that
-// the wrapper admits, so nothing is kept for another route.  The dQ kernel
+// aligned for cp.async (load_rows, dot_rows and accumulate_rows, shared
+// with the forward's f32 route, are in tf32.cuh).  Tiles arrive by cp.async
+// in a ring of two stages, 16 bytes a copy where every operand's base and
+// strides are 16-byte multiples, else 4 bytes a copy: the route takes any
+// strided f32 view that the wrapper admits, so nothing is kept for another
+// route.  The dQ kernel
 // has 8 warps over 64 query rows, each 16 rows x one 32-column half of
 // every 64-row K / V tile, the halves' dQ added in a fixed order at the
 // end; the dK / dV kernel has 4 warps over 32 kv rows, each 16 rows x one
@@ -62,11 +64,10 @@
 // bytes) that TMA loads through the (B, S, H, hd) strides (the pieces shared
 // with the forward are in hopper.cuh).  TMA needs a 16-byte aligned base and
 // batch, row and head strides that are 16-byte multiples, so a bf16 q, k or
-// v view that misses them is refused: at head width 64 and 128 as before,
-// and at head width 32, which the CUDA-core kernels took before this route
-// (the wrapper refuses such a view under grad before the forward launches;
-// no configuration makes one).  A block has two
-// consumer warpgroups of 64 rows each over a 128-row tile; one thread also
+// v view that misses them is refused at every head width, before the
+// forward launches (the forward's bf16 kernel reads them by TMA too; no
+// configuration makes one).  A block has two consumer warpgroups of 64
+// rows each over a 128-row tile; one thread also
 // keeps a ring of three 64-row stages of the other side filled (in the dK /
 // dV kernel with each query tile's lse and D too, by bulk copy).  Letting
 // the two warpgroups take turns to issue, as the forward's do, measured no
@@ -120,10 +121,6 @@ __device__ __forceinline__ bool kept(int qpos, int kpos, int Sq, int Skv,
   return qpos < Sq && kpos < Skv && !(causal && kpos > qpos);
 }
 
-struct Strides {
-  long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
-};
-
 // Where a query tile's row statistics lie in the scratch that each route's
 // dQ kernel writes and its dK / dV kernel reads: for each (batch, query
 // head) and 64-row query tile t, the rows' lse log2 e, then their D, 512
@@ -131,111 +128,6 @@ struct Strides {
 __device__ __forceinline__ long long stat_at(int b, int h, int Hq, int n_q64,
                                              int t) {
   return (((long long)b * Hq + h) * n_q64 + t) * kStat;
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src));
-}
-
-// ROWS rows x HD of a row-strided f32 operand from row row0 -> dst (row
-// HD + 4 floats), zeros past n_rows, by the block's NT threads: 16 bytes a
-// copy where `vec`, else 4
-template <int HD, int ROWS, int NT>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          long long row_stride, int row0,
-                                          int n_rows, bool vec) {
-  constexpr int LD = HD + 4;
-  if (vec) {
-    constexpr int kPer = HD / 4;
-    for (int idx = threadIdx.x; idx < ROWS * kPer; idx += NT) {
-      const int r = idx / kPer, c = (idx % kPer) * 4;
-      float* d = dst + r * LD + c;
-      if (row0 + r < n_rows)
-        cp_async16(d, src + (long long)(row0 + r) * row_stride + c);
-      else
-        *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < ROWS * HD; idx += NT) {
-      const int r = idx / HD, c = idx % HD;
-      float* d = dst + r * LD + c;
-      if (row0 + r < n_rows)
-        cp_async4(d, src + (long long)(row0 + r) * row_stride + c);
-      else
-        *d = 0.0f;
-    }
-  }
-}
-
-// acc[j] = A B^T for the warp's 16 rows of A and 8 rows 8 j .. 8 j + 7 of
-// B, j < N, over HD: S = Q K^T, dP = dO V^T and their transposes.  A and B
-// point at row 0 of the warp's rows (row HD + 4 floats); g = lane / 4, t =
-// lane % 4.
-template <int HD, int N>
-__device__ __forceinline__ void dot_rows(float (&acc)[N][4],
-                                         const float* __restrict__ A,
-                                         const float* __restrict__ B, int g,
-                                         int t) {
-  constexpr int LD = HD + 4;
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
-#pragma unroll
-  for (int kk = 0; kk < HD / 8; ++kk) {
-    const float* a = A + g * LD + 8 * kk + t;
-    const float av[4] = {a[0], a[8 * LD], a[4], a[8 * LD + 4]};
-    uint32_t ah[4], al[4];
-    split4(av, ah, al);
-    float b[N][2];
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const float* bp = B + (8 * j + g) * LD + 8 * kk + t;
-      b[j][0] = bp[0];
-      b[j][1] = bp[4];
-    }
-    mma3<N>(acc, ah, al, b);
-  }
-}
-
-// acc[i] (the warp's 16 rows x head columns 8 i .. 8 i + 7) += X Y, X the
-// 16 x 8 NK product that x holds as accumulator fragments (x[j]: columns
-// 8 j .. 8 j + 7), Y rows 0 .. 8 NK - 1 of a tile (row HD + 4 floats).  The
-// sum over X's columns runs in a permuted order: k slot t of step j is
-// column 8 j + 2 t, slot t + 4 column 8 j + 2 t + 1, so x[j] is the A
-// fragment as it lies, and B's fragment is Y's rows 8 j + 2 t and + 1.
-template <int HD, int NK>
-__device__ __forceinline__ void accumulate_rows(float (&acc)[HD / 8][4],
-                                                const float (&x)[NK][4],
-                                                const float* __restrict__ Y,
-                                                int g, int t) {
-  constexpr int LD = HD + 4;
-#pragma unroll
-  for (int j = 0; j < NK; ++j) {
-    const float av[4] = {x[j][0], x[j][2], x[j][1], x[j][3]};
-    uint32_t ah[4], al[4];
-    split4(av, ah, al);
-    const float* y = Y + (8 * j + 2 * t) * LD + g;
-#pragma unroll
-    for (int i0 = 0; i0 < HD / 8; i0 += 4) {
-      float b[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        b[i][0] = y[8 * (i0 + i)];
-        b[i][1] = y[LD + 8 * (i0 + i)];
-      }
-      mma3<4>(&acc[i0], ah, al, b);
-    }
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void zero_frags(float (&x)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) x[i][e] = 0.0f;
 }
 
 // One block per (64-row query tile, query head, batch), longest first: 8
@@ -537,19 +429,6 @@ flash_bwd_dkdv_tf32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// 16 bytes a copy where every operand's base and strides allow it
-bool vec_ok(const void* q, const void* k, const void* v, const void* o,
-            const void* dout, const Strides& st) {
-  const uintptr_t bases = reinterpret_cast<uintptr_t>(q) |
-                          reinterpret_cast<uintptr_t>(k) |
-                          reinterpret_cast<uintptr_t>(v) |
-                          reinterpret_cast<uintptr_t>(o) |
-                          reinterpret_cast<uintptr_t>(dout);
-  const long long strides = st.qsb | st.qss | st.qsh | st.ksb | st.kss |
-                            st.ksh | st.vsb | st.vss | st.vsh;
-  return bases % 16 == 0 && strides % 4 == 0;
-}
-
 // stats: the (B, Hq, ceil(Sq / 64), 2, 64) f32 scratch that the first
 // kernel writes and the second reads
 template <int HD>
@@ -571,7 +450,7 @@ int launch_tf32(const void* q, const void* k, const void* v, const void* o,
                        smem_kv);
   const int G = Hq / Hkv;
   const float scale_log2 = scale * hopper::kLog2e;
-  const int vec = vec_ok(q, k, v, o, dout, st);
+  const int vec = vec_ok({q, k, v, o, dout}, st);
   const float* fq = static_cast<const float*>(q);
   const float* fk = static_cast<const float*>(k);
   const float* fv = static_cast<const float*>(v);

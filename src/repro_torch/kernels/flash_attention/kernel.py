@@ -17,18 +17,17 @@ counterpart here: the CUDA kernels use their own tiles and mask ragged
 edges themselves, so they take any Sq and Skv.  They take bfloat16 or
 float32 with head width 32, 64 or 128, read q / k / v through their
 strides (the last axis contiguous) and write contiguous results in q's
-dtype.  ``route`` names the forward kernel a call runs: bfloat16 at head
-width 64 or 128 runs the tensor-core ``flash_fwd_wgmma``, which reads its
-operands by TMA and so also needs what ``_tma_ok`` checks; float32, and
-bfloat16 at head width 32, the CUDA-core ``flash_fwd_kernel``.
-``bwd_route`` names the backward's: bfloat16 at every head width runs
-``flash_bwd_dq_wgmma`` then ``flash_bwd_dkdv_wgmma`` ("tensor_cores",
-TMA: q, k, v, o and do must pass ``_tma_ok``; under grad q, k and v are
-checked before the forward launches, so a refused input fails there and
-not inside autograd); float32 runs ``flash_bwd_dq_tf32`` then
-``flash_bwd_dkdv_tf32`` ("split_tf32": mma.sync on the TF32 tensor
+dtype.  ``route`` names the kernels a call runs, one of ``ROUTES`` by
+dtype, the same both ways: bfloat16 at every head width runs
+``flash_fwd_wgmma``, then ``flash_bwd_dq_wgmma`` and
+``flash_bwd_dkdv_wgmma`` ("tensor_cores": wgmma, TMA; q, k and v, and in
+the backward o and do, must pass ``_tma_ok``, checked before anything
+launches, so a refused input fails before the forward and not inside
+autograd); float32 runs ``flash_fwd_tf32``, then ``flash_bwd_dq_tf32``
+and ``flash_bwd_dkdv_tf32`` ("split_tf32": mma.sync on the TF32 tensor
 cores, each product split in three, any strides).
-``flash_attention_bwd.route_launches`` counts the backward's launches by
+``flash_attention.route_launches`` and
+``flash_attention_bwd.route_launches`` count each direction's launches by
 route.
 
 Each launch is a dispatcher operator (``torch.ops.repro_torch.
@@ -58,7 +57,6 @@ _BWD_SIGNATURES = {f"flash_attention_bwd_{t}": [_P] * 10 + [_I] * 6
                    for t in ("f32", "bf16")}
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _HEAD_DIMS = (32, 64, 128)
-_TMA_HEAD_DIMS = (64, 128)
 
 
 def _tma_ok(t) -> bool:
@@ -72,20 +70,14 @@ def _tma_ok(t) -> bool:
         for n, st in zip(t.shape[:3], t.stride()[:3]))
 
 
+ROUTES = ("tensor_cores", "split_tf32")
+
+
 def route(q) -> str:
-    """``"tensor_cores"`` where ``q`` (B, S, H, hd) takes the wgmma forward
-    (bfloat16 at head width 64 or 128), else ``"cuda_cores"``."""
-    return ("tensor_cores" if q.dtype == torch.bfloat16
-            and q.shape[-1] in _TMA_HEAD_DIMS else "cuda_cores")
-
-
-BWD_ROUTES = ("tensor_cores", "split_tf32")
-
-
-def bwd_route(q) -> str:
-    """One of ``BWD_ROUTES``: the backward kernels a call with ``q`` (B, S,
-    H, hd) runs, ``"tensor_cores"`` (wgmma) for bfloat16, ``"split_tf32"``
-    (mma.sync, each product as three TF32 products) for float32."""
+    """One of ``ROUTES``: the kernels a call with ``q`` (B, S, H, hd) runs,
+    forward and backward, ``"tensor_cores"`` (wgmma) for bfloat16,
+    ``"split_tf32"`` (mma.sync, each product as three TF32 products) for
+    float32."""
     return "tensor_cores" if q.dtype == torch.bfloat16 else "split_tf32"
 
 
@@ -124,14 +116,12 @@ def _on_card(t, device) -> bool:
     return t.device.type in ("cuda", "meta") and t.device == device
 
 
-def _check(q, k, v, backward=False):
-    """Raise for operands the kernels do not take: the forward's, and with
-    ``backward`` the backward's too.  The backward's bf16 route reads q, k
-    and v by TMA at every head width, so with ``backward`` a bf16 view at
-    head width 32 that ``_tma_ok`` refuses (a base or a stride off 16
-    bytes) is refused, although the forward's CUDA-core kernel takes it:
-    the CUDA-core backward that took such views is gone, and no
-    configuration makes one."""
+def _check(q, k, v):
+    """Raise for operands the kernels do not take.  bfloat16 runs the wgmma
+    kernels both ways, which read q, k and v by TMA, so a bf16 view that
+    ``_tma_ok`` refuses (a base or a stride off 16 bytes) is refused at
+    every head width, with or without grad; no configuration makes one.
+    float32 takes any strides."""
     what = "flash_attention"
     args = (q, k, v)
     if not all(_on_card(t, q.device) for t in args):
@@ -152,8 +142,7 @@ def _check(q, k, v, backward=False):
                          f"got {hd}")
     if any(t.stride(-1) != 1 for t in args):
         raise ValueError(f"{what}: the head axis must be contiguous")
-    if route(q) == "tensor_cores" or (backward
-                                       and bwd_route(q) == "tensor_cores"):
+    if route(q) == "tensor_cores":
         _need_tma(what, {"q": q, "k": k, "v": v})
 
 
@@ -174,6 +163,7 @@ def _forward(q, k, v, causal, lse=None):
              *_strides(q, k, v), int(causal), hd ** -0.5, _build.stream_of(q))
     _build.check(lib, err, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.route_launches[route(q)] += 1
     return o
 
 
@@ -204,7 +194,7 @@ def _bwd_cuda(q, k, v, o, lse, do, causal):
              *_strides(q, k, v), int(causal), hd ** -0.5, _build.stream_of(q))
     _build.check(lib, err, what)
     flash_attention_bwd.launches += 1
-    flash_attention_bwd.route_launches[bwd_route(q)] += 1
+    flash_attention_bwd.route_launches[route(q)] += 1
     return dq, dk, dv
 
 
@@ -264,7 +254,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True):
     ``flash_attention_bwd.route_launches``; on meta tensors the operator's
     outputs alone."""
     what = "flash_attention_bwd"
-    _check(q, k, v, backward=True)
+    _check(q, k, v)
     B, Sq, Hq, hd = q.shape
     for name, t, shape, dtype in (("o", o, q.shape, q.dtype),
                                   ("do", do, q.shape, q.dtype),
@@ -274,7 +264,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True):
             raise ValueError(f"{what}: {name} must be a contiguous {dtype} "
                              f"tensor of shape {tuple(shape)} on {q.device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if bwd_route(q) == "tensor_cores":
+    if route(q) == "tensor_cores":
         _need_tma(what, {"o": o, "do": do})
     return torch.ops.repro_torch.flash_attention_bwd(q, k, v, o, lse, do,
                                                      causal)
@@ -304,14 +294,13 @@ def flash_attention(q, k, v, *, causal=True):
     """q: (B, Sq, Hq, hd); k/v: (B, Skv, Hkv, hd) -> (B, Sq, Hq, hd)."""
     if q.device.type == "cpu":
         return ref.reference(q, k, v, causal=causal)
-    grad = torch.is_grad_enabled() and any(t.requires_grad
-                                           for t in (q, k, v))
-    _check(q, k, v, backward=grad)
-    if grad:
+    _check(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashFunction.apply(q, k, v, causal)
     return torch.ops.repro_torch.flash_attention(q, k, v, causal, False)[0]
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
 flash_attention_bwd.launches = 0
-flash_attention_bwd.route_launches = dict.fromkeys(BWD_ROUTES, 0)
+flash_attention_bwd.route_launches = dict.fromkeys(ROUTES, 0)

@@ -141,17 +141,19 @@ def test_tma_check_takes_contiguous_and_refuses_misaligned_views(hd):
     assert tk._tma_ok(one)
 
 
+@pytest.mark.parametrize("hd", [32, 128])
 @pytest.mark.parametrize("causal", [True, False])
-def test_p_split_keeps_the_bf16_gate_where_bf16_p_breaks_it(causal):
+def test_p_split_keeps_the_bf16_gate_where_bf16_p_breaks_it(causal, hd):
     """Why the tensor-core kernel splits P.  Its plain version weighs v by
     the f32 softmax weights P, and the card holds the kernel to it within
     1e-5 + 2^-7 |plain| elementwise in bf16.  Emulated here in plain torch
-    at the kernel's head width: P rounded to bf16 before P V breaks that
-    gate by more than 10x on more than 5 % of the outputs (outputs near 0
-    move by about 2^-10 |v|), while P_hi = bf16(P), P_lo = bf16(P - P_hi)
-    and O = P_hi V + P_lo V keeps every output inside it."""
+    at the kernel's head widths (32: the reduced configs' in bf16, 128: the
+    full-size ones'): P rounded to bf16 before P V breaks that gate by more
+    than 10x on more than 5 % of the outputs (outputs near 0 move by about
+    2^-10 |v|), while P_hi = bf16(P), P_lo = bf16(P - P_hi) and O = P_hi V
+    + P_lo V keeps every output inside it."""
     rng = np.random.default_rng(0)
-    B, S, H, hd = 1, 256, 4, 128
+    B, S, H = 1, 256, 4
     q, k, v = (torch.tensor(rng.standard_normal((B, S, H, hd)),
                             dtype=torch.float32).bfloat16().float()
                for _ in range(3))
@@ -180,26 +182,29 @@ def test_p_split_keeps_the_bf16_gate_where_bf16_p_breaks_it(causal):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_grad_checks_the_backward_operands_before_the_forward(dtype):
-    """Under grad a bf16 call at head width 32 will run the wgmma backward,
-    so q, k and v must also pass the TMA check, and a q that fails it is
-    refused before the forward launches; without grad the CUDA-core forward
-    takes it, and f32 (the split-TF32 backward) takes it either way.  Meta
+    """bf16 runs the wgmma kernels both ways at every head width, so q, k and
+    v must pass the TMA check, and a q that fails it (head width 32, rows off
+    16 bytes) is refused before anything launches, with or without grad;
+    f32 (the split-TF32 kernels both ways) takes it either way.  Meta
     operands stand in for the card: nothing launches."""
     B, S, H, hd = 2, 40, 4, 32
     flat = torch.zeros((B, S, H * hd + 1), dtype=dtype, device="meta")
     q = flat[..., :H * hd].unflatten(-1, (H, hd))   # rows 16-byte misaligned
     k = torch.zeros((B, S, 2, hd), dtype=dtype, device="meta")
     before = (tk.flash_attention.launches, tk.flash_attention_bwd.launches)
-    assert tk.flash_attention(q, k, k).is_meta
-    q.requires_grad_(True)
     if dtype == torch.bfloat16:
-        assert tk.bwd_route(q) == "tensor_cores" and not tk._tma_ok(q)
+        assert tk.route(q) == "tensor_cores" and not tk._tma_ok(q)
         with pytest.raises(ValueError, match="TMA"):
             tk.flash_attention(q, k, k)
-        with torch.no_grad():
-            assert tk.flash_attention(q, k, k).is_meta
+        q.requires_grad_(True)
+        with pytest.raises(ValueError, match="TMA"):
+            tk.flash_attention(q, k, k)
+        with torch.no_grad(), pytest.raises(ValueError, match="TMA"):
+            tk.flash_attention(q, k, k)
     else:
-        assert tk.bwd_route(q) == "split_tf32"
+        assert tk.route(q) == "split_tf32"
+        assert tk.flash_attention(q, k, k).is_meta
+        q.requires_grad_(True)
         assert tk.flash_attention(q, k, k).is_meta
     assert (tk.flash_attention.launches,
             tk.flash_attention_bwd.launches) == before

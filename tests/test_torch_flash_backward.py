@@ -238,16 +238,87 @@ def test_split_tf32_products_meet_the_f32_gate(B, S, Hq, Hkv, hd, causal):
             f"{name}: worst {float((err / tol).max())} of the gate")
 
 
+def split_tf32_forward(q, k, v, *, causal, split=True):
+    """The f32 forward's arithmetic (``flash_fwd_tf32``), emulated in f32 (a
+    test helper, not a plain version of the kernel): over 64-column kv
+    tiles, S = Q K^T (split TF32, as ``split_tf32_backward``'s products),
+    scaled into the log2 domain and masked (-1e30 above the causal
+    diagonal); the online softmax m' = max(m, rowmax S), P = exp2(S - m'),
+    l = l exp2(m - m') + rowsum P, O = O exp2(m - m') + P V (split TF32;
+    ``split=False``: TF32 products alone); then o = O / max(l, 1e-30) and
+    lse = (m + log2 l) ln 2.  Returns (o, lse (B, Hq, Sq))."""
+    B, Sq, Hq, hd = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = Hq // Hkv
+
+    def prod(eq, a, b):
+        ah, bh = tf32(a), tf32(b)
+        out = torch.einsum(eq, ah, bh)
+        if split:
+            out = (out + torch.einsum(eq, ah, tf32(b - bh))
+                   + torch.einsum(eq, tf32(a - ah), bh))
+        return out
+
+    qf = q.reshape(B, Sq, Hkv, G, hd)
+    scale_log2 = torch.tensor(hd ** -0.5 * LOG2E)
+    m = torch.full((B, Hkv, G, Sq), -1e30)
+    l = torch.zeros((B, Hkv, G, Sq))
+    acc = torch.zeros((B, Hkv, G, Sq, hd))
+    for k0 in range(0, Skv, 64):
+        s = prod("bqhgd,bkhd->bhgqk", qf, k[:, k0:k0 + 64]) * scale_log2
+        if causal:
+            keep = (torch.arange(k0, min(k0 + 64, Skv))[None, :]
+                    <= torch.arange(Sq)[:, None])
+            s = torch.where(keep, s, torch.tensor(-1e30))
+        mn = torch.maximum(m, s.amax(-1))
+        c = torch.exp2(m - mn)
+        p = torch.exp2(s - mn[..., None])
+        l = l * c + p.sum(-1)
+        acc = acc * c[..., None] + prod("bhgqk,bkhd->bhgqd", p,
+                                        v[:, k0:k0 + 64])
+        m = mn
+    o = acc / l.clamp_min(1e-30)[..., None]
+    lse = (m + torch.log2(l)) * torch.tensor(0.6931471805599453)
+    return (o.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, hd),
+            lse.reshape(B, Hq, Sq))
+
+
+def worst_of_f32_gate(got, want):
+    """max |got - want| / (1e-5 + 1e-4 |want|): ``chip_smoke.py`` phase
+    1b's f32 gate, per element."""
+    want = want.double()
+    err = (got.double() - want).abs()
+    return float((err / (1e-5 + 1e-4 * want.abs())).max())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd", SHAPES)
+def test_split_tf32_forward_meets_the_f32_gate(B, S, Hq, Hkv, hd, causal):
+    """The f32 forward's arithmetic (``split_tf32_forward``) against
+    ``ref.forward_lse`` on the same inputs: its output and logsumexp, per
+    element within ``chip_smoke.py`` phase 1b's f32 gate, 1e-5 + 1e-4
+    |ref|; truncated TF32 products alone (``split=False``) break that gate
+    on the output, which is why the kernel splits.  Measured here: the
+    split form at most 0.08 of the gate on the output and 0.03 on the
+    logsumexp; TF32 products alone 48 to 84 times it on the output."""
+    _, (tq, tk, tv, _), _ = inputs(S * Hq + hd + 1, B, S, Hq, Hkv, hd,
+                                   "float32")
+    want_o, want_lse = tref.forward_lse(tq, tk, tv, causal=causal)
+    got_o, got_lse = split_tf32_forward(tq, tk, tv, causal=causal)
+    assert worst_of_f32_gate(got_o, want_o) <= 1.0
+    assert worst_of_f32_gate(got_lse, want_lse) <= 1.0
+    tf32_o, _ = split_tf32_forward(tq, tk, tv, causal=causal, split=False)
+    assert worst_of_f32_gate(tf32_o, want_o) > 1.0
+
+
 @pytest.mark.parametrize("hd", [32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bwd_route_by_dtype(dtype, hd):
-    """bfloat16 takes the wgmma backward at every head width (the forward
-    keeps the CUDA-core kernel at 32), float32 the split-TF32 one; a call
-    counts in exactly one route."""
+    """One route a call, the same both ways: bfloat16 takes the wgmma
+    kernels at every head width, float32 the split-TF32 ones; each
+    direction counts a call in exactly one route."""
     q = torch.zeros((1, 8, 2, hd), dtype=dtype)
     want = "tensor_cores" if dtype == torch.bfloat16 else "split_tf32"
-    assert tkern.bwd_route(q) == want and want in tkern.BWD_ROUTES
-    assert tkern.route(q) == ("tensor_cores" if dtype == torch.bfloat16
-                              and hd != 32 else "cuda_cores")
-    assert set(tkern.flash_attention_bwd.route_launches) == set(
-        tkern.BWD_ROUTES)
+    assert tkern.route(q) == want and want in tkern.ROUTES
+    for fn in (tkern.flash_attention, tkern.flash_attention_bwd):
+        assert set(fn.route_launches) == set(tkern.ROUTES)
