@@ -22,8 +22,10 @@ at once), then runs these phases, each of which raises on failure:
    bf16 route at head width 32, each case on its route, twice bit for bit,
    an f32 view off 16-byte alignment bit for bit its contiguous copy, and
    misaligned bf16 views refused); ``wkv6`` on each of its three routes,
-   every case timed (CUDA events, a CUDA graph), the tile-parallel route's
-   cases beside the per-head kernel on the same inputs; and ``layers.dot``
+   every case timed (CUDA events, a CUDA graph), every case whose chunk is
+   no multiple of 64 beside the per-head kernel on the same inputs, both
+   held to the plain version (RWKV6-7B's prompts of 50,000 and 48,000
+   tokens, chunks 10 and 375, too); and ``layers.dot``
    and ``layers.bmm`` on bf16 operands against the f32 product;
 2. the allocator's main path at the paper's scale (Sec. 5.3: 256 lanes of
    100-500 job classes, capacity factor 0.95, f64): ``CapacityEngine.solve``
@@ -48,7 +50,9 @@ at once), then runs these phases, each of which raises on failure:
    generated tokens are checked; prefill seconds, decode tokens/s, peak
    memory and the device's idle share are printed.  RWKV6-7B also serves
    prompts of 1,000 and 1,023 tokens (chunks 8 and 1: one tile-parallel
-   wkv6 launch a layer), their prefill seconds beside the 1,024 prompt's.
+   wkv6 launch a layer) and, at batch 1, of 50,000 and 48,000 tokens
+   (chunks 10 and 375: tile- and chunk-parallel), their prefill seconds
+   beside the 1,024 prompt's and beside the per-head kernel's.
    The MoE models
    (DeepSeekMoE, Jamba) also gate (b) a second generate bit for bit the
    first and (d) at a drop-free capacity factor the last decode step
@@ -150,10 +154,11 @@ at once), then runs these phases, each of which raises on failure:
    ``ref.reference`` and against ``ref.backward`` fed the kernel's own
    logsumexp (itself held to ``ref.forward_lse``); ``wkv6``'s six
    gradients against autograd of ``wkv_chunked`` at the RWKV6-7B prefill
-   and train shapes (chunk 256), the per-head route's chunk 16 at T =
-   1,040 and 4 at T = 300, from a state, with a final-state cotangent and
+   and train shapes (chunk 256), chunks 1-32 at T = 992-1,040, 4 at T =
+   300 and 10 at T = 500, from a state, with a final-state cotangent and
    at decays that saturate the clips, each case's backward route (chunk
-   256 on the chunk-parallel kernels, 16 and 4 on the per-head ones) and
+   256 on the chunk-parallel kernels, 1-32 on the tile-parallel ones, 10 on
+   the per-head ones after a tile-parallel forward) and
    at the train shape the backward from the forward's saved scratch and
    each pass alone; each backward twice bit for bit, one backward launch a
    call, and its ms (CUDA events and a CUDA graph), bound, autograd's of
@@ -284,9 +289,14 @@ SERVE_B, SERVE_PROMPT, SERVE_NEW = 4, 1024, 16
 # departs from the exact recurrence (ROADMAP Queue 3), so a prefill and a
 # forward over a longer sequence compute different functions there
 RWKV_AGREE_PROMPT = 1040
-# RWKV6-7B's prompts whose length is no multiple of 64 (chunks 8 and 1: the
-# tile-parallel route), served beside the 1,024 prompt for their prefill
-RWKV_RAGGED_PROMPTS = (1000, 1023)
+# RWKV6-7B's prompts (batch, length) whose chunk is no multiple of 64,
+# served beside the 1,024 prompt for their prefill: 1,000 and 1,023 (chunks
+# 8 and 1: the tile-parallel route); at batch 1 (at 50,000 tokens a batch
+# of 4's f32 prefill logits alone would take 52 GB) 50,000 (chunk 10: tiles
+# of 60 rows) and 48,000 (chunk 375: chunk-parallel, a last sub-tile of 55
+# rows)
+RWKV_RAGGED_PROMPTS = ((SERVE_B, 1000), (SERVE_B, 1023), (1, 50000),
+                       (1, 48000))
 # flash attention: the Qwen3-0.6B prefill, then a ragged shape (bf16 runs
 # the wgmma kernel, f32 the split-TF32 one)
 FLASH_MAIN = (4, 1024, 16, 8, 128)           # B, S, Hq, Hkv, hd
@@ -304,10 +314,13 @@ FLASH_MODELS = (("qwen3-0.6b", FLASH_MAIN, True),
 # 992 tokens (chunks 1, 8, 16, 32: tile-parallel, each with a ragged last
 # tile of 63, 40, 16 and 32 rows), a chunk-4 case whose cumulative decays
 # pass the +-30 clamp, from zeros and from a state, K = V = 32 at chunk 8
-# from a state, and whole tiles only (tile-parallel); a chunk that neither
-# divides 64 nor is a multiple of it (the per-head kernel); then the
-# chunk-parallel kernels' prefix from a state, chunk 128, a single chunk
-# and K = V = 32
+# from a state, and whole tiles only (tile-parallel); chunks that neither
+# divide 64 nor are multiples of it: below 64 on tiles of whole chunks (10:
+# tiles of 60 rows, the last 20; 3: 63, the last 60, from a state; 48 and
+# 63: one chunk a tile, 63 where the clip binds), above it chunk-parallel
+# with a ragged last sub-tile (65: 1 row; 96: 32; 375: 55, from a state),
+# and K = V = 32 at 10 and 96 from a state; then the chunk-parallel
+# kernels' prefix from a state, chunk 128, a single chunk and K = V = 32
 WKV_CASES = ((4, 1024, 64, 64, 256, -0.6, False),
              (4, 1023, 64, 64, 1, -0.6, False),
              (4, 1000, 64, 64, 8, -0.6, False),
@@ -318,10 +331,23 @@ WKV_CASES = ((4, 1024, 64, 64, 256, -0.6, False),
              (2, 520, 4, 32, 8, -0.6, True),
              (2, 256, 4, 64, 16, -0.6, False),
              (2, 500, 4, 64, 10, -0.6, False),
+             (2, 501, 4, 64, 3, -0.6, True),
+             (2, 480, 4, 64, 48, -0.6, False),
+             (2, 630, 4, 64, 63, 2.0, False),
+             (2, 650, 4, 64, 65, -0.6, False),
+             (2, 960, 4, 64, 96, -0.6, False),
+             (1, 750, 4, 64, 375, -0.6, True),
+             (2, 520, 4, 32, 10, 2.0, True),
+             (2, 480, 4, 32, 96, -0.6, True),
              (4, 1024, 64, 64, 256, -0.6, True),
              (4, 1024, 64, 64, 128, -0.6, False),
              (2, 256, 4, 64, 256, -0.6, False),
              (2, 512, 4, 32, 64, -0.6, False))
+# RWKV6-7B's prompts of 50,000 and 48,000 tokens at batch 1 (chunks 10 and
+# 375), held to the plain version and to the per-head kernel, which took
+# them before
+WKV_LONG_CASES = ((1, 50000, 64, 64, 10, -0.6, False),
+                  (1, 48000, 64, 64, 375, -0.6, False))
 # layers.dot on the card: bf16 (M x D) . (D x N), the Qwen3 MLP's up
 # projection at the serving prefill (4 x 1024 tokens, d 1024, d_ff 3072)
 DOT_SHAPE = (4096, 1024, 3072)
@@ -390,7 +416,8 @@ TRAIN_ACCUM, TRAIN_STEPS = 2, 8
 # the tile-parallel routes, each with a ragged last tile of 63, 40, 16 and
 # 32 rows), each also through the per-head backward on the same inputs;
 # decays that saturate the clips (shift 2.0) at chunk 256 and at chunk 4
-# (tile-parallel)
+# (tile-parallel); chunk 10 (the tile-parallel forward, the per-head
+# backward)
 FLASH_BWD_RAGGED = (1, 1000, 4, 2, 32)
 FLASH_BWD_TC_RAGGED = ((1, 1000, 4, 2, 128), (1, 1000, 4, 4, 64))
 # head width 32 where the grid fills the card (the Qwen3-0.6B shape's batch
@@ -403,7 +430,8 @@ WKV_BWD_CASES = ((4, 1024, 64, 64, 256, -0.6, False, False),
                  (2, 1040, 64, 64, 16, -0.6, False, True),
                  (2, 992, 64, 64, 32, -0.6, True, True),
                  (2, 512, 8, 64, 256, 2.0, True, True),
-                 (2, 300, 4, 64, 4, 2.0, True, True))
+                 (2, 300, 4, 64, 4, 2.0, True, True),
+                 (2, 500, 4, 64, 10, -0.6, True, True))
 # the kernels of each wkv6_bwd route (csrc/wkv6_bwd.cu)
 WKV_BWD_KERNELS = {
     "chunk-parallel": ["wkv6_bwd_g<false>", "wkv6_bwd_prefix<1>",
@@ -1507,9 +1535,13 @@ def wkv_inputs(gen, B, T, H, K, shift, with_state):
 def wkv_route_of(L):
     """The route ``kernel.route`` must give a WKV_CASES case at chunk L (K ==
     V, a multiple of 4, every operand 16-byte aligned)."""
-    if L % 64 == 0:
-        return "chunk-parallel"
-    return "tile-parallel" if 64 % L == 0 else "per-head"
+    return "chunk-parallel" if L >= 64 else "tile-parallel"
+
+
+def wkv_bwd_route_of(L):
+    """The route ``kernel.bwd_route`` must give a WKV_BWD_CASES case at chunk
+    L: the forward's where L is a multiple of 64 or divides it."""
+    return wkv_route_of(L) if L % 64 == 0 or 64 % L == 0 else "per-head"
 
 
 def phase_wkv(gen):
@@ -1517,16 +1549,18 @@ def phase_wkv(gen):
     case's route asserted, within 1e-4 of max |y| and of max |S|; every
     case timed by CUDA events and in a CUDA graph, beside the plain
     version's ms and the bound, with the chunk- and tile-parallel routes'
-    passes alone; at the tile-parallel cases the per-head kernel on the
-    same inputs (``route_launcher``), held and timed the same way.  The
-    row's own numbers are the first case's (the RWKV6-7B prefill)."""
+    passes alone; at every case whose chunk is no multiple of 64 the
+    per-head kernel on the same inputs (``route_launcher``), held and timed
+    the same way.  Then the ``WKV_LONG_CASES`` (RWKV6-7B's prompts of
+    50,000 and 48,000 tokens), held and timed the same way.  The row's own
+    numbers are the first case's (the RWKV6-7B prefill)."""
     from repro_torch.kernels.rwkv6.kernel import (pass_launchers, route,
                                                   route_launcher, wkv6)
     from repro_torch.kernels.rwkv6.ref import chunked_reference, reference
     print("phase 1c: wkv6 against its plain version (the chunked form at "
           "the same chunk)")
     errs, cases = [], {}
-    for B, T, H, K, L, shift, with_state in WKV_CASES:
+    for B, T, H, K, L, shift, with_state in WKV_CASES + WKV_LONG_CASES:
         r, k, v, w, u, S0 = wkv_inputs(gen, B, T, H, K, shift, with_state)
         S0_plain = S0 if with_state else torch.zeros(
             (B, H, K, K), device="cuda")
@@ -1535,16 +1569,28 @@ def phase_wkv(gen):
             raise AssertionError(f"wkv6 chunk {L} K {K} took the {how} "
                                  "route")
         y, S = wkv6(r, k, v, w, u, chunk=L, S0=S0)
-        y_p, S_p = chunked_reference(r, k, v, w, u, S0_plain, chunk=L)
-        # the same f32 formula summed in another order (the products in
-        # three TF32 parts on the chunk- and tile-parallel routes): within
-        # 1e-4 of the largest magnitude of each output
         label = (f"wkv6 B={B} T={T} H={H} K={K} chunk={L} "
                  f"{'S0' if with_state else 'zero state'} route={how}")
+        if L % 64:
+            # the per-head kernel, which took these chunks before, on the
+            # same inputs
+            per_head = route_launcher(r, k, v, w, u, chunk=L, how="per-head",
+                                      S0=S0)
+            y_h, S_h = per_head()
+        # the same f32 formula summed in another order (the products in
+        # three TF32 parts on the chunk- and tile-parallel routes): within
+        # 1e-4 of the largest magnitude of each output.  Its second call is
+        # timed, right after the first (the held one) has warmed it: at
+        # chunk 10 over 50,000 tokens it walks 5,000 chunks in Python, some
+        # 8 s a call, so one call
+        plain = lambda: chunked_reference(r, k, v, w, u, S0_plain, chunk=L)
+        y_p, S_p = plain()
+        plain_ms = cuda_ms(plain, 1, warmup=0)
         tol_y, tol_S = (1e-4 * float(y_p.abs().max()),
                         1e-4 * float(S_p.abs().max()))
-        errs.append(max(check_close(y, y_p, tol_y, 0.0, label + " y"),
-                        check_close(S, S_p, tol_S, 0.0, label + " S")))
+        errs.append(max(
+            check_close(y, y_p, tol_y, 0.0, label + " y"),
+            check_close(S, S_p, tol_S, 0.0, label + " S")))
         if not cases:
             y_rec, _ = reference(r, k, v, w, u, S0_plain)
             dep = float((y - y_rec).abs().max() / y_rec.abs().max())
@@ -1552,12 +1598,8 @@ def phase_wkv(gen):
                   f"the exact recurrence: max|diff|/max|y| = {dep!r}; the "
                   "kernel and its plain version alike (ROADMAP Queue 3)")
         call = lambda: wkv6(r, k, v, w, u, chunk=L, S0=S0)
-        # (the plain version is warm from its check above; at chunk 1 it
-        # takes about a second a call, so one call)
         case = dict(route=how, ms=cuda_ms(call, 20),
-                    graph_ms=graph_ms(call, 20),
-                    plain_ms=cuda_ms(lambda: chunked_reference(
-                        r, k, v, w, u, S0_plain, chunk=L), 1, warmup=0))
+                    graph_ms=graph_ms(call, 20), plain_ms=plain_ms)
         # the least time: the bytes (inputs read once, y and S written
         # once) against the operations on the tensor cores as the
         # tensor-core kernels run them, each product as three TF32
@@ -1573,16 +1615,10 @@ def phase_wkv(gen):
             (moved / peaks().HBM_BW * 1e3, "bytes"), (t_ops, "operations"))
         f32_ms, _ = bound(moved, peaks().wkv_ops(B, T, H, K, L),
                           peaks().FP32_FLOPS)
-        if how != "per-head":
-            case["passes_ms"] = {
-                name: cuda_ms(fn, 20) for name, fn in pass_launchers(
-                    r, k, v, w, u, chunk=L, S0=S0).items()}
-        if how == "tile-parallel":
-            # the per-head kernel, which took these chunks before the
-            # tile-parallel route, on the same inputs
-            per_head = route_launcher(r, k, v, w, u, chunk=L, how="per-head",
-                                      S0=S0)
-            y_h, S_h = per_head()
+        case["passes_ms"] = {
+            name: cuda_ms(fn, 20) for name, fn in pass_launchers(
+                r, k, v, w, u, chunk=L, S0=S0).items()}
+        if L % 64:
             errs.append(max(
                 check_close(y_h, y_p, tol_y, 0.0, label + " per-head y"),
                 check_close(S_h, S_p, tol_S, 0.0, label + " per-head S")))
@@ -1591,11 +1627,11 @@ def phase_wkv(gen):
         print(f"  {label}: ms={case['ms']!r} graph_ms={case['graph_ms']!r} "
               f"plain_ms={case['plain_ms']!r} bound_ms={case['bound_ms']!r} "
               f"({case['bound_by']}, split TF32 products) "
-              f"f32_rate_bound_ms={f32_ms!r}"
-              + (f" passes_ms={case['passes_ms']!r}"
-                 if "passes_ms" in case else "")
+              f"f32_rate_bound_ms={f32_ms!r} "
+              f"passes_ms={case['passes_ms']!r}"
               + (f" per_head_ms={case['per_head_ms']!r} per_head_graph_ms="
-                 f"{case['per_head_graph_ms']!r}"
+                 f"{case['per_head_graph_ms']!r} per_head_over_graph="
+                 f"{case['per_head_graph_ms'] / case['graph_ms']!r}"
                  if "per_head_ms" in case else ""))
         cases[label] = case
     first = next(iter(cases.values()))
@@ -2018,32 +2054,39 @@ def moe_f32_agreement(cfg):
 
 def rwkv_ragged_prompts(cfg, params, gen, prefill_1024):
     """RWKV6 ``generate`` at the prompts of ``RWKV_RAGGED_PROMPTS``, whose
-    chunks (8 and 1) divide 64, each a prefill and a decode step (2 new
-    tokens): one tile-parallel wkv6 launch a layer and no other, the
-    counts set to 0 just before each generate and read just after; then a
-    warm generate's prefill seconds, printed beside the 1,024 prompt's,
-    and (not the main path) one with ``kernel.route`` sending those chunks
-    to the per-head kernel, as before the tile-parallel route."""
+    chunks (8, 1, 10, 375) are no multiples of 64, each a prefill and a
+    decode step (2 new tokens): one wkv6 launch a layer on the chunk's route
+    (chunk-parallel from 64 up, else tile-parallel) and no other, the
+    counts set to 0 just before each generate and read just after, and that
+    generate's peak memory; then a warm generate's prefill seconds, printed
+    beside the 1,024 prompt's, and (not the main path) one with
+    ``kernel.route`` sending every call to the per-head kernel, which took
+    these chunks before."""
     from repro_torch.kernels.rwkv6 import kernel as wk
     from repro_torch.kernels.rwkv6.kernel import wkv6
     from repro_torch.serving import generate
-    prefill, launches = {SERVE_PROMPT: prefill_1024}, 0
-    per_head = {}
-    for P in RWKV_RAGGED_PROMPTS:
-        prompt = torch.randint(0, cfg.vocab, (SERVE_B, P), generator=gen,
+    prefill, launches = {(SERVE_B, SERVE_PROMPT): prefill_1024}, 0
+    per_head, peak = {}, {}
+    for B, P in RWKV_RAGGED_PROMPTS:
+        chunk = math.gcd(P, max(256, P // 128))
+        how = wkv_route_of(chunk)
+        prompt = torch.randint(0, cfg.vocab, (B, P), generator=gen,
                                device="cuda")
         wkv6.launches = 0
         wkv6.route_launches = dict.fromkeys(wkv6.route_launches, 0)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         toks, logits = generate(cfg, params, prompt, max_new_tokens=2,
                                 return_logits=True)
         torch.cuda.synchronize()
+        peak[(B, P)] = torch.cuda.max_memory_allocated() / 1e9
         got = dict(wkv6.route_launches)
-        want = {how: cfg.n_layers if how == "tile-parallel" else 0
-                for how in got}
+        want = {h: cfg.n_layers if h == how else 0 for h in got}
         if got != want or wkv6.launches != cfg.n_layers:
-            raise AssertionError(f"{cfg.name} prompt {P} (chunk "
-                                 f"{math.gcd(P, max(256, P // 128))}): wkv6 "
-                                 f"launches by route {got}, expected {want}")
+            raise AssertionError(f"{cfg.name} prompt {P} (chunk {chunk}): "
+                                 f"wkv6 launches by route {got}, expected "
+                                 f"{want}")
         if not (torch.isfinite(logits).all()
                 and torch.equal(toks, logits.argmax(-1))):
             raise AssertionError(f"{cfg.name} prompt {P}: non-finite logits "
@@ -2052,7 +2095,7 @@ def rwkv_ragged_prompts(cfg, params, gen, prefill_1024):
         # the prefill, warm
         stats = {}
         generate(cfg, params, prompt, max_new_tokens=2, stats=stats)
-        prefill[P] = stats["prefill_s"]
+        prefill[(B, P)] = stats["prefill_s"]
         route = wk.route
         wk.route = lambda *a: "per-head"
         try:
@@ -2064,16 +2107,17 @@ def rwkv_ragged_prompts(cfg, params, gen, prefill_1024):
         if wkv6.route_launches["per-head"] - old != cfg.n_layers:
             raise AssertionError(f"{cfg.name} prompt {P}: the per-head "
                                  "route was not taken")
-        per_head[P] = before["prefill_s"]
-        print(f"  prompt {P} (chunk {math.gcd(P, max(256, P // 128))}): "
-              f"wkv6 launches by route {got}; generate (warm) prefill_s="
+        per_head[(B, P)] = before["prefill_s"]
+        print(f"  batch {B} prompt {P} (chunk {chunk}): wkv6 launches by "
+              f"route {got}; peak_gb={peak[(B, P)]!r} (allocated before "
+              f"it {base / 1e9!r}); generate (warm) prefill_s="
               f"{stats['prefill_s']!r}; through the per-head kernel "
               f"prefill_s={before['prefill_s']!r}, tokens equal "
               f"{bool(torch.equal(toks_h, toks))} (not gated: bf16)")
-    print(f"  {cfg.name} prefill_s by prompt length: {prefill!r}; through "
-          f"the per-head kernel {per_head!r}")
+    print(f"  {cfg.name} prefill_s by (batch, prompt length): {prefill!r}; "
+          f"through the per-head kernel {per_head!r}; peak GB {peak!r}")
     return dict(prefill_by_prompt=prefill, prefill_per_head=per_head,
-                ragged_launches=launches)
+                ragged_peak_gb=peak, ragged_launches=launches)
 
 
 def rwkv_f32_agreement(cfg):
@@ -4744,7 +4788,8 @@ def wkv_bwd_check(gen):
     """(b) wkv6: the six gradients against autograd of ``wkv_chunked``;
     two calls bit for bit; one backward launch a call, on its route
     (``kernel.bwd_route``: chunk 256 chunk-parallel, chunks 1-32
-    tile-parallel) by ``wkv6_bwd.route_launches``; at each shape the
+    tile-parallel, chunk 10 per-head after a tile-parallel forward) by
+    ``wkv6_bwd.route_launches`` (the forward's by ``wkv6.route_launches``); at each shape the
     kernels' ms by CUDA events and in a CUDA graph, and autograd's of the
     plain version; from the forward's saved scratch (as a train step runs
     it) and each pass alone at the train shape and every tile-parallel
@@ -4765,12 +4810,13 @@ def wkv_bwd_check(gen):
         dy = torch.randn_like(v)
         dS = torch.randn_like(S0) if final else None
         how = wk.bwd_route(r, k, v, w, dy, dS, L)
+        fwd = wk.route(r, k, v, w, L)
         label = (f"wkv6 bwd B={B} T={T} H={H} K={K} chunk={L} shift={shift}"
                  f"{' S0' if with_state else ''}"
                  f"{' dS' if final else ''} route={how}")
-        if how != wkv_route_of(L):
-            raise AssertionError(f"{label}: chunk {L} took the {how} "
-                                 "backward route")
+        if how != wkv_bwd_route_of(L) or fwd != wkv_route_of(L):
+            raise AssertionError(f"{label}: chunk {L} took the {fwd} "
+                                 f"forward and the {how} backward route")
 
         def run():
             leaves = [t.clone().requires_grad_(True)
@@ -4778,13 +4824,18 @@ def wkv_bwd_check(gen):
             y, S = wk.wkv6(*leaves[:5], chunk=L, S0=leaves[5])
             outs, cots = ((y, S), (dy, dS)) if final else ((y,), (dy,))
             return torch.autograd.grad(outs, leaves, cots)
-        n = (wk.wkv6.launches, wk.wkv6_bwd.launches,
-             wk.wkv6_bwd.route_launches[how])
+        n = (wk.wkv6.route_launches[fwd], wk.wkv6.launches,
+             wk.wkv6_bwd.launches, wk.wkv6_bwd.route_launches[how])
         got = run()
-        if (wk.wkv6.launches - n[0], wk.wkv6_bwd.launches - n[1],
-                wk.wkv6_bwd.route_launches[how] - n[2]) != (1, 1, 1):
+        if (wk.wkv6.route_launches[fwd] - n[0], wk.wkv6.launches - n[1],
+                wk.wkv6_bwd.launches - n[2],
+                wk.wkv6_bwd.route_launches[how] - n[3]) != (1, 1, 1, 1):
             raise AssertionError(f"{label}: forward / backward launches "
                                  "did not move by one each on the route")
+        if fwd != how:
+            print(f"  {label}: the forward on the {fwd} route, the backward "
+                  f"on the {how} route (wkv6_bwd.route_launches {how!r} "
+                  f"{wk.wkv6_bwd.route_launches[how]})")
         if not all(bitwise(a, b) for a, b in zip(got, run())):
             raise AssertionError(f"{label}: two backward calls differ")
         leaves = [t.clone().requires_grad_(True) for t in (r, k, v, w, u, S0)]
@@ -5984,7 +6035,8 @@ def main() -> int:
     by_path["flash_fwd_tf32"] = {"phase 11 (e)": e_counts["flash_fwd_tf32"]}
     by_path["wkv6"] = {"phase 5 rwkv6-7b": counts["wkv6"],
                        "phase 5 rwkv6-7b prompts "
-                       + ", ".join(map(str, RWKV_RAGGED_PROMPTS)): ragged,
+                       + ", ".join(str(P) for _, P in RWKV_RAGGED_PROMPTS):
+                       ragged,
                        "phase 11 (e)": e_counts["wkv6"]}
     counts["wkv6"] += ragged + e_counts["wkv6"]
     for name, row in train["bwd_rows"].items():
@@ -6023,7 +6075,9 @@ def main() -> int:
         print(f"  serving {arch} ({res['layers']} layers): f32 "
               f"decode-vs-forward {res.get('f32_rel')!r} "
               f"prefill_s={res['prefill_s']!r} "
-              + (f"prefill_s by prompt {res['prefill_by_prompt']!r} "
+              + (f"prefill_s by (batch, prompt) {res['prefill_by_prompt']!r}"
+                 f" (per-head kernel {res['prefill_per_head']!r}; peak GB "
+                 f"{res['ragged_peak_gb']!r}) "
                  if "prefill_by_prompt" in res else "") +
               f"decode_tok_s={res['decode_tok_s']!r} "
               f"peak_gb={res['peak_gb']!r} "

@@ -28,8 +28,8 @@ from repro_torch.kernels.rwkv6 import kernel as wk  # noqa: E402
 
 # the output pass's parts: the chunks' own products (tensor cores) and the
 # state walk (CUDA cores)
-PARTS = {"attend": "if (L > 1) attend(Qs, Ks, Vs, acc, true, L);",
-         "walk": "walk_tile(Rs, K2, Vs, Ws, diag, Qs, st, rows, L);"}
+PARTS = {"attend": "if (L > 1) attend<kPow2>(Qs, Ks, Vs, acc, true, L);",
+         "walk": "walk_tile<kPow2>(Rs, K2, Vs, Ws, diag, Qs, st, rows, L);"}
 VARIANTS = {"full": (), "no attend": ("attend",), "no walk": ("walk",),
             "neither": ("attend", "walk")}
 SHAPES = ((1023, 1), (1000, 8), (1040, 16), (992, 32))

@@ -20,19 +20,19 @@
 // state scratch goes through the second), and mma.sync issues TF32 at
 // about half the dense rate; those are this design's own floors.
 //
-// Three routes; the wrapper (kernels/rwkv6/kernel.py: route) picks one by
-// L.
+// Three routes; the wrapper (kernels/rwkv6/kernel.py: route) picks one.
 //
-// Chunk-parallel (L a multiple of 64, K == V a multiple of 4, operands
-// 16-byte aligned: every RWKV6 prefill whose chunk is 64 or more).  Three
-// kernels on the stream, in parallel over chunks:
+// Chunk-parallel (L >= 64, K == V a multiple of 4, operands 16-byte
+// aligned: every RWKV6 prefill whose chunk is 64 or more, as 1,024 -> 256
+// and 48,000 -> 375).  Three kernels on the stream, in parallel over chunks:
 //   1. wkv6_state, one block per (batch, head, chunk).  A first sweep sums
 //      w over each 16-row segment, and one thread per channel forms the LW
-//      before each 64-row sub-tile (the carry), Z and LW_end from those
-//      sums, adding them in the order the scan below does.  A second sweep
-//      scans each sub-tile and sums U = K2^T V on the tensor cores, its k
-//      and v double-buffered.  U, D = e^{LW_end}, Z and the carries go to
-//      scratch that the wrapper allocates.
+//      before each 64-row sub-tile (the carry) and LW_end from those sums,
+//      adding them in the order the scan below does.  A second sweep scans
+//      each sub-tile, takes Z from the scan's own LW of row L / 2, and sums
+//      U = K2^T V on the tensor cores, its k and v double-buffered.  U, D =
+//      e^{LW_end}, Z and the carries go to scratch that the wrapper
+//      allocates.
 //   2. wkv6_prefix, one thread per (batch, head, state element): walks the
 //      chunks in order, stores the state at each chunk's start over U_c
 //      and carries S <- D_c S + U_c, the reference's carry in its order;
@@ -46,6 +46,14 @@
 //      cp.async, double-buffered (k and v) across j.  The sub-tile's own
 //      loads come in two groups: r, w and k for the elementwise step, then
 //      S_c and v for the products.
+// An L that is no multiple of 64 (reached at T >= 32,768: 48,000 -> 375,
+// 64,000 -> 500) ends each chunk in a ragged sub-tile of L - 64 (nsub - 1)
+// rows, nsub = ceil(L / 64): wkv6_state<false, true> and wkv6_output<true>
+// bound
+// their rows there (zeros past them, which add nothing to a sum and leave
+// LW_end equal to the last row's LW), and Z = LW[L / 2] may fall inside a
+// segment (375 -> row 11 of segment 11), so it comes from the scan itself.
+// The instances at multiples of 64 compile without those bounds.
 // The scan (scan_rows): 256 threads, each one channel of a 16-row segment;
 // each sums its segment in order, then adds the carry and the totals of the
 // earlier segments.  Every kernel starts from the same carry and adds in
@@ -64,41 +72,44 @@
 // wkv6_output holds six 64 x 68 tiles (Q, two k and two v buffers, w):
 // 106 KB and 128 registers a thread, two blocks an SM.
 //
-// Tile-parallel (L divides 64, the chunk-parallel route's other
-// conditions: every RWKV6 prompt whose length is not a multiple of 64, as
-// the 1,023-, 1,000-, 1,040- and 992-token prompts' chunks 1, 8, 16, 32).
-// It replaces the per-head kernel below for those chunks, which walked
-// every chunk of a (batch, head) in order in one block: B * H blocks, T / L
-// dependent steps each, six barriers and unprefetched loads a chunk, and at
-// L < 64 most of its threads idle in the products.  Bytes bound the same
-// work here as above (about 0.1 ms at the RWKV6-7B prefill), and at L = 1
-// the walk's multiply-adds (2 K V a row) are the most work there is.  The
-// carry S <- e^{LW_end} S + K2^T V has no clip, so the carries of the 64 / L
-// chunks of a 64-row tile compose, in exact arithmetic, into the tile's
-// own carry; the tiles' carries are then the chunk-parallel route's at
-// L = 64, and passes 1 and 2 above run on ceil(T / 64) tiles, the last
-// ragged (T % 64 rows, a whole number of chunks): wkv6_state<true>, whose
-// row bounds the chunk-parallel instance compiles without, and
-// wkv6_prefix<8>, its loads 8 tiles ahead of its carries.  Pass 3 is
-// wkv6_tile_output, one block per (batch, head, tile): B * H * ceil(T / 64)
-// blocks, each 64 / L dependent steps from its tile's state.  Inside a
-// chunk it computes what the reference does, with the chunk's own Z and
-// clip; between chunks it goes through the state only, never through a
-// decay factored across the tile (w down to -8 spans e^{512} over 64 rows,
-// past f32).  The chunks' own products go to the tensor cores over the
-// whole tile at once, masked to one chunk (split TF32, as above); the
-// state walk runs on the CUDA cores, its state in registers, four rows at
-// a time and no barrier, since below 16 rows a chunk fills no m16n8k8
-// tile (and L = 1, every odd prompt length, is the commonest chunk).  The
-// walk's 2 K V multiply-adds a row, with the shared loads and shuffles
-// that feed them, are the output pass's largest part
-// (scripts/attribute_wkv6_tile.py).  Its scratch is the tiles' U and D
-// only: (B, H, ceil(T / 64), K, K), never a state per chunk (4.3 GB at
-// L = 1 and (4, 1023, 64, 64)).
+// Tile-parallel (L < 64, the chunk-parallel route's other conditions: every
+// RWKV6 prompt whose length is not a multiple of 64, as the 1,023-, 1,000-,
+// 1,040- and 992-token prompts' chunks 1, 8, 16, 32, and long prompts'
+// chunks that do not divide 64, as 50,000 -> 10).  It replaces the per-head
+// kernel below for those chunks, which walked every chunk of a (batch,
+// head) in order in one block: B * H blocks, T / L dependent steps each,
+// six barriers and unprefetched loads a chunk, and at L < 64 most of its
+// threads idle in the products.  Bytes bound the same work here as above
+// (about 0.1 ms at the RWKV6-7B prefill), and at L = 1 the walk's
+// multiply-adds (2 K V a row) are the most work there is.  The carry S <-
+// e^{LW_end} S + K2^T V has no clip, so the carries of the chunks of a tile
+// compose, in exact arithmetic, into the tile's own carry.  A tile holds m
+// = L (64 / L) rows, whole chunks: 64 where L divides 64, else fewer (63 at
+// L = 3, 60 at 10 and 12, L itself from 33 up).  The tiles' carries are
+// then the chunk-parallel route's at L = m, and passes 1 and 2 above run on
+// ceil(T / m) tiles, the last ragged (T % m rows, a whole number of
+// chunks): wkv6_state<true, false>, whose row bounds the chunk-parallel
+// instance at multiples of 64 compiles without, and wkv6_prefix<8>, its
+// loads 8 tiles ahead of its carries.  Pass 3 is wkv6_tile_output, one
+// block per
+// (batch, head, tile): B * H * ceil(T / m) blocks, each m / L dependent
+// steps from its tile's state.  Inside a chunk it computes what the
+// reference does, with the chunk's own Z and clip; between chunks it goes
+// through the state only, never through a decay factored across the tile
+// (w down to -8 spans e^{512} over 64 rows, past f32).  The chunks' own
+// products go to the tensor cores over the whole tile at once, masked to
+// one chunk (split TF32, as above); the state walk runs on the CUDA cores,
+// its state in registers, four rows at a time and no barrier, since below
+// 16 rows a chunk fills no m16n8k8 tile (and L = 1, every odd prompt
+// length, is the commonest chunk).  The walk's 2 K V multiply-adds a row,
+// with the shared loads and shuffles that feed them, are the output pass's
+// largest part (scripts/attribute_wkv6_tile.py).  Its scratch is the
+// tiles' U and D only: (B, H, ceil(T / m), K, K), never a state per chunk
+// (4.3 GB at L = 1 and (4, 1023, 64, 64)).
 //
-// Per-head (any other L: a chunk that neither divides 64 nor is a multiple
-// of it, reached at T >= 32,768, e.g. 50,000 -> 10): wkv6_kernel, the
-// CUDA-core kernel of the first port.  The Pallas
+// Per-head (other widths: K != V, K no multiple of 4, or an operand off a
+// 16-byte boundary; and the route the others are held to on the card):
+// wkv6_kernel, the CUDA-core kernel of the first port.  The Pallas
 // kernel keeps the K x V state in VMEM scratch over a
 // sequential chunk axis.  Here one block owns one (batch, head), keeps the
 // state in shared memory and loops over the chunks in order.  A chunk of
@@ -390,6 +401,13 @@ size_t smem_bytes(int L) {
 }
 
 
+// rows ``from`` .. 63 of a shared 64-row tile <- 0 (a ragged sub-tile's
+// rows past its last, over a buffer an earlier sub-tile filled)
+__device__ __forceinline__ void zero_rows(float* tile, int from) {
+  for (int idx = threadIdx.x; idx < (kTS - from) * kTS; idx += kThreads)
+    tile[(from + idx / kTS) * kLDT + idx % kTS] = 0.0f;
+}
+
 // --------------------------------------------------------------------------
 // the chunk-parallel route: wkv6_state, wkv6_prefix, wkv6_output (their
 // shared pieces in wkv6.cuh)
@@ -398,12 +416,15 @@ size_t smem_bytes(int L) {
 // Pass 1: one block per (batch, head, chunk).  A first sweep sums each
 // 16-row segment of w, from which one thread per channel forms the carries,
 // Z and LW_end by the scan's own additions; a second sweep scans each
-// sub-tile and sums U = K2^T V, its k and v double-buffered.  The
-// tile-parallel route runs kTiles, at L = 64 on its tiles, the last of
-// which may be ragged (T % 64 rows: zeros past them), and writes no
-// carries or Z; the chunk-parallel route's instance compiles without
-// those bounds.
-template <bool kTiles>
+// sub-tile and sums U = K2^T V, its k and v double-buffered.  kRagged: L
+// is no multiple of 64, and the chunk's last sub-tile has L - 64 (nsub - 1)
+// rows (zeros past them); Z = LW[L / 2] may then fall inside a segment
+// (375 -> row 11 of segment 11), so sweep 2 takes it from the scan of the
+// thread whose segment holds that row.  kTiles: the tile-parallel route's
+// tiles of L = m <= 64 rows, one sub-tile each, the last of which may be
+// ragged (T % m rows: zeros past them); no carries or Z.  The instance at
+// multiples of 64 compiles without those bounds.
+template <bool kTiles, bool kRagged>
 __global__ void __launch_bounds__(kThreads, 2)
 wkv6_state(const float* __restrict__ k, const float* __restrict__ v,
            const float* __restrict__ w, float* __restrict__ U,
@@ -413,11 +434,12 @@ wkv6_state(const float* __restrict__ k, const float* __restrict__ v,
   float* seg_sum = smem + 4 * kTile;    // 4 x 64
   float* run = seg_sum + 4 * kTS;       // LW before the current sub-tile
   float* lwe = run + kTS;               // LW_end
-  float* tot = lwe + kTS;               // segment totals, L / 16 x 64
+  float* tot = lwe + kTS;               // segment totals, 4 nsub x 64
   // k (then K2 = k e^{LW_end - LW}) in buffer 2x, v in 2x + 1
   auto buf = [&](int x) { return smem + x * kTile; };
 
-  const int n = kTiles ? (T + L - 1) / L : T / L, nsub = L / kTS;
+  const int n = kTiles ? (T + L - 1) / L : T / L;
+  const int nsub = kTiles ? 1 : kRagged ? (L + kTS - 1) / kTS : L / kTS;
   const int c = blockIdx.x % n, bh = blockIdx.x / n;
   const int h = bh % H, b = bh / H;
   const int tid = threadIdx.x, seg = tid >> 6, ch = tid & 63;
@@ -425,7 +447,8 @@ wkv6_state(const float* __restrict__ k, const float* __restrict__ v,
   const long long base = ((long long)b * T + (long long)c * L) * row
                          + (long long)h * K;
   const long long chunk = (long long)bh * n + c;
-  const int rows = kTiles ? min(kTS, T - c * L) : kTS;   // of sub-tile 0
+  const int rows = kTiles ? min(L, T - c * L) : kTS;     // of sub-tile 0
+  const int last = kRagged ? L - (nsub - 1) * kTS : kTS;  // of the last
 
   if (K < kTS || rows < kTS) zero_smem(smem, 4 * kTile);
   __syncthreads();
@@ -435,7 +458,8 @@ wkv6_state(const float* __restrict__ k, const float* __restrict__ v,
 
   float wv[kSeg], wn[kSeg], lw[kSeg];
   for (int s = 0; s < nsub; ++s) {             // sweep 1
-    load_w(wv, w + base + (long long)s * kTS * row, row, K, rows);
+    load_w(wv, w + base + (long long)s * kTS * row, row, K,
+           kRagged && s == nsub - 1 ? last : rows);
     float sum = 0.0f;
 #pragma unroll
     for (int t = 0; t < kSeg; ++t) sum += wv[t];
@@ -444,14 +468,16 @@ wkv6_state(const float* __restrict__ k, const float* __restrict__ v,
   __syncthreads();
   if (tid < kTS) {
     // the carries as scan_rows forms them: LW after sub-tile s is
-    // (((carry + t0) + t1) + t2) + t3; Z = LW[L / 2], the first row of its
-    // segment, is that segment's base plus w of the row
+    // (((carry + t0) + t1) + t2) + t3 (a ragged sub-tile's empty segments
+    // add zeros, so LW_end is LW of the chunk's last row); at a multiple of
+    // 64, Z = LW[L / 2], the first row of its segment, is that segment's
+    // base plus w of the row
     const int zseg = L / 2 / kSeg;
     float carry = 0.0f;
     for (int s = 0; s < nsub; ++s) {
       if (!kTiles && tid < K) carry_out[(chunk * nsub + s) * K + tid] = carry;
       for (int sg = 0; sg < 4; ++sg) {
-        if (!kTiles && s * 4 + sg == zseg && tid < K)
+        if (!kTiles && !kRagged && s * 4 + sg == zseg && tid < K)
           Z_out[chunk * K + tid] =
               carry + w[base + (long long)(L / 2) * row + tid];
         carry += tot[(s * 4 + sg) * kTS + tid];
@@ -477,12 +503,24 @@ wkv6_state(const float* __restrict__ k, const float* __restrict__ v,
     __syncthreads();                           // the other buffers are free
     if (s + 1 < nsub) {
       const long long off = base + (long long)(s + 1) * kTS * row;
-      load_tile(buf(2 - 2 * bs), k + off, row, kTS, K);
-      load_tile(buf(3 - 2 * bs), v + off, row, kTS, K);
-      load_w(wn, w + off, row, K);
+      const int rn = kRagged && s + 2 == nsub ? last : kTS;
+      load_tile(buf(2 - 2 * bs), k + off, row, rn, K);
+      load_tile(buf(3 - 2 * bs), v + off, row, rn, K);
+      if (kRagged && rn < kTS) {               // the ragged last sub-tile
+        zero_rows(buf(2 - 2 * bs), rn);
+        zero_rows(buf(3 - 2 * bs), rn);
+      }
+      load_w(wn, w + off, row, K, rn);
     }
     cp_commit();
     scan_rows(wv, seg_sum, run[ch], lw);
+    if (kRagged && s == L / 2 / kTS && seg == L / 2 % kTS / kSeg && ch < K) {
+      const int zrow = L / 2 % kSeg;
+      float z = lw[0];
+#pragma unroll
+      for (int t = 1; t < kSeg; ++t) z = t == zrow ? lw[t] : z;
+      Z_out[chunk * K + ch] = z;
+    }
     cp_wait<1>();
     __syncthreads();
     float* Ks = buf(2 * bs);
@@ -564,11 +602,31 @@ wkv6_prefix(float* __restrict__ U, const float* __restrict__ D,
   S_out[idx] = s;
 }
 
+// The first row of row i's chunk of L rows: a mask where L is a power of
+// two (every L that divides 64), else a division.
+template <bool kPow2>
+__device__ __forceinline__ int chunk_start(int i, int L) {
+  return kPow2 ? i & -L : i - i % L;
+}
+
+// Rows visited in order: c0, the first row of the previous row's chunk,
+// becomes row i's; true where row i starts its chunk.
+template <bool kPow2>
+__device__ __forceinline__ bool next_row(int i, int L, int& c0) {
+  if (kPow2)
+    c0 = i & -L;
+  else if (i == c0 + L)
+    c0 = i;
+  return c0 == i;
+}
+
 // y[16 rows of warp rg] += A V, A = Q Kf^T over the 32 key rows of half hf
 // (masked m < t when diag), both from shared tiles of one 64-row sub-tile.
-// L (a power of two up to 64) cuts the sub-tile into chunks of L rows, and
-// a diagonal A keeps only the pairs inside one chunk: (m ^ t) < L.  At the
-// default L = 64 (a constant) those tests fold away.
+// L < 64 cuts the sub-tile into chunks of L rows from row 0, and a diagonal
+// A keeps only the pairs inside one chunk: m at or past the first row of
+// t's chunk (chunk_start).  At the default L = 64 (a constant) those tests
+// fold away.
+template <bool kPow2 = true>
 __device__ __forceinline__ void attend(const float* Qs, const float* Kf,
                                        const float* Vt, float (*acc)[4],
                                        bool diag, int L = kTS) {
@@ -577,7 +635,9 @@ __device__ __forceinline__ void attend(const float* Qs, const float* Kf,
   const int t0 = 16 * (warp & 3), m0 = 32 * (warp >> 2);
   const bool chunks = L < kTS;
   // every m > every t, or every m before the chunk of row t0: A = 0
-  if (diag && (t0 + 15 < m0 || (chunks && m0 + 31 < (t0 & -L)))) return;
+  if (diag && (t0 + 15 < m0 ||
+               (chunks && m0 + 31 < chunk_start<kPow2>(t0, L))))
+    return;
   float a[4][4];
 #pragma unroll
   for (int nt = 0; nt < 4; ++nt)
@@ -599,14 +659,16 @@ __device__ __forceinline__ void attend(const float* Qs, const float* Kf,
     mma3<4>(a, qh, ql, bb);
   }
   if (diag) {
+    // the first rows of the chunks of rows t0 + g and t0 + g + 8
+    const int t = t0 + g, c0 = chunks ? chunk_start<kPow2>(t, L) : 0;
+    const int c8 = chunks ? chunk_start<kPow2>(t + 8, L) : 0;
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
-      const int m = m0 + 8 * nt + 2 * q, t = t0 + g;
-      if (!(m < t && (!chunks || (m ^ t) < L))) a[nt][0] = 0.0f;
-      if (!(m + 1 < t && (!chunks || ((m + 1) ^ t) < L))) a[nt][1] = 0.0f;
-      if (!(m < t + 8 && (!chunks || (m ^ (t + 8)) < L))) a[nt][2] = 0.0f;
-      if (!(m + 1 < t + 8 && (!chunks || ((m + 1) ^ (t + 8)) < L)))
-        a[nt][3] = 0.0f;
+      const int m = m0 + 8 * nt + 2 * q;
+      if (!(m < t && (!chunks || m >= c0))) a[nt][0] = 0.0f;
+      if (!(m + 1 < t && (!chunks || m + 1 >= c0))) a[nt][1] = 0.0f;
+      if (!(m < t + 8 && (!chunks || m >= c8))) a[nt][2] = 0.0f;
+      if (!(m + 1 < t + 8 && (!chunks || m + 1 >= c8))) a[nt][3] = 0.0f;
     }
   }
   // k step nt covers key rows m0 + 8 nt .. + 7, k index q <-> row 2q and
@@ -660,7 +722,10 @@ __device__ __forceinline__ void sum_halves(float* Ys, const float (*acc)[4]) {
 // Pass 3: one block per (batch, head, chunk, 64-row sub-tile).  Warp wp
 // owns output rows 16 (wp % 4) .. + 15, all columns, and sums over half
 // wp / 4 of every contraction (key rows, state rows); the halves are added
-// at the end.
+// at the end.  kBounded: L is no multiple of 64, and the chunk's last
+// sub-tile has L - 64 (nsub - 1) rows (zeros past them in every tile that
+// holds it); the earlier sub-tiles it reads are whole.
+template <bool kBounded>
 __global__ void __launch_bounds__(kThreads, 2)
 wkv6_output(const float* __restrict__ r, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ w,
@@ -679,8 +744,9 @@ wkv6_output(const float* __restrict__ r, const float* __restrict__ k,
   auto kbuf = [&](int x) { return Qs + (1 + x) * kTile; };
   auto vbuf = [&](int x) { return Qs + (3 + x) * kTile; };
 
-  const int n = T / L, nsub = L / kTS;
+  const int n = T / L, nsub = kBounded ? (L + kTS - 1) / kTS : L / kTS;
   const int i = nsub - 1 - (int)(blockIdx.x % nsub);
+  const int rows = kBounded ? min(kTS, L - i * kTS) : kTS;   // of sub-tile i
   const int c = (blockIdx.x / nsub) % n, bh = blockIdx.x / nsub / n;
   const int h = bh % H, b = bh / H;
   const int tid = threadIdx.x, seg = tid >> 6, ch = tid & 63;
@@ -693,7 +759,7 @@ wkv6_output(const float* __restrict__ r, const float* __restrict__ k,
   const float* carry = carry_in + chunk * nsub * K;
   const long long off_i = base + (long long)i * kTS * row;
 
-  if (K < kTS) zero_smem(smem, 6 * kTile);
+  if (K < kTS || rows < kTS) zero_smem(smem, 6 * kTile);
   const float zc = ch < K ? Z_in[chunk * K + ch] : 0.0f;
   float carry_next = ch < K ? carry[i * K + ch] : 0.0f;
   if (tid < kTS) {
@@ -701,12 +767,12 @@ wkv6_output(const float* __restrict__ r, const float* __restrict__ k,
     us[tid] = tid < K ? u[(long long)h * K + tid] : 0.0f;
   }
   __syncthreads();
-  load_tile(Qs, r + off_i, row, kTS, K);  // group 1: elementwise
-  load_tile(Ws, w + off_i, row, kTS, K);
-  load_tile(kbuf(0), k + off_i, row, kTS, K);
+  load_tile(Qs, r + off_i, row, rows, K);  // group 1: elementwise
+  load_tile(Ws, w + off_i, row, rows, K);
+  load_tile(kbuf(0), k + off_i, row, rows, K);
   cp_commit();
   load_tile(kbuf(1), Sc + chunk * K * K, K, K, K);  // group 2: products
-  load_tile(vbuf(0), v + off_i, row, kTS, K);
+  load_tile(vbuf(0), v + off_i, row, rows, K);
   cp_commit();
   cp_wait<1>();
   __syncthreads();
@@ -807,7 +873,7 @@ wkv6_output(const float* __restrict__ r, const float* __restrict__ k,
   // add the two halves in Qs and write the sub-tile's rows out
   sum_halves(Qs, acc);
   const int per_row = K >> 2;
-  for (int idx = tid; idx < kTS * per_row; idx += kThreads) {
+  for (int idx = tid; idx < rows * per_row; idx += kThreads) {
     const int t = idx / per_row, cc = (idx % per_row) * 4;
     *reinterpret_cast<float4*>(y + off_i + (long long)t * row + cc) =
         *reinterpret_cast<const float4*>(Qs + t * kLDT + cc);
@@ -815,15 +881,16 @@ wkv6_output(const float* __restrict__ r, const float* __restrict__ k,
 }
 
 // Step 4 of wkv6_tile_output, the walk over the tile's first ``rows`` rows
-// in chunks of L.  Thread (warp, lane) holds the 4 x 4 block s of the
-// state at rows 4 kg (kg = lane % 16) and columns 4 vg (vg = 2 warp + lane
-// / 16).  Four rows at a time: for each row t it forms its share of
+// in chunks of L from row 0.  Thread (warp, lane) holds the 4 x 4 block s
+// of the state at rows 4 kg (kg = lane % 16) and columns 4 vg (vg = 2 warp
+// + lane / 16).  Four rows at a time: for each row t it forms its share of
 // R_t S_c over its 4 state rows, sums K2_t^T v_t into up, and at a
 // chunk's last row sets s <- e^{LW_end} s + up; then a reduce-scatter over
 // the 16 lanes of kg (15 shuffles, one order) leaves lane kg the sum for
 // row kg / 4, column 4 vg + kg % 4 of the group, which it adds, with
 // the bonus term, into Ys.  Rows past ``rows`` (zeros) change nothing that
 // is stored.
+template <bool kPow2>
 __device__ __forceinline__ void walk_tile(const float* Rs, const float* K2,
                                           const float* Vs, const float* Ws,
                                           const float* diag, float* Ys,
@@ -835,6 +902,7 @@ __device__ __forceinline__ void walk_tile(const float* Rs, const float* K2,
   for (int a = 0; a < 4; ++a)
 #pragma unroll
     for (int i = 0; i < 4; ++i) up[a][i] = 0.0f;
+  int end = L;                          // one past the chunk's last row
   for (int t0 = 0; t0 < rows; t0 += 4) {
     float x[16];                        // x[4 r + i]: row t0 + r, col i
 #pragma unroll
@@ -860,7 +928,10 @@ __device__ __forceinline__ void walk_tile(const float* Rs, const float* K2,
       for (int a = 0; a < 4; ++a)
 #pragma unroll
         for (int i = 0; i < 4; ++i) up[a][i] = fmaf(kv[a], vt[i], up[a][i]);
-      if (((t + 1) & (L - 1)) == 0) {   // the chunk's last row
+      // the chunk's last row: a mask where L is a power of two, else the
+      // running end
+      if (kPow2 ? ((t + 1) & (L - 1)) == 0 : t + 1 == end) {
+        if (!kPow2) end += L;
         const float4 da =
             *reinterpret_cast<const float4*>(Ws + t * kLDT + 4 * kg);
         const float dv[4] = {da.x, da.y, da.z, da.w};
@@ -882,25 +953,33 @@ __device__ __forceinline__ void walk_tile(const float* Rs, const float* K2,
   }
 }
 
-// Pass 3 of the tile-parallel route: one block per (batch, head, 64-row
-// tile), whose chunks of L rows (L divides 64) it walks in order from the
-// state at the tile's start, S_tile (the prefix pass's, over U).
-//   1. r, k, w and v of the tile by cp.async (zeros past a ragged tile's
-//      rows), S_tile into registers, the bonus sum_k r u k of each row.
+// Pass 3 of the tile-parallel route: one block per (batch, head, tile of m
+// = L (64 / L) rows: 64 where L divides 64, else the whole chunks that fit),
+// whose chunks of L rows it walks in order from the state at the tile's
+// start, S_tile (the prefix pass's, over U).
+//   1. r, k, w and v of the tile by cp.async (zeros past its rows: past m,
+//      and past a ragged last tile's), S_tile into registers, the bonus
+//      sum_k r u k of each row.
 //   2. LW inside each chunk (thread (seg, ch) sums its 16 rows in order
-//      from 0 at each chunk's first row; a chunk of 32 rows adds its first
-//      segment's total to its second), then Q, Kf with the chunk's own Z =
-//      LW[L / 2] and the clip, R = r e^{LWp} and K2 = k e^{LW_end - LW},
-//      and e^{LW_end} at each chunk's last row.
+//      from 0 at each chunk's first row; where a chunk starts in an earlier
+//      segment, the rows of it in this one add the tails of the segments
+//      since, in order), then Q, Kf with the chunk's own Z = LW[L / 2] and
+//      the clip, R = r e^{LWp} and K2 = k e^{LW_end - LW}, and e^{LW_end}
+//      at each chunk's last row.
 //   3. The chunks' own products Q Kf^T, masked to m < t inside a chunk,
 //      times V, on the tensor cores (attend, split TF32) over the whole
 //      tile at once: they do not read the state.
 //   4. The walk (walk_tile), on the CUDA cores, no barrier inside it.
+// tile_m: m as wkv6_tiled_f32 forms it.  kPow2: L divides 64, the tile is
+// 64 rows and a chunk's rows are found by masks; else by division once and
+// by steps of L.
+template <bool kPow2>
 __global__ void __launch_bounds__(kThreads, 2)
 wkv6_tile_output(const float* __restrict__ r, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ w,
                  const float* __restrict__ u, const float* __restrict__ St,
-                 float* __restrict__ y, int T, int H, int K, int L) {
+                 float* __restrict__ y, int T, int H, int K, int L,
+                 int tile_m) {
   extern __shared__ float smem[];
   float* Qs = smem;                     // r, then Q; then y
   float* Ks = Qs + kTile;               // k, then Kf
@@ -913,14 +992,14 @@ wkv6_tile_output(const float* __restrict__ r, const float* __restrict__ k,
   float* us = seg_sum + 4 * kTS;
   float* diag = us + kTS;
 
-  const int n = (T + kTS - 1) / kTS;
+  const int m = kPow2 ? kTS : tile_m, n = (T + m - 1) / m;  // 64 if kPow2
   const int tile = blockIdx.x % n, bh = blockIdx.x / n;
   const int h = bh % H, b = bh / H;
-  const int rows = min(kTS, T - tile * kTS);   // a multiple of L
+  const int rows = min(m, T - tile * m);       // a multiple of L
   const int tid = threadIdx.x, seg = tid >> 6, ch = tid & 63;
   const int warp = tid >> 5, lane = tid & 31;
   const long long row = (long long)H * K;
-  const long long base = ((long long)b * T + (long long)tile * kTS) * row
+  const long long base = ((long long)b * T + (long long)tile * m) * row
                          + (long long)h * K;
 
   if (K < kTS || rows < kTS) zero_smem(smem, 4 * kTile);
@@ -957,31 +1036,40 @@ wkv6_tile_output(const float* __restrict__ r, const float* __restrict__ k,
     for (int o = 16; o > 0; o >>= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
     if (lane == 0) diag[t] = p;
   }
+  // the first row of the chunk of the segment's first row, i0
+  const int i0 = seg * kSeg, first = chunk_start<kPow2>(i0, L);
   float wv[kSeg], lw[kSeg], run = 0.0f;
+  int c0 = first;                       // the first row of row i's chunk
 #pragma unroll
   for (int t = 0; t < kSeg; ++t) {
-    wv[t] = Ws[(seg * kSeg + t) * kLDT + ch];
-    if (((seg * kSeg + t) & (L - 1)) == 0) run = 0.0f;
+    wv[t] = Ws[(i0 + t) * kLDT + ch];
+    if (next_row<kPow2>(i0 + t, L, c0)) run = 0.0f;
     run += wv[t];
     lw[t] = run;
   }
-  if (L > kSeg) {
+  if (kPow2 ? L > kSeg : kSeg % L != 0) {   // chunks cross segments
     seg_sum[seg * kTS + ch] = run;
     __syncthreads();
     float carry = 0.0f;
-    for (int sg = seg & -(L / kSeg); sg < seg; ++sg)
+    for (int sg = first / kSeg; sg < seg; ++sg)
       carry += seg_sum[sg * kTS + ch];
 #pragma unroll
-    for (int t = 0; t < kSeg; ++t) lw[t] = carry + lw[t];
+    for (int t = 0; t < kSeg; ++t)
+      if (kPow2 || i0 + t < first + L) lw[t] = carry + lw[t];
   }
 #pragma unroll
-  for (int t = 0; t < kSeg; ++t) Ws[(seg * kSeg + t) * kLDT + ch] = lw[t];
+  for (int t = 0; t < kSeg; ++t) Ws[(i0 + t) * kLDT + ch] = lw[t];
   __syncthreads();                      // LW whole; the bonus has read r, k
+  c0 = first;
 #pragma unroll
   for (int t = 0; t < kSeg; ++t) {
-    const int i = seg * kSeg + t, c0 = i & -L, e = i * kLDT + ch;
-    const float z = Ws[(c0 + L / 2) * kLDT + ch];
-    const float lwe = Ws[(c0 + L - 1) * kLDT + ch];
+    const int i = i0 + t, e = i * kLDT + ch;
+    next_row<kPow2>(i, L, c0);
+    // rows past m (zeros) read their tile's last row for a chunk's Z and
+    // LW_end beyond it: finite, and r and k are 0 there
+    const int zr = c0 + L / 2, er = c0 + L - 1;
+    const float z = Ws[(kPow2 ? zr : min(zr, kTS - 1)) * kLDT + ch];
+    const float lwe = Ws[(kPow2 ? er : min(er, kTS - 1)) * kLDT + ch];
     const float lwp = lw[t] - wv[t], rr = Qs[e], kv = Ks[e];
     Qs[e] = rr * fast_clamp_exp(lwp - z);
     Rs[e] = rr * __expf(lwp);
@@ -989,10 +1077,12 @@ wkv6_tile_output(const float* __restrict__ r, const float* __restrict__ k,
     K2[e] = kv * __expf(lwe - lw[t]);  // exponent <= 0
   }
   __syncthreads();                      // every Z and LW_end is read
+  c0 = first;
 #pragma unroll
   for (int t = 0; t < kSeg; ++t) {
-    const int i = seg * kSeg + t;
-    if ((i & (L - 1)) == L - 1) Ws[i * kLDT + ch] = __expf(lw[t]);
+    const int i = i0 + t;
+    next_row<kPow2>(i, L, c0);
+    if (i == c0 + L - 1) Ws[i * kLDT + ch] = __expf(lw[t]);
   }
   cp_wait<0>();
   __syncthreads();
@@ -1003,10 +1093,10 @@ wkv6_tile_output(const float* __restrict__ r, const float* __restrict__ k,
   for (int vt = 0; vt < kTS / 8; ++vt)
 #pragma unroll
     for (int x = 0; x < 4; ++x) acc[vt][x] = 0.0f;
-  if (L > 1) attend(Qs, Ks, Vs, acc, true, L);
+  if (L > 1) attend<kPow2>(Qs, Ks, Vs, acc, true, L);
   sum_halves(Qs, acc);
 
-  walk_tile(Rs, K2, Vs, Ws, diag, Qs, st, rows, L);
+  walk_tile<kPow2>(Rs, K2, Vs, Ws, diag, Qs, st, rows, L);
   __syncthreads();
   const int per_row = K >> 2;
   for (int idx = tid; idx < rows * per_row; idx += kThreads) {
@@ -1017,7 +1107,8 @@ wkv6_tile_output(const float* __restrict__ r, const float* __restrict__ k,
 }
 
 size_t state_smem(int L) {
-  return sizeof(float) * (4 * kTile + 6 * kTS + (size_t)(L / kSeg) * kTS);
+  const size_t nsub = (L + kTS - 1) / kTS;
+  return sizeof(float) * (4 * kTile + 6 * kTS + nsub * 4 * kTS);
 }
 constexpr size_t kOutputSmem = sizeof(float) * (6 * kTile + 7 * kTS);
 constexpr size_t kTileOutputSmem = sizeof(float) * (6 * kTile + 6 * kTS);
@@ -1043,30 +1134,34 @@ int wkv6_f32(const float* r, const float* k, const float* v, const float* w,
   return (int)cudaGetLastError();
 }
 
-// The chunk-parallel route.  U (B, H, T / L, K, K), carry (B, H, T / L,
-// L / 64, K), Z and D (B, H, T / L, K) are the wrapper's scratch.  passes
-// is a mask of the kernels to launch (1 state, 2 prefix, 4 output): 7 for a
-// call, one bit to time one kernel alone.
+// The chunk-parallel route: L >= 64 divides T.  U (B, H, T / L, K, K),
+// carry (B, H, T / L, ceil(L / 64), K), Z and D (B, H, T / L, K) are the
+// wrapper's scratch.  passes is a mask of the kernels to launch (1 state, 2
+// prefix, 4 output): 7 for a call, one bit to time one kernel alone.  An L
+// that is no multiple of 64 runs the row-bounded instances.
 int wkv6_chunked_f32(const float* r, const float* k, const float* v,
                      const float* w, const float* u, const float* S0,
                      float* y, float* S, float* U, float* carry, float* Z,
                      float* D, int B, int T, int H, int K, int L, int passes,
                      cudaStream_t stream) {
-  if (K < 4 || K > kTS || K % 4 != 0 || L < kTS || L % kTS != 0 ||
-      T % L != 0 || state_smem(L) > 232448 || !aligned16(r) ||
+  if (K < 4 || K > kTS || K % 4 != 0 || L < kTS || T % L != 0 ||
+      state_smem(L) > 232448 || !aligned16(r) ||
       !aligned16(k) || !aligned16(v) || !aligned16(w) || !aligned16(y) ||
       !aligned16(U))
     return (int)cudaErrorInvalidValue;
-  const int n = T / L, nsub = L / kTS, BH = B * H;
+  const int n = T / L, nsub = (L + kTS - 1) / kTS, BH = B * H;
+  const bool ragged = L % kTS != 0;
   cudaError_t err;
   if (passes & 1) {
     const size_t smem = state_smem(L);
-    err = cudaFuncSetAttribute(wkv6_state<false>,
+    const auto state = ragged ? &wkv6_state<false, true>
+                              : &wkv6_state<false, false>;
+    err = cudaFuncSetAttribute(state,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
-    wkv6_state<false><<<BH * n, kThreads, smem, stream>>>(k, v, w, U, carry,
-                                                          Z, D, T, H, K, L);
+    state<<<BH * n, kThreads, smem, stream>>>(k, v, w, U, carry, Z, D, T, H,
+                                              K, L);
   }
   if (passes & 2) {
     const long long total = (long long)BH * K * K;
@@ -1074,37 +1169,39 @@ int wkv6_chunked_f32(const float* r, const float* k, const float* v,
                      stream>>>(U, D, S0, S, BH, n, K);
   }
   if (passes & 4) {
-    err = cudaFuncSetAttribute(wkv6_output,
+    const auto output = ragged ? &wkv6_output<true> : &wkv6_output<false>;
+    err = cudaFuncSetAttribute(output,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)kOutputSmem);
     if (err != cudaSuccess) return (int)err;
-    wkv6_output<<<BH * n * nsub, kThreads, kOutputSmem, stream>>>(
+    output<<<BH * n * nsub, kThreads, kOutputSmem, stream>>>(
         r, k, v, w, u, U, carry, Z, y, T, H, K, L);
   }
   return (int)cudaGetLastError();
 }
 
-// The tile-parallel route: L divides 64 and T.  U (B, H, ceil(T / 64), K,
-// K) and D (B, H, ceil(T / 64), K) are the wrapper's scratch; passes as for
+// The tile-parallel route: L <= 64 divides T; tiles of m = L (64 / L) rows,
+// whole chunks (64 where L divides 64).  U (B, H, ceil(T / m), K, K) and D
+// (B, H, ceil(T / m), K) are the wrapper's scratch; passes as for
 // wkv6_chunked_f32 (1 state, 2 prefix, 4 output).
 int wkv6_tiled_f32(const float* r, const float* k, const float* v,
                    const float* w, const float* u, const float* S0, float* y,
                    float* S, float* U, float* D, int B, int T, int H, int K,
                    int L, int passes, cudaStream_t stream) {
-  if (K < 4 || K > kTS || K % 4 != 0 || L < 1 || kTS % L != 0 || T < 1 ||
+  if (K < 4 || K > kTS || K % 4 != 0 || L < 1 || L > kTS || T < 1 ||
       T % L != 0 || !aligned16(r) || !aligned16(k) || !aligned16(v) ||
       !aligned16(w) || !aligned16(y) || !aligned16(U))
     return (int)cudaErrorInvalidValue;
-  const int n = (T + kTS - 1) / kTS, BH = B * H;
+  const int m = L * (kTS / L), n = (T + m - 1) / m, BH = B * H;
   cudaError_t err;
   if (passes & 1) {
     const size_t smem = state_smem(kTS);
-    err = cudaFuncSetAttribute(wkv6_state<true>,
+    err = cudaFuncSetAttribute(wkv6_state<true, false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
-    wkv6_state<true><<<BH * n, kThreads, smem, stream>>>(
-        k, v, w, U, nullptr, nullptr, D, T, H, K, kTS);
+    wkv6_state<true, false><<<BH * n, kThreads, smem, stream>>>(
+        k, v, w, U, nullptr, nullptr, D, T, H, K, m);
   }
   if (passes & 2) {
     const long long total = (long long)BH * K * K;
@@ -1112,12 +1209,14 @@ int wkv6_tiled_f32(const float* r, const float* k, const float* v,
                      stream>>>(U, D, S0, S, BH, n, K);
   }
   if (passes & 4) {
-    err = cudaFuncSetAttribute(wkv6_tile_output,
+    const auto output = kTS % L == 0 ? &wkv6_tile_output<true>
+                                     : &wkv6_tile_output<false>;
+    err = cudaFuncSetAttribute(output,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)kTileOutputSmem);
     if (err != cudaSuccess) return (int)err;
-    wkv6_tile_output<<<BH * n, kThreads, kTileOutputSmem, stream>>>(
-        r, k, v, w, u, U, y, T, H, K, L);
+    output<<<BH * n, kThreads, kTileOutputSmem, stream>>>(
+        r, k, v, w, u, U, y, T, H, K, L, m);
   }
   return (int)cudaGetLastError();
 }

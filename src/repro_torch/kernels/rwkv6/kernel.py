@@ -16,32 +16,37 @@ operands with K, V <= 64.
 
 Three forward routes (``route``), each launched by state, prefix and
 output passes except the last.  With K == V a multiple of 4 and 16-byte
-aligned operands, a chunk that is a multiple of 64 runs the chunk-parallel
-kernels (in parallel over chunks, their products on the tensor cores), and
-a chunk that divides 64 (1, 2, ..., 32: every RWKV6 prompt whose length is
-not a multiple of 64) runs the tile-parallel ones: the chunk-parallel
-state and prefix passes over 64-row tiles (the last may be ragged), whose
-carries compose the chunks', then an output pass that walks each tile's
-chunks from the tile's state.  Any other call runs the per-head kernel
-(a chunk that neither divides 64 nor is a multiple of it, reached at T >=
-32,768).  ``wkv6.launches`` counts wrapper calls that launched, one per
-call whatever the route, and ``wkv6.route_launches`` the same by route.
-``route_launcher`` runs a call on a route of one's choosing, to hold two
-routes to each other at one shape.
+aligned operands, a chunk of 64 or more runs the chunk-parallel kernels (in
+parallel over chunks, their products on the tensor cores; a chunk that is
+no multiple of 64, as T = 48,000 gives 375, ends in a ragged sub-tile), and
+a chunk below 64 the tile-parallel ones: the chunk-parallel state and
+prefix passes over tiles of m = chunk * (64 // chunk) rows, whole chunks
+(64 where the chunk divides 64, as every RWKV6 prompt whose length is not
+a multiple of 64 gives; 60 at T = 50,000's chunk 10; the last tile may be
+ragged), whose carries compose the chunks', then an output pass that walks
+each tile's chunks from the tile's state.  Any other call (other widths,
+misaligned operands) runs the per-head kernel.  ``wkv6.launches`` counts
+wrapper calls that launched, one per call whatever the route, and
+``wkv6.route_launches`` the same by route.  ``route_launcher`` runs a call
+on a route of one's choosing, to hold two routes to each other at one
+shape.
 
 The backward has the same three routes (``bwd_route``): the forward's
-chunk- or tile-parallel route where dy (and dS) are 16-byte aligned, else
-per-head.  Chunk-parallel: four kernels on the tensor cores (G, reverse
-prefix, main and fix-up passes) from the forward's chunk-start states.
+chunk- or tile-parallel route where the chunk is a multiple of 64 or
+divides 64 and dy (and dS) are 16-byte aligned, else per-head (chunks such
+as 10 and 375 too).  Chunk-parallel: four kernels on the tensor cores (G,
+reverse prefix, main and fix-up passes) from the forward's chunk-start
+states.
 Tile-parallel: the G and reverse-prefix passes over 64-row tiles, a
 block a tile that walks its chunks forward and back (dR, dK2 and each
 chunk's e^{LW_end} <dS', S>, the states kept on chip at every 8th row), a
 block a tile for the rest (dv's state term, the chunks' own products on
 the tensor cores, the elementwise terms), and du's sum over the tiles.
 Both start from the forward's scratch, which ``_WKV6Function`` keeps for
-its backward (the tile-parallel route's: each tile's start state and
-decay, (B, H, ceil(T / 64), K, K), about 34 MB a layer at (2, 1040, 64,
-64)); a call without it relaunches the forward's state and prefix passes.
+its backward where the backward can take it (the tile-parallel route's:
+each tile's start state and decay, (B, H, ceil(T / 64), K, K), about 34 MB
+a layer at (2, 1040, 64, 64)); a call without it relaunches the forward's
+state and prefix passes.
 Any other call runs the two per-head kernels of the first port, which
 recompute the states themselves.  ``wkv6_bwd.launches`` counts wrapper calls, one per call
 whatever the route, and ``wkv6_bwd.route_launches`` the same by route;
@@ -74,8 +79,8 @@ _BWD_SIGNATURES = {"wkv6_bwd_f32": [_P] * 15 + [_I] * 6 + [_P],
                    "wkv6_bwd_chunked_f32": [_P] * 22 + [_I] * 6 + [_P],
                    "wkv6_bwd_tiled_f32": [_P] * 17 + [_I] * 6 + [_P]}
 _MAX_KV = 64
-_SUB = 64        # rows of the chunk-parallel route's sub-tile, and of
-#                  the tile-parallel route's tile
+_SUB = 64        # rows of the chunk-parallel route's sub-tile, and the
+#                  most of the tile-parallel route's tile
 ROUTES = ("chunk-parallel", "tile-parallel", "per-head")
 PASSES = {"state": 1, "prefix": 2, "output": 4}
 # the tile-parallel backward's "walk" pass (dR, dK2 and each chunk's
@@ -112,20 +117,31 @@ def route(r, k, v, w_log, chunk) -> str:
     K, V = r.shape[-1], v.shape[-1]
     if (K == V and K % 4 == 0
             and all(t.data_ptr() % 16 == 0 for t in (r, k, v, w_log))):
-        if chunk % _SUB == 0:
-            return "chunk-parallel"
-        if _SUB % chunk == 0:
-            return "tile-parallel"
+        return "chunk-parallel" if chunk >= _SUB else "tile-parallel"
     return "per-head"
+
+
+def tile_rows(chunk) -> int:
+    """Rows of the tile-parallel route's tile at a chunk below 64: the
+    whole chunks that fit in 64 rows (64 where the chunk divides 64)."""
+    return chunk * (_SUB // chunk)
+
+
+def _bwd_takes(chunk) -> bool:
+    """Whether the chunk- and tile-parallel backwards take ``chunk``: a
+    multiple of 64, or a divisor of it."""
+    return chunk % _SUB == 0 or _SUB % chunk == 0
 
 
 def bwd_route(r, k, v, w_log, dy, dS, chunk) -> str:
     """One of ``ROUTES``: the backward kernels a call with these operands,
     cotangents (``dS`` None: zeros) and chunk runs on the card: the
-    forward's route where dy and dS are 16-byte aligned, else per-head."""
+    forward's route where the chunk is a multiple of 64 or divides 64 and
+    dy and dS are 16-byte aligned, else per-head."""
     how = route(r, k, v, w_log, chunk)
-    if how != "per-head" and all(t.data_ptr() % 16 == 0 for t in (dy, dS)
-                                 if t is not None):
+    if (how != "per-head" and _bwd_takes(chunk)
+            and all(t.data_ptr() % 16 == 0 for t in (dy, dS)
+                    if t is not None)):
         return how
     return "per-head"
 
@@ -163,12 +179,12 @@ def _scratch(r, chunk, how="chunk-parallel"):
     B, T, H, K = r.shape
     f32 = dict(dtype=torch.float32, device=r.device)
     if how == "tile-parallel":
-        n = -(-T // _SUB)
+        n = -(-T // tile_rows(chunk))
         return (torch.empty((B, H, n, K, K), **f32),         # U, then S_tile
                 torch.empty((B, H, n, K), **f32))            # e^{LW_end}
-    n = T // chunk
+    n, nsub = T // chunk, -(-chunk // _SUB)
     return (torch.empty((B, H, n, K, K), **f32),             # U, then S_c
-            torch.empty((B, H, n, chunk // _SUB, K), **f32),  # carries
+            torch.empty((B, H, n, nsub, K), **f32),          # carries
             torch.empty((B, H, n, K), **f32),                # Z
             torch.empty((B, H, n, K), **f32))                # e^{LW_end}
 
@@ -284,7 +300,7 @@ def _bwd_launcher(r, k, v, w_log, u, S0, dy, dS, chunk, saved, how=None):
         _build.check(flib, flaunch(PASSES["state"] | PASSES["prefix"]),
                      what)
     if how == "tile-parallel":
-        nt = -(-T // _SUB)
+        nt = -(-T // tile_rows(chunk))
         own = (torch.empty((B, H, nt, K, K), **f32),         # G, then dS'
                torch.empty((B, H, nt, K), **f32))            # du by tile
 
@@ -396,6 +412,10 @@ class _WKV6Function(torch.autograd.Function):
         y, S, scratch = torch.ops.repro_torch.wkv6(r, k, v, w_log, u, S0,
                                                    chunk)
         # the chunk- or tile-parallel route's scratch, for its backward
+        # where that takes the chunk (the per-head backward recomputes its
+        # states)
+        if not _bwd_takes(chunk):
+            scratch = ()
         ctx.save_for_backward(r, k, v, w_log, u, S0, *scratch)
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)

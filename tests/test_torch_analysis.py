@@ -179,26 +179,37 @@ def test_wkv6_operators_count_chip_smokes_operations(chunk, scratch):
                                          (1023, 1, "tile-parallel"),
                                          (500, 10, "per-head")])
 def test_wkv6_meta_route_returns_no_scratch(T, chunk, how):
-    """A chunk that divides 64 takes the tile-parallel route on meta as on
-    the card (a ragged last tile here), and one that neither divides 64 nor
-    is a multiple of it the per-head route; the backward takes the
-    forward's route.  The per-head forward operator returns y, S and no
-    scratch (its backward recomputes its own states); the tile-parallel one
-    also its tile scratch, each tile's start state and decay, which its
-    backward reads.  A step counts the chunked form's FLOPs at chunk L and
-    the operands and results."""
+    """A chunk below 64 takes the tile-parallel forward on meta as on the
+    card (tiles of whole chunks: 64 rows at chunks 8 and 1, 60 at chunk 10,
+    a ragged last tile each), and the backward ``how``: the forward's route
+    where the chunk divides 64, else per-head.  The tile-parallel forward
+    operator returns y, S and its tile scratch, each tile's start state and
+    decay, which its backward reads; under grad a per-head backward keeps
+    none of it (it recomputes its own states), and the per-head forward (a
+    width no multiple of 4) returns no scratch.  A step counts the chunked
+    form's FLOPs at chunk L and the operands and results."""
     B, H, K = 2, 64, 64
     r, k, v, w = (_meta(B, T, H, K) for _ in range(4))
     u, S0 = _meta(H, K), _meta(B, H, K, K)
-    assert wk.route(r, k, v, w, chunk) == how
+    assert wk.route(r, k, v, w, chunk) == "tile-parallel"
     assert wk.bwd_route(r, k, v, w, v, S0, chunk) == how
     with torch.no_grad():
         y, S, scratch = torch.ops.repro_torch.wkv6(r, k, v, w, u, S0, chunk)
-    nt = -(-T // 64)
-    want = ([(B, H, nt, K, K), (B, H, nt, K)] if how == "tile-parallel"
-            else [])
-    assert [tuple(t.shape) for t in scratch] == want
+    nt = -(-T // wk.tile_rows(chunk))
+    assert [tuple(t.shape) for t in scratch] == [(B, H, nt, K, K),
+                                                 (B, H, nt, K)]
     assert y.shape == v.shape and S.shape == S0.shape
+    leaves = [t.clone().requires_grad_(True) for t in (r, k, v, w)]
+    y, _ = wk.wkv6(*leaves, u, chunk=chunk, S0=S0)
+    kept = [t for t in y.grad_fn.saved_tensors if t is not None]
+    assert len(kept) == 6 + (0 if how == "per-head" else 2)
+    if how == "per-head":
+        r62, k62, v62, w62 = (_meta(B, T, H, 62) for _ in range(4))
+        with torch.no_grad():
+            out = torch.ops.repro_torch.wkv6(r62, k62, v62, w62,
+                                             _meta(H, 62), None, chunk)
+        assert wk.route(r62, k62, v62, w62, chunk) == "per-head"
+        assert out[2] == []
 
     def step(*args):
         y, S = wk.wkv6(*args[:5], chunk=chunk, S0=args[5])
@@ -212,7 +223,7 @@ def test_wkv6_meta_route_returns_no_scratch(T, chunk, how):
     assert counter.flops == (_smoke_wkv(B, T, H, K, chunk, False)
                              + _smoke_wkv(B, T, H, K, chunk, True))
     assert [g.shape for g in grads] == [t.shape for t in (r, k, v, w, u, S0)]
-    saved = B * H * nt * (K * K + K) * 4 if how == "tile-parallel" else 0
+    saved = B * H * nt * (K * K + K) * 4
     fwd = (5 * B * T * H * K + H * K + 2 * B * H * K * K) * 4 + saved
     assert counter.by_op["repro_torch.wkv6"] == [1, fwd]
 

@@ -18,10 +18,12 @@ three passes (per-chunk state, prefix over chunks, output by 64-row
 sub-tile, with the blocked scan of the decays) are held to JAX's
 ``wkv_chunked`` within the same 1e-4, and its TF32 products are emulated to
 show why each is split in three (a single TF32 product breaks 1e-4 of
-max |y|; the split stays within 1e-5 of an f64 evaluation).  So is its
-tile-parallel route (chunks that divide 64): the same state and prefix
-passes over 64-row tiles, whose carries compose the chunks', then a walk
-over each tile's chunks from the tile's state, at every such chunk, at
+max |y|; the split stays within 1e-5 of an f64 evaluation), at chunks
+that are multiples of 64 and at chunks that are not (a ragged last 64-row
+sub-tile).  So is its tile-parallel route (chunks below 64): the same state
+and prefix passes over tiles of whole chunks (64 rows where the chunk
+divides 64, else as many whole chunks as fit), whose carries compose the
+chunks', then a walk over each tile's chunks from the tile's state, at
 decays on the -8 clamp and where the clip binds, with a ragged last tile.
 """
 import functools
@@ -238,21 +240,25 @@ SUB, SEG = 64, 16      # the kernel's sub-tile and scan-segment rows
 def three_pass(r, k, v, w, u, S0, chunk):
     """The kernel's chunk-parallel route in f32: LW by the blocked scan
     (16-row segments summed in order, then the carry and the earlier
-    segments' totals), a state pass per chunk (Z, D = e^{LW_end}, U = K2^T V
-    summed by sub-tile), the prefix over chunks, and an output pass by
-    64-row sub-tile i (bonus, inter term, diagonal product masked m < t,
-    full products with every earlier sub-tile)."""
+    segments' totals), a state pass per chunk (Z = LW[L // 2], D =
+    e^{LW_end}, U = K2^T V summed by sub-tile), the prefix over chunks, and
+    an output pass by 64-row sub-tile i (bonus, inter term, diagonal product
+    masked m < t, full products with every earlier sub-tile).  A chunk that
+    is no multiple of 64 ends in a ragged sub-tile, zeros past its rows."""
     B, T, H, K = r.shape
-    n, nsub = T // chunk, chunk // SUB
-    f = lambda x: x.reshape(B, n, chunk, H, -1).permute(0, 3, 1, 2, 4)
-    r_, k_, v_, w_ = (f(x) for x in (r, k, v, w))          # (B,H,n,L,K)
-    local = w_.reshape(B, H, n, chunk // SEG, SEG, K).cumsum(4)
-    base = torch.zeros(B, H, n, chunk // SEG, K)
+    n, nsub = T // chunk, -(-chunk // SUB)
+    P = nsub * SUB                                          # padded rows
+    f = lambda x: torch.cat([
+        x.reshape(B, n, chunk, H, -1).permute(0, 3, 1, 2, 4),
+        x.new_zeros(B, H, n, P - chunk, x.shape[-1])], 3)
+    r_, k_, v_, w_ = (f(x) for x in (r, k, v, w))          # (B,H,n,P,K)
+    local = w_.reshape(B, H, n, P // SEG, SEG, K).cumsum(4)
+    base = torch.zeros(B, H, n, P // SEG, K)
     carry = torch.zeros(B, H, n, K)
-    for sg in range(chunk // SEG):
+    for sg in range(P // SEG):
         base[:, :, :, sg] = carry
         carry = carry + local[:, :, :, sg, -1]
-    LW = (base[:, :, :, :, None] + local).reshape(B, H, n, chunk, K)
+    LW = (base[:, :, :, :, None] + local).reshape(B, H, n, P, K)
     LWp = LW - w_
     Z = LW[:, :, :, chunk // 2][:, :, :, None]
 
@@ -283,17 +289,22 @@ def three_pass(r, k, v, w, u, S0, chunk):
         for j in range(i):
             yi = yi + (rows(Q, i) @ rows(Kf, j).transpose(-1, -2)) @ rows(v_, j)
         y[:, :, :, i * SUB:(i + 1) * SUB] = yi
-    return y.permute(0, 2, 3, 1, 4).reshape(B, T, H, -1), S
+    return y[:, :, :, :chunk].permute(0, 2, 3, 1, 4).reshape(B, T, H, -1), S
 
 
 @pytest.mark.parametrize("state", [False, True])
 @pytest.mark.parametrize("B,T,H,K,chunk", [(2, 512, 2, 64, 64),
                                            (2, 512, 2, 64, 128),
                                            (2, 512, 2, 64, 256),
-                                           (2, 256, 3, 32, 64)])
+                                           (2, 256, 3, 32, 64),
+                                           (2, 384, 2, 64, 96),
+                                           (1, 750, 2, 64, 375)])
 def test_three_pass_emulation_matches_jax(B, T, H, K, chunk, state):
     """The chunk-parallel route's decomposition computes JAX's chunked form
-    at the chunk it is given, within 1e-4 of max |y| and of max |S|."""
+    at the chunk it is given, within 1e-4 of max |y| and of max |S|: at
+    multiples of 64 and at chunks of 96 and 375 (T = 48,000's chunk), whose
+    last sub-tile is ragged (32 and 55 rows) and whose Z row (48, 187) is
+    no segment's first."""
     arrs = wkv_inputs(T + chunk + K, B, T, H, K, state=state)
     (jr, jk_, jv, jw, ju, jS), targs = both(arrs)
     y, S = three_pass(*targs, chunk)
@@ -353,7 +364,8 @@ def chunked_f64(r, k, v, w, u, S0, chunk, mm):
 
 
 @pytest.mark.parametrize("B,T,H,K,chunk,shift,state", [
-    (1, 512, 2, 64, 256, -0.6, False), (1, 64, 2, 64, 4, 2.0, True)])
+    (1, 512, 2, 64, 256, -0.6, False), (1, 64, 2, 64, 4, 2.0, True),
+    (1, 750, 2, 64, 375, -0.6, False)])
 def test_tf32_split_keeps_the_gate_where_one_tf32_product_breaks_it(
         B, T, H, K, chunk, shift, state):
     """Why the tensor-core kernel splits every product in three.  Against an
@@ -380,11 +392,12 @@ def test_tf32_split_keeps_the_gate_where_one_tf32_product_breaks_it(
 
 def test_route_by_chunk_and_alignment():
     """With K == V a multiple of 4 and 16-byte aligned operands, the
-    chunk-parallel route takes chunks that are multiples of 64 and the
-    tile-parallel route chunks that divide 64 (the 1040- and 300-token
-    prompts' chunks 16 and 4, and 32); the per-head kernel takes the rest:
-    other chunks (10, as T = 50,000 gives), other widths, misaligned
-    operands.  The backward takes the forward's route."""
+    chunk-parallel route takes chunks of 64 or more (multiples of 64, and
+    375 as T = 48,000 gives) and the tile-parallel route chunks below 64
+    (the 1040- and 300-token prompts' chunks 16 and 4, 32, and 10 as T =
+    50,000 gives); the per-head kernel takes other widths and misaligned
+    operands.  The backward takes the forward's route at chunks that are
+    multiples of 64 or divide it, else per-head."""
     r, k, v, w, u, _ = (torch.tensor(a) for a in wkv_inputs(7, 1, 256, 2, 32))
     assert tk.route(r, k, v, w, 256) == "chunk-parallel"
     assert tk.route(r, k, v, w, 64) == "chunk-parallel"
@@ -393,14 +406,82 @@ def test_route_by_chunk_and_alignment():
         assert tk.bwd_route(r, k, v, w, v, None, chunk) == "tile-parallel"
     assert tk.bwd_route(r, k, v, w, v, None, 64) == "chunk-parallel"
     r10 = torch.zeros((1, 250, 2, 32))
-    assert tk.route(r10, r10, r10, r10, 10) == "per-head"
-    for chunk in (64, 16):
+    assert tk.route(r10, r10, r10, r10, 10) == "tile-parallel"
+    assert tk.bwd_route(r10, r10, r10, r10, r10, None, 10) == "per-head"
+    r375 = torch.zeros((1, 750, 2, 32))
+    assert tk.route(r375, r375, r375, r375, 375) == "chunk-parallel"
+    assert tk.bwd_route(r375, r375, r375, r375, r375, None, 375) == \
+        "per-head"
+    for chunk in (64, 16, 10, 375):
         assert tk.route(r, k, v[..., :28].contiguous(), w, chunk) == \
             "per-head"
     flat = torch.zeros(r.numel() + 1)
     shifted = flat[1:].view(r.shape)
-    for chunk in (64, 16):
+    for chunk in (64, 16, 10, 375):
         assert tk.route(shifted, k, v, w, chunk) == "per-head"
+
+
+@pytest.mark.parametrize("chunk, rows", [(1, 64), (3, 63), (10, 60),
+                                         (12, 60), (32, 64), (48, 48),
+                                         (63, 63)])
+def test_tile_rows(chunk, rows):
+    """The tile-parallel route's tile holds the whole chunks that fit in 64
+    rows: 64 where the chunk divides 64."""
+    assert tk.tile_rows(chunk) == rows
+
+
+# T -> (chunk, forward route, backward route): the model's chunk rule at
+# long prompts; 50,000 and 48,000 give chunks that neither divide 64 nor are
+# multiples of it
+LONG_PROMPTS = {32768: (256, "chunk-parallel", "chunk-parallel"),
+                36000: (1, "tile-parallel", "tile-parallel"),
+                48000: (375, "chunk-parallel", "per-head"),
+                50000: (10, "tile-parallel", "per-head"),
+                64000: (500, "chunk-parallel", "per-head")}
+
+
+@pytest.mark.parametrize("T", list(LONG_PROMPTS))
+def test_long_prompt_routes_on_meta(T, monkeypatch):
+    """RWKV6-7B's layer (full width, one layer, batch 1) on meta tensors,
+    the dry run's stand-in for the card, at long prompts: the model's own
+    chunk rule picks the chunk, and its wkv6 call takes the route the card
+    would (``LONG_PROMPTS``), with that route's scratch (the tile-parallel
+    route's over ceil(T / m) tiles of m = chunk (64 // chunk) rows, the
+    chunk-parallel route's carries over ceil(chunk / 64) sub-tiles); the
+    backward goes per-head at the new chunks, and under grad the forward
+    keeps no scratch for a per-head backward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params
+    want_chunk, want_fwd, want_bwd = LONG_PROMPTS[T]
+    cfg = get_config("rwkv6-7b").replace(n_layers=1)
+    params = init_params(cfg, None, device="meta")
+    seen, wrapper = [], tk.wkv6
+
+    def spy(r, k, v, w, u, *, chunk, S0=None):
+        seen.append((chunk, tk.route(r, k, v, w, chunk),
+                     tk.bwd_route(r, k, v, w, v, S0, chunk),
+                     [tuple(t.shape) for t in torch.ops.repro_torch.wkv6(
+                         r, k, v, w, u, S0, chunk)[2]]))
+        return wrapper(r, k, v, w, u, chunk=chunk, S0=S0)
+    monkeypatch.setattr(tk, "wkv6", spy)
+    tokens = torch.empty((1, T), dtype=torch.int32, device="meta")
+    logits = forward(cfg, params, {"tokens": tokens})[0]
+    assert logits.is_meta and logits.shape == (1, T, cfg.vocab)
+    H, K = cfg.n_heads, cfg.rwkv_head_dim
+    if want_fwd == "tile-parallel":
+        n = -(-T // tk.tile_rows(want_chunk))
+        scratch = [(1, H, n, K, K), (1, H, n, K)]
+    else:
+        n = T // want_chunk
+        scratch = [(1, H, n, K, K), (1, H, n, -(-want_chunk // 64), K),
+                   (1, H, n, K), (1, H, n, K)]
+    assert seen == [(want_chunk, want_fwd, want_bwd, scratch)]
+    leaves = [torch.empty((1, T, 2, K), device="meta").requires_grad_(True)
+              for _ in range(4)] + [torch.empty((2, K), device="meta")]
+    y, _ = wrapper(*leaves, chunk=want_chunk)
+    saved = [t for t in y.grad_fn.saved_tensors if t is not None]
+    kept = {"tile-parallel": 2, "chunk-parallel": 4, "per-head": 0}
+    assert len(saved) == 5 + kept[want_bwd]
 
 
 # --------------------------------------------------------------------------
@@ -408,25 +489,28 @@ def test_route_by_chunk_and_alignment():
 # --------------------------------------------------------------------------
 
 def tile_walk(r, k, v, w, u, S0, chunk):
-    """The kernel's tile-parallel route in f32, at a chunk L dividing 64:
-    the state pass over 64-row tiles (the last ragged: T % 64 rows), LW by
-    the blocked scan from each tile's start, U = K2^T V and D = e^{LW_end};
-    the prefix over tiles (its last state is the output S); then per tile,
-    from its state: LW inside each chunk (16-row segments summed in order
-    from 0 at each chunk's first row, a 32-row chunk's second segment plus
-    its first's total), the chunks' own products masked to m < t inside a
-    chunk over the whole tile, and the walk over the chunks, y += (r
-    e^{LWp}) S_c and S <- e^{LW_end} S + K2^T V."""
+    """The kernel's tile-parallel route in f32, at a chunk L below 64: tiles
+    of m = L (64 // L) rows (whole chunks; 64 where L divides 64), the last
+    ragged (T % m rows); the state pass over each tile padded to 64 rows,
+    LW by the blocked scan from the tile's start, U = K2^T V and D =
+    e^{LW_end}; the prefix over tiles (its last state is the output S);
+    then per tile, from its state: LW inside each chunk (16-row segments
+    summed in order from 0 at each chunk's first row; the rows of a chunk
+    that started in an earlier segment add the tails of the segments since,
+    in order), the chunks' own products masked to m < t inside a chunk over
+    the whole tile, and the walk over the chunks, y += (r e^{LWp}) S_c and
+    S <- e^{LW_end} S + K2^T V."""
     B, T, H, K = r.shape
     L = chunk
-    assert SUB % L == 0 and T % L == 0
+    m = tk.tile_rows(L)
+    assert L < SUB and T % L == 0
     f = lambda x: x.permute(0, 2, 1, 3)                     # (B,H,T,.)
     r_, k_, v_, w_ = (f(x) for x in (r, k, v, w))
     y = torch.empty_like(v_)
     bonus = (r_ * u[None, :, None] * k_).sum(-1, keepdim=True)
     S = S0
-    for t0 in range(0, T, SUB):
-        n = min(SUB, T - t0)
+    for t0 in range(0, T, m):
+        n = min(m, T - t0)
         rt, kt, vt, wt = (x[:, :, t0:t0 + n] for x in (r_, k_, v_, w_))
         pad = lambda x: torch.cat(
             [x, x.new_zeros(B, H, SUB - n, x.shape[-1])], 2)
@@ -440,16 +524,20 @@ def tile_walk(r, k, v, w, u, S0, chunk):
         U = (kt * torch.exp(LWe[:, :, None] - LWt)).transpose(-1, -2) @ vt
         S_tile = S
         S = torch.exp(LWe)[..., None] * S + U                # the prefix
-        # the output pass: LW inside each chunk
+        # the output pass: LW inside each chunk, by 16-row segment
         lw = torch.zeros(B, H, SUB, K)
         for i in range(SUB):
-            seg_start = i % SEG == 0
-            prev = lw[:, :, i - 1] if i % L and not seg_start else 0.0
-            lw[:, :, i] = prev + pad(wt)[:, :, i]
-        if L > SEG:
-            lw = lw.reshape(B, H, SUB // SEG, SEG, K)
-            lw[:, :, 1::2] = lw[:, :, 0::2, -1:] + lw[:, :, 1::2]
-            lw = lw.reshape(B, H, SUB, K)
+            restart = i % SEG == 0 or i % L == 0
+            lw[:, :, i] = (0.0 if restart else lw[:, :, i - 1]) + pad(wt)[:, :, i]
+        tails = lw.reshape(B, H, SUB // SEG, SEG, K)[:, :, :, -1].clone()
+        if SEG % L:
+            for sg in range(1, SUB // SEG):
+                first = sg * SEG - sg * SEG % L
+                carry = torch.zeros(B, H, K)
+                for sg2 in range(first // SEG, sg):
+                    carry = carry + tails[:, :, sg2]
+                rows = slice(sg * SEG, min(first + L, (sg + 1) * SEG))
+                lw[:, :, rows] = carry[:, :, None] + lw[:, :, rows]
         lw = lw[:, :, :n]
         c0 = torch.arange(n) // L * L
         Z, E = lw[:, :, c0 + L // 2], lw[:, :, c0 + L - 1]
@@ -470,16 +558,24 @@ def tile_walk(r, k, v, w, u, S0, chunk):
     return y.permute(0, 2, 1, 3), S
 
 
-@pytest.mark.parametrize("chunk", [1, 2, 4, 8, 16, 32])
+# chunk -> T: every chunk that divides 64 at T = 224 (three 64-row tiles
+# and a ragged one of 32 rows); chunks that do not, each with a ragged last
+# tile where one is possible (3: tiles of 63, the last 12 rows; 10 and 12:
+# 60, the last 40 and 24; 48 and 63: one chunk a tile)
+TILE_CHUNKS = {1: 224, 2: 224, 4: 224, 8: 224, 16: 224, 32: 224,
+               3: 201, 10: 220, 12: 204, 48: 240, 63: 189}
+
+
+@pytest.mark.parametrize("chunk", list(TILE_CHUNKS))
 @pytest.mark.parametrize("case", ["clamp", "clip"])
 def test_tile_walk_emulation_matches_jax(case, chunk):
     """The tile-parallel route's decomposition computes JAX's chunked form
-    at every chunk that divides 64, within 1e-4 of max |y| and of max |S|,
-    on T = 224 (three tiles and a ragged one of 32 rows), from a state.
-    Decays on the -8 clamp (64 rows span e^{-512}: every value finite,
-    though a decay factored across a tile would overflow f32) and the
-    2.0-shift decays, where the clip binds inside chunks of 8 and more."""
-    B, T, H, K = 2, 224, 2, 16
+    at chunks below 64, within 1e-4 of max |y| and of max |S|, from a
+    state, with a ragged last tile (``TILE_CHUNKS``).  Decays on the -8
+    clamp (64 rows span e^{-512}: every value finite, though a decay
+    factored across a tile would overflow f32) and the 2.0-shift decays,
+    where the clip binds inside chunks of 8 and more."""
+    B, T, H, K = 2, TILE_CHUNKS[chunk], 2, 16
     arrs = wkv_inputs(chunk + T, B, T, H, K, decay_shift=2.0, state=True)
     if case == "clamp":
         arrs[3] = np.full_like(arrs[3], -8.0)

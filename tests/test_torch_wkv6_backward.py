@@ -629,14 +629,15 @@ def test_bwd_route_by_chunk_and_alignment(chunk):
     chunk-parallel kernels a chunk that is a multiple of 64, the
     tile-parallel ones a chunk that divides 64 (the 1040- and 300-token
     prompts' chunks 16 and 4, every odd length's 1); the per-head kernels
-    the rest (a chunk of 10, other widths, misaligned operands), at a chunk
-    of each route (``chunk``)."""
+    the rest (chunks that neither divide 64 nor are multiples of it, such as
+    10 and 375, whose forwards run tile- and chunk-parallel; other widths,
+    misaligned operands), at a chunk of each route (``chunk``)."""
     from repro_torch.kernels.rwkv6 import kernel as tk
     r, k, v, w, u, S0, dy, dS = (torch.tensor(a)
                                  for a in operands(7, 1, 256, 2, 32))
     assert tk.bwd_route(r, k, v, w, dy, dS, 256) == "chunk-parallel"
     assert tk.bwd_route(r, k, v, w, dy, None, 64) == "chunk-parallel"
-    for c in (16, 4, 32, 1, 2, 8, 128 + 64, 10):
+    for c in (16, 4, 32, 1, 2, 8, 128 + 64, 10, 3, 12, 48, 63, 65, 96, 375):
         want = ("chunk-parallel" if c % 64 == 0 else
                 "tile-parallel" if 64 % c == 0 else "per-head")
         assert tk.bwd_route(r, k, v, w, dy, dS, c) == want, c
