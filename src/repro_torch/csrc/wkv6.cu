@@ -401,13 +401,6 @@ size_t smem_bytes(int L) {
 }
 
 
-// rows ``from`` .. 63 of a shared 64-row tile <- 0 (a ragged sub-tile's
-// rows past its last, over a buffer an earlier sub-tile filled)
-__device__ __forceinline__ void zero_rows(float* tile, int from) {
-  for (int idx = threadIdx.x; idx < (kTS - from) * kTS; idx += kThreads)
-    tile[(from + idx / kTS) * kLDT + idx % kTS] = 0.0f;
-}
-
 // --------------------------------------------------------------------------
 // the chunk-parallel route: wkv6_state, wkv6_prefix, wkv6_output (their
 // shared pieces in wkv6.cuh)
@@ -600,13 +593,6 @@ wkv6_prefix(float* __restrict__ U, const float* __restrict__ D,
     }
   }
   S_out[idx] = s;
-}
-
-// The first row of row i's chunk of L rows: a mask where L is a power of
-// two (every L that divides 64), else a division.
-template <bool kPow2>
-__device__ __forceinline__ int chunk_start(int i, int L) {
-  return kPow2 ? i & -L : i - i % L;
 }
 
 // Rows visited in order: c0, the first row of the previous row's chunk,

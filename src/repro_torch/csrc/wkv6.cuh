@@ -3,7 +3,8 @@
 // sub-tile (the tile-parallel routes' tile) and its 68-float shared rows,
 // cp.async tile loads, the blocked scan of the log decays (load_w,
 // scan_rows), so that a row's LW has the same bits in every kernel that
-// rebuilds it, and the walks' reduce-scatter over a half-warp (halve).  The
+// rebuilds it, the walks' reduce-scatter over a half-warp (halve), and
+// the row bounds of ragged sub-tiles and chunks (zero_rows, chunk_start).  The
 // TF32 tensor-core product split in three (split, mma3) is in tf32.cuh.
 #pragma once
 
@@ -98,6 +99,22 @@ __device__ __forceinline__ void halve(float* x, int lane) {
 
 __device__ __forceinline__ void zero_smem(float* p, int n) {
   for (int idx = threadIdx.x; idx < n; idx += kThreads) p[idx] = 0.0f;
+}
+
+// rows ``from`` .. 63 of a shared 64-row tile <- 0 (a ragged sub-tile's
+// rows past its last, over a buffer an earlier sub-tile filled), by a block
+// of kN threads
+template <int kN = kThreads>
+__device__ __forceinline__ void zero_rows(float* tile, int from) {
+  for (int idx = threadIdx.x; idx < (kTS - from) * kTS; idx += kN)
+    tile[(from + idx / kTS) * kLDT + idx % kTS] = 0.0f;
+}
+
+// The first row of row i's chunk of L rows: a mask where L is a power of
+// two (every L that divides 64), else a division.
+template <bool kPow2>
+__device__ __forceinline__ int chunk_start(int i, int L) {
+  return kPow2 ? i & -L : i - i % L;
 }
 
 }  // namespace

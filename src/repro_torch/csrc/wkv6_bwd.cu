@@ -40,8 +40,9 @@
 // Three routes, as the forward's; the wrapper (kernels/rwkv6/kernel.py:
 // bwd_route) picks one.
 //
-// Chunk-parallel (L a multiple of 64, K == V a multiple of 4, operands and
-// cotangents 16-byte aligned: the RWKV6 train and prefill chunk of 256).
+// Chunk-parallel (L >= 64, K == V a multiple of 4, operands and cotangents
+// 16-byte aligned: the RWKV6 train and prefill chunk of 256, and at T >=
+// 32,768 chunks such as 48,000 -> 375 and 64,000 -> 500).
 // It starts from the forward's scratch (csrc/wkv6.cu's passes 1 and 2: the
 // chunk-start states S_c, the carries, Z and D = e^{LW_end}), which the
 // autograd Function keeps from its forward; a call without it relaunches
@@ -81,30 +82,43 @@
 //      totals + dLW_end + [t <= L / 2] dZ; the chunk-0 block also sums du's
 //      (batch, head) partial over the chunks and sub-tiles in reverse.
 //
-// Tile-parallel (L divides 64, the chunk-parallel route's other
-// conditions: every RWKV6 train length that is no multiple of 64, chunks 1
-// to 32, and the short power-of-two sequences that time_mix runs at chunk
-// 1).  It replaces the per-head kernels below for those chunks, which took
-// B * H blocks, each walking T / L chunks in order twice, every chunk padded
-// to a 64-row sub-tile of f32 products (63/64 padding at L = 1), from a
-// (B, H, T / L, K, V) scratch of chunk-start states (2.1 GB at L = 1 and
-// (2, 1023, 64, 64)).  Bytes bound the function here (about 0.09 ms at
-// (2, 1040, 64, 64): its operands and gradients once), and at L = 1 the
-// walks' multiply-adds below (about 8 K V a row, on the CUDA cores: every
-// row a state step) are the most work there is.  The reverse carry
-// dS'_{c-1} = D_c dS'_c + R_c^T dy_c has no clip, so the chunks of a 64-row
+// An L that is no multiple of 64 ends each chunk in a ragged sub-tile of L -
+// 64 (nsub - 1) rows, nsub = ceil(L / 64) (375 -> 55): wkv6_bwd_g<false,
+// true> and wkv6_bwd_main<true> bound their loads, stores and loops there,
+// with zeros past its rows in every shared tile that holds it (over a
+// buffer an earlier sub-tile filled too), which add nothing to a product or
+// a sum; the instances at multiples of 64 compile without those bounds.
+// wkv6_bwd_fixup takes the rows up to L in either case.
+//
+// Tile-parallel (L < 64, the chunk-parallel route's other conditions: every
+// RWKV6 train length that is no multiple of 64, chunks 1 to 32; the short
+// power-of-two sequences that time_mix runs at chunk 1; and at T >= 32,768
+// chunks that do not divide 64, such as 50,000 -> 10).  It replaces the
+// per-head kernels below for those chunks, which took B * H blocks, each
+// walking T / L chunks in order twice, every chunk padded to a 64-row
+// sub-tile of f32 products (63/64 padding at L = 1), from a (B, H, T / L, K,
+// V) scratch of chunk-start states (2.1 GB at L = 1 and (2, 1023, 64, 64);
+// 5.2 GB at L = 10 and (1, 50,000, 64, 64)).  Bytes bound the function here
+// (about 0.09 ms at (2, 1040, 64, 64): its operands and gradients once), and
+// at L = 1 the walks' multiply-adds below (about 8 K V a row, on the CUDA
+// cores: every row a state step) are the most work there is.  A tile holds m
+// = L (64 / L) rows, whole chunks: 64 where L divides 64, else fewer (63 at
+// L = 3, 60 at 10, L itself from 33 up), as the forward's tiles.  The reverse
+// carry dS'_{c-1} = D_c dS'_c + R_c^T dy_c has no clip, so the chunks of a
 // tile compose into the tile's own carry: G = (r e^{LWp})^T dy and D =
-// e^{LW_end} over the tile, every exponent <= 0.  The forward's tile
-// scratch (csrc/wkv6.cu, its passes 1 and 2 over ceil(T / 64) tiles, the
-// last ragged) gives each tile's start state and D, which the autograd
-// Function keeps; a call without it relaunches those two passes.  Then
-// five kernels:
-//   1. wkv6_bwd_g<true>: pass 1 above at L = 64 over the tiles (rows
-//      bounded in the ragged one, no carries): G of each tile.
+// e^{LW_end} over the tile, every exponent <= 0.  The forward's tile scratch
+// (csrc/wkv6.cu, its passes 1 and 2 over ceil(T / m) tiles, the last ragged)
+// gives each tile's start state and D, which the autograd Function keeps; a
+// call without it relaunches those two passes.  Then five kernels, passes 3
+// and 4 in two instances each: one where L divides 64, whose chunks' rows
+// are found by masks, and one of m-row tiles, whose chunks' rows are found
+// by running bounds or a division:
+//   1. wkv6_bwd_g<true, false>: pass 1 above at L = m over the tiles (one
+//      sub-tile, its rows bounded, no carries): G of each tile.
 //   2. wkv6_bwd_prefix<8>: the tiles in reverse, dS'_tile over G, dS0; its
 //      loads 8 tiles ahead of its carries.
 //   3. wkv6_bwd_tile_walk and 4. wkv6_bwd_tile, one block of 16 warps per
-//      (batch, head, tile) each: B * H * ceil(T / 64) blocks, each 64 / L
+//      (batch, head, tile) each: B * H * ceil(T / m) blocks, each m / L
 //      dependent steps a walk.  Inside a chunk they compute what the plain
 //      version does, with the chunk's own LW, Z and clip; between chunks
 //      they go through the state and its cotangent only, never through a
@@ -118,22 +132,23 @@
 //      e^{LW_end} <dS'_c, S_c> at every chunk boundary, where the two walks
 //      of pass 3 run in opposite directions, and no state a chunk may be
 //      kept in device memory (the per-head scratch above): the forward walk
-//      keeps the state at every 8th row that starts a chunk on chip (8 at
-//      most, 128 KB), and the backward walk takes each chunk's dot there,
-//      walking each half of an 8-row window forward again at L < 8 with
-//      its states in registers.  The dot is taken from the two states:
-//      summed instead from per-row terms (<dS'_{c-1}, S_c> - sum R dR + sum
-//      K2 dK2, as the GLA-family backwards do), it cancels where the decays
-//      are strong and lands 2.5 to 7 times further from an f64 evaluation
-//      than JAX's f32 gradient on the -8 clamp
-//      (tests/test_torch_wkv6_backward.py).
+//      keeps on chip the state at the first chunk start of each 8-row
+//      window (8 slots at most, 128 KB), and the backward walk takes each
+//      chunk's dot there: at L >= 8 a window holds at most one chunk start,
+//      whose state the slot is; at L < 8 each half of the window walks
+//      forward again from its slot with its states in registers.  The dot
+//      is taken from the two states: summed instead from per-row terms
+//      (<dS'_{c-1}, S_c> - sum R dR + sum K2 dK2, as the GLA-family
+//      backwards do), it cancels where the decays are strong and lands 2.5
+//      to 7 times further from an f64 evaluation than JAX's f32 gradient on
+//      the -8 clamp (tests/test_torch_wkv6_backward.py).
 //   5. wkv6_bwd_tile_du: du's (batch, head) partials, the tiles' added in
 //      order.
 //
-// Per-head (any other L: a chunk that neither divides 64 nor is a multiple
-// of it, reached at T >= 32,768; or operands not 16-byte aligned): the
-// CUDA-core kernels of the first port, launched in this order on one
-// stream, one block per (batch, head) each, 256 threads:
+// Per-head (other widths: K != V, K no multiple of 4, or an operand or a
+// cotangent off a 16-byte boundary; and the route the others are held to on
+// the card): the CUDA-core kernels of the first port, launched in this
+// order on one stream, one block per (batch, head) each, 256 threads:
 //   1. wkv6_bwd_states walks the chunks in order, as the forward does, and
 //      writes the state at each chunk's start to a (B, H, n, K, V) scratch
 //      that the wrapper allocates (the per-head forward holds its state in
@@ -658,7 +673,12 @@ wkv6_bwd(const float* __restrict__ r, const float* __restrict__ k,
 // dy double-buffered, w straight to registers): LW from the forward's
 // carry, R = r e^{LWp} in place, G += R^T dy.  Warp wp owns G's rows 16 (wp
 // % 4) .. + 15 and columns 32 (wp / 4) .. + 31.  Then one thread a channel
-// sums the chunk's w as the plain version does (Seq).
+// sums the chunk's w as the plain version does (Seq).  kRagged (the
+// chunk-parallel route): L is no multiple of 64, and the chunk's last
+// sub-tile has L - 64 (nsub - 1) rows (zeros past them); the instance at
+// multiples of 64 compiles without these bounds.  kTiles: the tile-parallel
+// route's tiles of L = m <= 64 rows (whole chunks), one sub-tile each, the
+// last of which may be ragged, with no carries or Seq.
 //
 // Seq: the chunk's LW summed as the plain version sums it (torch.cumsum on
 // the card: one running f32 sum a channel, from 0): the carry before each
@@ -670,7 +690,7 @@ struct Seq {
   float *carry, *Z, *LWE;
 };
 
-template <bool kTiles>
+template <bool kTiles, bool kRagged>
 __global__ void __launch_bounds__(kThreads, 2)
 wkv6_bwd_g(const float* __restrict__ r, const float* __restrict__ w,
            const float* __restrict__ dy, const float* __restrict__ carry_in,
@@ -680,7 +700,8 @@ wkv6_bwd_g(const float* __restrict__ r, const float* __restrict__ w,
   // r (then R) in buffer 2x, dy in 2x + 1
   auto buf = [&](int x) { return smem + x * kTile; };
 
-  const int n = kTiles ? (T + L - 1) / L : T / L, nsub = L / kTS;
+  const int n = kTiles ? (T + L - 1) / L : T / L;
+  const int nsub = kTiles ? 1 : kRagged ? (L + kTS - 1) / kTS : L / kTS;
   const int c = blockIdx.x % n, bh = blockIdx.x / n;
   const int h = bh % H, b = bh / H;
   const int tid = threadIdx.x, seg = tid >> 6, ch = tid & 63;
@@ -689,7 +710,9 @@ wkv6_bwd_g(const float* __restrict__ r, const float* __restrict__ w,
                          + (long long)h * K;
   const long long chunk = (long long)bh * n + c;
   const float* carry = kTiles ? nullptr : carry_in + chunk * nsub * K;
-  const int rows = kTiles ? min(kTS, T - c * L) : kTS;   // of sub-tile 0
+  // rows of sub-tile 0, and of the last
+  const int rows = kTiles ? min(L, T - c * L) : kTS;
+  const int last = kRagged ? L - (nsub - 1) * kTS : kTS;
 
   if (K < kTS || rows < kTS) zero_smem(smem, 4 * kTile);
   __syncthreads();
@@ -711,9 +734,14 @@ wkv6_bwd_g(const float* __restrict__ r, const float* __restrict__ w,
     __syncthreads();                           // the other buffers are free
     if (s + 1 < nsub) {
       const long long off = base + (long long)(s + 1) * kTS * row;
-      load_tile(buf(2 - 2 * bs), r + off, row, kTS, K);
-      load_tile(buf(3 - 2 * bs), dy + off, row, kTS, K);
-      load_w(wn, w + off, row, K);
+      const int rn = kRagged && s + 2 == nsub ? last : kTS;
+      load_tile(buf(2 - 2 * bs), r + off, row, rn, K);
+      load_tile(buf(3 - 2 * bs), dy + off, row, rn, K);
+      if (kRagged && rn < kTS) {               // the ragged last sub-tile
+        zero_rows(buf(2 - 2 * bs), rn);
+        zero_rows(buf(3 - 2 * bs), rn);
+      }
+      load_w(wn, w + off, row, K, rn);
     }
     cp_commit();
     scan_rows(wv, seg_sum, !kTiles && ch < K ? carry[s * K + ch] : 0.0f,
@@ -764,9 +792,11 @@ wkv6_bwd_g(const float* __restrict__ r, const float* __restrict__ w,
     float run = 0.0f;
     for (int s = 0; s < nsub; ++s) {
       const float* wc = w + base + (long long)s * kTS * row + tid;
+      const int rs = kRagged && s + 1 == nsub ? last : kTS;
       float x[kTS];
 #pragma unroll
-      for (int t = 0; t < kTS; ++t) x[t] = wc[(long long)t * row];
+      for (int t = 0; t < kTS; ++t)
+        x[t] = !kRagged || t < rs ? wc[(long long)t * row] : 0.0f;
       seq.carry[(chunk * nsub + s) * K + tid] = run;
 #pragma unroll
       for (int t = 0; t < kTS; ++t) {
@@ -854,10 +884,11 @@ __device__ __forceinline__ void scan_rows2(const float* wv, float* seg_sum,
 
 // a[nt] (16 x 8 NT) = A B^T for rows row0 .. + 15 of A and rows col0 .. +
 // 8 NT - 1 of B, over the 64 channels of both tiles; kLower keeps column <
-// row, kUpper row < column, and below L = 64 (a power of two) only the
-// pairs inside one chunk of L rows, (row ^ column) < L.  Fragments as
-// mma3's (g = lane / 4, q = lane % 4).
-template <int MASK, int NT>
+// row, kUpper row < column, and below L = 64 only the pairs inside one
+// chunk of L rows: (row ^ column) < L where L is a power of two (kPow2),
+// else the column within the row's chunk (chunk_start, once a row).
+// Fragments as mma3's (g = lane / 4, q = lane % 4).
+template <int MASK, int NT, bool kPow2 = true>
 __device__ __forceinline__ void prod_abt(const float* A, const float* B,
                                          float (*a)[4], int row0, int col0,
                                          int L = kTS) {
@@ -882,14 +913,19 @@ __device__ __forceinline__ void prod_abt(const float* A, const float* B,
     mma3<NT>(a, ah, al, bb);
   }
   if (MASK != kFull) {
+    // !kPow2: the first rows of the chunks of rows row0 + g and + 8
+    const int c0[2] = {kPow2 ? 0 : chunk_start<false>(row0 + g, L),
+                       kPow2 ? 0 : chunk_start<false>(row0 + g + 8, L)};
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
         const int rr = row0 + g + 8 * (x >> 1);
         const int cc = col0 + 8 * nt + 2 * q + (x & 1);
+        const int cs = c0[x >> 1];
         if ((MASK == kLower ? !(cc < rr) : !(rr < cc))
-            || (L < kTS && (rr ^ cc) >= L))
+            || (L < kTS && (kPow2 ? (rr ^ cc) >= L
+                            : MASK == kLower ? cc < cs : cc >= cs + L)))
           a[nt][x] = 0.0f;
       }
   }
@@ -899,7 +935,7 @@ __device__ __forceinline__ void prod_abt(const float* A, const float* B,
 // col0 .. + 8 NT - 1: P goes from the accumulator to the A operand in
 // registers (k index q <-> P's column 2q, q + 4 <-> 2q + 1, so C's rows are
 // read in that order)
-template <int MASK, int NT>
+template <int MASK, int NT, bool kPow2 = true>
 __device__ __forceinline__ void chain(const float* A, const float* B,
                                       const float* C, float (*acc)[4],
                                       int row0, int col0, int L = kTS) {
@@ -907,11 +943,16 @@ __device__ __forceinline__ void chain(const float* A, const float* B,
   if (MASK == kLower && row0 + 15 <= col0) return;
   if (MASK == kUpper && row0 >= col0 + 8 * NT - 1) return;
   // every column before the rows' first chunk, or after their last: P = 0
-  if (L < kTS && MASK == kLower && col0 + 8 * NT - 1 < (row0 & -L)) return;
-  if (L < kTS && MASK == kUpper && col0 > ((row0 + 15) | (L - 1))) return;
+  if (L < kTS && MASK == kLower
+      && col0 + 8 * NT - 1 < chunk_start<kPow2>(row0, L))
+    return;
+  if (L < kTS && MASK == kUpper
+      && col0 > (kPow2 ? ((row0 + 15) | (L - 1))
+                       : chunk_start<false>(row0 + 15, L) + L - 1))
+    return;
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
   float a[NT][4];
-  prod_abt<MASK, NT>(A, B, a, row0, col0, L);
+  prod_abt<MASK, NT, kPow2>(A, B, a, row0, col0, L);
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     const float fa[4] = {a[nt][0], a[nt][2], a[nt][1], a[nt][3]};
@@ -976,6 +1017,12 @@ struct Grads {
 // Pass 3: one block per (batch, head, chunk, 64-row sub-tile i), 16 warps.
 // The scans run on 256 threads' (segment, channel) layout, mirrored in the
 // upper 256 (scan_rows2), and the lower half scales the tiles in place.
+// kRagged: L is no multiple of 64, and the chunk's last sub-tile has L - 64
+// (nsub - 1) rows: every load of it is bounded, zeros stand past its rows
+// in every tile that holds it (zero_rows over a buffer that an earlier
+// sub-tile filled), so that each product over it adds nothing there, and
+// nothing past its rows is read from or written to device memory.
+template <bool kRagged>
 __global__ void __launch_bounds__(kMainThreads, 1)
 wkv6_bwd_main(const float* __restrict__ r, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ w,
@@ -1005,9 +1052,12 @@ wkv6_bwd_main(const float* __restrict__ r, const float* __restrict__ k,
   float* diag = lwe + kTS;    // sum_k r u k of sub-tile i's rows
   float* ddiag = diag + kTS;  // dy . v of sub-tile i's rows
 
-  const int n = T / L, nsub = L / kTS;
+  const int n = T / L, nsub = kRagged ? (L + kTS - 1) / kTS : L / kTS;
   const int i = (int)(blockIdx.x % nsub);
   const int c = (blockIdx.x / nsub) % n, bh = blockIdx.x / nsub / n;
+  // rows of sub-tile i, and of the chunk's last
+  const int rows = kRagged ? min(kTS, L - i * kTS) : kTS;
+  const int last = kRagged ? L - (nsub - 1) * kTS : kTS;
   const int h = bh % H, b = bh / H;
   const int tid = threadIdx.x, sc = tid & (kThreads - 1);
   const int seg = sc >> 6, ch = sc & 63;
@@ -1022,18 +1072,18 @@ wkv6_bwd_main(const float* __restrict__ r, const float* __restrict__ k,
   const long long off_i = base + (long long)i * kTS * row;
   const float zc = ch < K ? Z_in[chunk * K + ch] : 0.0f;
 
-  if (K < kTS)
+  if (K < kTS || rows < kTS)
     for (int idx = tid; idx < 12 * kTile; idx += kMainThreads) smem[idx] = 0;
   if (tid < kTS) {
     us[tid] = tid < K ? u[(long long)h * K + tid] : 0.0f;
     lwe[tid] = tid < K ? seq.LWE[chunk * K + tid] : 0.0f;
   }
   __syncthreads();
-  load_tile2(QI, r + off_i, row, kTS, K);     // group 1: the sub-tile
-  load_tile2(KF, k + off_i, row, kTS, K);
-  load_tile2(WS, w + off_i, row, kTS, K);
-  load_tile2(VI, v + off_i, row, kTS, K);
-  load_tile2(DY, dy + off_i, row, kTS, K);
+  load_tile2(QI, r + off_i, row, rows, K);    // group 1: the sub-tile
+  load_tile2(KF, k + off_i, row, rows, K);
+  load_tile2(WS, w + off_i, row, rows, K);
+  load_tile2(VI, v + off_i, row, rows, K);
+  load_tile2(DY, dy + off_i, row, rows, K);
   cp_commit();
   load_tile2(SS, Sc + chunk * K * K, K, K, K);  // group 2: the states
   load_tile2(DSS, dSc + chunk * K * K, K, K, K);
@@ -1078,9 +1128,15 @@ wkv6_bwd_main(const float* __restrict__ r, const float* __restrict__ k,
   auto issue = [&](int s) {
     const int p = s & 1, j = s < i ? s : s + 1;
     const long long off = base + (long long)j * kTS * row;
-    load_tile2(X(p), (s < i ? k : r) + off, row, kTS, K);
-    load_tile2(Y(p), (s < i ? v : dy) + off, row, kTS, K);
-    load_tile2(WS, w + off, row, kTS, K);
+    const int rj = kRagged && j == nsub - 1 ? last : kTS;
+    load_tile2(X(p), (s < i ? k : r) + off, row, rj, K);
+    load_tile2(Y(p), (s < i ? v : dy) + off, row, rj, K);
+    load_tile2(WS, w + off, row, rj, K);
+    if (kRagged && rj < kTS) {                // the ragged last sub-tile
+      zero_rows<kMainThreads>(X(p), rj);
+      zero_rows<kMainThreads>(Y(p), rj);
+      zero_rows<kMainThreads>(WS, rj);
+    }
     cp_commit();
   };
   // wait for streamed sub-tile s, scan its w and scale X(s % 2) in place
@@ -1148,8 +1204,9 @@ wkv6_bwd_main(const float* __restrict__ r, const float* __restrict__ k,
   // the plain version sums it (Seq), and K2_i
   __syncthreads();            // every product is done with the tiles
   if (jh) put<kTS / 8, kStore>(dv_warp ? Y(1) : X(0), acc, t0w, 0);
-  load_tile2(QI, k + off_i, row, kTS, K);
-  load_tile2(WS, w + off_i, row, kTS, K);
+  load_tile2(QI, k + off_i, row, rows, K);
+  load_tile2(WS, w + off_i, row, rows, K);
+  if (kRagged && rows < kTS) zero_rows<kMainThreads>(WS, rows);
   cp_commit();
   cp_wait<0>();
   __syncthreads();
@@ -1179,6 +1236,7 @@ wkv6_bwd_main(const float* __restrict__ r, const float* __restrict__ k,
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
         const int m = t0w + g + 8 * hr;
+        if (kRagged && m >= rows) continue;
         const float* d = DY + m * kLDT + col;
         *reinterpret_cast<float2*>(out.dv + off_i + (long long)m * row
                                    + col) =
@@ -1212,6 +1270,10 @@ wkv6_bwd_main(const float* __restrict__ r, const float* __restrict__ k,
 #pragma unroll
     for (int t = 7; t >= 0; --t) {
       const int rr = e8 * 8 + t, e = rr * kLDT + ch;
+      if (kRagged && rr >= rows) {      // past the ragged sub-tile's rows
+        dwv[t] = 0.0f;
+        continue;
+      }
       const long long gi = off_i + (long long)rr * row + ch;
       const float lwt = KF[e], rv = r[gi], kv = k[gi];
       const float lwp = lwt - w[gi], xq = lwp - zs, xk = zs - lwt;
@@ -1242,7 +1304,8 @@ wkv6_bwd_main(const float* __restrict__ r, const float* __restrict__ k,
     for (int s = 7; s > e8; --s) later += part[s * kTS + ch];
 #pragma unroll
     for (int t = 0; t < 8; ++t)
-      out.dw[off_i + (long long)(e8 * 8 + t) * row + ch] = later + dwv[t];
+      if (!kRagged || e8 * 8 + t < rows)
+        out.dw[off_i + (long long)(e8 * 8 + t) * row + ch] = later + dwv[t];
     if (e8 == 0) {
       float* tt = out.tot + (chunk * nsub + i) * 4 * K;
       tt[ch] = later + part[ch];
@@ -1258,7 +1321,8 @@ wkv6_bwd_main(const float* __restrict__ r, const float* __restrict__ k,
 // Pass 4: one block per (batch, head, chunk).  A warp a state row sums
 // dS'_c S_c along it; one thread a channel forms what each sub-tile's rows of
 // dw still lack (before and after row L / 2); then the block adds it over the
-// chunk, 16 bytes a thread.
+// chunk, 16 bytes a thread (a ragged last sub-tile's too: it takes rows
+// up to L).
 __global__ void __launch_bounds__(kThreads)
 wkv6_bwd_fixup(const float* __restrict__ Sc, const float* __restrict__ dSc,
                const float* __restrict__ D, const float* __restrict__ tot,
@@ -1266,8 +1330,8 @@ wkv6_bwd_fixup(const float* __restrict__ Sc, const float* __restrict__ dSc,
                int K, int L) {
   // sum_v dS' S a state row, then nsub x 64 past row L / 2, then up to it
   extern __shared__ float add[];
-  float* svs = add + 2 * (L / kTS) * kTS;
-  const int n = T / L, nsub = L / kTS;
+  const int n = T / L, nsub = (L + kTS - 1) / kTS;
+  float* svs = add + 2 * nsub * kTS;
   const int c = blockIdx.x % n, bh = blockIdx.x / n;
   const int h = bh % H, b = bh / H;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -1337,7 +1401,7 @@ wkv6_bwd_fixup(const float* __restrict__ Sc, const float* __restrict__ dSc,
 }
 
 // --------------------------------------------------------------------------
-// the tile-parallel route: wkv6_bwd_g<true>, wkv6_bwd_prefix<8>,
+// the tile-parallel route: wkv6_bwd_g<true, false>, wkv6_bwd_prefix<8>,
 // wkv6_bwd_tile_walk, wkv6_bwd_tile, wkv6_bwd_tile_du
 // --------------------------------------------------------------------------
 
@@ -1421,31 +1485,60 @@ __device__ __forceinline__ void get_ck(float (*s)[4], const float* ck,
       s[a][i] = ck[(slot * 8 + 4 * a + i) * kWalkThreads + threadIdx.x];
 }
 
+// LW inside the chunk of rows c0 .. + L - 1, channel ch, as pass 4 sums it
+// (one running sum from 0 at the chunk's first row), over w in WS; then R =
+// r e^{LWp} over r in RS, K2 = k e^{LW_end - LW} over k in KS, and
+// e^{LW_end} at the chunk's last row of WS (rows past ``end``, which cuts
+// the tile's last chunk, are not visited).
+__device__ __forceinline__ void walk_chunk_lw(float* KS, float* RS, float* WS,
+                                              int c0, int end, int ch) {
+  float run = 0.0f;
+  for (int t = c0; t < end; ++t) {
+    const int e = t * kLDT + ch;
+    const float wv = WS[e];
+    run += wv;
+    RS[e] = RS[e] * __expf(run - wv);
+    WS[e] = run;
+  }
+  for (int t = c0; t < end; ++t) {
+    const int e = t * kLDT + ch;
+    KS[e] = KS[e] * __expf(run - WS[e]);   // exponent <= 0
+  }
+  WS[(end - 1) * kLDT + ch] = __expf(run);
+}
+
 // Pass 3 of the tile-parallel route: one block of 16 warps per (batch,
-// head, tile), the state terms that a chunk's state S_c and the cotangent
-// of its end state dS'_c give: dR = dy S_c^T into dr, dK2 = v dS'_c^T into
-// dk, and dLW_end's e^{LW_end} <dS'_c, S_c> (summed over a state row) into
-// dw at the chunk's first row; pass 4 reads them there and writes the
-// gradients over them.  It walks forward from S_tile (dR), keeping the
-// state at every 8th row that starts a chunk (at most 8, 128 KB), then back
-// from dS'_tile (dK2, and the dot at each chunk's first row), walking each
-// 4-row half of an 8-row window forward again at L < 8 from its kept state,
-// the half's states in registers: the two walks run in opposite
-// directions, and no state a chunk is kept in device memory.  The dot is
-// taken from the two states themselves: telescoped from per-row terms
-// instead (<dS'_{c-1}, S_c> - sum R dR + sum K2 dK2), it loses the term to
-// cancellation where the decays are strong (on the -8 clamp it is e^{-8}
-// of the terms beside it).  A row's sums go out by one reduce-scatter over
-// the half-warp every 8 rows (4 forward, 2 x 4 back).  The operands (K2, V,
-// R, dy, e^{LW_end}) are rebuilt with pass 4's LW, bit for bit.  One block
-// an SM (its checkpoints), so the state is spread over 16 warps.
+// head, tile of m rows: 64 where L divides 64, else L (64 / L), whole
+// chunks), the state terms that a chunk's state S_c and the cotangent of its
+// end state dS'_c give: dR = dy S_c^T into dr, dK2 = v dS'_c^T into dk, and
+// dLW_end's e^{LW_end} <dS'_c, S_c> (summed over a state row) into dw at the
+// chunk's first row; pass 4 reads them there and writes the gradients over
+// them.  It walks forward from S_tile (dR), keeping in slot w of 8 (128 KB)
+// the state at the first chunk start in 8-row window w, if any, then back
+// from dS'_tile (dK2, and the dot at each chunk's first row).  At L >= 8 a
+// window holds at most one chunk start, so slot t / 8 is S_c of the chunk
+// that starts at row t; at L < 8 each 4-row half of a window walks forward
+// again from its slot (the state at the window's first chunk start) with
+// its states in registers.  The two walks run in opposite directions, and
+// no state a chunk is kept in device memory.  The dot is taken from the two
+// states themselves: telescoped from per-row terms instead (<dS'_{c-1},
+// S_c> - sum R dR + sum K2 dK2), it loses the term to cancellation where
+// the decays are strong (on the -8 clamp it is e^{-8} of the terms beside
+// it).  A row's sums go out by one reduce-scatter over the half-warp every
+// 8 rows (4 forward, 2 x 4 back).  The operands (K2, V, R, dy, e^{LW_end})
+// are rebuilt with pass 4's LW, bit for bit.  One block an SM (its
+// checkpoints), so the state is spread over 16 warps.  kPow2: L divides 64,
+// and a chunk's rows are found by masks; else by running chunk bounds (a
+// division once a window at L < 8).  tile_m: m as wkv6_bwd_tiled_f32 forms
+// it.
+template <bool kPow2>
 __global__ void __launch_bounds__(kWalkThreads, 1)
 wkv6_bwd_tile_walk(const float* __restrict__ r, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ w,
                    const float* __restrict__ dy, const float* __restrict__ St,
                    const float* __restrict__ dSt, float* __restrict__ dR,
                    float* __restrict__ dK2, float* __restrict__ dw, int T,
-                   int H, int K, int L) {
+                   int H, int K, int L, int tile_m) {
   extern __shared__ float smem[];
   float* KS = smem;             // k, then K2
   float* VS = KS + kTile;       // v
@@ -1454,13 +1547,13 @@ wkv6_bwd_tile_walk(const float* __restrict__ r, const float* __restrict__ k,
   float* WS = DYS + kTile;      // w, then LW; e^{LW_end} at chunks' ends
   float* CK = WS + kTile;       // 8 slots of a state
 
-  const int n = (T + kTS - 1) / kTS;
+  const int m = kPow2 ? kTS : tile_m, n = (T + m - 1) / m;
   const int ti = (int)(blockIdx.x % n), bh = (int)(blockIdx.x / n);
   const int h = bh % H, b = bh / H;
-  const int rows = min(kTS, T - ti * kTS);   // a multiple of L
+  const int rows = min(m, T - ti * m);       // a multiple of L
   const int tid = threadIdx.x, ch = tid & 63;
   const long long row = (long long)H * K;
-  const long long base = ((long long)b * T + (long long)ti * kTS) * row
+  const long long base = ((long long)b * T + (long long)ti * m) * row
                          + (long long)h * K;
   const long long st = ((long long)bh * n + ti) * K * K;
 
@@ -1477,24 +1570,17 @@ wkv6_bwd_tile_walk(const float* __restrict__ r, const float* __restrict__ k,
   cp_wait<0>();
   __syncthreads();
   // LW, R, K2 and e^{LW_end} by chunk, as pass 4 forms them: thread
-  // (group, ch) takes max(8, L) rows (whole chunks)
-  const int G = max(8, L), g0 = (tid >> 6) * G;
-  if (g0 < kTS) {
-    for (int c0 = g0; c0 < g0 + G; c0 += L) {
-      float run = 0.0f;
-      for (int t = c0; t < c0 + L; ++t) {
-        const int e = t * kLDT + ch;
-        const float wv = WS[e];
-        run += wv;
-        RS[e] = RS[e] * __expf(run - wv);
-        WS[e] = run;
-      }
-      for (int t = c0; t < c0 + L; ++t) {
-        const int e = t * kLDT + ch;
-        KS[e] = KS[e] * __expf(run - WS[e]);   // exponent <= 0
-      }
-      WS[(c0 + L - 1) * kLDT + ch] = __expf(run);
-    }
+  // (group, ch) takes G rows (whole chunks): max(8, L) where L divides 64,
+  // else L ceil((64 / L) / 8), 8 groups over the tile's chunks
+  if (kPow2) {
+    const int G = max(8, L), g0 = (tid >> 6) * G;
+    if (g0 < kTS)
+      for (int c0 = g0; c0 < g0 + G; c0 += L)
+        walk_chunk_lw(KS, RS, WS, c0, c0 + L, ch);
+  } else {
+    const int G = L * ((kTS / L + 7) / 8), g0 = (tid >> 6) * G;
+    for (int c0 = g0; c0 < min(g0 + G, rows); c0 += L)
+      walk_chunk_lw(KS, RS, WS, c0, c0 + L, ch);
   }
   __syncthreads();
 
@@ -1508,8 +1594,10 @@ wkv6_bwd_tile_walk(const float* __restrict__ r, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) s[a][i] = kin ? src[a * K + i] : 0.0f;
   zero24(up);
+  int end = L;                 // !kPow2: one past the current chunk's last row
   for (int t0 = 0; t0 < rows; t0 += 8) {   // forward: dR, and the states
-    if ((t0 & (L - 1)) == 0) put_ck(CK, t0 >> 3, s);
+    // the window's first chunk start, where it is the window's first row
+    if (kPow2 ? (t0 & (L - 1)) == 0 : end - L == t0) put_ck(CK, t0 >> 3, s);
     float x[16];                        // x[2 rr + a]: row t0 + rr, 2 kg + a
 #pragma unroll
     for (int rr = 0; rr < 8; ++rr) {
@@ -1519,9 +1607,14 @@ wkv6_bwd_tile_walk(const float* __restrict__ r, const float* __restrict__ k,
       load4(xv, VS + t * kLDT + 4 * vg);
       row_dot(x + 2 * rr, dv, s);
       outer_add(up, kv, xv);
-      if (((t + 1) & (L - 1)) == 0) {   // the chunk's last row
-        load2(d, WS + t * kLDT + 2 * kg);
+      if (kPow2 ? ((t + 1) & (L - 1)) == 0 : t + 1 == end) {
+        load2(d, WS + t * kLDT + 2 * kg);   // the chunk's last row
         carry(s, up, d);
+        if (!kPow2) {
+          // the window's first chunk start, inside the window
+          if (rr < 7 && end - L < t0) put_ck(CK, t0 >> 3, s);
+          end += L;
+        }
       }
     }
     halve<8>(x, lane);
@@ -1537,7 +1630,10 @@ wkv6_bwd_tile_walk(const float* __restrict__ r, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 4; ++i) s[a][i] = kin ? src[a * K + i] : 0.0f;
   zero24(up);
+  int start = rows - L;        // !kPow2: the first row of the current chunk
   for (int w0 = (rows - 1) & ~7; w0 >= 0; w0 -= 8) {
+    // the window's first chunk start (slot w0 / 8 holds its state)
+    const int cf = kPow2 ? w0 : w0 + (L - w0 % L) % L;
 #pragma unroll
     for (int hf = 1; hf >= 0; --hf) {   // the window's halves, last first
       const int h0 = w0 + 4 * hf;
@@ -1547,6 +1643,7 @@ wkv6_bwd_tile_walk(const float* __restrict__ r, const float* __restrict__ k,
         float f[2][4], fu[2][4];
         get_ck(f, CK, w0 >> 3);
         zero24(fu);
+        int fe = cf + L;                // !kPow2: the re-walk's chunk end
 #pragma unroll
         for (int j = 0; j < 4 * hf + 4; ++j) {
           const int t = w0 + j;
@@ -1556,13 +1653,14 @@ wkv6_bwd_tile_walk(const float* __restrict__ r, const float* __restrict__ k,
 #pragma unroll
               for (int i = 0; i < 4; ++i) sw[j - 4 * hf][a][i] = f[a][i];
           }
-          if (t < rows) {
+          if (t < rows && (kPow2 || t >= cf)) {
             load2(kv, KS + t * kLDT + 2 * kg);
             load4(xv, VS + t * kLDT + 4 * vg);
             outer_add(fu, kv, xv);
-            if (((t + 1) & (L - 1)) == 0) {
+            if (kPow2 ? ((t + 1) & (L - 1)) == 0 : t + 1 == fe) {
               load2(d, WS + t * kLDT + 2 * kg);
               carry(f, fu, d);
+              if (!kPow2) fe += L;
             }
           }
         }
@@ -1578,7 +1676,7 @@ wkv6_bwd_tile_walk(const float* __restrict__ r, const float* __restrict__ k,
         load4(xv, VS + t * kLDT + 4 * vg);
         row_dot(x + 2 * jj, xv, s);
         outer_add(up, kv, dv);
-        if ((t & (L - 1)) == 0) {       // the chunk's first row
+        if (kPow2 ? (t & (L - 1)) == 0 : t == start) {   // a chunk's first row
           float sc[2][4];
           if (L < 8) {
 #pragma unroll
@@ -1597,6 +1695,7 @@ wkv6_bwd_tile_walk(const float* __restrict__ r, const float* __restrict__ k,
             q[2 * jj + a] = d[a] * p;
           }
           carry(s, up, d);
+          if (!kPow2) start -= L;
         }
       }
       // 8 values over the 16 lanes: bits 4, 2, 1, then the lanes 8 apart
@@ -1611,7 +1710,8 @@ wkv6_bwd_tile_walk(const float* __restrict__ r, const float* __restrict__ k,
       const int j = vg & 7, t = h0 + (j >> 1), kk = 2 * kg + (j & 1);
       if (vg < 8 && t < rows && kk < K) {
         dK2[base + (long long)t * row + kk] = x[0];
-        if ((t & (L - 1)) == 0) dw[base + (long long)t * row + kk] = q[0];
+        if (kPow2 ? (t & (L - 1)) == 0 : t % L == 0)
+          dw[base + (long long)t * row + kk] = q[0];
       }
     }
   }
@@ -1634,7 +1734,9 @@ __device__ __forceinline__ void dv_layout(int& kg, int& vg) {
 // R_t^T dy_t).  Four rows at a time; then a reduce-scatter over the 16
 // lanes of kg (15 shuffles, one order) leaves lane kg the sum for row kg /
 // 4, column 4 vg + kg % 4.  Rows past ``rows`` (zeros) change nothing that
-// is stored.
+// is stored.  kPow2: a chunk's first row by a mask, else by a running
+// bound.
+template <bool kPow2>
 __device__ __forceinline__ void walk_dv(const float* Rs, const float* DY,
                                         const float* K2s, const float* Ds,
                                         float* O, float (*s)[4], int rows,
@@ -1647,6 +1749,7 @@ __device__ __forceinline__ void walk_dv(const float* Rs, const float* DY,
   for (int a = 0; a < 4; ++a)
 #pragma unroll
     for (int i = 0; i < 4; ++i) up[a][i] = 0.0f;
+  int start = rows - L;        // !kPow2: the first row of the current chunk
   for (int t0 = ((rows + 3) & ~3) - 4; t0 >= 0; t0 -= 4) {
     float x[16];                        // x[4 rr + i]: row t0 + rr, 4 vg + i
 #pragma unroll
@@ -1667,8 +1770,8 @@ __device__ __forceinline__ void walk_dv(const float* Rs, const float* DY,
       for (int a = 0; a < 4; ++a)
 #pragma unroll
         for (int i = 0; i < 4; ++i) up[a][i] = fmaf(rv[a], dv[i], up[a][i]);
-      if (t < rows && (t & (L - 1)) == 0) {   // the chunk's first row
-        float d[4];
+      if (t < rows && (kPow2 ? (t & (L - 1)) == 0 : t == start)) {
+        float d[4];                     // the chunk's first row
         load4(d, Ds + (t + L - 1) * kLDT + 4 * kg);
 #pragma unroll
         for (int a = 0; a < 4; ++a)
@@ -1677,6 +1780,7 @@ __device__ __forceinline__ void walk_dv(const float* Rs, const float* DY,
             s[a][i] = fmaf(d[a], s[a][i], up[a][i]);
             up[a][i] = 0.0f;
           }
+        if (!kPow2) start -= L;
       }
     }
     halve<8>(x, lane);
@@ -1700,9 +1804,9 @@ __device__ __forceinline__ void group_sync() {
 }
 
 // Pass 4 of the tile-parallel route: one block of 16 warps per (batch,
-// head, 64-row tile), whose chunks of L rows (L divides 64) it takes with
-// the cotangent of the tile's end state dS'_tile (pass 2's, over G) and
-// pass 3's state terms.
+// head, tile of m rows, whole chunks of L), whose chunks it takes with the
+// cotangent of the tile's end state dS'_tile (pass 2's, over G) and pass
+// 3's state terms.
 //   1. r, k, v, w and dy of the tile by cp.async (zeros past a ragged
 //      tile's rows); the bonus sum_k r u k and ddiag = dy . v of each row.
 //   2. LW inside each chunk summed as the plain version sums it
@@ -1718,15 +1822,20 @@ __device__ __forceinline__ void group_sync() {
 //      and per row dLWp + E, E, gK - gQ, K2 dK2 and ddiag r k), then by
 //      chunk dLW_end = sum_t K2 dK2 + pass 3's e^{LW_end} <dS'_c, S_c>,
 //      dw's reversed sum inside each chunk, and the tile's partial of du.
-// Twelve 64 x 68 tiles (205 KB): one block an SM.
+// Twelve 64 x 68 tiles (205 KB): one block an SM.  kPow2: L divides 64 and
+// m = 64, a chunk's rows by masks; else m = L (64 / L) < 64 (tile_m), a
+// chunk's first row by a division or a running bound, and step 2 also
+// runs over the rows past m as chunks of zeros, so that every tile the
+// products read holds finite values there.
 constexpr int kTileBwdThreads = 512;
 
+template <bool kPow2>
 __global__ void __launch_bounds__(kTileBwdThreads, 1)
 wkv6_bwd_tile(const float* __restrict__ r, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ w,
               const float* __restrict__ u, const float* __restrict__ dy,
               const float* __restrict__ dSt, Grads out, int T, int H, int K,
-              int L) {
+              int L, int tile_m) {
   extern __shared__ float smem[];
   auto tile = [&](int x) { return smem + x * kTile; };
   float* VS = tile(0);      // v; then du's partial sums
@@ -1745,14 +1854,14 @@ wkv6_bwd_tile(const float* __restrict__ r, const float* __restrict__ k,
   float* diag = us + kTS;   // sum_k r u k of each row
   float* ddiag = diag + kTS;  // dy . v of each row
 
-  const int n = (T + kTS - 1) / kTS;
+  const int m = kPow2 ? kTS : tile_m, n = (T + m - 1) / m;
   const int ti = (int)(blockIdx.x % n), bh = (int)(blockIdx.x / n);
   const int h = bh % H, b = bh / H;
-  const int rows = min(kTS, T - ti * kTS);   // a multiple of L
+  const int rows = min(m, T - ti * m);       // a multiple of L
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int ch = tid & 63, e8 = tid >> 6;    // rows 8 e8 .. + 7, channel ch
   const long long row = (long long)H * K;
-  const long long base = ((long long)b * T + (long long)ti * kTS) * row
+  const long long base = ((long long)b * T + (long long)ti * m) * row
                          + (long long)h * K;
   const long long st = ((long long)bh * n + ti) * K * K;
 
@@ -1786,14 +1895,20 @@ wkv6_bwd_tile(const float* __restrict__ r, const float* __restrict__ k,
       ddiag[t] = pd;
     }
   }
-  // LW inside each chunk, one running sum a channel: a thread takes G =
-  // max(8, L) rows (whole chunks)
-  const int G = max(8, L), grp = tid >> 6;
+  // LW inside each chunk, one running sum a channel: a thread takes G
+  // rows, whole chunks: max(8, L) where L divides 64, else L ceil((64 / L) /
+  // 8), the 8 groups then running past m, to row 63, over zeros
+  const int G = kPow2 ? max(8, L) : L * ((kTS / L + 7) / 8), grp = tid >> 6;
   const bool has_grp = grp * G < kTS;
   if (has_grp) {
     float run = 0.0f;
-    for (int t = grp * G; t < grp * G + G; ++t) {
-      if ((t & (L - 1)) == 0) run = 0.0f;
+    int cs = grp * G;          // !kPow2: the next chunk's first row
+    for (int t = grp * G; t < (kPow2 ? grp * G + G : min(grp * G + G, kTS));
+         ++t) {
+      if (kPow2 ? (t & (L - 1)) == 0 : t == cs) {
+        run = 0.0f;
+        if (!kPow2) cs += L;
+      }
       run += LWS[t * kLDT + ch];
       RS[t * kLDT + ch] = run;
     }
@@ -1803,11 +1918,14 @@ wkv6_bwd_tile(const float* __restrict__ r, const float* __restrict__ k,
     float lw[8], wv[8], zv[8], le[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int t = 8 * e8 + j, c0 = t & -L;
+      const int t = 8 * e8 + j, c0 = chunk_start<kPow2>(t, L);
+      // !kPow2: a chunk of zeros past m, cut at row 63, takes its Z and
+      // LW_end there
+      const int zr = c0 + L / 2, er = c0 + L - 1;
       lw[j] = RS[t * kLDT + ch];
       wv[j] = LWS[t * kLDT + ch];
-      zv[j] = RS[(c0 + L / 2) * kLDT + ch];
-      le[j] = RS[(c0 + L - 1) * kLDT + ch];
+      zv[j] = RS[(kPow2 ? zr : min(zr, kTS - 1)) * kLDT + ch];
+      le[j] = RS[(kPow2 ? er : min(er, kTS - 1)) * kLDT + ch];
     }
     __syncthreads();                    // every LW, Z and LW_end is read
 #pragma unroll
@@ -1837,24 +1955,24 @@ wkv6_bwd_tile(const float* __restrict__ r, const float* __restrict__ k,
         for (int i = 0; i < 4; ++i) s[a][i] = 0.0f;
       }
     }
-    walk_dv(RS, DYS, K2S, DS, DVS, s, rows, L);
+    walk_dv<kPow2>(RS, DYS, K2S, DS, DVS, s, rows, L);
   } else if (L > 1) {
     // the chunks' own products: warp gw takes rows 16 (gw % 4) .. + 15 and
     // key rows 32 (gw / 4) .. + 31; the second half's sums go in first
     const int gw = warp & 7, row0 = 16 * (gw & 3), half = gw >> 2;
     float acc[kTS / 8][4];
     zero_acc(acc);                      // dQ = tril(dy v^T) Kf
-    chain<kLower, 4>(DYS, VS, KFS, acc, row0, 32 * half, L);
+    chain<kLower, 4, kPow2>(DYS, VS, KFS, acc, row0, 32 * half, L);
     if (half) put<kTS / 8, kStore>(DQS, acc, row0, 0);
     group_sync();
     if (!half) put<kTS / 8, kAdd>(DQS, acc, row0, 0);
     zero_acc(acc);                      // dKf = tril(dy v^T)^T Q
-    chain<kUpper, 4>(VS, DYS, QS, acc, row0, 32 * half, L);
+    chain<kUpper, 4, kPow2>(VS, DYS, QS, acc, row0, 32 * half, L);
     if (half) put<kTS / 8, kStore>(DKS, acc, row0, 0);
     group_sync();
     if (!half) put<kTS / 8, kAdd>(DKS, acc, row0, 0);
     zero_acc(acc);                      // the chunks' A^T dy
-    chain<kUpper, 4>(KFS, QS, DYS, acc, row0, 32 * half, L);
+    chain<kUpper, 4, kPow2>(KFS, QS, DYS, acc, row0, 32 * half, L);
     if (half) put<kTS / 8, kStore>(DLS, acc, row0, 0);
     group_sync();
     if (!half) put<kTS / 8, kAdd>(DLS, acc, row0, 0);
@@ -1868,7 +1986,7 @@ wkv6_bwd_tile(const float* __restrict__ r, const float* __restrict__ k,
     for (int j = 0; j < 8; ++j) {
       const int t = 8 * e8 + j;
       if (t >= rows) break;
-      const int e = t * kLDT + ch, c0 = t & -L;
+      const int e = t * kLDT + ch, c0 = chunk_start<kPow2>(t, L);
       const long long gi = base + (long long)t * row + ch;
       const float lw = LWS[e], zs = LWS[(c0 + L / 2) * kLDT + ch];
       const float le = LWS[(c0 + L - 1) * kLDT + ch];
@@ -1939,7 +2057,8 @@ wkv6_bwd_tile(const float* __restrict__ r, const float* __restrict__ k,
   __syncthreads();
   if (tid < K) {                        // du's partial of the tile
     float su = 0.0f;
-    for (int g = 0; g < kTS / G; ++g) su += VS[g * kLDT + tid];
+    for (int g = 0; g < (kPow2 ? kTS / G : (kTS + G - 1) / G); ++g)
+      su += VS[g * kLDT + tid];
     out.tot[((long long)bh * n + ti) * K + tid] = su;
   }
 }
@@ -2000,13 +2119,14 @@ int wkv6_bwd_f32(const float* r, const float* k, const float* v,
   return (int)cudaGetLastError();
 }
 
-// The chunk-parallel route (K == V).  Sc (B, H, n, K, K), carry (B, H, n,
-// L / 64, K), Z and D (B, H, n, K): the forward's scratch after its passes
-// 1 and 2 (csrc/wkv6.cu, wkv6_chunked_f32), n = T / L.  G (B, H, n, K, K),
-// seq_carry (B, H, n, L / 64, K), seq_Z and LWE (B, H, n, K) and tot (B, H,
-// n, L / 64, 4, K): this route's scratch.
+// The chunk-parallel route (K == V, L >= 64).  Sc (B, H, n, K, K), carry
+// (B, H, n, nsub, K), Z and D (B, H, n, K): the forward's scratch after its
+// passes 1 and 2 (csrc/wkv6.cu, wkv6_chunked_f32), n = T / L, nsub =
+// ceil(L / 64).  G (B, H, n, K, K), seq_carry (B, H, n, nsub, K), seq_Z and
+// LWE (B, H, n, K) and tot (B, H, n, nsub, 4, K): this route's scratch.
 // passes is a mask of the kernels to launch (1 G, 2 prefix, 4 main, 8
-// fix-up): 15 for a call, one bit to time one kernel alone.
+// fix-up): 15 for a call, one bit to time one kernel alone.  An L that is
+// no multiple of 64 runs the row-bounded instances.
 int wkv6_bwd_chunked_f32(const float* r, const float* k, const float* v,
                          const float* w, const float* u, const float* dy,
                          const float* dS, const float* Sc,
@@ -2016,19 +2136,21 @@ int wkv6_bwd_chunked_f32(const float* r, const float* k, const float* v,
                          float* dk, float* dv, float* dw, float* du,
                          float* dS0, int B, int T, int H, int K, int L,
                          int passes, cudaStream_t stream) {
-  if (K < 4 || K > kTS || K % 4 != 0 || L < kTS || L % kTS != 0 ||
-      T % L != 0 || !aligned16(r) || !aligned16(k) || !aligned16(v) ||
-      !aligned16(w) || !aligned16(dy) || !aligned16(Sc) || !aligned16(G) ||
-      !aligned16(dv) || !aligned16(dw))
+  if (K < 4 || K > kTS || K % 4 != 0 || L < kTS || T % L != 0 ||
+      !aligned16(r) || !aligned16(k) || !aligned16(v) || !aligned16(w) ||
+      !aligned16(dy) || !aligned16(Sc) || !aligned16(G) || !aligned16(dv) ||
+      !aligned16(dw))
     return (int)cudaErrorInvalidValue;
-  const int n = T / L, nsub = L / kTS, BH = B * H;
+  const int n = T / L, nsub = (L + kTS - 1) / kTS, BH = B * H;
+  const bool ragged = L % kTS != 0;
   cudaError_t err;
   if (passes & 1) {
-    err = cudaFuncSetAttribute(wkv6_bwd_g<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+    const auto g = ragged ? &wkv6_bwd_g<false, true>
+                          : &wkv6_bwd_g<false, false>;
+    err = cudaFuncSetAttribute(g, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)kGSmem);
     if (err != cudaSuccess) return (int)err;
-    wkv6_bwd_g<false><<<BH * n, kThreads, kGSmem, stream>>>(
+    g<<<BH * n, kThreads, kGSmem, stream>>>(
         r, w, dy, carry, G, Seq{seq_carry, seq_Z, LWE}, T, H, K, L);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
@@ -2039,11 +2161,12 @@ int wkv6_bwd_chunked_f32(const float* r, const float* k, const float* v,
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   if (passes & 4) {
-    err = cudaFuncSetAttribute(wkv6_bwd_main,
+    const auto pass = ragged ? &wkv6_bwd_main<true> : &wkv6_bwd_main<false>;
+    err = cudaFuncSetAttribute(pass,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)kMainSmem);
     if (err != cudaSuccess) return (int)err;
-    wkv6_bwd_main<<<BH * n * nsub, kMainThreads, kMainSmem, stream>>>(
+    pass<<<BH * n * nsub, kMainThreads, kMainSmem, stream>>>(
         r, k, v, w, u, dy, Sc, G, carry, Z, Seq{seq_carry, seq_Z, LWE},
         Grads{dr, dk, dv, dw, tot}, T, H, K, L);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -2056,32 +2179,35 @@ int wkv6_bwd_chunked_f32(const float* r, const float* k, const float* v,
   return (int)cudaGetLastError();
 }
 
-// The tile-parallel route (K == V, L divides 64 and T).  St (B, H, n, K,
-// K) and D (B, H, n, K), n = ceil(T / 64): the forward's tile scratch after
-// its passes 1 and 2 (csrc/wkv6.cu, wkv6_tiled_f32), the state at each
-// tile's start and e^{LW_end} of each tile.  G (B, H, n, K, K) and part (B,
-// H, n, K): this route's scratch.  passes: a mask of the kernels to launch
-// (1 G, 2 prefix, 16 walk, 4 main, 8 du; in that order): 31 for a call.
+// The tile-parallel route (K == V, L <= 64 divides T): tiles of m = L (64 /
+// L) rows, whole chunks (64 where L divides 64).  St (B, H, n, K, K) and D
+// (B, H, n, K), n = ceil(T / m): the forward's tile scratch after its
+// passes 1 and 2 (csrc/wkv6.cu, wkv6_tiled_f32), the state at each tile's
+// start and e^{LW_end} of each tile.  G (B, H, n, K, K) and part (B, H, n,
+// K): this route's scratch.  passes: a mask of the kernels to launch (1 G,
+// 2 prefix, 16 walk, 4 main, 8 du; in that order): 31 for a call.  An L
+// that does not divide 64 runs the instances of m-row tiles.
 int wkv6_bwd_tiled_f32(const float* r, const float* k, const float* v,
                        const float* w, const float* u, const float* dy,
                        const float* dS, const float* St, const float* D,
                        float* G, float* part, float* dr, float* dk, float* dv,
                        float* dw, float* du, float* dS0, int B, int T, int H,
                        int K, int L, int passes, cudaStream_t stream) {
-  if (K < 4 || K > kTS || K % 4 != 0 || L < 1 || kTS % L != 0 || T < 1 ||
+  if (K < 4 || K > kTS || K % 4 != 0 || L < 1 || L > kTS || T < 1 ||
       T % L != 0 || !aligned16(r) || !aligned16(k) || !aligned16(v) ||
       !aligned16(w) || !aligned16(dy) || !aligned16(St) || !aligned16(G) ||
       !aligned16(dv) || !aligned16(dw))
     return (int)cudaErrorInvalidValue;
-  const int n = (T + kTS - 1) / kTS, BH = B * H;
+  const int m = L * (kTS / L), n = (T + m - 1) / m, BH = B * H;
+  const bool pow2 = kTS % L == 0;
   cudaError_t err;
   if (passes & 1) {
-    err = cudaFuncSetAttribute(wkv6_bwd_g<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+    const auto g = &wkv6_bwd_g<true, false>;
+    err = cudaFuncSetAttribute(g, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)kGSmem);
     if (err != cudaSuccess) return (int)err;
-    wkv6_bwd_g<true><<<BH * n, kThreads, kGSmem, stream>>>(
-        r, w, dy, nullptr, G, Seq{nullptr, nullptr, nullptr}, T, H, K, kTS);
+    g<<<BH * n, kThreads, kGSmem, stream>>>(
+        r, w, dy, nullptr, G, Seq{nullptr, nullptr, nullptr}, T, H, K, m);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   if (passes & 2) {
@@ -2091,21 +2217,24 @@ int wkv6_bwd_tiled_f32(const float* r, const float* k, const float* v,
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   if (passes & 16) {
-    err = cudaFuncSetAttribute(wkv6_bwd_tile_walk,
+    const auto walk = pow2 ? &wkv6_bwd_tile_walk<true>
+                           : &wkv6_bwd_tile_walk<false>;
+    err = cudaFuncSetAttribute(walk,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)kWalkSmem);
     if (err != cudaSuccess) return (int)err;
-    wkv6_bwd_tile_walk<<<BH * n, kWalkThreads, kWalkSmem, stream>>>(
-        r, k, v, w, dy, St, G, dr, dk, dw, T, H, K, L);
+    walk<<<BH * n, kWalkThreads, kWalkSmem, stream>>>(
+        r, k, v, w, dy, St, G, dr, dk, dw, T, H, K, L, m);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   if (passes & 4) {
-    err = cudaFuncSetAttribute(wkv6_bwd_tile,
+    const auto tile = pow2 ? &wkv6_bwd_tile<true> : &wkv6_bwd_tile<false>;
+    err = cudaFuncSetAttribute(tile,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)kTileBwdSmem);
     if (err != cudaSuccess) return (int)err;
-    wkv6_bwd_tile<<<BH * n, kTileBwdThreads, kTileBwdSmem, stream>>>(
-        r, k, v, w, u, dy, G, Grads{dr, dk, dv, dw, part}, T, H, K, L);
+    tile<<<BH * n, kTileBwdThreads, kTileBwdSmem, stream>>>(
+        r, k, v, w, u, dy, G, Grads{dr, dk, dv, dw, part}, T, H, K, L, m);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   if (passes & 8) {

@@ -31,26 +31,27 @@ wrapper calls that launched, one per call whatever the route, and
 on a route of one's choosing, to hold two routes to each other at one
 shape.
 
-The backward has the same three routes (``bwd_route``): the forward's
-chunk- or tile-parallel route where the chunk is a multiple of 64 or
-divides 64 and dy (and dS) are 16-byte aligned, else per-head (chunks such
-as 10 and 375 too).  Chunk-parallel: four kernels on the tensor cores (G,
-reverse prefix, main and fix-up passes) from the forward's chunk-start
-states.
-Tile-parallel: the G and reverse-prefix passes over 64-row tiles, a
-block a tile that walks its chunks forward and back (dR, dK2 and each
-chunk's e^{LW_end} <dS', S>, the states kept on chip at every 8th row), a
-block a tile for the rest (dv's state term, the chunks' own products on
-the tensor cores, the elementwise terms), and du's sum over the tiles.
-Both start from the forward's scratch, which ``_WKV6Function`` keeps for
-its backward where the backward can take it (the tile-parallel route's:
-each tile's start state and decay, (B, H, ceil(T / 64), K, K), about 34 MB
-a layer at (2, 1040, 64, 64)); a call without it relaunches the forward's
-state and prefix passes.
-Any other call runs the two per-head kernels of the first port, which
-recompute the states themselves.  ``wkv6_bwd.launches`` counts wrapper calls, one per call
-whatever the route, and ``wkv6_bwd.route_launches`` the same by route;
-``bwd_route_launcher`` runs a backward on a route of one's choosing.
+The backward takes the forward's route (``bwd_route``) wherever dy (and
+dS) are 16-byte aligned too, at every chunk, else the per-head one.
+Chunk-parallel: four kernels on the tensor cores (G, reverse prefix, main
+and fix-up passes) from the forward's chunk-start states, over 64-row
+sub-tiles, the last ragged where the chunk is no multiple of 64 (375: 55
+rows).  Tile-parallel: the G and reverse-prefix passes over the forward's
+tiles of m rows, a block a tile that walks its chunks forward and back (dR,
+dK2 and each chunk's e^{LW_end} <dS', S>, the state at the first chunk
+start of each 8-row window kept on chip), a block a tile for the rest (dv's
+state term, the chunks' own products on the tensor cores, the elementwise
+terms), and du's sum over the tiles.  Both start from the forward's
+scratch, which ``_WKV6Function`` keeps for its backward (the tile-parallel
+route's: each tile's start state and decay, (B, H, ceil(T / m), K, K),
+about 34 MB a layer at (2, 1040, 64, 64)); a call without it relaunches the
+forward's state and prefix passes.  Any other call (other widths,
+misaligned operands or cotangents) runs the two per-head kernels of the
+first port, which recompute the states themselves; they are also the route
+the others are held to on the card.  ``wkv6_bwd.launches`` counts wrapper
+calls, one per call whatever the route, and ``wkv6_bwd.route_launches``
+the same by route; ``bwd_route_launcher`` runs a backward on a route of
+one's choosing.
 
 Each launch is a dispatcher operator (``torch.ops.repro_torch.wkv6`` and
 ``wkv6_bwd``) with a CUDA implementation, which launches, and a Meta one,
@@ -127,21 +128,13 @@ def tile_rows(chunk) -> int:
     return chunk * (_SUB // chunk)
 
 
-def _bwd_takes(chunk) -> bool:
-    """Whether the chunk- and tile-parallel backwards take ``chunk``: a
-    multiple of 64, or a divisor of it."""
-    return chunk % _SUB == 0 or _SUB % chunk == 0
-
-
 def bwd_route(r, k, v, w_log, dy, dS, chunk) -> str:
     """One of ``ROUTES``: the backward kernels a call with these operands,
     cotangents (``dS`` None: zeros) and chunk runs on the card: the
-    forward's route where the chunk is a multiple of 64 or divides 64 and
-    dy and dS are 16-byte aligned, else per-head."""
+    forward's route where dy and dS are 16-byte aligned, else per-head."""
     how = route(r, k, v, w_log, chunk)
-    if (how != "per-head" and _bwd_takes(chunk)
-            and all(t.data_ptr() % 16 == 0 for t in (dy, dS)
-                    if t is not None)):
+    if how != "per-head" and all(t.data_ptr() % 16 == 0 for t in (dy, dS)
+                                 if t is not None):
         return how
     return "per-head"
 
@@ -309,7 +302,7 @@ def _bwd_launcher(r, k, v, w_log, u, S0, dy, dS, chunk, saved, how=None):
                 r, k, v, w_log, u, dy, dS, *saved, *own, dr, dk, dv, dw, du,
                 dS0)), B, T, H, K, chunk, passes, stream())
         return grads, lib, launch
-    nsub = chunk // _SUB
+    nsub = -(-chunk // _SUB)
     own = (torch.empty((B, H, n, K, K), **f32),              # G, then dS'
            torch.empty((B, H, n, nsub, K), **f32),           # LW's carries,
            torch.empty((B, H, n, K), **f32),                 # Z and LW_end
@@ -412,10 +405,8 @@ class _WKV6Function(torch.autograd.Function):
         y, S, scratch = torch.ops.repro_torch.wkv6(r, k, v, w_log, u, S0,
                                                    chunk)
         # the chunk- or tile-parallel route's scratch, for its backward
-        # where that takes the chunk (the per-head backward recomputes its
+        # (empty on the per-head route, whose backward recomputes its
         # states)
-        if not _bwd_takes(chunk):
-            scratch = ()
         ctx.save_for_backward(r, k, v, w_log, u, S0, *scratch)
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)

@@ -177,15 +177,14 @@ def test_wkv6_operators_count_chip_smokes_operations(chunk, scratch):
 
 @pytest.mark.parametrize("T,chunk,how", [(1000, 8, "tile-parallel"),
                                          (1023, 1, "tile-parallel"),
-                                         (500, 10, "per-head")])
+                                         (500, 10, "tile-parallel")])
 def test_wkv6_meta_route_returns_no_scratch(T, chunk, how):
     """A chunk below 64 takes the tile-parallel forward on meta as on the
     card (tiles of whole chunks: 64 rows at chunks 8 and 1, 60 at chunk 10,
     a ragged last tile each), and the backward ``how``: the forward's route
-    where the chunk divides 64, else per-head.  The tile-parallel forward
-    operator returns y, S and its tile scratch, each tile's start state and
-    decay, which its backward reads; under grad a per-head backward keeps
-    none of it (it recomputes its own states), and the per-head forward (a
+    at every chunk, 10 too.  The tile-parallel forward operator returns y,
+    S and its tile scratch, each tile's start state and decay, which its
+    backward reads and which under grad it keeps; the per-head forward (a
     width no multiple of 4) returns no scratch.  A step counts the chunked
     form's FLOPs at chunk L and the operands and results."""
     B, H, K = 2, 64, 64
@@ -202,14 +201,18 @@ def test_wkv6_meta_route_returns_no_scratch(T, chunk, how):
     leaves = [t.clone().requires_grad_(True) for t in (r, k, v, w)]
     y, _ = wk.wkv6(*leaves, u, chunk=chunk, S0=S0)
     kept = [t for t in y.grad_fn.saved_tensors if t is not None]
-    assert len(kept) == 6 + (0 if how == "per-head" else 2)
-    if how == "per-head":
-        r62, k62, v62, w62 = (_meta(B, T, H, 62) for _ in range(4))
-        with torch.no_grad():
-            out = torch.ops.repro_torch.wkv6(r62, k62, v62, w62,
-                                             _meta(H, 62), None, chunk)
-        assert wk.route(r62, k62, v62, w62, chunk) == "per-head"
-        assert out[2] == []
+    assert len(kept) == 6 + 2
+    r62, k62, v62, w62 = (_meta(B, T, H, 62) for _ in range(4))
+    with torch.no_grad():
+        out = torch.ops.repro_torch.wkv6(r62, k62, v62, w62, _meta(H, 62),
+                                         None, chunk)
+    assert wk.route(r62, k62, v62, w62, chunk) == "per-head"
+    assert wk.bwd_route(r62, k62, v62, w62, v62, None, chunk) == "per-head"
+    assert out[2] == []
+    leaves = [t.clone().requires_grad_(True) for t in (r62, k62, v62, w62)]
+    y62, _ = wk.wkv6(*leaves, _meta(H, 62), chunk=chunk)
+    assert [t for t in y62.grad_fn.saved_tensors if t is not None
+            and t.dim() == 5] == []
 
     def step(*args):
         y, S = wk.wkv6(*args[:5], chunk=chunk, S0=args[5])

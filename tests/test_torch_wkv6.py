@@ -396,8 +396,8 @@ def test_route_by_chunk_and_alignment():
     375 as T = 48,000 gives) and the tile-parallel route chunks below 64
     (the 1040- and 300-token prompts' chunks 16 and 4, 32, and 10 as T =
     50,000 gives); the per-head kernel takes other widths and misaligned
-    operands.  The backward takes the forward's route at chunks that are
-    multiples of 64 or divide it, else per-head."""
+    operands.  The backward takes the forward's route at every chunk,
+    those that neither divide 64 nor are multiples of it (10, 375) too."""
     r, k, v, w, u, _ = (torch.tensor(a) for a in wkv_inputs(7, 1, 256, 2, 32))
     assert tk.route(r, k, v, w, 256) == "chunk-parallel"
     assert tk.route(r, k, v, w, 64) == "chunk-parallel"
@@ -407,11 +407,11 @@ def test_route_by_chunk_and_alignment():
     assert tk.bwd_route(r, k, v, w, v, None, 64) == "chunk-parallel"
     r10 = torch.zeros((1, 250, 2, 32))
     assert tk.route(r10, r10, r10, r10, 10) == "tile-parallel"
-    assert tk.bwd_route(r10, r10, r10, r10, r10, None, 10) == "per-head"
+    assert tk.bwd_route(r10, r10, r10, r10, r10, None, 10) == "tile-parallel"
     r375 = torch.zeros((1, 750, 2, 32))
     assert tk.route(r375, r375, r375, r375, 375) == "chunk-parallel"
     assert tk.bwd_route(r375, r375, r375, r375, r375, None, 375) == \
-        "per-head"
+        "chunk-parallel"
     for chunk in (64, 16, 10, 375):
         assert tk.route(r, k, v[..., :28].contiguous(), w, chunk) == \
             "per-head"
@@ -431,13 +431,13 @@ def test_tile_rows(chunk, rows):
 
 
 # T -> (chunk, forward route, backward route): the model's chunk rule at
-# long prompts; 50,000 and 48,000 give chunks that neither divide 64 nor are
-# multiples of it
+# long prompts; 50,000, 48,000 and 64,000 give chunks that neither divide 64
+# nor are multiples of it, whose backward takes the forward's route too
 LONG_PROMPTS = {32768: (256, "chunk-parallel", "chunk-parallel"),
                 36000: (1, "tile-parallel", "tile-parallel"),
-                48000: (375, "chunk-parallel", "per-head"),
-                50000: (10, "tile-parallel", "per-head"),
-                64000: (500, "chunk-parallel", "per-head")}
+                48000: (375, "chunk-parallel", "chunk-parallel"),
+                50000: (10, "tile-parallel", "tile-parallel"),
+                64000: (500, "chunk-parallel", "chunk-parallel")}
 
 
 @pytest.mark.parametrize("T", list(LONG_PROMPTS))
@@ -448,8 +448,8 @@ def test_long_prompt_routes_on_meta(T, monkeypatch):
     would (``LONG_PROMPTS``), with that route's scratch (the tile-parallel
     route's over ceil(T / m) tiles of m = chunk (64 // chunk) rows, the
     chunk-parallel route's carries over ceil(chunk / 64) sub-tiles); the
-    backward goes per-head at the new chunks, and under grad the forward
-    keeps no scratch for a per-head backward."""
+    backward takes the forward's route at every one of them, and under grad
+    the forward keeps its scratch for it."""
     from repro_torch.configs import get_config
     from repro_torch.models import forward, init_params
     want_chunk, want_fwd, want_bwd = LONG_PROMPTS[T]

@@ -252,15 +252,19 @@ SEG = 16          # the blocked scan's segment rows
 def blocked_lw(w_, chunk):
     """LW of (B, H, n, L, K) decays by the forward's blocked scan: 16-row
     segments summed in order, then the carry and the earlier segments'
-    totals."""
+    totals; a chunk that is no multiple of 64 is padded with zeros to whole
+    64-row sub-tiles, as the kernels' ragged last sub-tile is."""
     B, H, n, L, K = w_.shape
-    local = w_.reshape(B, H, n, L // SEG, SEG, K).cumsum(4)
-    base = torch.zeros(B, H, n, L // SEG, K, dtype=w_.dtype)
+    P = -(-L // SUB) * SUB
+    w_ = torch.cat([w_, w_.new_zeros(B, H, n, P - L, K)], 3)
+    local = w_.reshape(B, H, n, P // SEG, SEG, K).cumsum(4)
+    base = torch.zeros(B, H, n, P // SEG, K, dtype=w_.dtype)
     carry = torch.zeros(B, H, n, K, dtype=w_.dtype)
-    for sg in range(L // SEG):
+    for sg in range(P // SEG):
         base[:, :, :, sg] = carry
         carry = carry + local[:, :, :, sg, -1]
-    return (base[:, :, :, :, None] + local).reshape(B, H, n, L, K)
+    return (base[:, :, :, :, None] + local).reshape(B, H, n, P, K)[:, :, :,
+                                                                   :L]
 
 
 def running_lw(w_):
@@ -285,9 +289,11 @@ def chunk_parallel_walk(r, k, v, w, u, S0, dy, dS, chunk, mm=torch.matmul):
     totals, dLW_end and dZ into dw; du's partials in a fixed order).  The
     forward's passes, G and the products take LW by the blocked scan; the
     elementwise terms take it as the plain version sums it (``running_lw``),
-    on which the clips' gradient masks are decided."""
+    on which the clips' gradient masks are decided.  A chunk that is no
+    multiple of 64 ends in a ragged sub-tile of L - 64 (nsub - 1) rows, nsub
+    = ceil(L / 64), which every pass bounds (its slices here)."""
     B, T, H, K = r.shape
-    L, n, nsub = chunk, T // chunk, chunk // SUB
+    L, n, nsub = chunk, T // chunk, -(-chunk // SUB)
     f = lambda x: x.reshape(B, n, L, H, -1).permute(0, 3, 1, 2, 4)
     r_, k_, v_, w_, dy_ = (f(x) for x in (r, k, v, w, dy))    # (B,H,n,L,.)
     tile = lambda x, i: x[:, :, :, i * SUB:(i + 1) * SUB]
@@ -324,10 +330,11 @@ def chunk_parallel_walk(r, k, v, w, u, S0, dy, dS, chunk, mm=torch.matmul):
     K2, R = k_ * torch.exp(LWe[:, :, :, None] - LW), r_ * torch.exp(LWp)
     diag = (r_ * u[None, :, None, None] * k_).sum(-1, keepdim=True)
     ddiag = (dy_ * v_).sum(-1, keepdim=True)
-    lower = torch.ones(SUB, SUB, dtype=torch.bool).tril(-1)     # m < t
     dr, dk, dv, dw = (torch.empty_like(x) for x in (r_, k_, v_, w_))
     tots = torch.zeros(B, H, n, nsub, 4, K, dtype=r.dtype)
     for i in range(nsub):
+        ri = min(SUB, L - i * SUB)                      # sub-tile i's rows
+        lower = torch.ones(ri, ri, dtype=torch.bool).tril(-1)   # m < t
         dQ = 0
         for j in range(i + 1):
             dA = mm(tile(dy_, i), tr(tile(v_, j)))
@@ -370,7 +377,7 @@ def chunk_parallel_walk(r, k, v, w, u, S0, dy, dS, chunk, mm=torch.matmul):
     dZ = tots[:, :, :, :, 1].sum(3)
     for i in range(nsub):
         later = tots[:, :, :, i + 1:, 0].sum(3)
-        rows = torch.arange(i * SUB, (i + 1) * SUB)
+        rows = torch.arange(i * SUB, min((i + 1) * SUB, L))
         half = (rows <= L // 2).to(r.dtype)[:, None]
         dw[:, :, :, i * SUB:(i + 1) * SUB] += ((later + dLWe)[:, :, :, None]
                                                + half * dZ[:, :, :, None])
@@ -389,12 +396,17 @@ def chunk_parallel_walk(r, k, v, w, u, S0, dy, dS, chunk, mm=torch.matmul):
     (2, 256, 2, 16, 64, -0.6, True, True),      # one sub-tile a chunk
     (1, 512, 2, 16, 128, 2.0, True, True),      # decays past the clips
     (2, 256, 2, 8, 64, 2.0, False, False),
+    (1, 130, 2, 16, 65, -0.6, True, True),      # a ragged sub-tile of 1 row
+    (2, 192, 2, 16, 96, 2.0, True, True),       # 32 rows, past the clips
+    (1, 288, 2, 8, 96, -0.6, False, False),
+    (1, 750, 2, 16, 375, -0.6, True, True),     # 55 rows, L / 2 in the 3rd
 ])
 def test_chunk_parallel_walk_matches_jax(B, T, H, K, chunk, shift, state,
                                          final):
     """The chunk-parallel backward's decomposition computes the gradients of
     JAX's chunked form at the chunk it is given, within 1e-4 of each
-    gradient's largest magnitude."""
+    gradient's largest magnitude: at multiples of 64, and at chunks that
+    are not (65, 96 and T = 48,000's 375), whose last sub-tile is ragged."""
     arrs = operands(T * K + chunk + 1, B, T, H, K, decay_shift=shift,
                     state=state, final_cotangent=final)
     if shift > 0:
@@ -440,26 +452,29 @@ def test_bwd_tf32_split_keeps_the_gate_where_one_tf32_product_breaks_it():
 
 def tile_parallel_walk(r, k, v, w, u, S0, dy, dS, chunk):
     """The tile-parallel backward's passes over (B, H) at once, at a chunk
-    L dividing 64, over 64-row tiles (the last ragged): the forward's tile
-    passes (LW by the blocked scan from each tile's start, U = K2^T V and D
-    = e^{LW_end}; the prefix, each tile's start state); G = (r
-    e^{LWp})^T dy a tile and the reverse prefix over the tiles (each tile's
-    end cotangent, dS0); then per tile: LW inside each chunk as one running
-    sum from the chunk's first row, the chunks' own products over the tile
-    masked to one chunk, the forward walk from the tile's start state (dR,
-    and the state at each chunk's start, which the kernels keep on chip or
-    recompute from a checkpoint every 8 rows), the backward walk from its
-    end cotangent (dv's K2 dS' and dK2; at each chunk's first row
-    e^{LW_end} <dS'_c, S_c> for dLW_end, then dS' <- e^{LW_end} dS' + R^T
-    dy), the elementwise terms, dw's reversed sum inside each chunk; du by
-    tile, the tiles added in order, then the batches."""
+    L below 64, over tiles of m = L (64 // L) rows, whole chunks (64 where
+    L divides 64; the last tile ragged): the forward's tile passes (LW by
+    the blocked scan from each tile's start, U = K2^T V and D = e^{LW_end};
+    the prefix, each tile's start state); G = (r e^{LWp})^T dy a tile and
+    the reverse prefix over the tiles (each tile's end cotangent, dS0); then
+    per tile: LW inside each chunk as one running sum from the chunk's first
+    row, the chunks' own products over the tile masked to one chunk, the
+    forward walk from the tile's start state (dR, and in slot w of at most 8
+    the state at the first chunk start of 8-row window w), the backward walk
+    from its end cotangent (dv's K2 dS' and dK2; at each chunk's first row
+    e^{LW_end} <dS'_c, S_c> for dLW_end, S_c taken from its window's slot
+    at L >= 8 and walked forward again from it at L < 8; then dS' <-
+    e^{LW_end} dS' + R^T dy), the elementwise terms, dw's reversed sum
+    inside each chunk; du by tile, the tiles added in order, then the
+    batches."""
     B, T, H, K = r.shape
     L = chunk
-    assert SUB % L == 0 and T % L == 0
+    assert L < SUB and T % L == 0
+    m = L * (SUB // L)
     tr = lambda x: x.transpose(-1, -2)
     f = lambda x: x.permute(0, 2, 1, 3)                     # (B,H,T,.)
     r_, k_, v_, w_, dy_ = (f(x) for x in (r, k, v, w, dy))
-    tiles = [(a, min(a + SUB, T)) for a in range(0, T, SUB)]
+    tiles = [(a, min(a + m, T)) for a in range(0, T, m)]
 
     def tile_lw(x):
         """LW of a tile's rows by the blocked scan from 0."""
@@ -512,15 +527,30 @@ def tile_parallel_walk(r, k, v, w, u, S0, dy, dS, chunk):
         dA = (dyt @ tr(vt)).masked_fill(~own, 0.0)
         A = (Q @ tr(Kf)).masked_fill(~own, 0.0)
         dQ, dKf, dv = dA @ Kf, tr(dA) @ Q, tr(A) @ dyt
-        s, up, starts = St[i], 0.0, {}
+        s, up, slots = St[i], 0.0, {}
         dR, dK2, dvs = (torch.empty_like(x) for x in (rt, kt, vt))
         for t in range(n):                     # the forward walk
-            if t % L == 0:
-                starts[t] = s
+            if t % L == 0 and t // 8 not in slots:   # the window's first
+                slots[t // 8] = s                    # chunk start
             dR[:, :, t] = torch.einsum("bhv,bhkv->bhk", dyt[:, :, t], s)
             up = up + outer(K2[:, :, t], vt[:, :, t])
             if (t + 1) % L == 0:
                 s, up = D[:, :, t, :, None] * s + up, 0.0
+        assert len(slots) <= 8
+
+        def chunk_state(t):
+            """S_c of the chunk that starts at row t, from its window's
+            slot: the slot's own state at L >= 8 (a window holds one chunk
+            start at most), else walked forward again from the window's
+            first chunk start."""
+            sc = slots[t // 8]
+            if L < 8:
+                up = 0.0
+                for x in range(-(-(t // 8 * 8) // L) * L, t):
+                    up = up + outer(K2[:, :, x], vt[:, :, x])
+                    if (x + 1) % L == 0:
+                        sc, up = D[:, :, x, :, None] * sc + up, 0.0
+            return sc
         s, up, sd = dSt[i], 0.0, {}
         for t in reversed(range(n)):           # the backward walk
             dvs[:, :, t] = torch.einsum("bhk,bhkv->bhv", K2[:, :, t], s)
@@ -528,7 +558,8 @@ def tile_parallel_walk(r, k, v, w, u, S0, dy, dS, chunk):
             up = up + outer(R[:, :, t], dyt[:, :, t])
             if t % L == 0:
                 d = D[:, :, t + L - 1]
-                sd[t] = d * (s * starts[t]).sum(-1)   # e^{LW_end} <dS', S>
+                # e^{LW_end} <dS', S>
+                sd[t] = d * (s * chunk_state(t)).sum(-1)
                 s, up = d[..., None] * s + up, 0.0
         ddiag = (dyt * vt).sum(-1, keepdim=True)
         diag = (rt * u[None, :, None] * kt).sum(-1, keepdim=True)
@@ -571,16 +602,27 @@ def one_thread():
     torch.set_num_threads(threads)
 
 
-@pytest.mark.parametrize("chunk", [1, 2, 4, 8, 16, 32])
+# chunk -> T: three 64-row tiles and a ragged one of 32 rows where the chunk
+# divides 64; else tiles of m = chunk (64 // chunk) rows, the last ragged
+# where m holds more than one chunk (3: 63 rows, the last 30; 10: 60, the
+# last 40; 12: 60, the last 36), one chunk a tile at 48 and 63
+TILE_WALK_T = {1: 224, 2: 224, 4: 224, 8: 224, 16: 224, 32: 224,
+               3: 219, 10: 220, 12: 216, 48: 240, 63: 252}
+
+
+@pytest.mark.parametrize("chunk", list(TILE_WALK_T))
 @pytest.mark.parametrize("case", ["model", "clip", "clamp"])
 def test_tile_parallel_walk_matches_jax(case, chunk, one_thread):
     """The tile-parallel backward's decomposition computes the gradients of
-    JAX's chunked form at every chunk that divides 64, within 1e-4 of each
-    gradient's largest magnitude, on T = 224 (three tiles and a ragged one
-    of 32 rows), from a state and with a cotangent on the final state: at
+    JAX's chunked form at every chunk below 64, within 1e-4 of each
+    gradient's largest magnitude, on T = ``TILE_WALK_T[chunk]`` (ragged
+    last tiles), from a state and with a cotangent on the final state: at
     the model's decays (shift -0.6), at shift 2.0, where the clip binds
     inside chunks of 8 and more, and on the -8 clamp (64 rows span
-    e^{-512}: no decay is factored across a tile).
+    e^{-512}: no decay is factored across a tile).  Chunks that do not
+    divide 64 (3, 10, 12, 48, 63, as T = 50,000 gives 10) cross the walk's
+    8-row windows, whose slots then hold the state at each window's first
+    chunk start.
 
     On the clamp dw is a difference of terms up to e^8 its size (at chunk
     1, dw_t = e^{w_t} <dS'_t, S_t>, less and plus K2 dK2), so f32 cannot
@@ -592,7 +634,7 @@ def test_tile_parallel_walk_matches_jax(case, chunk, one_thread):
     telescoped from per-row terms instead (<dS'_{c-1}, S_c> - sum R dR +
     sum K2 dK2), dw lands 7.8e-4 from f64 at chunk 1 against JAX's
     1.2e-4."""
-    B, T, H, K = 2, 224, 2, 16
+    B, T, H, K = 2, TILE_WALK_T[chunk], 2, 16
     shift = {"model": -0.6, "clip": 2.0, "clamp": 2.0}[case]
     arrs = operands(T + chunk + len(case), B, T, H, K, decay_shift=shift)
     if case == "clamp":
@@ -626,20 +668,19 @@ def test_tile_parallel_walk_matches_jax(case, chunk, one_thread):
 def test_bwd_route_by_chunk_and_alignment(chunk):
     """Each backward takes what its forward takes (K == V a multiple of 4,
     16-byte aligned operands) with dy and dS 16-byte aligned: the
-    chunk-parallel kernels a chunk that is a multiple of 64, the
-    tile-parallel ones a chunk that divides 64 (the 1040- and 300-token
-    prompts' chunks 16 and 4, every odd length's 1); the per-head kernels
-    the rest (chunks that neither divide 64 nor are multiples of it, such as
-    10 and 375, whose forwards run tile- and chunk-parallel; other widths,
-    misaligned operands), at a chunk of each route (``chunk``)."""
+    chunk-parallel kernels a chunk of 64 or more (multiples of 64, and 65,
+    96 and T = 48,000's 375), the tile-parallel ones a chunk below 64 (the
+    1040- and 300-token prompts' chunks 16 and 4, every odd length's 1, and
+    T = 50,000's 10, 3, 12, 48 and 63); the per-head kernels the rest
+    (other widths, misaligned operands or cotangents), at a chunk of each
+    route (``chunk``)."""
     from repro_torch.kernels.rwkv6 import kernel as tk
     r, k, v, w, u, S0, dy, dS = (torch.tensor(a)
                                  for a in operands(7, 1, 256, 2, 32))
     assert tk.bwd_route(r, k, v, w, dy, dS, 256) == "chunk-parallel"
     assert tk.bwd_route(r, k, v, w, dy, None, 64) == "chunk-parallel"
     for c in (16, 4, 32, 1, 2, 8, 128 + 64, 10, 3, 12, 48, 63, 65, 96, 375):
-        want = ("chunk-parallel" if c % 64 == 0 else
-                "tile-parallel" if 64 % c == 0 else "per-head")
+        want = "chunk-parallel" if c >= 64 else "tile-parallel"
         assert tk.bwd_route(r, k, v, w, dy, dS, c) == want, c
     how = tk.bwd_route(r, k, v, w, dy, dS, chunk)
     assert how == ("chunk-parallel" if chunk == 64 else "tile-parallel")
